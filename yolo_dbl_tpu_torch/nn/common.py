@@ -1,0 +1,102 @@
+"""Base convolution modules (NCHW inside, PyTorch).
+
+Port of yolo_dbl_tpu/nn/common.py:33-363. Module and attribute names are
+the flax scope names (`conv`, `bn`, `dw`, `pw`), so a JAX variable tree
+maps onto a `state_dict` key by key (utils/convert.py).
+
+- BatchNorm keeps the JAX package's eps=1e-3 (common.py:29-30), not
+  PyTorch's 1e-5; momentum 0.03 is the torch form of flax's 0.97.
+- The TPU-only concat fold (`Conv.call_parts`) and the fused s2d stem are
+  not ported: plain concat + conv is the semantics they reproduce.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+BN_MOMENTUM = 0.03
+BN_EPS = 1e-3
+
+
+def autopad(k, p=None, d=1):
+    """'Same'-shape padding for torch-style symmetric padding (common.py:33)."""
+    if d > 1:
+        k = d * (k - 1) + 1 if isinstance(k, int) else [d * (x - 1) + 1 for x in k]
+    if p is None:
+        p = k // 2 if isinstance(k, int) else [x // 2 for x in k]
+    return p if isinstance(p, int) else tuple(p)
+
+
+def batch_norm(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def _act(act) -> nn.Module:
+    if act is True:
+        return nn.SiLU()
+    if isinstance(act, nn.Module):
+        return act
+    return nn.Identity()
+
+
+class Conv(nn.Module):
+    """Conv2d + BatchNorm + SiLU (common.py:118)."""
+
+    def __init__(self, c1: int, c2: int, k: Union[int, Sequence[int]] = 1, s: int = 1,
+                 p: Optional[int] = None, g: int = 1, d: int = 1, act=True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
+        self.bn = batch_norm(c2)
+        self.act = _act(act)
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
+
+
+class DWConv(nn.Module):
+    """Depthwise conv: Conv with groups = gcd(c1, c2) (common.py:250)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1, act=True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, None, d), groups=math.gcd(c1, c2),
+                              dilation=d, bias=False)
+        self.bn = batch_norm(c2)
+        self.act = _act(act)
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
+
+
+class DSConv(nn.Module):
+    """Depthwise-separable conv: DW k×k → PW 1×1 → one BN → SiLU (common.py:294)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, p: Optional[int] = None, d: int = 1):
+        super().__init__()
+        p = p if p is not None else d * (k - 1) // 2
+        self.dw = nn.Conv2d(c1, c1, k, s, p, groups=c1, dilation=d, bias=False)
+        self.pw = nn.Conv2d(c1, c2, 1, bias=False)
+        self.bn = batch_norm(c2)
+
+    def forward(self, x):
+        return nn.functional.silu(self.bn(self.pw(self.dw(x))))
+
+
+class Conv2d(nn.Module):
+    """Bare conv with bias, no BN/act (common.py:333); `conv` level as in flax."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
+                 g: int = 1, d: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+def concat(xs, dim: int = 1):
+    """Channel concat (common.py:361); dim 1 is the channel axis of NCHW."""
+    return torch.cat(xs, dim=dim)

@@ -1,0 +1,418 @@
+"""YAML → model compiler and the detection model (port of yolo_dbl_tpu/nn/tasks.py).
+
+Only the branches the YOLO-DBL rows use are ported; any other module name
+raises NotImplementedError. The model YAML is the port's own verbatim copy
+under cfg/, read by path with a small reader for the model-config subset of
+YAML (so the port needs no YAML package).
+"""
+
+from __future__ import annotations
+
+import ast
+import math
+import re
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Dict, List, Union
+
+import torch
+from torch import nn
+
+from ..utils.device import resolve_device
+from . import blocks as B
+from .common import Conv, DSConv, DWConv
+from .heads import Detect, decode_detections
+
+CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
+
+# ---------------------------------------------------------------- YAML subset
+
+_TOKEN = re.compile(r"\[|\]|,|\"[^\"]*\"|'[^']*'|[^\[\],]+")
+
+
+def _scalar(tok: str):
+    if tok[0] in "\"'":
+        return tok[1:-1]
+    if tok in ("true", "True", "TRUE"):
+        return True
+    if tok in ("false", "False", "FALSE"):
+        return False
+    if tok in ("null", "Null", "NULL", "~"):
+        return None
+    for cast in (int, float):
+        try:
+            return cast(tok)
+        except ValueError:
+            pass
+    return tok
+
+
+def _flow(text: str):
+    """A flow sequence (`[a, [b, c]]`) or a scalar."""
+    tokens = [t.strip() for t in _TOKEN.findall(text) if t.strip()]
+    pos = 0
+
+    def value():
+        nonlocal pos
+        tok = tokens[pos]
+        pos += 1
+        if tok != "[":
+            return _scalar(tok)
+        out = []
+        if tokens[pos] == "]":
+            pos += 1
+            return out
+        while True:
+            out.append(value())
+            tok = tokens[pos]
+            pos += 1
+            if tok == "]":
+                return out
+            if tok != ",":
+                raise ValueError(f"bad flow sequence: {text!r}")
+
+    result = value()
+    if pos != len(tokens):
+        raise ValueError(f"trailing tokens in {text!r}")
+    return result
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#":
+            return line[:i]
+    return line
+
+
+def load_yaml(text: str) -> Dict[str, Any]:
+    """Read a model config: top-level `key: value`, one nested mapping level
+    (`scales:`) and block lists of flow sequences (`- [from, n, m, args]`)."""
+    d: Dict[str, Any] = {}
+    key = None
+    for raw in text.splitlines():
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        s = line.strip()
+        if not line[0].isspace() and not s.startswith("-"):
+            key, _, rest = s.partition(":")
+            key = key.strip()
+            d[key] = _flow(rest.strip()) if rest.strip() else None
+        elif s.startswith("-"):
+            if d.get(key) is None:
+                d[key] = []
+            d[key].append(_flow(s[1:].strip()))
+        else:
+            sub, _, rest = s.partition(":")
+            if d.get(key) is None:
+                d[key] = {}
+            d[key][_scalar(sub.strip())] = _flow(rest.strip())
+    return d
+
+
+# ---------------------------------------------------------------- spec pass
+
+
+def make_divisible(x, divisor=8):
+    """Round a channel count up to a multiple of divisor (tasks.py:45)."""
+    return math.ceil(x / divisor) * divisor
+
+
+def guess_model_scale(model_path) -> str:
+    """The n/s/m/l/x scale char of a model name (tasks.py:50)."""
+    m = re.search(r"yolo[v]?\d+([nslmx])", Path(model_path).stem)
+    return m.group(1) if m else ""
+
+
+def yaml_model_load(path) -> Dict:
+    """Load a model YAML from the port's cfg/, resolving the scale char in the
+    name (tasks.py:56): 'yolov13s_DBL.yaml' → cfg/models/v13/yolov13_DBL.yaml, scale 's'."""
+    path = Path(path)
+    stem = path.stem
+    scale = guess_model_scale(stem)
+    unified = re.sub(r"(\d+)([nslmx])(.+)?$", r"\1\3", stem) + ".yaml"
+    candidates = [path]
+    if path.parent == Path("."):
+        candidates += sorted(CFG_DIR.glob(f"models/*/{stem}.yaml"))
+        candidates += sorted(CFG_DIR.glob(f"models/*/{unified}"))
+    candidates.append(path.with_name(unified))
+    for cand in candidates:
+        if cand.is_file():
+            d = load_yaml(cand.read_text())
+            d["scale"] = scale
+            d["yaml_file"] = str(cand)
+            return d
+    raise FileNotFoundError(f"Model YAML not found for '{path}'")
+
+
+@dataclass
+class LayerSpec:
+    i: int  # layer index
+    f: Union[int, List[int]]  # input layer index/indices (-1 = previous)
+    name: str  # module type name
+    args: List[Any]  # resolved positional args (incl. channels)
+    c2: int  # output channels
+    n: int = 1  # outer repeat count (sequential chain)
+
+
+@dataclass
+class ModelSpec:
+    layers: List[LayerSpec]
+    save: List[int]
+    nc: int
+    scale: str
+
+
+# the DBL subset of the JAX module families (tasks.py:102-138)
+_C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "DSC3k2", "DSC3k"}
+_REPEAT_INSERT = {"DSC3k2", "DSC3k"}
+_LEGACY_FALSE = {"DSC3k2"}
+_C1_ONLY = {"DySample", "LSKblock"}
+
+
+def _not_ported(m: str):
+    return NotImplementedError(f"module '{m}' is not ported to yolo_dbl_tpu_torch yet")
+
+
+def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
+    """Resolve a model YAML dict into a ModelSpec (tasks.py:141), DBL rows only."""
+    if d.get("activation"):
+        raise _not_ported(f"activation {d['activation']}")
+    nc = d.get("nc", 80)
+    scales = d.get("scales")
+    depth, width = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0)
+    max_channels = float("inf")
+    scale = d.get("scale", "")
+    if scales:
+        if not scale:
+            scale = tuple(scales.keys())[0]
+        depth, width, max_channels = scales[scale]
+
+    chs = [ch]
+    layers: List[LayerSpec] = []
+    save: List[int] = []
+    legacy = True
+    for i, (f, n, m, args) in enumerate(d["backbone"] + d["head"]):
+        args = list(args)
+        for j, a in enumerate(args):
+            if isinstance(a, str) and a == "nc":
+                args[j] = nc
+            elif isinstance(a, str) and a in d:
+                args[j] = d[a]
+            elif isinstance(a, str):
+                try:
+                    args[j] = ast.literal_eval(a)
+                except (ValueError, SyntaxError):
+                    pass
+        n = max(round(n * depth), 1) if n > 1 else n
+
+        if m in _C2_SCALED:
+            c1, c2 = chs[f], args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            args = [c1, c2, *args[1:]]
+            if m in _REPEAT_INSERT:
+                args.insert(2, n)
+                n = 1
+            if m in _LEGACY_FALSE:
+                legacy = False
+        elif m == "HyperACE":
+            legacy = False
+            c1 = chs[f[1]]
+            c2 = make_divisible(min(args[0], max_channels) * width, 8)
+            he = args[1]
+            if scale == "n":
+                he = int(args[1] * 0.5)
+            elif scale == "x":
+                he = int(args[1] * 1.5)
+            args = [c1, c2, n, he, *args[2:]]
+            n = 1
+        elif m == "DownsampleConv":
+            c1 = chs[f]
+            c2 = c1 * 2
+            args = [c1]  # the yaml channel_adjust arg is dropped (tasks.py:208)
+        elif m == "FullPAD_Tunnel":
+            c2 = chs[f[0]]
+            args = []
+        elif m in _C1_ONLY:
+            c1 = c2 = chs[f]
+            args = [c1, *args[1:]]
+        elif m == "Concat":
+            c2 = sum(chs[x] for x in f)
+        elif m == "Detect":
+            args.append([chs[x] for x in f])
+            args.append(legacy)
+            c2 = 0
+        else:
+            raise _not_ported(m)
+
+        layers.append(LayerSpec(i=i, f=f, name=m, args=args, c2=c2, n=n))
+        save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
+        if i == 0:
+            chs = []
+        chs.append(c2)
+    return ModelSpec(layers=layers, save=sorted(set(save)), nc=nc, scale=scale)
+
+
+def _build_module(spec: LayerSpec):
+    """The PyTorch module for one LayerSpec row (one repeat), or None."""
+    m, a = spec.name, spec.args
+    if m == "Conv":
+        return Conv(*a)
+    if m == "DWConv":
+        return DWConv(*a)
+    if m == "DSConv":
+        return DSConv(*a)
+    if m == "Bottleneck":
+        kw = dict(zip(["shortcut", "g", "k", "e"], a[2:]))
+        if "k" in kw:
+            kw["k"] = tuple(kw["k"])
+        return B.Bottleneck(a[0], a[1], **kw)
+    if m == "DSBottleneck":
+        return B.DSBottleneck(*a)
+    if m == "DSC3k2":
+        return B.DSC3k2(*a)
+    if m == "DSC3k":
+        return B.DSC3k(*a)
+    if m == "HyperACE":
+        return B.HyperACE(*a)
+    if m == "DownsampleConv":
+        return B.DownsampleConv(a[0], channel_adjust=True)
+    if m == "FullPAD_Tunnel":
+        return B.FullPAD_Tunnel()
+    if m == "DySample":
+        return B.DySample(*a)
+    if m == "LSKblock":
+        return B.LSKblock(a[0])
+    if m == "Detect":
+        nc, ch, legacy = a
+        return Detect(nc=nc, ch=tuple(ch), legacy=legacy)
+    if m == "Concat":
+        return None
+    raise _not_ported(m)
+
+
+def _layer_names(layer: LayerSpec) -> List[str]:
+    """Flax scope names of a row's modules: m{i}, or m{i}_{j} for repeats."""
+    return [f"m{layer.i}_{j}" for j in range(layer.n)] if layer.n > 1 else [f"m{layer.i}"]
+
+
+# ---------------------------------------------------------------- model
+
+# lecun_normal (flax's default kernel init): truncated normal, std corrected
+# for the truncation at two standard deviations
+_TRUNC_STD = 0.87962566103423978
+
+
+class DetectionModel(nn.Module):
+    """YOLO detection model built from a YAML (tasks.py:770).
+
+    Layers are registered under their flax scope names (m0, m6_0, ...), so
+    JAX variables load key by key (utils/convert.py). Built on the meta
+    device, the strides are probed there; weights are then drawn on the CPU
+    from `generator` (seed 0 when none is given) with flax's default
+    initialisers and the Detect bias prior, and moved to `device` (default
+    "cuda", which raises without a card). On CUDA the model runs
+    channels_last.
+
+    `forward` takes NHWC images and returns the raw per-level Detect maps in
+    NHWC, as the JAX module's apply does; `predict` decodes them to
+    (B, 4+nc, A).
+    """
+
+    def __init__(self, cfg="yolov13s_DBL.yaml", ch=3, nc=None, device=None,
+                 generator: torch.Generator = None):
+        super().__init__()
+        dev = resolve_device(device)
+        d = yaml_model_load(cfg) if isinstance(cfg, (str, Path)) else dict(cfg)
+        if nc is not None:
+            d["nc"] = nc
+        self.spec = parse_model_spec(d, ch=ch)
+        self.nc = self.spec.nc
+        self.reg_max = 16
+        with torch.device("meta"):
+            for layer in self.spec.layers:
+                for name in _layer_names(layer):
+                    module = _build_module(layer)
+                    if module is not None:
+                        self.add_module(name, module)
+            self.strides = self._probe_strides(ch)
+        self.to_empty(device="cpu")
+        self.init_weights(generator if generator is not None else torch.Generator().manual_seed(0))
+        self.to(dev)
+        if dev.type == "cuda":
+            self.to(memory_format=torch.channels_last)
+        self.eval()
+
+    def _probe_strides(self, ch, probe=256):
+        feats = self.forward(torch.zeros((1, probe, probe, ch)))
+        return tuple(int(probe // f.shape[1]) for f in feats)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        """flax default initialisers (lecun_normal kernels, zero biases, unit
+        BatchNorm, xavier_uniform prototypes, zero gates) + the bias prior."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                std = math.sqrt(1.0 / mod.weight[0].numel()) / _TRUNC_STD
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+            elif isinstance(mod, B.AdaHyperedgeGen):
+                nn.init.xavier_uniform_(mod.prototype_base, generator=generator)
+            elif isinstance(mod, B.FullPAD_Tunnel):
+                mod.gate.zero_()
+            elif isinstance(mod, B.DySample):
+                mod.init_pos = mod._init_pos()
+        self._bias_init()
+
+    @torch.no_grad()
+    def _bias_init(self):
+        """Stride-aware Detect bias prior (tasks.py:814)."""
+        det = self.detect
+        for lvl, s in enumerate(self.strides):
+            getattr(det, f"cv2_{lvl}_2").conv.bias.fill_(1.0)
+            getattr(det, f"cv3_{lvl}_2").conv.bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+
+    @property
+    def detect(self) -> Detect:
+        return getattr(self, f"m{self.spec.layers[-1].i}")
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def forward(self, x):
+        """NHWC images → raw per-level NHWC Detect maps (tasks.py:682 routing)."""
+        y: List[Any] = []
+        out = x.permute(0, 3, 1, 2)
+        save = set(self.spec.save)
+        for layer in self.spec.layers:
+            f = layer.f
+            if isinstance(f, int):
+                inp = out if f == -1 else y[f]
+            else:
+                inp = [out if j == -1 else y[j] for j in f]
+            if layer.name == "Concat":
+                out = torch.cat(inp, 1)
+            else:
+                out = inp
+                for name in _layer_names(layer):
+                    out = getattr(self, name)(out)
+            y.append(out if layer.i in save else None)
+        return [o.permute(0, 2, 3, 1) for o in out]
+
+    @torch.inference_mode()
+    def predict(self, x):
+        """NHWC images → decoded (B, 4+nc, A) predictions (tasks.py:837)."""
+        return self.decode_outputs(self.forward(x))
+
+    def decode_outputs(self, feats):
+        return decode_detections(feats, self.strides, self.nc, self.reg_max)

@@ -1,0 +1,28 @@
+"""Anchor-free grid anchors and the distance → box codec (port of yolo_dbl_tpu/ops/anchors.py)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def make_anchors(feat_shapes, strides, dtype=torch.float32, device=None):
+    """Anchor cell centres for per-level (h, w) shapes (anchors.py:13).
+
+    Returns anchor_points (A, 2) xy in grid units and stride_tensor (A, 1).
+    """
+    anchor_points, stride_tensor = [], []
+    for (h, w), s in zip(feat_shapes, strides):
+        sx = torch.arange(w, dtype=dtype, device=device) + 0.5
+        sy = torch.arange(h, dtype=dtype, device=device) + 0.5
+        gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+        anchor_points.append(torch.stack([gx, gy], dim=-1).reshape(-1, 2))
+        stride_tensor.append(torch.full((h * w, 1), s, dtype=dtype, device=device))
+    return torch.cat(anchor_points), torch.cat(stride_tensor)
+
+
+def dist2bbox(distance, anchor_points):
+    """Decode (l, t, r, b) distances from anchor points into xywh boxes (anchors.py:35)."""
+    lt, rb = distance.chunk(2, dim=-1)
+    x1y1 = anchor_points - lt
+    x2y2 = anchor_points + rb
+    return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=-1)

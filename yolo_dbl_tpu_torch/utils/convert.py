@@ -1,0 +1,82 @@
+"""Weight bridge: JAX `variables` (nested dicts of numpy arrays) → PyTorch state_dict.
+
+Module and attribute names of the port are the flax scope names, so a leaf
+`params/m9/m_0/cv1/conv/kernel` becomes `m9.m_0.cv1.conv.weight`. The rules:
+
+- conv kernel HWIO → OIHW (depthwise (kh, kw, 1, C) → (C, 1, kh, kw));
+- Dense kernel (I, O) → (O, I);
+- BatchNorm params scale/bias → weight/bias, batch_stats mean/var →
+  running_mean/running_var;
+- `prototype_base` and the FullPAD `gate` are copied as they are.
+
+Any leaf without a rule, and any key missing on either side, raises.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict
+
+import numpy as np
+import torch
+
+# BatchNorm's step counter exists only on the PyTorch side; it is set to 0.
+TORCH_ONLY_SUFFIX = "num_batches_tracked"
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _torch_leaf(collection: str, path, arr: np.ndarray):
+    *scopes, leaf = path
+    if collection == "params":
+        if leaf == "kernel" and arr.ndim == 4:
+            return scopes, "weight", arr.transpose(3, 2, 0, 1)
+        if leaf == "kernel" and arr.ndim == 2:
+            return scopes, "weight", arr.T
+        if leaf == "scale":
+            return scopes, "weight", arr
+        if leaf in ("bias", "prototype_base", "gate"):
+            return scopes, leaf, arr
+    elif collection == "batch_stats":
+        if leaf in ("mean", "var"):
+            return scopes, f"running_{leaf}", arr
+    raise KeyError(f"no rule for JAX leaf {collection}/{'/'.join(path)} {arr.shape}")
+
+
+def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """Map every leaf of a JAX variables tree to its state_dict entry."""
+    out: Dict[str, torch.Tensor] = {}
+    for collection, tree in variables.items():
+        for path, value in _flatten(tree):
+            scopes, name, arr = _torch_leaf(collection, path, np.asarray(value))
+            key = ".".join([*scopes, name])
+            if key in out:
+                raise KeyError(f"two JAX leaves map to {key}")
+            out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+    return out
+
+
+def load_jax_variables(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Load JAX variables into `module`; raises on any key unmapped either way."""
+    sd = state_dict_from_jax(variables)
+    own = module.state_dict()
+    torch_only = {k for k in own if k.endswith(TORCH_ONLY_SUFFIX)}
+    missing = sorted(set(own) - set(sd) - torch_only)
+    unexpected = sorted(set(sd) - set(own))
+    if missing or unexpected:
+        raise KeyError(f"weight bridge mismatch: {len(missing)} state_dict keys without a JAX "
+                       f"leaf {missing[:8]}, {len(unexpected)} JAX leaves without a state_dict "
+                       f"key {unexpected[:8]}")
+    for k, v in sd.items():
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"{k}: JAX {tuple(v.shape)} vs PyTorch {tuple(own[k].shape)}")
+    for k in torch_only:
+        sd[k] = torch.zeros_like(own[k])
+    module.load_state_dict(sd, strict=True)
+    return module
