@@ -66,6 +66,45 @@ def test_sample_bilinear_kernel_matches_plain(cuda, padding_mode, c, g):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+@pytest.mark.parametrize("c,g", [(64, 4), (6, 2), (512, 2)])
+def test_sample_bilinear_backward_kernel_matches_plain(cuda, padding_mode, c, g):
+    """(64, 4): float4, 16 lanes a point; (6, 2): scalar; (512, 2): 32 lanes
+    looping over 256 channels. dx sums atomics in any order: 1e-4."""
+    rng = np.random.default_rng(9)
+    b, h, w, n = 2, 9, 11, 4 * 9 * 11
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda)
+    gy, gx = (torch.from_numpy(a).to(cuda) for a in _coords(rng, b, n, h, w, g))
+    grad = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(cuda)
+    before = kernels.launches["sample_bilinear_backward"]
+    got = TS.sample_bilinear_backward(x, gy, gx, grad, padding_mode)
+    torch.cuda.synchronize()
+    assert kernels.launches["sample_bilinear_backward"] == before + 1
+    want = TS.sample_bilinear_backward_plain(x, gy, gx, grad, padding_mode)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sample_bilinear_output_has_grad_fn_and_backward_runs_the_kernel(cuda):
+    """The CUDA output carries autograd; its backward is the hand kernel."""
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 16)).astype(np.float32)).to(cuda)
+    gy, gx = (torch.from_numpy(a).to(cuda) for a in _coords(rng, 2, 256, 8, 8, 4))
+    leaves = [t.clone().requires_grad_() for t in (x, gy, gx)]
+    out = TS.sample_bilinear(*leaves)
+    assert out.grad_fn is not None
+    before = dict(kernels.launches)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.launches["sample_bilinear_backward"] == before["sample_bilinear_backward"] + 1
+    assert kernels.launches["sample_bilinear"] == before["sample_bilinear"]
+    want = TS.sample_bilinear_backward_plain(x, gy, gx, 2 * TS.sample_bilinear_plain(x, gy, gx))
+    for t, r in zip(leaves, want):
+        torch.testing.assert_close(t.grad, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(cuda):
     x = torch.zeros(1, 4, 4, 8, device=cuda)
     c = torch.zeros(1, 5, 2, device=cuda)
@@ -73,6 +112,9 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         TS.sample_bilinear(x.permute(0, 2, 1, 3), c, c)  # not contiguous
     with pytest.raises(ValueError):
         TS.sample_bilinear(x, c, c.cpu())
+    with pytest.raises(ValueError):
+        TS.sample_bilinear_backward(x, c, c, torch.zeros(1, 5, 8, device=cuda).transpose(1, 2)
+                                    .contiguous().transpose(1, 2))
     with pytest.raises(ValueError):
         TP.letterbox_normalize(torch.zeros(1, 8, 8, 3, dtype=torch.uint8, device=cuda)
                                .transpose(1, 2), (16, 16))

@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import torch
 
 from yolo_dbl_tpu.kernels import preprocess as JP
+import jax
+
 from yolo_dbl_tpu.kernels.sampling import _TILE_N, sample_bilinear_separable
 from yolo_dbl_tpu.ops import resample as JR
 
@@ -133,6 +135,40 @@ def test_sample_bilinear_groups_match_per_group_jax(padding_mode):
     np.testing.assert_allclose(out, ref, atol=TOL)
 
 
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_sample_bilinear_backward_plain_matches_jax(padding_mode, groups):
+    """The plain backward (autograd through the plain sampler) == JAX's
+    gradient of the gather path, per group, and for G = 1 also the Pallas
+    kernel's custom_vjp (interpret mode), within 1e-4 as tests/test_kernels.py."""
+    rng = np.random.default_rng(9)
+    b, h, w, c, n = 2, 6, 7, 8, 40
+    x = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    gy, gx = _coords(rng, b, n, h, w, groups)
+    gout = rng.standard_normal((b, n, c)).astype(np.float32)
+    cg = c // groups
+
+    def gather_loss(xs, ys, xs_):
+        outs = [JR.sample_bilinear_pixel(xs[..., i * cg:(i + 1) * cg], ys[..., i], xs_[..., i],
+                                         padding_mode, prefer_onehot=False) for i in range(groups)]
+        return (jnp.concatenate(outs, -1) * gout).sum()
+
+    refs = [jax.grad(gather_loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(gy), jnp.asarray(gx))]
+    if groups == 1:
+        def pallas_loss(xs, ys, xs_):
+            return (sample_bilinear_separable(xs, ys[..., 0], xs_[..., 0], padding_mode, True)
+                    * gout).sum()
+
+        refs.append(jax.grad(pallas_loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(gy),
+                                                                jnp.asarray(gx)))
+    grads = TS.sample_bilinear_backward(torch.from_numpy(x), torch.from_numpy(gy),
+                                        torch.from_numpy(gx), torch.from_numpy(gout), padding_mode)
+    assert float(grads[1].abs().max()) > 0 and float(grads[2].abs().max()) > 0
+    for ref in refs:
+        for got, want in zip(grads, ref):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
 def test_sample_bilinear_validation():
     x = torch.zeros(1, 4, 4, 6)
     c = torch.zeros(1, 3, 4)
@@ -141,7 +177,30 @@ def test_sample_bilinear_validation():
     with pytest.raises(ValueError):
         TS.sample_bilinear(x, c[..., :2], c[..., :2], "reflection")
     with pytest.raises(TypeError):
-        TS.sample_bilinear(x.double(), c[..., :2].double(), c[..., :2].double())
+        TS.sample_bilinear(x.half(), c[..., :2].half(), c[..., :2].half())
+    with pytest.raises(TypeError):
+        TS.sample_bilinear(x.double(), c[..., :2], c[..., :2])
+    with pytest.raises(ValueError):
+        TS.sample_bilinear_backward(x, c[..., :2], c[..., :2], torch.zeros(1, 3, 5))
+
+
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+def test_sample_bilinear_plain_float64_matches_float32(padding_mode):
+    """The plain version in float64 (a reference for float32 runs on the CPU)
+    agrees with float32 on values and on the gradients of all three inputs."""
+    rng = np.random.default_rng(11)
+    b, h, w, c, n, g = 2, 6, 7, 8, 40, 4
+    x = rng.standard_normal((b, h, w, c))
+    gy, gx = (v.astype(np.float64) for v in _coords(rng, b, n, h, w, g))
+    gout = rng.standard_normal((b, n, c))
+    outs = {}
+    for dt in (torch.float32, torch.float64):
+        ins = [torch.tensor(v, dtype=dt, requires_grad=True) for v in (x, gy, gx)]
+        out = TS.sample_bilinear(*ins, padding_mode)
+        assert out.dtype == dt
+        outs[dt] = [out] + list(torch.autograd.grad(out, ins, torch.tensor(gout, dtype=dt)))
+    for a, b64 in zip(outs[torch.float32], outs[torch.float64]):
+        np.testing.assert_allclose(a.detach().double().numpy(), b64.detach().numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("grouped", [False, True])

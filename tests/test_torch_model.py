@@ -179,4 +179,5 @@ def test_cpu_path_launches_no_kernel(pair):
     kernels.reset_launches()
     frames = np.zeros((1, 40, 40, 3), np.uint8)
     DetectionPredictor(pair["tm"], imgsz=IMGSZ)(frames)
-    assert kernels.launches == {"letterbox_normalize": 0, "sample_bilinear": 0}
+    assert kernels.launches == {"letterbox_normalize": 0, "sample_bilinear": 0,
+                                "sample_bilinear_backward": 0}

@@ -1,13 +1,16 @@
 """yolo_dbl_tpu_torch — the PyTorch/CUDA port of yolo_dbl_tpu.
 
 This package runs the YOLO-DBL serving path (uint8 frames → letterbox →
-YOLO-DBL forward → DFL decode → fixed-shape NMS → boxes) on an NVIDIA
-Hopper card. The JAX package `yolo_dbl_tpu` is the frozen reference that
-every module here is held to; nothing in this package imports it or JAX.
+YOLO-DBL forward → DFL decode → fixed-shape NMS → boxes) and its training
+path (uint8 batch → /255 → train-mode forward → TAL + detection loss →
+backward → clip, optimizer, EMA; `engine/trainer.py`) on an NVIDIA Hopper
+card. The JAX package `yolo_dbl_tpu` is the frozen reference that every
+module here is held to; nothing in this package imports it or JAX.
 
-The TPU package's two Pallas kernels on this path are hand-written CUDA
-kernels here (`csrc/`, bound by `kernels/`). On a CPU tensor each kernel
-wrapper runs its plain PyTorch version instead, which is what the tests use.
+The TPU package's Pallas kernels on these paths are hand-written CUDA
+kernels here (`csrc/`, bound by `kernels/`): the letterbox, and the
+DySample sampler with its backward. On a CPU tensor each kernel wrapper
+runs its plain PyTorch version instead, which is what the tests use.
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,7 @@ kernel launches of each wrapper, so a run can show which kernels its main
 path went through.
 """
 
-launches = {"letterbox_normalize": 0, "sample_bilinear": 0}
+launches = {"letterbox_normalize": 0, "sample_bilinear": 0, "sample_bilinear_backward": 0}
 
 
 def reset_launches():

@@ -1,13 +1,16 @@
 """Group-aware bilinear point sampler (K2): wrapper, plain version, launch.
 
-Replaces yolo_dbl_tpu/kernels/sampling.py (`sample_bilinear_separable`,
-Pallas body `_kernel`, pallas_call at :102), forward only. The kernel is
-csrc/sampling.cu; its note gives the bound and the design.
+Replaces yolo_dbl_tpu/kernels/sampling.py (`sample_bilinear_separable`:
+Pallas body `_kernel`, pallas_call at :102, and its custom_vjp backward
+`_bwd` :142). Both kernels are in csrc/sampling.cu; its notes give the
+bounds and the designs.
 
 `sample_bilinear(x, gy, gx)` samples NHWC `x` (B, H, W, C) at pixel
 coordinates `gy`, `gx` (B, N, G): channel group g (contiguous C/G channels)
 is sampled at its own coordinates, so one launch serves all of a DySample's
-groups. G = 1 is the plain per-point sampler of the JAX package.
+groups. G = 1 is the plain per-point sampler of the JAX package. On CUDA
+tensors it is a `torch.autograd.Function` whose backward is the backward
+kernel, so DySample trains on the card.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from . import build, launches
 PADDING_MODES = ("border", "zeros")
 
 
-def _check(x, gy, gx, padding_mode):
+def _check(x, gy, gx, padding_mode, dtypes=(torch.float32,)):
     if padding_mode not in PADDING_MODES:
         raise ValueError(f"padding_mode must be one of {PADDING_MODES}, got {padding_mode!r}")
     if x.dim() != 4 or gy.dim() != 3 or gy.shape != gx.shape:
@@ -29,14 +32,15 @@ def _check(x, gy, gx, padding_mode):
                          f"{tuple(gy.shape)}, {tuple(gx.shape)}")
     if gy.shape[0] != x.shape[0] or x.shape[-1] % gy.shape[-1]:
         raise ValueError(f"batch or group mismatch: x {tuple(x.shape)}, coords {tuple(gy.shape)}")
-    if x.dtype != torch.float32 or gy.dtype != torch.float32 or gx.dtype != torch.float32:
-        raise TypeError(f"float32 only; got x {x.dtype}, gy {gy.dtype}, gx {gx.dtype}")
+    if x.dtype not in dtypes or gy.dtype != x.dtype or gx.dtype != x.dtype:
+        raise TypeError(f"{dtypes} only; got x {x.dtype}, gy {gy.dtype}, gx {gx.dtype}")
 
 
 def sample_bilinear_plain(x, gy, gx, padding_mode: str = "border"):
     """Plain PyTorch version: the gather path of yolo_dbl_tpu/ops/resample.py
-    (:278-305), applied per channel group."""
-    _check(x, gy, gx, padding_mode)
+    (:278-305), applied per channel group. It also takes float64, so a model
+    on the CPU can serve as a float64 reference for float32 runs."""
+    _check(x, gy, gx, padding_mode, (torch.float32, torch.float64))
     b, h, w, c = x.shape
     n, g = gy.shape[1:]
     cg = c // g
@@ -65,32 +69,92 @@ def sample_bilinear_plain(x, gy, gx, padding_mode: str = "border"):
     return (top * (1 - wy) + bot * wy).reshape(b, n, c)
 
 
+def sample_bilinear_backward_plain(x, gy, gx, grad, padding_mode: str = "border"):
+    """Plain version of the backward: (dx, dgy, dgx) by autograd through
+    `sample_bilinear_plain`, for the tests and the on-card comparison."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, gy, gx)]
+        out = sample_bilinear_plain(*inputs, padding_mode)
+        return torch.autograd.grad(out, inputs, grad)
+
+
 def _lib():
     lib = build.library("sampling")
-    fn = lib.sample_bilinear_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fwd, bwd = lib.sample_bilinear_f32, lib.sample_bilinear_backward_f32
+    if fwd.argtypes is None:
+        fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fwd.restype = ctypes.c_int
+        bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
     return lib
 
 
-def sample_bilinear(x, gy, gx, padding_mode: str = "border"):
-    """(B, N, C) bilinear samples; the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    if x.device.type != "cuda":
-        return sample_bilinear_plain(x, gy, gx, padding_mode)
-    _check(x, gy, gx, padding_mode)
-    if gy.device != x.device or gx.device != x.device:
-        raise ValueError(f"x on {x.device}, gy on {gy.device}, gx on {gx.device}")
-    if not (x.is_contiguous() and gy.is_contiguous() and gx.is_contiguous()):
-        raise ValueError("sample_bilinear kernel needs contiguous x (NHWC), gy and gx")
+def _check_cuda(*tensors):
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"tensors on {[str(t.device) for t in tensors]}; the kernel needs one card")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the sample_bilinear kernels need contiguous x (NHWC), gy, gx and grad")
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return idx, torch.cuda.current_stream(idx).cuda_stream
+
+
+def _forward_kernel(x, gy, gx, padding_mode):
+    dev, stream = _check_cuda(x, gy, gx)
     b, h, w, c = x.shape
     n, g = gy.shape[1:]
     out = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
-    fn = _lib().sample_bilinear_f32
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    err = fn(x.data_ptr(), gy.data_ptr(), gx.data_ptr(), out.data_ptr(), b, h, w, c, n, g,
-             int(padding_mode == "zeros"), dev, torch.cuda.current_stream(dev).cuda_stream)
+    err = _lib().sample_bilinear_f32(x.data_ptr(), gy.data_ptr(), gx.data_ptr(), out.data_ptr(),
+                                     b, h, w, c, n, g, int(padding_mode == "zeros"), dev, stream)
     build.check(err, "sample_bilinear")
     launches["sample_bilinear"] += 1
     return out
+
+
+def sample_bilinear_backward(x, gy, gx, grad, padding_mode: str = "border"):
+    """(dx, dgy, dgx) for the (B, N, C) output gradient `grad`: the backward
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    _check(x, gy, gx, padding_mode)
+    if grad.shape != (x.shape[0], gy.shape[1], x.shape[-1]) or grad.dtype != x.dtype:
+        raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} does not match the output")
+    if x.device.type != "cuda":
+        return sample_bilinear_backward_plain(x, gy, gx, grad, padding_mode)
+    dev, stream = _check_cuda(x, gy, gx, grad)
+    b, h, w, c = x.shape
+    n, g = gy.shape[1:]
+    dx = torch.zeros_like(x)
+    dgy, dgx = torch.empty_like(gy), torch.empty_like(gx)
+    err = _lib().sample_bilinear_backward_f32(
+        x.data_ptr(), gy.data_ptr(), gx.data_ptr(), grad.data_ptr(), dx.data_ptr(),
+        dgy.data_ptr(), dgx.data_ptr(), b, h, w, c, n, g, int(padding_mode == "zeros"), dev, stream)
+    build.check(err, "sample_bilinear_backward")
+    launches["sample_bilinear_backward"] += 1
+    return dx, dgy, dgx
+
+
+class SampleBilinear(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel. Saves the
+    inputs, not the output."""
+
+    @staticmethod
+    def forward(ctx, x, gy, gx, padding_mode):
+        ctx.save_for_backward(x, gy, gx)
+        ctx.padding_mode = padding_mode
+        return _forward_kernel(x, gy, gx, padding_mode)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, gy, gx = ctx.saved_tensors
+        dx, dgy, dgx = sample_bilinear_backward(x, gy, gx, grad.contiguous(), ctx.padding_mode)
+        return dx, dgy, dgx, None
+
+
+def sample_bilinear(x, gy, gx, padding_mode: str = "border"):
+    """(B, N, C) bilinear samples; the CUDA kernels (forward, and backward
+    under autograd, float32) on CUDA tensors, the plain version on CPU
+    tensors."""
+    if x.device.type != "cuda":
+        return sample_bilinear_plain(x, gy, gx, padding_mode)
+    _check(x, gy, gx, padding_mode)
+    return SampleBilinear.apply(x, gy, gx, padding_mode)

@@ -1,4 +1,4 @@
-"""Anchor-free grid anchors and the distance → box codec (port of yolo_dbl_tpu/ops/anchors.py)."""
+"""Anchor-free grid anchors and the distance ↔ box codecs (port of yolo_dbl_tpu/ops/anchors.py)."""
 
 from __future__ import annotations
 
@@ -20,9 +20,21 @@ def make_anchors(feat_shapes, strides, dtype=torch.float32, device=None):
     return torch.cat(anchor_points), torch.cat(stride_tensor)
 
 
-def dist2bbox(distance, anchor_points):
-    """Decode (l, t, r, b) distances from anchor points into xywh boxes (anchors.py:35)."""
+def dist2bbox(distance, anchor_points, xywh=True):
+    """Decode (l, t, r, b) distances from anchor points into xywh (or xyxy)
+    boxes (anchors.py:35)."""
     lt, rb = distance.chunk(2, dim=-1)
     x1y1 = anchor_points - lt
     x2y2 = anchor_points + rb
-    return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=-1)
+    if xywh:
+        return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=-1)
+    return torch.cat([x1y1, x2y2], dim=-1)
+
+
+def bbox2dist(anchor_points, bbox, reg_max):
+    """Encode xyxy boxes as (l, t, r, b) distances clipped to [0, reg_max -
+    0.01] for the DFL targets (anchors.py:47)."""
+    x1y1, x2y2 = bbox.chunk(2, dim=-1)
+    dist = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1)
+    return torch.minimum(torch.maximum(dist, torch.zeros((), dtype=dist.dtype, device=dist.device)),
+                         torch.full((), reg_max - 0.01, dtype=dist.dtype, device=dist.device))

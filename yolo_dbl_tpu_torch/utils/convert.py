@@ -10,6 +10,11 @@ Module and attribute names of the port are the flax scope names, so a leaf
 - `prototype_base` and the FullPAD `gate` are copied as they are.
 
 Any leaf without a rule, and any key missing on either side, raises.
+
+`params_from_jax` maps a tree shaped like JAX `params` (the params
+themselves, EMA params, gradients) onto the port's parameter names, and
+`jax_param_paths` names each of the port's parameters by its JAX path, for
+rules written against JAX paths (the optimizer's decay and freeze masks).
 """
 
 from __future__ import annotations
@@ -80,3 +85,36 @@ def load_jax_variables(module: torch.nn.Module, variables) -> torch.nn.Module:
         sd[k] = torch.zeros_like(own[k])
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def params_from_jax(module: torch.nn.Module, tree) -> Dict[str, torch.Tensor]:
+    """Map a params-shaped JAX tree leaf by leaf to {parameter name: tensor}
+    in the port's layouts; raises unless it covers exactly the parameters of
+    `module`."""
+    out = state_dict_from_jax({"params": tree})
+    own = dict(module.named_parameters())
+    if set(out) != set(own):
+        raise KeyError(f"params bridge mismatch: {sorted(set(own) - set(out))[:8]} without a JAX "
+                       f"leaf, {sorted(set(out) - set(own))[:8]} without a parameter")
+    for k, v in out.items():
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"{k}: JAX {tuple(v.shape)} vs PyTorch {tuple(own[k].shape)}")
+    return out
+
+
+def jax_param_paths(module: torch.nn.Module) -> Dict[str, str]:
+    """{parameter name: its JAX params path}, e.g. `m9.m_0.cv1.conv.weight`
+    → `m9/m_0/cv1/conv/kernel`: the inverse of the rules above."""
+    paths = {}
+    for mod_name, mod in module.named_modules():
+        for name, _ in mod.named_parameters(recurse=False):
+            leaf = name
+            if name == "weight" and isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+                leaf = "kernel"
+            elif name == "weight" and isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+                leaf = "scale"
+            elif name not in ("bias", "prototype_base", "gate"):
+                raise KeyError(f"no JAX rule for parameter {mod_name}.{name}")
+            key = f"{mod_name}.{name}" if mod_name else name
+            paths[key] = "/".join([*mod_name.split("."), leaf] if mod_name else [leaf])
+    return paths
