@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from yolo_dbl_tpu_torch import kernels
+from yolo_dbl_tpu_torch.kernels import attention as TA
 from yolo_dbl_tpu_torch.kernels import preprocess as TP
 from yolo_dbl_tpu_torch.kernels import sampling as TS
 
@@ -118,3 +119,78 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         TP.letterbox_normalize(torch.zeros(1, 8, 8, 3, dtype=torch.uint8, device=cuda)
                                .transpose(1, 2), (16, 16))
+
+
+def _packed_qkv(rng, bb, n, h, device):
+    """q, k, v as AAttn makes them: the three views of one (BB, N, H, 96) tensor."""
+    qkv = torch.from_numpy(rng.standard_normal((bb, n, h, 96)).astype(np.float32)).to(device)
+    return qkv, qkv.split(32, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bb,n,h", [(2, 4, 1), (3, 100, 2), (4, 400, 4), (1, 129, 8)])
+def test_area_attention_kernel_matches_plain(cuda, bb, n, h):
+    """Ragged tiles (N = 4, 100, 129) and the serving shape's N = 400, on
+    the packed views; lse against logsumexp of the scaled scores."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, (q, k, v) = _packed_qkv(np.random.default_rng(11), bb, n, h, cuda)
+    before = kernels.launches["area_attention"]
+    o, lse = TA.area_attention_forward(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches["area_attention"] == before + 1
+    torch.testing.assert_close(o, TA.area_attention_plain(q, k, v), atol=TOL, rtol=0)
+    torch.testing.assert_close(lse, TA.area_attention_lse_plain(q, k), atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bb,n,h", [(2, 4, 1), (3, 100, 2), (2, 400, 8)])
+def test_area_attention_backward_kernels_match_plain(cuda, bb, n, h):
+    """dq, dk, dv within 1e-4 of each tensor's largest (sums of N terms in
+    another order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(12)
+    _, (q, k, v) = _packed_qkv(rng, bb, n, h, cuda)
+    grad = torch.from_numpy(rng.standard_normal((bb, n, h, 32)).astype(np.float32)).to(cuda)
+    o, lse = TA.area_attention_forward(q, k, v)
+    before = dict(kernels.launches)
+    got = TA.area_attention_backward(q, k, v, o, lse, grad)
+    torch.cuda.synchronize()
+    for name in ("area_attention_backward_dq", "area_attention_backward_dkv"):
+        assert kernels.launches[name] == before[name] + 1
+    for a, r in zip(got, TA.area_attention_backward_plain(q, k, v, grad)):
+        torch.testing.assert_close(a, r, atol=1e-4 * float(r.abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+def test_area_attention_output_has_grad_fn_and_reaches_qkv(cuda):
+    """The CUDA output carries autograd, its backward runs the two backward
+    kernels, and the gradient reaches the packed qkv tensor."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv, _ = _packed_qkv(np.random.default_rng(13), 2, 50, 2, cuda)
+    leaf = qkv.clone().requires_grad_()
+    out = TA.area_attention(*leaf.split(32, -1))
+    assert out.grad_fn is not None
+    before = dict(kernels.launches)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    for name in ("area_attention_backward_dq", "area_attention_backward_dkv"):
+        assert kernels.launches[name] == before[name] + 1
+    assert kernels.launches["area_attention"] == before["area_attention"]
+    ref = qkv.clone().requires_grad_()
+    TA.area_attention_plain(*ref.split(32, -1)).square().sum().backward()
+    torch.testing.assert_close(leaf.grad, ref.grad, atol=1e-4 * float(ref.grad.abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+def test_area_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError):
+        TA.area_attention(q, q, q)  # head dim 16
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError):
+        TA.area_attention(q[..., ::2], q[..., ::2], q[..., ::2])  # strided head dim
+    q = torch.zeros(1, 8, 2, 32, device=cuda)
+    with pytest.raises(TypeError):
+        TA.area_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):
+        TA.area_attention(q, q, q.cpu())

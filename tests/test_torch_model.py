@@ -180,4 +180,6 @@ def test_cpu_path_launches_no_kernel(pair):
     frames = np.zeros((1, 40, 40, 3), np.uint8)
     DetectionPredictor(pair["tm"], imgsz=IMGSZ)(frames)
     assert kernels.launches == {"letterbox_normalize": 0, "sample_bilinear": 0,
-                                "sample_bilinear_backward": 0}
+                                "sample_bilinear_backward": 0, "area_attention": 0,
+                                "area_attention_backward_dq": 0,
+                                "area_attention_backward_dkv": 0}

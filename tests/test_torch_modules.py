@@ -30,7 +30,7 @@ ATOL = RTOL = 1e-4
 
 def random_variables(shapes, rng, gate=0.5):
     """numpy values for a JAX variables shape tree: lecun-scaled kernels and
-    non-trivial BatchNorm statistics, biases and FullPAD gates."""
+    non-trivial BatchNorm statistics, biases, FullPAD gates and A2C2f gammas."""
 
     def draw(path, leaf):
         name = str(path[-1].key)
@@ -48,6 +48,8 @@ def random_variables(shapes, rng, gate=0.5):
             return np.full(shape, gate)
         if name == "prototype_base":
             return rng.normal(0.0, 0.3, shape)
+        if name == "gamma":
+            return rng.uniform(0.5, 1.5, shape)
         raise KeyError(name)
 
     return jax.tree_util.tree_map_with_path(lambda p, l: draw(p, l).astype(np.float32), shapes)

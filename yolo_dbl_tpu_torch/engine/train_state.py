@@ -34,7 +34,8 @@ MAX_CONSECUTIVE_NONFINITE = 100
 
 def decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
     """True for parameters that receive weight decay: conv/dense kernels
-    outside BatchNorm; not biases, BN, `prototype_base` or `gate` (:32)."""
+    outside BatchNorm; not biases, BN, `prototype_base`, `gate` or `gamma`
+    (:32)."""
     out = {}
     for name, path in jax_param_paths(model).items():
         keys = path.split("/")

@@ -1,6 +1,7 @@
-"""YOLO-DBL building blocks (NCHW inside, PyTorch).
+"""YOLO-DBL and YOLOv13 building blocks (NCHW inside, PyTorch).
 
-Port of the DBL subset of yolo_dbl_tpu/nn/blocks.py, in dependency order.
+Port of the DBL and stock-YOLOv13 subset of yolo_dbl_tpu/nn/blocks.py, in
+dependency order.
 Attribute names are the flax scope names (`cv1`, `m_0`, `edge_generator`,
 ...), so JAX variables load key by key (utils/convert.py). Each class cites
 the JAX class it mirrors.
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..kernels.attention import area_attention
 from ..ops.resample import avg_pool2, grid_sample_bilinear, nearest_upsample, pixel_shuffle
 from .common import Conv, Conv2d, DSConv
 
@@ -61,6 +63,24 @@ def _add_chain(module: nn.Module, blocks):
     for i, blk in enumerate(blocks):
         module.add_module(f"m_{i}", blk)
     return len(blocks)
+
+
+class C3k(nn.Module):
+    """C3 over Bottlenecks with a k x k kernel (blocks.py:94)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, k=3):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.n = _add_chain(self, [Bottleneck(c_, c_, shortcut, g, (k, k), 1.0) for _ in range(n)])
+        self.cv3 = Conv(2 * c_, c2, 1)
+
+    def forward(self, x):
+        a = self.cv1(x)
+        for i in range(self.n):
+            a = getattr(self, f"m_{i}")(a)
+        return self.cv3(torch.cat([a, self.cv2(x)], 1))
 
 
 class DSC3k(nn.Module):
@@ -270,6 +290,80 @@ class FullPAD_Tunnel(nn.Module):
 
     def forward(self, xs):
         return xs[0] + self.gate * xs[1]
+
+
+class AAttn(nn.Module):
+    """Area attention (blocks.py:893): attention within `area` contiguous runs
+    of the row-major (h, w) tokens, plus a depthwise 7x7 position encoding of
+    v. The tokens come from the NHWC view of the qkv conv's output, where
+    each head holds [q_h | k_h | v_h]; the three (BB, N, H, 32) views go to
+    the K3 kernels without copies on the card (channels_last)."""
+
+    def __init__(self, dim, num_heads, area=1):
+        super().__init__()
+        self.num_heads, self.area = num_heads, area
+        self.head_dim = dim // num_heads
+        self.qkv = Conv(dim, 3 * dim, 1, act=False)
+        self.pe = Conv(dim, dim, 7, 1, p=3, g=dim, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        hd = self.head_dim
+        qkv = _nhwc(self.qkv(x)).reshape(b * self.area, h * w // self.area, self.num_heads, 3 * hd)
+        q, k, v = qkv.split(hd, -1)
+        out = _nchw(area_attention(q, k, v).reshape(b, h, w, c))
+        v = _nchw(v.reshape(b, h, w, c))
+        return self.proj(out + self.pe(v))
+
+
+class ABlock(nn.Module):
+    """Area-attention block: attention and a 2-conv MLP, both residual (blocks.py:926)."""
+
+    def __init__(self, dim, num_heads, mlp_ratio=1.2, area=1):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads, area)
+        hidden = int(dim * mlp_ratio)
+        self.mlp_0 = Conv(dim, hidden, 1)
+        self.mlp_1 = Conv(hidden, dim, 1, act=False)
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp_1(self.mlp_0(x))
+
+
+class A2C2f(nn.Module):
+    """Area-attention C2f (blocks.py:944): pairs of ABlocks (heads of 32
+    channels) or C3k blocks, and with `residual` a gamma-scaled shortcut."""
+
+    def __init__(self, c1, c2, n=1, a2=True, area=1, residual=False, mlp_ratio=2.0, e=0.5, g=1,
+                 shortcut=True):
+        super().__init__()
+        c_ = int(c2 * e)
+        if c_ % 32:
+            raise ValueError(f"A2C2f hidden dim must be a multiple of 32, got {c_}")
+        self.n, self.a2 = n, a2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        for i in range(n):
+            if a2:
+                for j in range(2):
+                    self.add_module(f"m_{i}_{j}", ABlock(c_, c_ // 32, mlp_ratio, area))
+            else:
+                self.add_module(f"m_{i}", C3k(c_, c_, 2, shortcut, g))
+        self.cv2 = Conv((1 + n) * c_, c2, 1)
+        self.gamma = nn.Parameter(torch.full((c2,), 0.01)) if a2 and residual else None
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for i in range(self.n):
+            if self.a2:
+                ys.append(getattr(self, f"m_{i}_1")(getattr(self, f"m_{i}_0")(ys[-1])))
+            else:
+                ys.append(getattr(self, f"m_{i}")(ys[-1]))
+        out = self.cv2(torch.cat(ys, 1))
+        if self.gamma is not None:
+            return x + self.gamma[None, :, None, None] * out
+        return out
 
 
 class DySample(nn.Module):

@@ -1,9 +1,9 @@
 """YAML → model compiler and the detection model (port of yolo_dbl_tpu/nn/tasks.py).
 
-Only the branches the YOLO-DBL rows use are ported; any other module name
-raises NotImplementedError. The model YAML is the port's own verbatim copy
-under cfg/, read by path with a small reader for the model-config subset of
-YAML (so the port needs no YAML package).
+Only the branches the YOLO-DBL and stock YOLOv13 rows use are ported; any
+other module name raises NotImplementedError. The model YAMLs are the
+port's own verbatim copies under cfg/, read by path with a small reader for
+the model-config subset of YAML (so the port needs no YAML package).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Union
 import torch
 from torch import nn
 
+from ..ops.resample import nearest_upsample
 from ..utils.device import resolve_device
 from . import blocks as B
 from .common import Conv, DSConv, DWConv
@@ -168,10 +169,11 @@ class ModelSpec:
     scale: str
 
 
-# the DBL subset of the JAX module families (tasks.py:102-138)
-_C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "DSC3k2", "DSC3k"}
-_REPEAT_INSERT = {"DSC3k2", "DSC3k"}
-_LEGACY_FALSE = {"DSC3k2"}
+# the DBL and YOLOv13 subset of the JAX module families (tasks.py:102-138)
+_C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "DSC3k2", "DSC3k",
+              "A2C2f"}
+_REPEAT_INSERT = {"DSC3k2", "DSC3k", "A2C2f"}
+_LEGACY_FALSE = {"DSC3k2", "A2C2f"}
 _C1_ONLY = {"DySample", "LSKblock"}
 
 
@@ -180,7 +182,8 @@ def _not_ported(m: str):
 
 
 def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
-    """Resolve a model YAML dict into a ModelSpec (tasks.py:141), DBL rows only."""
+    """Resolve a model YAML dict into a ModelSpec (tasks.py:141), DBL and
+    YOLOv13 rows only."""
     if d.get("activation"):
         raise _not_ported(f"activation {d['activation']}")
     nc = d.get("nc", 80)
@@ -221,6 +224,9 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
                 n = 1
             if m in _LEGACY_FALSE:
                 legacy = False
+            if m == "A2C2f" and scale in "lx" and scale:
+                args.append(True)  # residual
+                args.append(1.5)  # mlp_ratio
         elif m == "HyperACE":
             legacy = False
             c1 = chs[f[1]]
@@ -244,6 +250,9 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
             args = [c1, *args[1:]]
         elif m == "Concat":
             c2 = sum(chs[x] for x in f)
+        elif m in ("nn.Upsample", "Upsample"):
+            m = "Upsample"
+            c2 = chs[f]
         elif m == "Detect":
             args.append([chs[x] for x in f])
             args.append(legacy)
@@ -279,6 +288,8 @@ def _build_module(spec: LayerSpec):
         return B.DSC3k2(*a)
     if m == "DSC3k":
         return B.DSC3k(*a)
+    if m == "A2C2f":
+        return B.A2C2f(*a)
     if m == "HyperACE":
         return B.HyperACE(*a)
     if m == "DownsampleConv":
@@ -292,7 +303,7 @@ def _build_module(spec: LayerSpec):
     if m == "Detect":
         nc, ch, legacy = a
         return Detect(nc=nc, ch=tuple(ch), legacy=legacy)
-    if m == "Concat":
+    if m in ("Concat", "Upsample"):
         return None
     raise _not_ported(m)
 
@@ -369,6 +380,8 @@ class DetectionModel(nn.Module):
                 nn.init.xavier_uniform_(mod.prototype_base, generator=generator)
             elif isinstance(mod, B.FullPAD_Tunnel):
                 mod.gate.zero_()
+            elif isinstance(mod, B.A2C2f) and mod.gamma is not None:
+                mod.gamma.fill_(0.01)
             elif isinstance(mod, B.DySample):
                 mod.init_pos = mod._init_pos()
         self._bias_init()
@@ -402,6 +415,9 @@ class DetectionModel(nn.Module):
                 inp = [out if j == -1 else y[j] for j in f]
             if layer.name == "Concat":
                 out = torch.cat(inp, 1)
+            elif layer.name == "Upsample":
+                scale = int(layer.args[1]) if len(layer.args) > 1 else 2
+                out = nearest_upsample(inp.permute(0, 2, 3, 1), scale).permute(0, 3, 1, 2)
             else:
                 out = inp
                 for name in _layer_names(layer):

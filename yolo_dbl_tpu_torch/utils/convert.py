@@ -7,7 +7,8 @@ Module and attribute names of the port are the flax scope names, so a leaf
 - Dense kernel (I, O) → (O, I);
 - BatchNorm params scale/bias → weight/bias, batch_stats mean/var →
   running_mean/running_var;
-- `prototype_base` and the FullPAD `gate` are copied as they are.
+- `prototype_base`, the FullPAD `gate` and the A2C2f `gamma` are copied as
+  they are.
 
 Any leaf without a rule, and any key missing on either side, raises.
 
@@ -27,6 +28,8 @@ import torch
 
 # BatchNorm's step counter exists only on the PyTorch side; it is set to 0.
 TORCH_ONLY_SUFFIX = "num_batches_tracked"
+# parameters whose name and layout are the same on both sides
+COPIED_LEAVES = ("prototype_base", "gate", "gamma")
 
 
 def _flatten(tree, prefix=()):
@@ -46,7 +49,7 @@ def _torch_leaf(collection: str, path, arr: np.ndarray):
             return scopes, "weight", arr.T
         if leaf == "scale":
             return scopes, "weight", arr
-        if leaf in ("bias", "prototype_base", "gate"):
+        if leaf in ("bias",) + COPIED_LEAVES:
             return scopes, leaf, arr
     elif collection == "batch_stats":
         if leaf in ("mean", "var"):
@@ -55,7 +58,8 @@ def _torch_leaf(collection: str, path, arr: np.ndarray):
 
 
 def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """Map every leaf of a JAX variables tree to its state_dict entry."""
+    """Map every leaf of a JAX variables tree to its state_dict entry, in
+    float32 (float64 leaves stay float64)."""
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         for path, value in _flatten(tree):
@@ -63,7 +67,8 @@ def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
             key = ".".join([*scopes, name])
             if key in out:
                 raise KeyError(f"two JAX leaves map to {key}")
-            out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+            dtype = np.float64 if arr.dtype == np.float64 else np.float32
+            out[key] = torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
     return out
 
 
@@ -113,7 +118,7 @@ def jax_param_paths(module: torch.nn.Module) -> Dict[str, str]:
                 leaf = "kernel"
             elif name == "weight" and isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
                 leaf = "scale"
-            elif name not in ("bias", "prototype_base", "gate"):
+            elif name not in ("bias",) + COPIED_LEAVES:
                 raise KeyError(f"no JAX rule for parameter {mod_name}.{name}")
             key = f"{mod_name}.{name}" if mod_name else name
             paths[key] = "/".join([*mod_name.split("."), leaf] if mod_name else [leaf])
