@@ -18,9 +18,11 @@ Phases, each printing one JSON line:
               path) at the two YOLOv13-s A2C2f sites at serving batch 8, on the
               packed qkv views AAttn passes; lse vs logsumexp; SDPA as the
               library yardstick;
-  6. k3_backward - the dq and dkv kernels vs autograd through the plain
-              version, and the forward kernel vs the plain forward, at the two
-              sites at training batch 16; SDPA's backward as the yardstick;
+  6. k3_backward - the dq and dkv kernels (3xTF32 on the tensor cores) vs
+              autograd through the plain version, and the forward kernel vs
+              the plain forward, at the two sites at training batch 16; a
+              second backward on the same inputs must give the same bits;
+              SDPA's backward as the yardstick;
   7. main   - YOLO-DBL-s (nc=3, 640, f32, seeded random weights, FullPAD gates
               0.5, Detect class biases 0) serving requests of 8 distinct uint8
               512x768 frames through DetectionPredictor; launch counts of every
@@ -68,6 +70,8 @@ import torch.nn.functional as F
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
+TF32_PASSES = 3  # 3xTF32: float32-accurate products on the tensor cores
 TOL = 1e-5
 B, SRC_HW, IMGSZ, NC = 8, (512, 768), 640, 3
 REQUESTS, WARMUP = 5, 2
@@ -136,9 +140,20 @@ def timings(fn, iters, warmup=3, only=None):
     return device_us / 1e3 / iters, call_ms
 
 
-def bound(n_bytes, n_flops):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOPS
+def bound(n_bytes, n_flops, peak_flops=PEAK_FP32_FLOPS):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_fp32_products(n_bytes, n_flops):
+    """(bound_ms, bound_by, bound_simt_ms) of work that is float32-accurate
+    matrix products: the faster route of the CUDA cores (fp32 FMAs) and the
+    tensor cores (3 TF32 passes at the TF32 rate); bound_simt_ms is the CUDA
+    cores' alone."""
+    simt = bound(n_bytes, n_flops)
+    tensor_cores = bound(n_bytes, TF32_PASSES * n_flops, PEAK_TF32_FLOPS)
+    best = min(simt, tensor_cores)
+    return best[0], best[1], simt[0]
 
 
 def copies_for(n_bytes):
@@ -377,15 +392,16 @@ def phase_k3(gen):
                                               50)
         tokens = bb * n * h * HD
         # q, k, v read, o and lse written; q kT and P v: 4 N^2 hd per sequence-head
-        bound_ms, bound_by = bound((4 * tokens + bb * h * n) * 4, bb * h * 4 * n * n * HD)
+        bound_ms, bound_by, bound_simt_ms = bound_fp32_products((4 * tokens + bb * h * n) * 4,
+                                                                bb * h * 4 * n * n * HD)
         sites[site] = dict(qkv=[bb, n, h, HD], calls_per_request=K3_CALLS_PER_SITE,
                            max_abs_err=err, lse_max_abs_err=lse_err, library_vs_kernel=lib_err,
                            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, call_ms=call_ms, plain_call_ms=plain_call_ms,
-                           library_call_ms=library_call_ms)
+                           bound_by=bound_by, bound_simt_ms=bound_simt_ms, call_ms=call_ms,
+                           plain_call_ms=plain_call_ms, library_call_ms=library_call_ms)
     emit({"phase": "k3", "batch": B, "tolerance": TOL, "tf32_matmul": False, "sites": sites})
     total = {key: K3_CALLS_PER_SITE * sum(st[key] for st in sites.values())
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_simt_ms")}
     by = {st["bound_by"] for st in sites.values()}
     return dict(name="area_attention", route="cuda", source="yolo_dbl_tpu_torch/csrc/attention.cu",
                 replaces="yolo_dbl_tpu/nn/blocks.py:883 -> jax 0.9.0 "
@@ -420,6 +436,14 @@ def phase_k3_backward(gen):
         rel = {name: errs[name] / float(r.abs().max()) for name, r in zip(errs, want)}
         require(max(rel.values()) <= 1e-4,
                 f"area attention backward kernels vs plain at {site} (of each largest): {rel}")
+        again = area_attention_backward(*qkvs[0], *saved[0], grads[0])
+        require(all(torch.equal(a, r) for a, r in zip(got, again)),
+                f"area attention backward at {site}: a second run gave other bits")
+        # both float32 sides against float64 autograd (read, not gated)
+        leaves64 = [t.detach().double().requires_grad_() for t in qkvs[0]]
+        want64 = torch.autograd.grad(area_attention_plain(*leaves64), leaves64, grads[0].double())
+        rel64 = {name: [float((x.double() - r).abs().max() / r.abs().max()) for x in (a, w)]
+                 for name, a, w, r in zip(errs, got, want, want64)}
         worst = {key: max(worst[key], errs[key]) for key in worst}
         worst_rel = {key: max(worst_rel[key], rel[key]) for key in worst_rel}
 
@@ -452,17 +476,19 @@ def phase_k3_backward(gen):
         # dq: q, k, v, o, dO, lse read, dq and delta written;
         # dkv: q, k, v, dO, lse, delta read, dk and dv written
         flops = bb * h * 4 * n * n * HD
-        dq_bound, dq_by = bound((6 * tokens + 2 * rows) * 4, flops)
-        dkv_bound, dkv_by = bound((6 * tokens + 2 * rows) * 4, flops)
+        dq_bound, dq_by, dq_simt = bound_fp32_products((6 * tokens + 2 * rows) * 4, flops)
+        dkv_bound, dkv_by, dkv_simt = bound_fp32_products((6 * tokens + 2 * rows) * 4, flops)
         sites[site] = dict(qkv=[bb, n, h, HD], calls_per_step=K3_CALLS_PER_SITE,
-                           max_abs_errors=errs, rel_errors_of_largest=rel,
+                           max_abs_errors=errs, rel_errors_of_largest=rel, bitwise_repeat=True,
+                           kernel_and_plain_rel_errors_vs_float64=rel64,
                            forward_max_abs_err=fwd_err,
                            dq_ms=dq_ms, dkv_ms=dkv_ms, backward_call_ms=call_ms,
                            plain_dq_ms=plain_dq_ms, plain_dkv_ms=plain_dkv_ms,
                            library_backward_ms=lib_total_ms - lib_fwd_ms,
                            library_forward_backward_ms=lib_total_ms,
-                           dq_bound_ms=dq_bound, dq_bound_by=dq_by, dkv_bound_ms=dkv_bound,
-                           dkv_bound_by=dkv_by)
+                           dq_bound_ms=dq_bound, dq_bound_by=dq_by, dq_bound_simt_ms=dq_simt,
+                           dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
+                           dkv_bound_simt_ms=dkv_simt)
     emit({"phase": "k3_backward", "batch": b, "tf32_matmul": False,
           "tolerance": {"d_rel_of_largest": 1e-4, "forward": TOL},
           "forward_max_abs_err": worst_fwd, "sites": sites})
@@ -479,13 +505,15 @@ def phase_k3_backward(gen):
                max_abs_err=max(worst["dk"], worst["dv"]),
                max_rel_err_of_largest=max(worst_rel["dk"], worst_rel["dv"]),
                ms=total("dkv_ms"), plain_ms=total("plain_dkv_ms"), bound_ms=total("dkv_bound_ms"),
-               bound_by=sites["row6"]["dkv_bound_by"], **common)
+               bound_by=sites["row6"]["dkv_bound_by"], bound_simt_ms=total("dkv_bound_simt_ms"),
+               **common)
     dq = dict(name="area_attention_backward_dq",
               replaces="yolo_dbl_tpu/nn/blocks.py:883 -> jax 0.9.0 "
                        "pallas/ops/tpu/flash_attention.py:1456 (bwd dq)",
               max_abs_err=worst["dq"], max_rel_err_of_largest=worst_rel["dq"],
               ms=total("dq_ms"), plain_ms=total("plain_dq_ms"), bound_ms=total("dq_bound_ms"),
-              bound_by=sites["row6"]["dq_bound_by"], **common)
+              bound_by=sites["row6"]["dq_bound_by"], bound_simt_ms=total("dq_bound_simt_ms"),
+              **common)
     return dkv, dq, worst_fwd
 
 
@@ -781,7 +809,7 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": {k: v["seconds"] for k, v in report.items()},
           "ptxas": {k: [ln.strip() for ln in v["log"].splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if "entry function" in ln or "registers" in ln or "spill" in ln]
                     for k, v in report.items()},
           "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 

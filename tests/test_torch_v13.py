@@ -17,6 +17,7 @@ package run in float64 (`dtype=jnp.float64` under `jax.enable_x64`).
 """
 
 import copy
+import functools
 
 import flax.linen
 import numpy as np
@@ -108,11 +109,12 @@ def _pallas_area_attention(q, k, v, residuals=False):
     return jnp.swapaxes(out[:, :, :n], 1, 2)
 
 
-@pytest.mark.parametrize("n", [100, 400])
-def test_area_attention_plain_matches_pallas_flash_attention(n):
-    """The TPU kernels themselves (forward with its log-sum-exp residual, and
-    dkv and dq through jax.grad), in Pallas interpret mode, against the plain
-    version the CUDA kernels are held to on the card."""
+@functools.lru_cache(maxsize=None)
+def _pallas_reference(n):
+    """Seeded (1, n, 2, 32) inputs (q, k, v, output gradient) and the TPU
+    kernels on them in Pallas interpret mode: the output, the log-sum-exp
+    residual of the forward, and (dq, dk, dv) through jax.grad (the dkv and
+    dq kernels). Cached: the tests of one file run in one process."""
     q, k, v, g = _qkv(n + 1, (1, n, 2, 32), 4)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
     with pltpu.force_tpu_interpret_mode():
@@ -120,6 +122,15 @@ def test_area_attention_plain_matches_pallas_flash_attention(n):
         ref_lse = _pallas_area_attention(jq, jk, jv, residuals=True)
         grads = jax.grad(lambda a, b, c: (_pallas_area_attention(a, b, c) * g).sum(),
                          argnums=(0, 1, 2))(jq, jk, jv)
+    return (q, k, v, g), np.asarray(ref), np.asarray(ref_lse), tuple(map(np.asarray, grads))
+
+
+@pytest.mark.parametrize("n", [100, 400])
+def test_area_attention_plain_matches_pallas_flash_attention(n):
+    """The TPU kernels themselves (forward with its log-sum-exp residual, and
+    dkv and dq through jax.grad), in Pallas interpret mode, against the plain
+    version the CUDA kernels are held to on the card."""
+    (q, k, v, g), ref, ref_lse, grads = _pallas_reference(n)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     o, lse = TA.area_attention_plain(tq, tk, tv), TA.area_attention_lse_plain(tq, tk)
     np.testing.assert_allclose(o.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
@@ -128,6 +139,54 @@ def test_area_attention_plain_matches_pallas_flash_attention(n):
     got = TA.area_attention_backward_plain(tq, tk, tv, torch.from_numpy(g))
     for a, b in zip(got, grads):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL, rtol=TOL)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    by integer masking: what cvt.rna.tf32.f32 gives."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b from TF32 operands, summed in float32: one pass, or the
+    backward kernels' three (A_small B_big + A_big B_small + A_big B_big,
+    X_small = tf32(X - X_big), small-by-big terms first)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    return (_tf32(a - a_big) @ b_big + a_big @ _tf32(b - b_big)) + a_big @ b_big
+
+
+def _emulated_backward(q, k, v, g, passes):
+    """(dq, dk, dv) with the arithmetic of the CUDA backward kernels
+    (csrc/attention.cu): the float32 forward's o and lse, delta =
+    rowsum(dO * o), the exp and dS = P (dP - delta) in float32, and each
+    of the five products S, dP, dQ, dK, dV in `passes` TF32 passes."""
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    o = TA.area_attention_plain(tq, tk, tv).transpose(1, 2)
+    lse = TA.area_attention_lse_plain(tq, tk)[..., None]
+    q, k, v, g = (t.transpose(1, 2) for t in (tq, tk, tv, tg))  # (B, H, N, hd)
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp(_tf32_matmul(q, k.transpose(-1, -2), passes) * scale - lse)
+    ds = p * (_tf32_matmul(g, v.transpose(-1, -2), passes) - (g * o).sum(-1, keepdim=True))
+    grads = (_tf32_matmul(ds, k, passes) * scale,
+             _tf32_matmul(ds.transpose(-1, -2), q, passes) * scale,
+             _tf32_matmul(p.transpose(-1, -2), g, passes))
+    return [t.transpose(1, 2).numpy() for t in grads]
+
+
+@pytest.mark.parametrize("n", [100, 400])
+def test_area_attention_3xtf32_backward_matches_pallas_flash_attention(n):
+    """The CUDA backward kernels run their products on the tensor cores in
+    3xTF32. Emulated here, that arithmetic is within 1e-5 of the Pallas dkv
+    and dq kernels; a single TF32 pass is not: it misses 1e-4 of the
+    largest gradient, the bar the kernels are held to on the card."""
+    inputs, _, _, grads = _pallas_reference(n)
+    for a, b in zip(_emulated_backward(*inputs, passes=3), grads):
+        np.testing.assert_allclose(a, b, atol=TOL, rtol=TOL)
+    one_pass = [np.abs(a - b).max() / np.abs(b).max()
+                for a, b in zip(_emulated_backward(*inputs, passes=1), grads)]
+    assert max(one_pass) > 1e-4, one_pass
 
 
 def test_area_attention_plain_takes_float64_and_checks_shapes():
