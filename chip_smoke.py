@@ -5,19 +5,23 @@
 
 Phases, each printing one JSON line:
   1. build  - compile every CUDA kernel of the main paths from csrc/ (one nvcc
-              per source, all started together);
+              per source, all started together); ptxas registers, spills and
+              static shared bytes per kernel, and the dynamic shared bytes of
+              the kernels that take them;
   2. k1     - letterbox kernel vs its plain PyTorch version at 8x512x768 -> 640^2;
   3. k2     - DySample sampler kernel vs its plain version at the three
               YOLO-DBL-s DySample sites, both padding modes;
   4. k2_backward - the sampler's backward kernel vs autograd through the plain
               version, and its forward kernel vs the plain forward, at the three
-              sites at training batch 16, both padding modes; the zero fill of
-              dx timed alone; F.grid_sample's backward kernel as the library
-              yardstick;
-  5. k3     - area attention forward kernel vs its plain version (the einsum
-              path) at the two YOLOv13-s A2C2f sites at serving batch 8, on the
-              packed qkv views AAttn passes; lse vs logsumexp; SDPA as the
-              library yardstick;
+              sites at training batch 16, both padding modes, DySample and
+              uniform coordinates; the share of taps that missed their tile's
+              window of dx; the zero fill of dx timed alone; F.grid_sample's
+              backward kernel as the library yardstick;
+  5. k3     - area attention forward kernel (3xTF32 on the tensor cores) vs
+              its plain version (the einsum path) at the two YOLOv13-s A2C2f
+              sites at serving batch 8, on the packed qkv views AAttn passes;
+              lse vs logsumexp; both float32 sides read against float64; SDPA
+              as the library yardstick;
   6. k3_backward - the dq and dkv kernels (3xTF32 on the tensor cores) vs
               autograd through the plain version, and the forward kernel vs
               the plain forward, at the two sites at training batch 16; a
@@ -279,7 +283,8 @@ def phase_k2_backward(gen):
     """The sampler's backward kernel at the three sites at training batch 16,
     and its forward kernel at the same shapes (the train step runs both).
     Returns the backward's kernel row and the forward's worst error here."""
-    from yolo_dbl_tpu_torch.kernels.sampling import (sample_bilinear, sample_bilinear_backward,
+    from yolo_dbl_tpu_torch.kernels.sampling import (backward_window_misses, sample_bilinear,
+                                                     sample_bilinear_backward,
                                                      sample_bilinear_backward_plain,
                                                      sample_bilinear_plain)
 
@@ -293,11 +298,13 @@ def phase_k2_backward(gen):
         gy, gx = _site_coords(gen, h, w, b=b)
         uy = (torch.rand(gy.shape, generator=gen) * (h + 2) - 1.5).cuda()
         ux = (torch.rand(gx.shape, generator=gen) * (w + 2) - 1.5).cuda()
-        errs, fwd_errs = {}, {}
+        errs, fwd_errs, missed = {}, {}, {}
         for mode in ("border", "zeros"):
             for name, (cy, cx) in {"dysample": (gy, gx), "uniform": (uy, ux)}.items():
                 d = sample_bilinear(xs[0], cy, cx, mode) - sample_bilinear_plain(xs[0], cy, cx, mode)
                 fwd_errs[f"{mode}/{name}"] = float(d.abs().max())
+                taps, miss = backward_window_misses(xs[0], cy, cx, gs[0], mode)
+                missed[f"{mode}/{name}"] = miss / taps
                 dx, dgy, dgx = sample_bilinear_backward(xs[0], cy, cx, gs[0], mode)
                 rx, ry, rxx = sample_bilinear_backward_plain(xs[0], cy, cx, gs[0], mode)
                 e = {"dx": float((dx - rx).abs().max()),
@@ -327,14 +334,16 @@ def phase_k2_backward(gen):
         plain_ms, plain_call_ms = timings(
             lambda i: sample_bilinear_backward_plain(xs[i % k], gy, gx, gs[i % k]), 5)
         library_ms, _ = timings(library, 20, only="grid_sampler_2d_backward")
-        # the zero fill of dx that the atomic scatter needs; it is part of `ms`
+        # the zero fill of dx that the window sums and missed taps are added
+        # into; it is part of `ms`
         zero_fill_ms, _ = timings(lambda i: torch.zeros_like(xs[i % k]), 30)
         # the function's own I/O: x and g read, dx written, coordinates read
         # and their gradients written (the zero fill is this design's cost)
         n_bytes = (n_x + b * n * c + n_x + 4 * b * n * GROUPS) * 4
         bound_ms, bound_by = bound(n_bytes, b * n * c * 24)
         sites[site] = dict(x=[b, h, w, c], n=n, groups=GROUPS, errors=errs,
-                           forward_errors=fwd_errs, ms=ms, zero_fill_ms=zero_fill_ms,
+                           forward_errors=fwd_errs, window_missed_share=missed, ms=ms,
+                           zero_fill_ms=zero_fill_ms,
                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by, bytes=n_bytes, call_ms=call_ms,
                            plain_call_ms=plain_call_ms)
@@ -378,11 +387,17 @@ def phase_k3(gen):
     for site in K3_SITES:
         qkvs, (bb, n, h) = _k3_inputs(gen, B, site)
         o, lse = area_attention_forward(*qkvs[0])
-        err = float((o - area_attention_plain(*qkvs[0])).abs().max())
-        lse_err = float((lse - area_attention_lse_plain(*qkvs[0][:2])).abs().max())
+        plain, plain_lse = area_attention_plain(*qkvs[0]), area_attention_lse_plain(*qkvs[0][:2])
+        err = float((o - plain).abs().max())
+        lse_err = float((lse - plain_lse).abs().max())
         require(err <= TOL and lse_err <= TOL,
                 f"area attention kernel vs plain at {site}: out {err}, lse {lse_err} (> {TOL})")
         worst = max(worst, err)
+        # both float32 sides against float64 (read, not gated)
+        qkv64 = [t.double() for t in qkvs[0]]
+        o64, lse64 = area_attention_plain(*qkv64), area_attention_lse_plain(*qkv64[:2])
+        vs64 = {name: [float((a.double() - r).abs().max()) for a in pair]
+                for name, pair, r in (("o", (o, plain), o64), ("lse", (lse, plain_lse), lse64))}
         lib = _sdpa_layout(qkvs)
         lib_err = float((F.scaled_dot_product_attention(*lib[0]).transpose(1, 2) - o).abs().max())
         k = len(qkvs)
@@ -395,7 +410,8 @@ def phase_k3(gen):
         bound_ms, bound_by, bound_simt_ms = bound_fp32_products((4 * tokens + bb * h * n) * 4,
                                                                 bb * h * 4 * n * n * HD)
         sites[site] = dict(qkv=[bb, n, h, HD], calls_per_request=K3_CALLS_PER_SITE,
-                           max_abs_err=err, lse_max_abs_err=lse_err, library_vs_kernel=lib_err,
+                           max_abs_err=err, lse_max_abs_err=lse_err,
+                           kernel_and_plain_max_abs_vs_float64=vs64, library_vs_kernel=lib_err,
                            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by, bound_simt_ms=bound_simt_ms, call_ms=call_ms,
                            plain_call_ms=plain_call_ms, library_call_ms=library_call_ms)
@@ -800,7 +816,7 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from yolo_dbl_tpu_torch.kernels import build
+    from yolo_dbl_tpu_torch.kernels import attention, build, sampling
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -811,6 +827,11 @@ def main():
           "ptxas": {k: [ln.strip() for ln in v["log"].splitlines()
                         if "entry function" in ln or "registers" in ln or "spill" in ln]
                     for k, v in report.items()},
+          "dynamic_shared_bytes": {
+              **attention.shared_bytes(),
+              "sample_bilinear_backward_kernel": {
+                  f"C/G={c // GROUPS}": sampling.backward_shared_bytes(c, GROUPS)
+                  for c in sorted({c for _, _, c in DYSAMPLE_SITES.values()})}},
           "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     gen = torch.Generator().manual_seed(0)

@@ -92,6 +92,84 @@ def test_sample_bilinear_backward_kernel_matches_plain(cuda, padding_mode, c, g)
         torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
 
 
+def _assert_backward_matches_plain(got, x, gy, gx, grad, padding_mode):
+    """dx within 1e-4 (atomics add in any order), dgy and dgx within 1e-4
+    of their largest."""
+    want = TS.sample_bilinear_backward_plain(x, gy, gx, grad, padding_mode)
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    for a, r in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, r, atol=1e-4 * float(r.abs().max()), rtol=0)
+
+
+def _site_coords(rng, b, h, w, g, uniform):
+    """The coordinates chip_smoke.py gives a DySample site's (B, 4 h w, G)
+    points: DySample's (each point of the 2x output near its source
+    position, offsets of 0.75 pixel) or uniform over the image and a margin."""
+    n = 4 * h * w
+    if uniform:
+        return (rng.uniform(0, 1, (b, n, g)) * (s + 2) - 1.5 for s in (h, w))
+    oy, ox = ((np.arange(2 * s) + 0.5) / 2 - 0.5 for s in (h, w))
+    gy, gx = np.meshgrid(oy, ox, indexing="ij")
+    return (grid.reshape(1, -1, 1) + rng.standard_normal((b, n, g)) * 0.75 for grid in (gy, gx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+@pytest.mark.parametrize("coords", ["dysample", "uniform"])
+def test_sample_bilinear_backward_window_and_global_fallback(cuda, padding_mode, coords):
+    """Row 13's site (40x40, 256 channels in 4 groups) at the smoke's two
+    coordinate sets. A block sums its taps over a window of dx (at most 256
+    of the 1,600 pixels); DySample's taps nearly all land there, uniform ones
+    mostly miss it and take the global atomics. The kernel's own count of
+    misses shows which path ran; both give autograd's gradients through the
+    plain version."""
+    rng = np.random.default_rng(16)
+    b, h, w, c, g = 2, 40, 40, 256, 4
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda)
+    gy, gx = (torch.from_numpy(a.astype(np.float32)).to(cuda)
+              for a in _site_coords(rng, b, h, w, g, coords == "uniform"))
+    grad = torch.from_numpy(rng.standard_normal((b, 4 * h * w, c)).astype(np.float32)).to(cuda)
+    before = kernels.launches["sample_bilinear_backward"]
+    got = TS.sample_bilinear_backward(x, gy, gx, grad, padding_mode)
+    taps, missed = TS.backward_window_misses(x, gy, gx, grad, padding_mode)
+    torch.cuda.synchronize()
+    assert kernels.launches["sample_bilinear_backward"] == before + 2
+    assert taps > 0
+    assert missed < 0.05 * taps if coords == "dysample" else missed > 0.5 * taps, (taps, missed)
+    _assert_backward_matches_plain(got, x, gy, gx, grad, padding_mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+def test_sample_bilinear_backward_on_window_and_tile_edges(cuda, padding_mode):
+    """Points on the edges of the kernel's blocks, which take tiles of
+    4096 / (C/G) consecutive points (32 here) and a window of at most 256
+    pixels. N = 4 x 23 x 29 = 2,668 is 83 tiles and a ragged 12. Offsets are
+    whole and half pixels (taps of weight 0 and 1, coincident taps), some
+    points sit on the image's edges and past them, and the first and last
+    point of every tile are at the image's first and last pixel: each tile's
+    taps then span all 667 pixels, so its window is cut and taps fall on
+    both sides of its ends."""
+    rng = np.random.default_rng(17)
+    b, h, w, c, g = 3, 23, 29, 256, 2
+    n, tile = 4 * h * w, 4096 // (c // g)
+    oy, ox = ((np.arange(2 * s) + 0.5) / 2 - 0.5 for s in (h, w))
+    gy, gx = (grid.reshape(1, -1, 1) + rng.integers(-2, 3, (b, n, g)) * 0.5
+              for grid in np.meshgrid(oy, ox, indexing="ij"))
+    gy[:, ::tile], gx[:, ::tile] = 0.0, 0.0
+    gy[:, tile - 1::tile], gx[:, tile - 1::tile] = h - 1.0, w - 1.0
+    gy[:, 10::tile], gx[:, 10::tile] = -1.0, float(w)
+    gy[:, 20::tile], gx[:, 20::tile] = float(h), -0.5
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda)
+    gy, gx = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (gy, gx))
+    grad = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(cuda)
+    got = TS.sample_bilinear_backward(x, gy, gx, grad, padding_mode)
+    taps, missed = TS.backward_window_misses(x, gy, gx, grad, padding_mode)
+    torch.cuda.synchronize()
+    assert 0 < missed < taps, (taps, missed)
+    _assert_backward_matches_plain(got, x, gy, gx, grad, padding_mode)
+
+
 @pytest.mark.cuda
 def test_sample_bilinear_output_has_grad_fn_and_backward_runs_the_kernel(cuda):
     """The CUDA output carries autograd; its backward is the hand kernel."""
@@ -134,10 +212,12 @@ def _packed_qkv(rng, bb, n, h, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bb,n,h", [(2, 4, 1), (3, 100, 2), (4, 400, 4), (1, 129, 8)])
+@pytest.mark.parametrize("bb,n,h", [(2, 1, 1), (2, 4, 1), (3, 17, 2), (2, 65, 3), (3, 100, 2),
+                                    (4, 400, 4), (1, 129, 8), (64, 400, 4)])
 def test_area_attention_kernel_matches_plain(cuda, bb, n, h):
-    """Ragged tiles (N = 4, 100, 129) and the serving shape's N = 400, on
-    the packed views; lse against logsumexp of the scaled scores."""
+    """Ragged tiles and steps (N = 1, 4, 17, 65, 100, 129; 400 = 6 x 64 + 16)
+    and row 6's shape at training batch 16, whose 1,792 blocks take several
+    waves, on the packed views; lse against logsumexp of the scaled scores."""
     torch.backends.cuda.matmul.allow_tf32 = False
     _, (q, k, v) = _packed_qkv(np.random.default_rng(11), bb, n, h, cuda)
     before = kernels.launches["area_attention"]
@@ -201,16 +281,15 @@ def _sass_functions(lib):
 
 
 @pytest.mark.cuda
-def test_area_attention_backward_kernels_run_on_the_tensor_cores(cuda):
-    """Both backward kernels issue TF32 tensor-core products (HMMA ... TF32)
-    and no other kind; the forward kernel none."""
+def test_area_attention_kernels_run_on_the_tensor_cores(cuda):
+    """The forward and both backward kernels issue TF32 tensor-core products
+    (HMMA ... TF32) and no other kind."""
     build.library("attention")
     functions = _sass_functions(build.library_path("attention"))
-    for kernel, want in (("attention_bwd_dq_kernel", True), ("attention_bwd_dkv_kernel", True),
-                         ("attention_fwd_kernel", False)):
+    for kernel in ("attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel"):
         (sass,) = [body for name, body in functions.items() if kernel in name]
         hmma = [ln for ln in sass.splitlines() if "HMMA" in ln]
-        assert bool(hmma) == want, (kernel, len(hmma))
+        assert hmma, kernel
         assert all("TF32" in ln for ln in hmma), hmma[:3]
 
 

@@ -189,6 +189,43 @@ def test_area_attention_3xtf32_backward_matches_pallas_flash_attention(n):
     assert max(one_pass) > 1e-4, one_pass
 
 
+def _emulated_forward(q, k, v, passes):
+    """(o, lse) with the arithmetic of the CUDA forward kernel
+    (csrc/attention.cu): per 16-key step, S = q kᵀ in `passes` TF32 passes,
+    scaled by scale·log2(e) after the product; the online softmax in float32
+    in the log2 domain (running max m, sum l, both rescaled by 2^(m_old -
+    m_new)); the step's P v in `passes` passes, in a fresh sum added to the
+    rescaled running one; o = O / l and lse = m ln 2 + log l."""
+    q, k, v = (torch.from_numpy(t).transpose(1, 2) for t in (q, k, v))  # (B, H, N, hd)
+    c = torch.tensor(q.shape[-1] ** -0.5) * torch.tensor(1.4426950408889634)
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf)
+    l, acc = torch.zeros_like(m), torch.zeros_like(q)
+    for j in range(0, q.shape[2], 16):
+        s = _tf32_matmul(q, k[:, :, j:j + 16].transpose(-1, -2), passes) * c
+        new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - new), torch.exp2(s - new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _tf32_matmul(p, v[:, :, j:j + 16], passes)
+        m = new
+    lse = m * torch.tensor(0.6931471805599453) + torch.log(l)
+    return (acc * (1 / l)).transpose(1, 2).numpy(), lse[..., 0].numpy()
+
+
+@pytest.mark.parametrize("n", [100, 400])
+def test_area_attention_3xtf32_forward_matches_pallas_flash_attention(n):
+    """The CUDA forward kernel runs q kᵀ and P v on the tensor cores in
+    3xTF32 inside an online softmax over 16-key steps. Emulated here, that
+    arithmetic is within 1e-5 of the Pallas forward's output and row
+    log-sum-exp, the bar the kernel is held to on the card; a single TF32
+    pass misses it on both."""
+    (q, k, v, _), ref, ref_lse, _ = _pallas_reference(n)
+    o, lse = _emulated_forward(q, k, v, passes=3)
+    np.testing.assert_allclose(o, ref, atol=TOL, rtol=0)
+    np.testing.assert_allclose(lse, ref_lse, atol=TOL, rtol=0)
+    o1, lse1 = _emulated_forward(q, k, v, passes=1)
+    assert np.abs(o1 - ref).max() > TOL and np.abs(lse1 - ref_lse).max() > TOL
+
+
 def test_area_attention_plain_takes_float64_and_checks_shapes():
     q, k, v = (torch.from_numpy(a).double() for a in _qkv(5, (2, 7, 2, 32)))
     out = TA.area_attention(q, k, v)

@@ -17,12 +17,9 @@
 // (BB, N, H, 32); lse (natural log, of the scaled scores) and delta are
 // contiguous (BB, H, N).
 //
-// Forward (attention_fwd_kernel): fp32 FMAs on the CUDA cores. One thread
-// owns one query row and keeps q, the output accumulator and an online
-// softmax (running max m, sum l), 16 keys at a time, over 64-key tiles of k
-// and v in shared memory read as float4 broadcasts; it writes o = acc / l and
-// the row's log-sum-exp m + log l for the backward.
-//
+// Forward (attention_fwd_kernel): over all keys, S = q k^T, an online
+// softmax (running row max m and row sum l) and O += P v; it writes
+// o = O / l and the row's log-sum-exp for the backward.
 // Backward: the dq kernel, then the dkv kernel, as Pallas splits them.
 // - dq: delta = rowsum(dO * O) (written for the dkv kernel), then over all
 //   keys S = q k^T, P = exp(S scale - lse), dP = dO v^T, dS = P (dP - delta),
@@ -32,54 +29,71 @@
 // Each output element is written by one lane of one block: no atomics, and
 // the result is the same bits from run to run.
 //
-// Bound: operations. Each backward kernel needs two gradient products,
-// 4 N^2 hd flops per sequence-head, against six token tensors of bytes: at
-// row 6 of YOLOv13-s at training batch 16 (BB 64, H 4, N 400) that is
-// 5.2 GFLOP and 79 MB. On the CUDA cores (67 TFLOP/s fp32) 78 us; on the
-// tensor cores at float32 accuracy (3 TF32 passes at 495 TFLOP/s) 32 us;
-// the bytes 24 us at 3.35 TB/s. The designs recompute S (and dP) in both
-// kernels: 6 (dq) and 8 (dkv) N^2 hd flops issued.
+// Bound: operations. Each kernel needs two products, 4 N^2 hd flops per
+// sequence-head. The forward reads q, k, v and writes o and lse: at row 6 of
+// YOLOv13-s at serving batch 8 (BB 32, H 4, N 400) 2.6 GFLOP and 26 MB, so
+// 39 us on the CUDA cores (67 TFLOP/s fp32), 16 us on the tensor cores at
+// float32 accuracy (3 TF32 passes at 495 TFLOP/s), 8 us for the bytes at
+// 3.35 TB/s. A backward kernel moves six token tensors: at row 6 at training
+// batch 16 (BB 64) 5.2 GFLOP and 79 MB, 78 us on the CUDA cores, 32 us on
+// the tensor cores, 24 us for the bytes. The backward designs recompute S
+// (and dP) in both kernels: 6 (dq) and 8 (dkv) N^2 hd flops issued.
 //
-// Backward design: the products run on the tensor cores, mma.sync m16n8k8
-// with TF32 operands, each in three passes (3xTF32, as CUTLASS's
-// OpMultiplyAddFastF32): A B = A_small B_big + A_big B_small + A_big B_big,
-// X_big = tf32(X), X_small = tf32(X - X_big), summed in float32 accumulators.
-// One TF32 pass misses the 1e-4 bar on the gradients (about 7e-4 of the
-// largest at these shapes); three passes keep the error near float32's
-// (PERF.md gives both against float64) and still outrun the CUDA cores. The
-// exp and the softmax algebra stay in float32 on the CUDA cores (ex2.approx,
-// log2(e) folded into the scale; lse is natural log at the interface).
-// - A block has 4 warps and owns 64 rows of one sequence-head: queries (dq)
-//   or keys (dkv); a warp owns 16 of them, the mma's M. The warp keeps its
-//   own two operands in registers as A fragments, split once: q and dO (dq),
-//   k and v (dkv). So dkv computes S^T and dP^T directly, and their
-//   accumulators P^T and dS^T are the A operands of dV and dK.
+// Design, all three kernels: the products run on the tensor cores,
+// mma.sync m16n8k8 with TF32 operands, each in three passes (3xTF32, as
+// CUTLASS's OpMultiplyAddFastF32): A B = A_small B_big + A_big B_small +
+// A_big B_big, X_big = tf32(X), X_small = tf32(X - X_big), summed in float32
+// accumulators. One TF32 pass misses the bars (the forward's 1e-5 on o and
+// lse by about 3e-4; the gradients' 1e-4 of the largest by about 7e-4);
+// three passes keep the error near float32's (PERF.md gives both against
+// float64) and still outrun the CUDA cores. The exp and the softmax algebra
+// stay in float32 on the CUDA cores (ex2.approx, log2(e) folded into the
+// scale, applied to S after the product; lse is natural log at the
+// interface).
+// - A block has 4 warps and owns 64 rows of one sequence-head: queries
+//   (forward, dq) or keys (dkv); a warp owns 16 of them, the mma's M. The
+//   warp keeps its own operands in registers as A fragments, split once: q
+//   (forward), q and dO (dq), k and v (dkv). So dkv computes S^T and dP^T
+//   directly, and their accumulators P^T and dS^T are the A operands of dV
+//   and dK.
 // - An accumulator becomes the next A operand in its lane: the lane holds
 //   columns 2t, 2t + 1 of an n8 tile, which A wants at k positions t, t + 4,
 //   so the next product's B rows are read in that order (the sum over k does
 //   not care). The 16 rows x 16 streamed rows of one inner step stay in
-//   registers.
-// - The long sums (dQ over all keys, dK and dV over all queries) are not
-//   left to the tensor cores: each step's contribution (6 mma) goes to a
-//   fresh accumulator, which is then added to the running float32 sum. The
+//   registers: P (forward), dS (dq), P^T and dS^T (dkv).
+// - The long sums (O and dQ over all keys, dK and dV over all queries) are
+//   not left to the tensor cores: each step's contribution goes to a fresh
+//   accumulator, which is then added to the running float32 sum (in the
+//   forward, after the running sum is rescaled to the new row max). The
 //   tensor cores' own float32 accumulation loses low bits, and ~150 mma into
 //   one accumulator read several times float32's error (PERF.md).
+// - The forward's softmax runs in registers in the log2 domain: per 16-key
+//   step, the row max of S scale log2(e) over the 4 lanes that hold a row
+//   (two shuffles), the running sums rescaled by 2^(m_old - m_new), then
+//   P = 2^(S scale log2(e) - m); each lane keeps a partial row sum, and the
+//   4 parts meet once, at the end. lse = m ln 2 + log(l), with the accurate
+//   logf.
 // - The other operands stream through shared memory in 64-row tiles: k and v
-//   (dq); q, dO, lse and delta (dkv). cp.async copies the next tile into a
-//   raw staging tile while the warps run the current one; each tile is then
-//   split into big and small parts once per block, not once per warp, so the
-//   warps only load fragments. Split rows are 36 words apart, which makes
-//   both fragment reads conflict-free: B of S = X Y^T (lane reads row g,
-//   column t: bank 4 g + t) and B of dQ = dS K (row 2t, column g: bank
-//   8 t + g).
-// - Masking: keys (dq) or queries (dkv) past N get P = 0 and read k, v, q,
-//   dO, lse and delta as 0; rows past N are not written.
-// Budget per block of 128 threads (ptxas -v, sm_90a): dq 156 registers,
-// dkv 217, no spills, so 3 and 2 blocks per SM. Shared memory (dynamic: over
-// the 48 KB of static) two split tiles of 2 x 64 x 36 x 4 B and two raw tiles
-// of 8 KB, 53,248 B (dkv 53,760 with lse and delta).
-// Per warp and 16-row step the dq kernel issues 72 mma (three products,
-// three passes, 8 each), the dkv kernel 96.
+//   (forward, dq); q, dO, lse and delta (dkv). cp.async copies the next tile
+//   into a raw staging tile while the warps run the current one; each tile
+//   is then split into big and small parts once per block, not once per
+//   warp, so the warps only load fragments. Split rows are 36 words apart,
+//   which makes both fragment reads conflict-free: B of S = X Y^T (lane reads
+//   row g, column t: bank 4 g + t) and B of O = P V or dQ = dS K (row 2t,
+//   column g: bank 8 t + g).
+// - Masking: keys (forward, dq) or queries (dkv) past N get P = 0 and read
+//   k, v, q, dO, lse and delta as 0; rows past N are not written.
+// - Blocks: BB H x ceil(N / 64). At row 8 of YOLOv13-s at serving batch 8
+//   (BB 8, H 8) that is 448 blocks, 3.4 per SM, all resident at once (up to
+//   4 a SM by shared memory); 32-row blocks would double the blocks but not
+//   the warps in flight, since each block still holds two 64-row tiles.
+// Budget per block of 128 threads (ptxas -v, sm_90a): forward 126
+// registers, dq 156, dkv 217, no spills, so 4, 3 and 2 blocks per SM.
+// Shared memory (dynamic: over the 48 KB of static) two split tiles of
+// 2 x 64 x 36 x 4 B and two raw tiles of 8 KB, 53,248 B (forward and dq;
+// dkv 53,760 with lse and delta).
+// Per warp and 16-row step the forward issues 48 mma (two products, three
+// passes, 8 each), the dq kernel 72 (three products), the dkv kernel 96.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,11 +101,7 @@
 
 namespace {
 
-constexpr int HD = 32;      // head dim: A2C2f's heads are c_ / 32 wide
-constexpr int V4 = HD / 4;  // float4s per row
-constexpr int ROWS = 64;    // rows a block owns (the forward's threads per block)
-constexpr int TILE = 64;    // rows of the other operand per shared-memory tile
-constexpr int CHUNK = 16;   // keys per online-softmax update in the forward
+constexpr int HD = 32;  // head dim: A2C2f's heads are c_ / 32 wide
 
 struct Strides {
   long long b, n, h;  // in elements; the head dim has stride 1
@@ -102,137 +112,24 @@ __device__ __forceinline__ const float* row_ptr(const float* base, const Strides
   return base + b * s.b + n * s.n + h * s.h;
 }
 
-__device__ __forceinline__ void load_row(const float* __restrict__ p, float* r) {
-#pragma unroll
-  for (int c = 0; c < V4; ++c) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p) + c);
-    r[4 * c] = t.x;
-    r[4 * c + 1] = t.y;
-    r[4 * c + 2] = t.z;
-    r[4 * c + 3] = t.w;
-  }
-}
-
-__device__ __forceinline__ void store_row(float* p, const float* r, float scale) {
-#pragma unroll
-  for (int c = 0; c < V4; ++c) {
-    reinterpret_cast<float4*>(p)[c] =
-        make_float4(r[4 * c] * scale, r[4 * c + 1] * scale, r[4 * c + 2] * scale,
-                    r[4 * c + 3] * scale);
-  }
-}
-
-__device__ __forceinline__ float dot_smem(const float* r, const float4* s) {
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < V4; ++c) {
-    const float4 t = s[c];
-    acc = fmaf(r[4 * c], t.x, acc);
-    acc = fmaf(r[4 * c + 1], t.y, acc);
-    acc = fmaf(r[4 * c + 2], t.z, acc);
-    acc = fmaf(r[4 * c + 3], t.w, acc);
-  }
-  return acc;
-}
-
-__device__ __forceinline__ void axpy_smem(float* acc, float a, const float4* s) {
-#pragma unroll
-  for (int c = 0; c < V4; ++c) {
-    const float4 t = s[c];
-    acc[4 * c] = fmaf(a, t.x, acc[4 * c]);
-    acc[4 * c + 1] = fmaf(a, t.y, acc[4 * c + 1]);
-    acc[4 * c + 2] = fmaf(a, t.z, acc[4 * c + 2]);
-    acc[4 * c + 3] = fmaf(a, t.w, acc[4 * c + 3]);
-  }
-}
-
-// Rows [t0, t0 + TILE) of one (b, h) sequence of x into shared memory; rows
-// past N are zero.
-__device__ __forceinline__ void load_tile(float4 (*dst)[V4], const float* __restrict__ x,
-                                          const Strides& s, long long b, long long h, int t0,
-                                          int N) {
-  for (int idx = threadIdx.x; idx < TILE * V4; idx += blockDim.x) {
-    const int r = idx / V4, c = idx % V4;
-    const int n = t0 + r;
-    dst[r][c] = n < N ? __ldg(reinterpret_cast<const float4*>(row_ptr(x, s, b, n, h)) + c)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// grid (BB * H, ceil(N / ROWS)), ROWS threads
-__global__ void __launch_bounds__(ROWS)
-    attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, Strides qs, Strides ks, Strides vs,
-                         float* __restrict__ o, float* __restrict__ lse, int N, int H,
-                         float scale) {
-  __shared__ float4 Ks[TILE][V4];
-  __shared__ float4 Vs[TILE][V4];
-  const long long seq = blockIdx.x;
-  const long long b = seq / H, h = seq % H;
-  const int i = blockIdx.y * ROWS + threadIdx.x;
-  const bool valid = i < N;
-  float qr[HD], acc[HD];
-  if (valid) {
-    load_row(row_ptr(q, qs, b, i, h), qr);
-  } else {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] *= scale;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-  for (int t0 = 0; t0 < N; t0 += TILE) {
-    __syncthreads();
-    load_tile(Ks, k, ks, b, h, t0, N);
-    load_tile(Vs, v, vs, b, h, t0, N);
-    __syncthreads();
-    const int nk = min(TILE, N - t0);
-    for (int j0 = 0; j0 < nk; j0 += CHUNK) {
-      float s[CHUNK];
-      float mc = m;
-#pragma unroll
-      for (int u = 0; u < CHUNK; ++u) {
-        s[u] = j0 + u < nk ? dot_smem(qr, Ks[j0 + u]) : -INFINITY;
-        mc = fmaxf(mc, s[u]);
-      }
-      // mc is finite: key j0 < nk is real
-      const float alpha = expf(m - mc);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int u = 0; u < CHUNK; ++u) {
-        const float p = expf(s[u] - mc);  // 0 past the last key
-        l += p;
-        axpy_smem(acc, p, Vs[j0 + u]);
-      }
-      m = mc;
-    }
-  }
-  if (valid) {
-    store_row(o + ((b * N + i) * H + h) * HD, acc, 1.f / l);
-    lse[seq * N + i] = m + logf(l);
-  }
-}
-
-// ------------------------------------------------------------------ backward
+// ------------------------------------------------------------ tensor cores
 //
-// Tensor-core helpers for the two backward kernels. Fragment layouts are
-// those of mma.sync.m16n8k8 with TF32 operands; lane = 4 g + t.
+// Helpers of the three kernels. Fragment layouts are those of
+// mma.sync.m16n8k8 with TF32 operands; lane = 4 g + t.
 //   A (16 x 8, row):   a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 //   B (8 x 8, col):    b0 (k t, n g), b1 (k t + 4, n g)
 //   C (16 x 8):        c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
 
-constexpr int BWD_THREADS = 128;  // 4 warps
-constexpr int WARP_ROWS = 16;     // rows of the block's own operand per warp (the mma's M)
-constexpr int STEP = 16;          // rows of the streamed operand per inner step (two n8 tiles)
-constexpr int PAD = 36;           // words per shared tile row: both B patterns conflict-free
+constexpr int THREADS = 128;  // 4 warps
+constexpr int ROWS = 64;      // rows of its own operand a block owns
+constexpr int TILE = 64;      // rows of the streamed operand per shared-memory tile
+constexpr int WARP_ROWS = 16; // rows of the block's own operand per warp (the mma's M)
+constexpr int STEP = 16;      // rows of the streamed operand per inner step (two n8 tiles)
+constexpr int PAD = 36;       // words per shared tile row: both B patterns conflict-free
 constexpr float LOG2E = 1.4426950408889634f;
-static_assert(BWD_THREADS / 32 * WARP_ROWS == ROWS, "a block's warps cover its rows");
-static_assert(BWD_THREADS * 4 * 4 == TILE * HD, "a tile is 4 float4 per thread");
+constexpr float LN2 = 0.6931471805599453f;
+static_assert(THREADS / 32 * WARP_ROWS == ROWS, "a block's warps cover its rows");
+static_assert(THREADS * 4 * 4 == TILE * HD, "a tile is 4 float4 per thread");
 
 // x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, as
 // cvt.rna.tf32.f32 rounds; the low 13 bits are 0, so the bits are a float too.
@@ -339,8 +236,9 @@ __device__ __forceinline__ void store_split(SplitTile& dst, const RawTile& raw) 
   }
 }
 
-// Dynamic shared memory of the two kernels (over the 48 KB of static).
-struct DqShared {
+// Dynamic shared memory of the kernels (over the 48 KB of static): the k and
+// v tiles of the forward and the dq kernel; q, dO, lse and delta of dkv.
+struct KvShared {
   SplitTile k, v;
   RawTile raw_k, raw_v;
 };
@@ -424,15 +322,132 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out, const float (
   }
 }
 
-// grid (BB * H, ceil(N / ROWS)), BWD_THREADS threads; a warp owns 16 query rows
-__global__ void __launch_bounds__(BWD_THREADS)
+// grid (BB * H, ceil(N / ROWS)), THREADS threads; a warp owns 16 query rows
+__global__ void __launch_bounds__(THREADS)
+    attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, Strides qs, Strides ks, Strides vs,
+                         float* __restrict__ o, float* __restrict__ lse, int N, int H,
+                         float scale) {
+  extern __shared__ __align__(16) unsigned char shared[];
+  KvShared& sh = *reinterpret_cast<KvShared*>(shared);
+  SplitTile &Kt = sh.k, &Vt = sh.v;
+  const long long seq = blockIdx.x;
+  const long long b = seq / H, h = seq % H;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int w0 = blockIdx.y * ROWS + threadIdx.x / 32 * WARP_ROWS;
+  const bool active = w0 < N;  // the warp has a query row
+  fetch_tile(sh.raw_k, k, ks, b, h, 0, N);
+  fetch_tile(sh.raw_v, v, vs, b, h, 0, N);
+  cp_async_commit();
+
+  FragA qa[HD / 8];
+  if (active) frag_a_rows(qa, q, qs, b, h, w0, N, lane);
+
+  const float c = scale * LOG2E;
+  float acc[HD / 8][4] = {};           // O at the running max, summed step by step in float32
+  float m[2] = {-INFINITY, -INFINITY};  // rows g, g + 8: running max of S c
+  float l[2] = {0.f, 0.f};              // the lane's part of their running sums
+  for (int t0 = 0; t0 < N; t0 += TILE) {
+    cp_async_wait_all();
+    __syncthreads();  // the last tile's readers are done
+    store_split(Kt, sh.raw_k);
+    store_split(Vt, sh.raw_v);
+    __syncthreads();
+    if (t0 + TILE < N) {  // the next tile's copies fly during this tile's products
+      fetch_tile(sh.raw_k, k, ks, b, h, t0 + TILE, N);
+      fetch_tile(sh.raw_v, v, vs, b, h, t0 + TILE, N);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const int nk = min(TILE, N - t0);
+    for (int j0 = 0; j0 < nk; j0 += STEP) {
+      // S = Q K^T over 16 keys, the even and odd k8 slices in two accumulators
+      // so that more of the mma are independent
+      float s2[2][STEP / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        uint32_t bk[STEP / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < STEP / 8; ++nt) frag_b_rows(bk[nt], Kt, j0 + 8 * nt, 8 * kk, lane);
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+          for (int nt = 0; nt < STEP / 8; ++nt) mma_pass(s2[kk & 1][nt], qa[kk], bk[nt], pass);
+        }
+      }
+      float s[STEP / 8][4], mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < STEP / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // keys past N get -inf, so P = 0
+          const int key = t0 + j0 + 8 * nt + 2 * t + (e & 1);
+          s[nt][e] = key < N ? (s2[0][nt][e] + s2[1][nt][e]) * c : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the row max over the row's 4 lanes; finite, since key t0 + j0 < N
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2_approx(m[r] - mx[r]);  // 0 at the first step
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+      float part[HD / 8][4] = {};  // this step's P V
+#pragma unroll
+      for (int nt = 0; nt < STEP / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = exp2_approx(s[nt][e] - m[e >> 1]);
+          l[e >> 1] += s[nt][e];
+        }
+        FragA pa;
+        frag_a_acc(pa, s[nt]);
+        uint32_t bv[HD / 8][4];
+#pragma unroll
+        for (int nd = 0; nd < HD / 8; ++nd) frag_b_cols(bv[nd], Vt, j0 + 8 * nt, 8 * nd, lane);
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+          for (int nd = 0; nd < HD / 8; ++nd) mma_pass(part[nd], pa, bv[nd], pass);  // O += P V
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] = fmaf(acc[nd][e], alpha[e >> 1], part[nd][e]);
+      }
+    }
+  }
+  if (!active) return;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+    const int n = w0 + g + 8 * r;
+    if (t == 0 && n < N) lse[seq * N + n] = fmaf(m[r], LN2, logf(l[r]));
+  }
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] *= inv[e >> 1];
+  }
+  store_acc(o, acc, 1.f, b, h, w0, N, H, lane);
+}
+
+// grid (BB * H, ceil(N / ROWS)), THREADS threads; a warp owns 16 query rows
+__global__ void __launch_bounds__(THREADS)
     attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, Strides qs, Strides ks, Strides vs,
                             const float* __restrict__ o, const float* __restrict__ lse,
                             const float* __restrict__ dout, float* __restrict__ dq,
                             float* __restrict__ delta, int N, int H, float scale) {
   extern __shared__ __align__(16) unsigned char shared[];
-  DqShared& sh = *reinterpret_cast<DqShared*>(shared);
+  KvShared& sh = *reinterpret_cast<KvShared*>(shared);
   SplitTile &Kt = sh.k, &Vt = sh.v;
   const Strides os = {(long long)N * H * HD, (long long)H * HD, HD};
   const long long seq = blockIdx.x;
@@ -533,9 +548,9 @@ __global__ void __launch_bounds__(BWD_THREADS)
   if (active) store_acc(dq, acc, scale, b, h, w0, N, H, lane);
 }
 
-// grid (BB * H, ceil(N / ROWS)), BWD_THREADS threads; a warp owns 16 key
+// grid (BB * H, ceil(N / ROWS)), THREADS threads; a warp owns 16 key
 // rows; reads the delta of the dq kernel
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(THREADS)
     attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, Strides qs, Strides ks, Strides vs,
                              const float* __restrict__ lse, const float* __restrict__ dout,
@@ -681,7 +696,10 @@ extern "C" int area_attention_fwd_f32(const void* q, const void* k, const void* 
   if ((long long)BB * N * H == 0) return 0;
   dim3 grid;
   if (!grid_for(BB, N, H, &grid)) return (int)cudaErrorInvalidConfiguration;
-  attention_fwd_kernel<<<grid, ROWS, 0, static_cast<cudaStream_t>(stream)>>>(
+  err = cudaFuncSetAttribute(attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             sizeof(KvShared));
+  if (err != cudaSuccess) return (int)err;
+  attention_fwd_kernel<<<grid, THREADS, sizeof(KvShared), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh}, Strides{vsb, vsn, vsh},
       static_cast<float*>(o), static_cast<float*>(lse), N, H, scale);
@@ -703,9 +721,9 @@ extern "C" int area_attention_bwd_dq_f32(const void* q, const void* k, const voi
   dim3 grid;
   if (!grid_for(BB, N, H, &grid)) return (int)cudaErrorInvalidConfiguration;
   err = cudaFuncSetAttribute(attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             sizeof(DqShared));
+                             sizeof(KvShared));
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_dq_kernel<<<grid, BWD_THREADS, sizeof(DqShared),
+  attention_bwd_dq_kernel<<<grid, THREADS, sizeof(KvShared),
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh}, Strides{vsb, vsn, vsh},
@@ -733,7 +751,7 @@ extern "C" int area_attention_bwd_dkv_f32(const void* q, const void* k, const vo
   err = cudaFuncSetAttribute(attention_bwd_dkv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(DkvShared));
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_dkv_kernel<<<grid, BWD_THREADS, sizeof(DkvShared),
+  attention_bwd_dkv_kernel<<<grid, THREADS, sizeof(DkvShared),
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh}, Strides{vsb, vsn, vsh},
@@ -741,4 +759,10 @@ extern "C" int area_attention_bwd_dkv_f32(const void* q, const void* k, const vo
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), N, H,
       scale);
   return (int)cudaGetLastError();
+}
+
+// Bytes of dynamic shared memory a block of each kernel takes: 0 forward,
+// 1 dq, 2 dkv.
+extern "C" int area_attention_shared_bytes(int kernel) {
+  return kernel == 2 ? (int)sizeof(DkvShared) : (int)sizeof(KvShared);
 }

@@ -25,6 +25,7 @@
 // read from device memory about once. One launch covers all G groups.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -115,13 +116,55 @@ __global__ void sample_bilinear_kernel(const float* __restrict__ x, const float*
 // once (it is zero-filled first) and the coordinates and their gradients
 // (row 13 at training batch 16: 26 + 105 + 2 x 26 + 7 MB, ~57 us at 3.35 TB/s).
 //
-// Design: a team of lanes (a power of two <= 32) per (b, n, group) point,
-// lanes over the group's channels with float4 loads of g and of the taps.
-// Each lane keeps partial sums of dgy/dgx over its channels and the team
-// reduces them with __shfl_xor_sync. dx is a scatter: neighbouring output
-// points share taps, so the taps are added with atomicAdd (the float4
-// overload of sm_90) into the buffer the wrapper zeroes. x and dx of one
-// DySample site (<= 26 MB at batch 16) stay mostly in the 50 MB L2.
+// Design: a block of 128 threads owns one (image, group) and a tile of P
+// consecutive output points, P C/G <= 4096 (P = 64 at C/G = 64, 32 at 128).
+// dx is a scatter: at DySample's 2x upsampling each source pixel takes 4
+// taps from each of about 4 output points. Adding every tap into dx with a
+// global float4 atomic (the first design) costs ~16 atomics per dx element,
+// and they compete in L2 with the gathers of x's taps. Here a block sorts
+// its taps by pixel and adds each pixel of a window of dx once.
+// - The window is a range of pixel indices y W + x. DySample's points are
+//   row-major over the 2H x 2W output, so a tile's taps fall in a band of
+//   source rows, which is one range: at most WINDOW_PIXELS long, from the
+//   least to the largest index of the tile's taps; where they spread wider,
+//   the window is centred on their mean index and kept inside their range.
+//   Taps outside it (the offsets are unbounded) go straight to dx with
+//   global float4 atomics.
+// - The sort is a counting sort in shared memory on integer atomics, which
+//   Hopper runs natively: count each window pixel's taps, scan the counts,
+//   and each tap writes its point and weight into its pixel's slots. A
+//   float atomicAdd on shared memory is a compare-and-swap loop
+//   (ATOMS.CAST.SPIN) per add; windows summed that way ran slower than the
+//   global atomics alone (PERF.md).
+// - A team of lanes (a power of two <= 32) per point, lanes over the group's
+//   channels with float4 loads of g and of the taps, forms dgy and dgx
+//   (team reduction by __shfl_xor_sync, plain stores) and copies the
+//   point's g into shared memory. Then a team per window pixel sums
+//   g * weight over the pixel's taps in registers and adds the sum into dx
+//   with one global float4 atomic. Neighbouring tiles' windows overlap, so
+//   dx is still zero-filled by the wrapper.
+// - Small blocks keep many in flight: ~19 KB of shared memory and under 64
+//   registers a thread let 8 blocks (32 warps) share an SM, so one block's
+//   sort overlaps another's gathers; at 256 threads and 64 KB of g a block
+//   the same design ran no faster than the scatter (PERF.md).
+
+constexpr int BWD_THREADS = 128;
+constexpr int MAX_POINTS = BWD_THREADS;         // a tile's points: one per thread in the sort
+constexpr int G_FLOATS = 4096;                  // a tile's g in shared memory: 16 KB
+constexpr int WINDOW_PIXELS = 2 * BWD_THREADS;  // the scan takes two counts per thread
+
+// Points per tile at cg channels a group.
+int tile_points(int cg) {
+  const int p = G_FLOATS / cg;
+  return p < 1 ? 1 : p < MAX_POINTS ? p : MAX_POINTS;
+}
+
+// Dynamic shared memory of a block: g [P][cg], slots [WINDOW_PIXELS + 1],
+// points [4 P], weights [4 P].
+int backward_shared_bytes(int cg) {
+  const int p = tile_points(cg);
+  return (int)sizeof(float) * (p * cg + WINDOW_PIXELS + 1 + 8 * p);
+}
 
 template <int V>
 __device__ __forceinline__ void load_vec(const float* __restrict__ p, float* v) {
@@ -147,76 +190,289 @@ __device__ __forceinline__ void add_vec(float* p, const float* v, float w) {
   }
 }
 
-template <int V>
-__global__ void sample_bilinear_backward_kernel(
+// The 4 taps of one point, in the order 00, 01, 10, 11: pixel index y W + x
+// (clamped), whether the tap counts (zeros mode drops taps out of range), and
+// the bilinear weights.
+struct Taps {
+  int pix[4];
+  bool use[4];
+  float w[4], wy, wx;
+};
+
+__device__ __forceinline__ Taps taps_of(float fy, float fx, int H, int W, bool zeros) {
+  Taps tp;
+  const float y0 = floorf(fy);
+  const float x0 = floorf(fx);
+  tp.wy = fy - y0;
+  tp.wx = fx - x0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float yf = y0 + (float)(k >> 1);
+    const float xf = x0 + (float)(k & 1);
+    tp.use[k] = !zeros || (yf >= 0.f && yf <= (float)(H - 1) && xf >= 0.f && xf <= (float)(W - 1));
+    const int yi = (int)fminf(fmaxf(yf, 0.f), (float)(H - 1));
+    const int xi = (int)fminf(fmaxf(xf, 0.f), (float)(W - 1));
+    tp.pix[k] = yi * W + xi;
+  }
+  tp.w[0] = (1.f - tp.wx) * (1.f - tp.wy);
+  tp.w[1] = tp.wx * (1.f - tp.wy);
+  tp.w[2] = (1.f - tp.wx) * tp.wy;
+  tp.w[3] = tp.wx * tp.wy;
+  return tp;
+}
+
+// grid (ceil(N / P), G, B), BWD_THREADS threads, backward_shared_bytes(C / G)
+// of dynamic shared memory. With COUNT, also adds to taps[0] the tile's taps
+// and to taps[1] those that missed the window (a separate build: the counter
+// costs registers).
+template <int V, bool COUNT>
+__global__ void __launch_bounds__(BWD_THREADS) sample_bilinear_backward_kernel(
     const float* __restrict__ x, const float* __restrict__ gy, const float* __restrict__ gx,
     const float* __restrict__ gout, float* __restrict__ dx, float* __restrict__ dgy,
-    float* __restrict__ dgx, int H, int W, int C, int N, int G, bool zeros, long long points,
-    int team) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long p = t / team;  // (b * N + n) * G + group
-  const int lane = (int)(t % team);
-  float sy = 0.f, sx = 0.f;
-  if (p < points) {
-    const long long bn = p / G;
-    const int grp = (int)(p % G);
-    const long long b = bn / N;
-    const int cg = C / G;
-    const float fy = gy[p];
-    const float fx = gx[p];
-    const float y0 = floorf(fy);
-    const float x0 = floorf(fx);
-    const float wy = fy - y0;
-    const float wx = fx - x0;
-    // the 4 taps in the order 00, 01, 10, 11: pixel offset and whether it counts
-    long long off[4];
-    bool use[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float yf = y0 + (float)(k >> 1);
-      const float xf = x0 + (float)(k & 1);
-      use[k] = !zeros || (yf >= 0.f && yf <= (float)(H - 1) && xf >= 0.f && xf <= (float)(W - 1));
-      const int yi = (int)fminf(fmaxf(yf, 0.f), (float)(H - 1));
-      const int xi = (int)fminf(fmaxf(xf, 0.f), (float)(W - 1));
-      off[k] = ((long long)yi * W + xi) * C;
-    }
-    const float w[4] = {(1.f - wx) * (1.f - wy), wx * (1.f - wy), (1.f - wx) * wy, wx * wy};
-    const long long base = b * H * W * C + (long long)grp * cg;
-    const float* go = gout + bn * C + (long long)grp * cg;
-    for (int c = lane * V; c < cg; c += team * V) {
-      float g[V], v[4][V];
-      load_vec<V>(go + c, g);
+    float* __restrict__ dgx, int H, int W, int C, int N, int G, bool zeros, int team, int P,
+    unsigned long long* __restrict__ taps) {
+  extern __shared__ __align__(16) float smem[];
+  const int cg = C / G;
+  float* gs = smem;                                   // [P][cg]: the tile's g
+  int* slot = reinterpret_cast<int*>(gs + P * cg);    // [WINDOW_PIXELS + 1]: counts, then starts
+  int* pt = slot + WINDOW_PIXELS + 1;                 // [4 P]: the taps' points, by pixel
+  float* wt = reinterpret_cast<float*>(pt + 4 * P);   // [4 P]: their weights
+  __shared__ int lo_s, hi_s;
+  __shared__ unsigned long long sum_s;
+  __shared__ unsigned int used_s, missed_s;
+  __shared__ int warp_sum[BWD_THREADS / 32];
+  const int grp = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int n0 = blockIdx.x * P;
+  const long long img = b * H * W * C + (long long)grp * cg;  // + pixel C + channel
+  if (threadIdx.x == 0) {
+    lo_s = INT_MAX;
+    hi_s = -1;
+    sum_s = 0;
+    used_s = 0;
+    missed_s = 0;
+  }
+  __syncthreads();
+
+  // 1. The window: the least and largest pixel index of the tile's taps,
+  // and their sum and count. Thread i takes point n0 + i in steps 1 and 2.
+  const bool mine = (int)threadIdx.x < P && n0 + (int)threadIdx.x < N;
+  Taps own;
+  if (mine) {
+    const long long p = (b * N + n0 + threadIdx.x) * G + grp;
+    own = taps_of(gy[p], gx[p], H, W, zeros);
+  }
+  {
+    int lo = INT_MAX, hi = -1;
+    unsigned int used = 0;
+    unsigned long long sum = 0;
+    if (mine) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        if (use[k]) {
-          load_vec<V>(x + base + off[k] + c, v[k]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < V; ++j) v[k][j] = 0.f;
+        if (own.use[k]) {
+          lo = min(lo, own.pix[k]);
+          hi = max(hi, own.pix[k]);
+          sum += (unsigned long long)own.pix[k];
+          ++used;
         }
       }
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float top = v[0][j] * (1.f - wx) + v[1][j] * wx;
-        const float bot = v[2][j] * (1.f - wx) + v[3][j] * wx;
-        sy += g[j] * (bot - top);
-        sx += g[j] * ((v[1][j] - v[0][j]) * (1.f - wy) + (v[3][j] - v[2][j]) * wy);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (use[k]) add_vec<V>(dx + base + off[k] + c, g, w[k]);
-      }
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    used = __reduce_add_sync(0xffffffffu, used);
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (threadIdx.x % 32 == 0) {
+      atomicMin(&lo_s, lo);
+      atomicMax(&hi_s, hi);
+      atomicAdd(&sum_s, sum);
+      atomicAdd(&used_s, used);
     }
   }
-  // every lane of the warp takes part: teams are aligned powers of two <= 32
-  for (int o = team >> 1; o > 0; o >>= 1) {
-    sy += __shfl_xor_sync(0xffffffffu, sy, o);
-    sx += __shfl_xor_sync(0xffffffffu, sx, o);
+  __syncthreads();
+  const int lo = lo_s, hi = hi_s;
+  int p0 = 0, span = 0;
+  if (used_s > 0) {
+    if (hi - lo < WINDOW_PIXELS) {
+      p0 = lo;
+      span = hi - lo + 1;
+    } else {
+      const long long mean = (long long)(sum_s / used_s);
+      p0 = (int)min(max(mean - WINDOW_PIXELS / 2, (long long)lo),
+                    (long long)(hi - WINDOW_PIXELS + 1));
+      span = WINDOW_PIXELS;
+    }
   }
-  if (p < points && lane == 0) {
-    dgy[p] = sy;
-    dgx[p] = sx;
+  for (int i = threadIdx.x; i <= span; i += BWD_THREADS) slot[i] = 0;
+  __syncthreads();
+
+  // 2. The counting sort: each window pixel's taps counted (a tap's rank is
+  // the count it found), the counts scanned into starts, then each tap's
+  // point and weight written at start + rank.
+  int rank[4] = {-1, -1, -1, -1};
+  if (mine) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = own.pix[k] - p0;
+      if (own.use[k] && r >= 0 && r < span) rank[k] = atomicAdd(&slot[r], 1);
+    }
   }
+  __syncthreads();
+  {
+    const int i = 2 * threadIdx.x, lane = threadIdx.x % 32;
+    const int a = i < span ? slot[i] : 0, c = i + 1 < span ? slot[i + 1] : 0;
+    int incl = a + c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) warp_sum[threadIdx.x / 32] = incl;
+    __syncthreads();
+    for (int w = 0; w < (int)threadIdx.x / 32; ++w) incl += warp_sum[w];
+    if (i < span) slot[i] = incl - a - c;
+    if (i + 1 < span) slot[i + 1] = incl - c;
+    if (threadIdx.x == BWD_THREADS - 1) slot[span] = incl;  // the total
+  }
+  __syncthreads();
+  if (mine) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (rank[k] < 0) continue;
+      const int e = slot[own.pix[k] - p0] + rank[k];
+      pt[e] = threadIdx.x;
+      wt[e] = own.w[k];
+    }
+  }
+
+  // 3. A team per point: dgy and dgx, the point's g into shared memory, and
+  // its taps that missed the window into dx.
+  const int teams = BWD_THREADS / team, tm = threadIdx.x / team, lane = threadIdx.x % team;
+  unsigned int missed = 0;
+  for (int j0 = 0; j0 < P; j0 += teams) {
+    const int j = j0 + tm, n = n0 + j;
+    const long long p = (b * N + n) * G + grp;
+    float sy = 0.f, sx = 0.f;
+    if (j < P && n < N) {
+      const Taps tp = taps_of(gy[p], gx[p], H, W, zeros);
+      const float* go = gout + (b * N + n) * C + (long long)grp * cg;
+      for (int c = lane * V; c < cg; c += team * V) {
+        float g[V], v[4][V];
+        load_vec<V>(go + c, g);
+        if constexpr (V == 4) {
+          *reinterpret_cast<float4*>(gs + j * cg + c) = make_float4(g[0], g[1], g[2], g[3]);
+        } else {
+          gs[j * cg + c] = g[0];
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (tp.use[k]) {
+            load_vec<V>(x + img + (long long)tp.pix[k] * C + c, v[k]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < V; ++i) v[k][i] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float top = v[0][i] * (1.f - tp.wx) + v[1][i] * tp.wx;
+          const float bot = v[2][i] * (1.f - tp.wx) + v[3][i] * tp.wx;
+          sy += g[i] * (bot - top);
+          sx += g[i] * ((v[1][i] - v[0][i]) * (1.f - tp.wy) + (v[3][i] - v[2][i]) * tp.wy);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int r = tp.pix[k] - p0;
+          if (tp.use[k] && (r < 0 || r >= span)) {
+            add_vec<V>(dx + img + (long long)tp.pix[k] * C + c, g, tp.w[k]);
+            if constexpr (COUNT) missed += c == 0;  // once per tap: lane 0's first channels
+          }
+        }
+      }
+    }
+    // every lane of the warp takes part: teams are aligned powers of two <= 32
+    for (int o = team >> 1; o > 0; o >>= 1) {
+      sy += __shfl_xor_sync(0xffffffffu, sy, o);
+      sx += __shfl_xor_sync(0xffffffffu, sx, o);
+    }
+    if (j < P && n < N && lane == 0) {
+      dgy[p] = sy;
+      dgx[p] = sx;
+    }
+  }
+  __syncthreads();
+
+  // 4. A team per window pixel: g * weight summed over the pixel's taps in
+  // registers, then added into dx once.
+  for (int r = tm; r < span; r += teams) {
+    const int e0 = slot[r], e1 = slot[r + 1];
+    if (e0 == e1) continue;
+    for (int c = lane * V; c < cg; c += team * V) {
+      float acc[V] = {};
+      for (int e = e0; e < e1; ++e) {
+        const float w = wt[e];
+        const float* g = gs + pt[e] * cg + c;
+        if constexpr (V == 4) {
+          const float4 q = *reinterpret_cast<const float4*>(g);
+          acc[0] = fmaf(q.x, w, acc[0]);
+          acc[1] = fmaf(q.y, w, acc[1]);
+          acc[2] = fmaf(q.z, w, acc[2]);
+          acc[3] = fmaf(q.w, w, acc[3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k) acc[k] = fmaf(g[k], w, acc[k]);
+        }
+      }
+      add_vec<V>(dx + img + (long long)(p0 + r) * C + c, acc, 1.f);
+    }
+  }
+  if constexpr (COUNT) {
+    missed = __reduce_add_sync(0xffffffffu, missed);
+    if (threadIdx.x % 32 == 0) atomicAdd(&missed_s, missed);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      atomicAdd(&taps[0], (unsigned long long)used_s);
+      atomicAdd(&taps[1], (unsigned long long)missed_s);
+    }
+  }
+}
+
+template <bool COUNT>
+int backward(const void* x, const void* gy, const void* gx, const void* gout, void* dx, void* dgy,
+             void* dgx, int B, int H, int W, int C, int N, int G, int zeros, int device,
+             void* stream, void* taps) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec4 = (C / G) % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)gout % 16 == 0 &&
+                    (uintptr_t)dx % 16 == 0;
+  const int v = vec4 ? 4 : 1;
+  if ((long long)B * N * G == 0) return 0;
+  if (B > 65535 || G > 65535) return (int)cudaErrorInvalidConfiguration;
+  int team = 1;
+  while (team < 32 && team * 2 <= (C / G) / v) team *= 2;
+  const int P = tile_points(C / G), smem = backward_shared_bytes(C / G);
+  const dim3 grid((unsigned)((N + P - 1) / P), (unsigned)G, (unsigned)B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* gyf = static_cast<const float*>(gy);
+  const float* gxf = static_cast<const float*>(gx);
+  const float* gof = static_cast<const float*>(gout);
+  float* dxf = static_cast<float*>(dx);
+  float* dgyf = static_cast<float*>(dgy);
+  float* dgxf = static_cast<float*>(dgx);
+  unsigned long long* count = static_cast<unsigned long long*>(taps);
+  if (vec4) {
+    err = cudaFuncSetAttribute(sample_bilinear_backward_kernel<4, COUNT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    sample_bilinear_backward_kernel<4, COUNT><<<grid, BWD_THREADS, smem, s>>>(
+        xf, gyf, gxf, gof, dxf, dgyf, dgxf, H, W, C, N, G, zeros != 0, team, P, count);
+  } else {
+    err = cudaFuncSetAttribute(sample_bilinear_backward_kernel<1, COUNT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    sample_bilinear_backward_kernel<1, COUNT><<<grid, BWD_THREADS, smem, s>>>(
+        xf, gyf, gxf, gof, dxf, dgyf, dgxf, H, W, C, N, G, zeros != 0, team, P, count);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -227,34 +483,26 @@ extern "C" int sample_bilinear_backward_f32(const void* x, const void* gy, const
                                             const void* gout, void* dx, void* dgy, void* dgx,
                                             int B, int H, int W, int C, int N, int G, int zeros,
                                             int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const bool vec4 = (C / G) % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)gout % 16 == 0 &&
-                    (uintptr_t)dx % 16 == 0;
-  const int v = vec4 ? 4 : 1;
-  const long long points = (long long)B * N * G;
-  if (points == 0) return 0;
-  int team = 1;
-  while (team < 32 && team * 2 <= (C / G) / v) team *= 2;
-  const int threads = 256;
-  const long long blocks = (points * team + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* gyf = static_cast<const float*>(gy);
-  const float* gxf = static_cast<const float*>(gx);
-  const float* gof = static_cast<const float*>(gout);
-  float* dxf = static_cast<float*>(dx);
-  float* dgyf = static_cast<float*>(dgy);
-  float* dgxf = static_cast<float*>(dgx);
-  if (vec4) {
-    sample_bilinear_backward_kernel<4><<<(unsigned)blocks, threads, 0, s>>>(
-        xf, gyf, gxf, gof, dxf, dgyf, dgxf, H, W, C, N, G, zeros != 0, points, team);
-  } else {
-    sample_bilinear_backward_kernel<1><<<(unsigned)blocks, threads, 0, s>>>(
-        xf, gyf, gxf, gof, dxf, dgyf, dgxf, H, W, C, N, G, zeros != 0, points, team);
-  }
-  return (int)cudaGetLastError();
+  return backward<false>(x, gy, gx, gout, dx, dgy, dgx, B, H, W, C, N, G, zeros, device, stream,
+                         nullptr);
+}
+
+// As sample_bilinear_backward_f32, and adds to taps[0] the taps it scattered
+// and to taps[1] those that missed their tile's window (two zeroed 64-bit
+// counters on the card).
+extern "C" int sample_bilinear_backward_taps_f32(const void* x, const void* gy, const void* gx,
+                                                 const void* gout, void* dx, void* dgy, void* dgx,
+                                                 int B, int H, int W, int C, int N, int G,
+                                                 int zeros, int device, void* stream,
+                                                 void* taps) {
+  return backward<true>(x, gy, gx, gout, dx, dgy, dgx, B, H, W, C, N, G, zeros, device, stream,
+                        taps);
+}
+
+// Bytes of dynamic shared memory a backward block takes at C / G channels a
+// group.
+extern "C" int sample_bilinear_backward_shared_bytes(int C, int G) {
+  return backward_shared_bytes(C / G);
 }
 
 // Launches on `stream` of `device`; returns cudaGetLastError() of the launch.

@@ -10,9 +10,11 @@ blocks.py:888-890, which the JAX package runs everywhere but on a TPU.
 softmax(q kᵀ / √hd) v in the same layout. On CUDA tensors it is a
 `torch.autograd.Function` whose forward kernel also keeps the row
 log-sum-exp, and whose backward runs the dq kernel (which also forms
-delta = rowsum(dO ∘ O)) and then the dkv kernel. The kernels take hd = 32
-(A2C2f's heads are c_ // 32 wide, blocks.py:961) and any strides on BB, N
-and H, so AAttn hands them the three views of its packed qkv tensor.
+delta = rowsum(dO ∘ O)) and then the dkv kernel. All three run their
+products on the tensor cores in 3xTF32 (float32-accurate TF32 `mma.sync`).
+The kernels take hd = 32 (A2C2f's heads are c_ // 32 wide, blocks.py:961)
+and any strides on BB, N and H, so AAttn hands them the three views of its
+packed qkv tensor.
 """
 
 from __future__ import annotations
@@ -67,7 +69,15 @@ def _lib():
         for fn, n_ptrs in zip(fns, (2, 5, 5)):
             fn.argtypes = [ctypes.c_void_p] * 3 + strides + [ctypes.c_void_p] * n_ptrs + tail
             fn.restype = ctypes.c_int
+        lib.area_attention_shared_bytes.argtypes = [ctypes.c_int]
+        lib.area_attention_shared_bytes.restype = ctypes.c_int
     return lib
+
+
+def shared_bytes():
+    """{kernel: bytes of dynamic shared memory a block takes}."""
+    names = ("attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
+    return {name: _lib().area_attention_shared_bytes(i) for i, name in enumerate(names)}
 
 
 def _check_cuda(q, k, v, *contiguous):

@@ -83,9 +83,12 @@ def _lib():
     fwd, bwd = lib.sample_bilinear_f32, lib.sample_bilinear_backward_f32
     if fwd.argtypes is None:
         fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fwd.restype = ctypes.c_int
         bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        bwd.restype = ctypes.c_int
+        lib.sample_bilinear_backward_taps_f32.argtypes = bwd.argtypes + [ctypes.c_void_p]
+        lib.sample_bilinear_backward_shared_bytes.argtypes = [ctypes.c_int] * 2
+        for fn in (fwd, bwd, lib.sample_bilinear_backward_taps_f32,
+                   lib.sample_bilinear_backward_shared_bytes):
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -111,25 +114,57 @@ def _forward_kernel(x, gy, gx, padding_mode):
     return out
 
 
-def sample_bilinear_backward(x, gy, gx, grad, padding_mode: str = "border"):
-    """(dx, dgy, dgx) for the (B, N, C) output gradient `grad`: the backward
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+def _check_grad(x, gy, gx, grad, padding_mode):
     _check(x, gy, gx, padding_mode)
     if grad.shape != (x.shape[0], gy.shape[1], x.shape[-1]) or grad.dtype != x.dtype:
         raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} does not match the output")
-    if x.device.type != "cuda":
-        return sample_bilinear_backward_plain(x, gy, gx, grad, padding_mode)
+
+
+def _backward_kernel(x, gy, gx, grad, padding_mode, taps=None):
     dev, stream = _check_cuda(x, gy, gx, grad)
     b, h, w, c = x.shape
     n, g = gy.shape[1:]
-    dx = torch.zeros_like(x)
+    dx = torch.zeros_like(x)  # the kernel adds its blocks' windows and stray taps into dx
     dgy, dgx = torch.empty_like(gy), torch.empty_like(gx)
-    err = _lib().sample_bilinear_backward_f32(
-        x.data_ptr(), gy.data_ptr(), gx.data_ptr(), grad.data_ptr(), dx.data_ptr(),
-        dgy.data_ptr(), dgx.data_ptr(), b, h, w, c, n, g, int(padding_mode == "zeros"), dev, stream)
+    args = [x.data_ptr(), gy.data_ptr(), gx.data_ptr(), grad.data_ptr(), dx.data_ptr(),
+            dgy.data_ptr(), dgx.data_ptr(), b, h, w, c, n, g, int(padding_mode == "zeros"), dev,
+            stream]
+    lib = _lib()
+    if taps is None:
+        err = lib.sample_bilinear_backward_f32(*args)
+    else:
+        err = lib.sample_bilinear_backward_taps_f32(*args, taps.data_ptr())
     build.check(err, "sample_bilinear_backward")
     launches["sample_bilinear_backward"] += 1
     return dx, dgy, dgx
+
+
+def sample_bilinear_backward(x, gy, gx, grad, padding_mode: str = "border"):
+    """(dx, dgy, dgx) for the (B, N, C) output gradient `grad`: the backward
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    _check_grad(x, gy, gx, grad, padding_mode)
+    if x.device.type != "cuda":
+        return sample_bilinear_backward_plain(x, gy, gx, grad, padding_mode)
+    return _backward_kernel(x, gy, gx, grad, padding_mode)
+
+
+def backward_window_misses(x, gy, gx, grad, padding_mode: str = "border"):
+    """(taps, missed): how many taps one launch of the backward kernel
+    scattered into dx, and how many of them fell outside their tile's window
+    of dx and were added to dx one by one with global atomics. A build of
+    the kernel with a counter; CUDA tensors only."""
+    _check_grad(x, gy, gx, grad, padding_mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"the backward kernel takes CUDA tensors, got {x.device}")
+    taps = torch.zeros(2, dtype=torch.int64, device=x.device)
+    _backward_kernel(x, gy, gx, grad, padding_mode, taps)
+    return tuple(int(t) for t in taps.cpu())
+
+
+def backward_shared_bytes(c: int, g: int) -> int:
+    """Bytes of shared memory (its tile's g and the window's counting sort) a
+    block of the backward kernel takes at c channels in g groups."""
+    return _lib().sample_bilinear_backward_shared_bytes(c, g)
 
 
 class SampleBilinear(torch.autograd.Function):
