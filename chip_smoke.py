@@ -8,7 +8,9 @@ Phases, each printing one JSON line:
               per source, all started together); ptxas registers, spills and
               static shared bytes per kernel, and the dynamic shared bytes of
               the kernels that take them;
-  2. k1     - letterbox kernel vs its plain PyTorch version at 8x512x768 -> 640^2;
+  2. k1     - letterbox kernel vs its plain PyTorch version at 8x512x768 -> 640^2,
+              float32 and bfloat16 out (each timed beside its own byte bound), and
+              at one odd geometry (odd canvas width, a batch starting mid-chunk);
   3. k2     - DySample sampler kernel vs its plain version at the three
               YOLO-DBL-s DySample sites, both padding modes;
   4. k2_backward - the sampler's backward kernel vs autograd through the plain
@@ -165,6 +167,11 @@ def copies_for(n_bytes):
     return max(2, int(np.ceil(100e6 / n_bytes)))
 
 
+# (batch, frame, canvas) of the odd geometry k1 checks: canvas width 330, 4
+# rows of top pad, 333 x 3 bytes a frame row, frames starting mid-chunk
+K1_ODD = (2, (251, 333), (257, 330))
+
+
 def phase_k1(gen):
     from yolo_dbl_tpu_torch.kernels.preprocess import (letterbox_geometry, letterbox_normalize,
                                                        letterbox_normalize_plain)
@@ -178,6 +185,14 @@ def phase_k1(gen):
                       - ref.to(torch.bfloat16).float()).abs().max())
     require(err <= TOL, f"letterbox kernel vs plain: max |d| {err} > {TOL}")
     require(err_bf16 <= 4e-3, f"letterbox kernel bf16 vs plain: max |d| {err_bf16}")
+    ob, o_in, o_out = K1_ODD
+    odd = torch.randint(0, 256, (ob + 1, *o_in, 3), dtype=torch.uint8, generator=gen).cuda()[1:]
+    odd_err = {str(dt).split(".")[-1]: float((letterbox_normalize(odd, o_out, out_dtype=dt).float()
+                                              - letterbox_normalize_plain(odd, o_out, out_dtype=dt)
+                                              .float()).abs().max())
+               for dt in (torch.float32, torch.bfloat16)}
+    require(odd_err["float32"] <= TOL and odd_err["bfloat16"] <= 4e-3,
+            f"letterbox kernel vs plain at {K1_ODD}: {odd_err}")
 
     _, new_h, new_w, top, left = letterbox_geometry(*SRC_HW, IMGSZ, IMGSZ, scaleup=False)
 
@@ -190,20 +205,28 @@ def phase_k1(gen):
     lib_err = float((library(frames[0]).permute(0, 2, 3, 1) - out).abs().max())
     n = len(frames)
     ms, call_ms = timings(lambda i: letterbox_normalize(frames[i % n], (IMGSZ, IMGSZ)), 50)
+    ms_bf16, call_ms_bf16 = timings(lambda i: letterbox_normalize(
+        frames[i % n], (IMGSZ, IMGSZ), out_dtype=torch.bfloat16), 50)
     plain_ms, plain_call_ms = timings(
         lambda i: letterbox_normalize_plain(frames[i % n], (IMGSZ, IMGSZ)), 10)
     library_ms, library_call_ms = timings(lambda i: library(frames[i % n]), 20)
-    n_bytes = B * SRC_HW[0] * SRC_HW[1] * 3 + B * IMGSZ * IMGSZ * 3 * 4
+    n_in, n_out = B * SRC_HW[0] * SRC_HW[1] * 3, B * IMGSZ * IMGSZ * 3
     # per output value: 2 row blends + 1 column blend (3 ops each) and the /255
-    bound_ms, bound_by = bound(n_bytes, B * new_h * new_w * 3 * 10)
+    bound_ms, bound_by = bound(n_in + n_out * 4, B * new_h * new_w * 3 * 10)
+    bound_ms_bf16, _ = bound(n_in + n_out * 2, B * new_h * new_w * 3 * 10)
     row = dict(name="letterbox_normalize", route="cuda",
                source="yolo_dbl_tpu_torch/csrc/preprocess.cu",
                replaces="yolo_dbl_tpu/kernels/preprocess.py:144", max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               ms_bf16=ms_bf16, bound_ms_bf16=bound_ms_bf16)
     emit({"phase": "k1", "shape": [B, *SRC_HW, 3], "out": [B, IMGSZ, IMGSZ, 3],
           "max_abs_err_f32": err, "max_abs_err_bf16": err_bf16, "library_vs_kernel": lib_err,
+          "odd_geometry": {"batch": ob, "frame": list(o_in), "canvas": list(o_out),
+                           "max_abs_err": odd_err},
           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-          "call_ms": call_ms, "plain_call_ms": plain_call_ms, "library_call_ms": library_call_ms})
+          "ms_bf16": ms_bf16, "bound_ms_bf16": bound_ms_bf16,
+          "call_ms": call_ms, "call_ms_bf16": call_ms_bf16, "plain_call_ms": plain_call_ms,
+          "library_call_ms": library_call_ms})
     return row
 
 
@@ -816,7 +839,7 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from yolo_dbl_tpu_torch.kernels import attention, build, sampling
+    from yolo_dbl_tpu_torch.kernels import attention, build, preprocess, sampling
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -828,6 +851,8 @@ def main():
                         if "entry function" in ln or "registers" in ln or "spill" in ln]
                     for k, v in report.items()},
           "dynamic_shared_bytes": {
+              "letterbox_kernel": {str(dt).split(".")[-1]: preprocess.shared_bytes(
+                  SRC_HW, (IMGSZ, IMGSZ), B, out_dtype=dt) for dt in (torch.float32, torch.bfloat16)},
               **attention.shared_bytes(),
               "sample_bilinear_backward_kernel": {
                   f"C/G={c // GROUPS}": sampling.backward_shared_bytes(c, GROUPS)

@@ -49,6 +49,39 @@ def test_letterbox_kernel_matches_plain(cuda, out_dtype, in_hw, out_hw):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
 
 
+# (batch, frame, canvas, scaleup, pad value): the smoke's (a third of the rows
+# wholly pad); 1080p and a frame wider than 4096 px (tiles narrowed to fit a
+# slot); 1x1 frames, kept and upscaled; a 1-pixel-wide frame; upscaling; odd
+# top/left offsets, canvas widths not a multiple of 8 and frames whose bytes
+# are not a multiple of 16 (the batch starts mid-chunk); a canvas with no pad
+LETTERBOX_GEOMETRIES = [
+    (8, (512, 768), (640, 640), False, 114), (2, (1080, 1920), (640, 640), False, 114),
+    (1, (300, 5000), (640, 640), False, 114), (1, (1, 1), (640, 640), False, 114),
+    (2, (1, 1), (64, 64), True, 114), (3, (480, 1), (640, 640), False, 114),
+    (2, (100, 60), (128, 128), True, 114), (2, (320, 480), (640, 640), True, 114),
+    (2, (251, 333), (257, 330), False, 114), (2, (101, 77), (131, 133), False, 0),
+    (2, (37, 91), (63, 45), True, 255), (1, (640, 640), (640, 640), False, 114)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,in_hw,out_hw,scaleup,pad", LETTERBOX_GEOMETRIES)
+def test_letterbox_kernel_geometries(cuda, out_dtype, b, in_hw, out_hw, scaleup, pad):
+    """The kernel against the plain version, one launch a call; the frames
+    are a slice of a larger batch, so they start where the previous frame
+    ends, not at an allocation."""
+    img = np.random.default_rng(9).integers(0, 256, (b + 1, *in_hw, 3), dtype=np.uint8)
+    img = torch.from_numpy(img).to(cuda)[1:]
+    before = kernels.launches["letterbox_normalize"]
+    out = TP.letterbox_normalize(img, out_hw, pad, scaleup, out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.launches["letterbox_normalize"] == before + 1
+    assert out.shape == (b, *out_hw, 3) and out.dtype == out_dtype
+    ref = TP.letterbox_normalize_plain(img, out_hw, pad, scaleup, out_dtype)
+    tol = TOL if out_dtype == torch.float32 else 4e-3  # one bf16 step at 1.0
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
 def _coords(rng, b, n, h, w, g):
     gy = rng.uniform(-1.5, h + 0.5, (b, n, g)).astype(np.float32)
     gx = rng.uniform(-1.5, w + 0.5, (b, n, g)).astype(np.float32)

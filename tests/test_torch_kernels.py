@@ -91,6 +91,67 @@ def test_letterbox_bf16_and_validation():
                                np.asarray(JP.device_normalize(jnp.asarray(img.numpy()))), atol=0)
 
 
+# the smoke's 512x768 -> 640x640 (resized to 427x640) and 1080p -> 640x640
+# (360x640) beside the geometries of LETTERBOX_SHAPES: (n_out, n_in) per axis
+TAP_AXES = sorted({(n_out, n_in)
+                   for in_hw, out_hw in LETTERBOX_SHAPES + [((512, 768), (640, 640)),
+                                                            ((1080, 1920), (640, 640))]
+                   for scaleup in (False, True)
+                   for n_out, n_in in zip(TP.letterbox_geometry(*in_hw, *out_hw, scaleup)[1:3],
+                                          in_hw)})
+
+
+@pytest.mark.parametrize("n_out,n_in", TAP_AXES)
+def test_letterbox_taps_match_jax_bilinear_matrix(n_out, n_in):
+    """The tap rule the kernel mirrors (two taps and the second's weight,
+    float64 coordinates, float32 weight) is `_bilinear_matrix`'s: the same
+    nonzero columns in every row and bit-equal weights."""
+    x0, x1, w = (t.numpy() for t in TP._taps(n_out, n_in, "cpu"))
+    m = JP._bilinear_matrix(n_out, n_in)
+    rows = np.arange(n_out)
+    for r in rows:
+        want = {int(x0[r]), int(x1[r])} - ({int(x1[r])} if w[r] == 0 and x1[r] != x0[r] else set())
+        assert set(np.flatnonzero(m[r]).tolist()) == want, r
+    ours = np.zeros_like(m)
+    np.add.at(ours, (rows, x0), np.float32(1.0) - w)
+    np.add.at(ours, (rows, x1), w)
+    assert ours.dtype == m.dtype == np.float32
+    np.testing.assert_array_equal(ours.view(np.uint32), m.view(np.uint32))
+    two = x1 != x0
+    np.testing.assert_array_equal(m[rows[two], x1[two]].view(np.uint32), w[two].view(np.uint32))
+
+
+def test_letterbox_plan_spans_fit_their_slots():
+    """The kernel stages the source span of each column tile (csrc/preprocess.cu)
+    in a slot of the planned bytes and reads up to 24 bytes past the span's
+    start phase and end; the plan must hold every tile's span, with tiles a
+    multiple of 16 bytes of output wherever they can be."""
+    rng = np.random.default_rng(3)
+    geos = [((512, 768), (640, 640)), ((1080, 1920), (640, 640)), ((300, 5000), (640, 640)),
+            ((1, 1), (640, 640)), ((480, 1), (640, 640)), ((1, 20000), (640, 640)),
+            ((2000, 3), (8, 700))]
+    geos += [(tuple(int(v) for v in rng.integers(1, 9000, 2)),
+              tuple(int(v) for v in rng.integers(1, 1300, 2))) for _ in range(60)]
+    checked = 0
+    for in_hw, out_hw in geos:
+        for scaleup in (False, True):
+            _, new_h, new_w, _, left = TP.letterbox_geometry(*in_hw, *out_hw, scaleup)
+            if new_h == 0 or new_w == 0:
+                continue
+            x0, x1, _ = TP._taps(new_w, in_hw[1], "cpu")
+            for dtype, quantum in ((torch.float32, 4), (torch.bfloat16, 8)):
+                tile, slot, rows = TP._plan(in_hw[1], new_w, *out_hw, 4, dtype)
+                assert 1 <= tile <= TP.TILE and tile % quantum == 0 or tile < quantum
+                assert slot % 16 == 0 and slot <= TP.SLOT_LIMIT and rows in (1, 2, 4, 8)
+                for c0 in range(0, out_hw[1], tile):
+                    cl, cr = max(c0, left), min(c0 + tile, out_hw[1], left + new_w)
+                    if cl < cr:
+                        span = int(x1[cr - 1 - left] - x0[cl - left]) + 1
+                        assert span * 3 + 24 <= slot, (in_hw, out_hw, c0, span, slot)
+                        checked += 1
+    assert checked > 1000
+
+
 def _coords(rng, b, n, h, w, g=None):
     """Coordinates over in-bounds, border and out-of-bounds regions."""
     shape = (b, n) if g is None else (b, n, g)

@@ -13,12 +13,17 @@ half-pixel tap rule of `_bilinear_matrix` (preprocess.py:168).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import build, launches
 
 OUT_DTYPES = (torch.float32, torch.bfloat16)
+# the kernel's tile plan (csrc/preprocess.cu): a warp blends up to TILE output
+# pixels of a row from two source rows staged in slots of at most SLOT_LIMIT
+# bytes; a block holds WARPS warps
+TILE, SLOT_LIMIT, WARPS = 128, 1024, 8
 
 
 def letterbox_geometry(h_in: int, w_in: int, h_out: int, w_out: int, scaleup: bool = True):
@@ -46,6 +51,30 @@ def _taps(n_out: int, n_in: int, device):
     lo = torch.floor(s)
     w = (s - lo).float()
     return lo.clamp(0, n_in - 1).long(), (lo + 1).clamp(0, n_in - 1).long(), w
+
+
+def _plan(w_in, new_w, h_out, w_out, batch, out_dtype, n_sm=132):
+    """(tile, slot, rows_per_warp) of the kernel: the widest tile (at most
+    TILE output pixels) whose source span fits a slot of SLOT_LIMIT bytes,
+    kept a multiple of the pixels that fill 16 bytes of output; the slot, the
+    span's bytes + 24 (alignment and the last pixel's 3-word read) rounded
+    up to 16; and rows per warp, halved from 8 while the grid has fewer than
+    8 blocks an SM (blocks run 4 at a time on an SM; more, shorter blocks
+    even out the SMs' shares).
+
+    A tile of t output columns reads at most floor((t - 1) * W / new_w) + 3
+    source pixels of a row; one more covers float64 rounding of the taps."""
+    scale = w_in / new_w
+    span_px = (SLOT_LIMIT - 24) // 3 - 4  # the largest floor((t - 1) * scale) a slot holds
+    tile = min(TILE, int(span_px / scale) + 1)
+    quantum = 4 if out_dtype == torch.float32 else 8  # pixels of 48 bytes
+    if tile >= quantum:
+        tile -= tile % quantum
+    slot = -(-((math.floor((tile - 1) * scale) + 4) * 3 + 24) // 16) * 16
+    rows, n_tiles = 8, -(-w_out // tile)
+    while rows > 1 and batch * n_tiles * -(-h_out // (WARPS * rows)) < 8 * n_sm:
+        rows //= 2
+    return tile, slot, rows
 
 
 def _check(images_u8, out_hw, out_dtype):
@@ -82,9 +111,18 @@ def _lib():
     fn = lib.letterbox_normalize_u8
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + [ctypes.c_double] * 4
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.letterbox_shared_bytes.argtypes = [ctypes.c_int] * 3
+        lib.letterbox_shared_bytes.restype = ctypes.c_int
     return lib
+
+
+def shared_bytes(in_hw, out_hw=(640, 640), batch=1, scaleup=False, out_dtype=torch.float32):
+    """Dynamic shared bytes of a kernel block for frames of in_hw."""
+    _, _, new_w, _, _ = letterbox_geometry(*in_hw, *out_hw, scaleup)
+    tile, slot, _ = _plan(in_hw[1], new_w, *out_hw, batch, out_dtype)
+    return _lib().letterbox_shared_bytes(int(out_dtype == torch.bfloat16), tile, slot)
 
 
 def letterbox_normalize(images_u8, out_hw=(640, 640), pad_value=114, scaleup=False,
@@ -105,9 +143,11 @@ def letterbox_normalize(images_u8, out_hw=(640, 640), pad_value=114, scaleup=Fal
     out = torch.empty((b, h_out, w_out, 3), dtype=out_dtype, device=images_u8.device)
     dev = images_u8.device.index
     dev = dev if dev is not None else torch.cuda.current_device()
+    plan = _plan(w_in, new_w, h_out, w_out, b, out_dtype,
+                 torch.cuda.get_device_properties(dev).multi_processor_count)
     err = _lib().letterbox_normalize_u8(
         images_u8.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16), b, h_in, w_in,
-        h_out, w_out, new_h, new_w, top, left, sy, oy, sx, ox, float(pad_value), dev,
+        h_out, w_out, new_h, new_w, top, left, sy, oy, sx, ox, float(pad_value), *plan, dev,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "letterbox_normalize")
     launches["letterbox_normalize"] += 1
