@@ -58,7 +58,32 @@ Phases, each printing one JSON line:
               a Detect conv; YOLOv13: the 8 attn.qkv convs, whose gradient
               comes only through K3's backward and pe, m0 and a Detect conv);
               BatchNorm running statistics within 1e-4.
-Then the kernel table line ({"kernels": [...]}), the card's name and power limit
+The bfloat16 policy (DetectionModel(..., dtype=torch.bfloat16): float32
+parameters, bfloat16 compute), beside each float32 phase:
+ 14. k2_bf16, k2_backward_bf16, k3_bf16, k3_backward_bf16 - phases 3-6 for
+              the bfloat16 kernels (bfloat16 in and out, float32 inside), with
+              the same inputs rounded to bfloat16, against the bfloat16 plain
+              versions (float32 on the upcast inputs, rounded once): within
+              one bfloat16 step of the result plus 1e-6 of the terms' scale;
+              the library yardsticks in bfloat16;
+ 15. main_bf16, profile_bf16, main_v13_bf16, profile_v13_bf16 - the requests
+              of main with a bfloat16 model: K1 writes bfloat16, and the K2 or
+              K3 bfloat16 kernels run, no float32 kernel;
+ 16. train_bf16, train_profile_bf16, train_v13_bf16, train_profile_v13_bf16 -
+              as train, with bfloat16 models (float32 loss, optimizer, EMA);
+ 17. parity_bf16, parity_v13_bf16 - the card's bfloat16 decode against the
+              CPU's float32 one at the same weights and frames, within
+              check_amp's bars (yolo_dbl_tpu/utils/checks.py:43-45: boxes 0.02
+              of imgsz, scores 0.05); card bfloat16 against CPU bfloat16 printed
+              beside the CPU's own bfloat16-against-float32 spread;
+ 18. train_parity_bf16, train_parity_v13_bf16 - one train-mode backward at 256
+              px of bfloat16 models on the CPU and the card: loss items and
+              the leaves K2 or K3 feed against the CPU's float64, within 4x the
+              CPU bfloat16's own distance from it.
+Then a line counting the profiler traces the kernel times took again ("timing"),
+the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
+whether a time is the profiler's device time or, where three traces lost
+kernel events, CUDA-event time), the card's name and power limit
 from nvidia-smi, and last {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero before the result lines; without CUDA it exits 2.
 """
@@ -77,6 +102,7 @@ import torch.nn.functional as F
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TF32_PASSES = 3  # 3xTF32: float32-accurate products on the tensor cores
 TOL = 1e-5
 B, SRC_HW, IMGSZ, NC = 8, (512, 768), 640, 3
@@ -92,14 +118,25 @@ K3_SITES = {"row6": (4, 400, 4), "row8": (1, 400, 8)}
 K3_CALLS_PER_SITE = 4
 HD = 32
 # kernel launches per request (serving) and per step (training) on each path
-NO_LAUNCH = {"letterbox_normalize": 0, "sample_bilinear": 0, "sample_bilinear_backward": 0,
-             "area_attention": 0, "area_attention_backward_dq": 0,
-             "area_attention_backward_dkv": 0}
-PER_REQUEST = {DBL: {**NO_LAUNCH, "letterbox_normalize": 1, "sample_bilinear": 3},
-               V13: {**NO_LAUNCH, "letterbox_normalize": 1, "area_attention": 8}}
-PER_STEP = {DBL: {**NO_LAUNCH, "sample_bilinear": 3, "sample_bilinear_backward": 3},
-            V13: {**NO_LAUNCH, "area_attention": 8, "area_attention_backward_dq": 8,
-                  "area_attention_backward_dkv": 8}}
+BF16 = torch.bfloat16
+KERNELS = ("letterbox_normalize", "sample_bilinear", "sample_bilinear_backward",
+           "area_attention", "area_attention_backward_dq", "area_attention_backward_dkv")
+NO_LAUNCH = {name + suffix: 0 for suffix in ("", "_bf16") for name in KERNELS}
+
+
+def _launches(counts, dtype):
+    """Launch counts of the kernels of `dtype` ({name: n}), every other 0."""
+    suffix = "_bf16" if dtype == BF16 else ""
+    return {**NO_LAUNCH, **{name + suffix: n for name, n in counts.items()}}
+
+
+PER_REQUEST = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
+    (DBL, {"letterbox_normalize": 1, "sample_bilinear": 3}),
+    (V13, {"letterbox_normalize": 1, "area_attention": 8}))}
+PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
+    (DBL, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
+    (V13, {"area_attention": 8, "area_attention_backward_dq": 8,
+           "area_attention_backward_dkv": 8}))}
 
 
 def emit(obj):
@@ -112,19 +149,49 @@ def require(ok, what):
 
 
 def _device_events(prof):
+    """The device's kernel, copy and fill events of a trace: not the
+    annotations that span a profiler step (`ProfilerStep*`), whose device
+    time is the whole step's."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("ProfilerStep")]
+
+
+def _trace(fn, calls):
+    """The device events of fn(0), ..., fn(calls - 1), traced by
+    torch.profiler. Tracing starts one warm-up call before the recorded ones
+    (the profiler's schedule), so no recorded call runs while the profiler
+    sets itself up."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn(0)
+        torch.cuda.synchronize()
+        prof.step()
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+        prof.step()
+    return _device_events(prof)
+
+
+# traces timings took, those it took again, and the times it gave from CUDA events
+TRACES = {"traces": 0, "retaken": 0, "cuda_event_times": 0}
 
 
 def timings(fn, iters, warmup=3, only=None):
-    """(device_ms, call_ms) per call of fn(i). device_ms sums the device time
-    of the kernels a call runs (torch.profiler), or of those whose name holds
-    `only`, so host launch overhead does not count; call_ms is CUDA-event time
-    over back-to-back calls, which does include it when the host is slower
-    than the card."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """(device_ms, call_ms, source) per call of fn(i). device_ms sums the
+    device time of the kernels a call runs (torch.profiler), or of those
+    whose name holds `only`, so host launch overhead does not count;
+    call_ms is CUDA-event time over back-to-back calls, which does include
+    it when the host is slower than the card. Every call launches the same
+    kernels, so a trace that kept them all holds a nonzero multiple of
+    `iters` kernel events; one that did not is taken again, and after three
+    such traces device_ms is call_ms and `source` says "cuda_event" (else
+    "profiler")."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -135,31 +202,88 @@ def timings(fn, iters, warmup=3, only=None):
     end.record()
     end.synchronize()
     call_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in _device_events(prof)
-                    if only is None or only in e.key)
-    if device_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return device_us / 1e3 / iters, call_ms
+    for attempt in range(3):
+        TRACES["traces"] += 1
+        TRACES["retaken"] += attempt > 0
+        events = [e for e in _trace(fn, iters) if only is None or only in e.key]
+        n_events = sum(e.count for e in events)
+        device_us = sum(e.self_device_time_total for e in events)
+        if n_events and n_events % iters == 0 and device_us > 0:
+            return device_us / 1e3 / iters, call_ms, "profiler"
+        print(f"chip_smoke: a trace of {iters} calls held {n_events} kernel events: "
+              f"{[(e.key[:60], e.count) for e in events if e.count % iters][:6]}",
+              file=sys.stderr)
+    TRACES["cuda_event_times"] += 1
+    print("chip_smoke: torch.profiler lost kernel events in three traces; CUDA-event time "
+          "used", file=sys.stderr)
+    return call_ms, call_ms, "cuda_event"
 
 
-def bound(n_bytes, n_flops, peak_flops=PEAK_FP32_FLOPS):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
+def source_of(*sources):
+    """One source for a time summed from timings of these sources."""
+    return "profiler" if set(sources) == {"profiler"} else "cuda_event"
+
+
+def _larger(t_bytes, t_ops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound_fp32_products(n_bytes, n_flops):
-    """(bound_ms, bound_by, bound_simt_ms) of work that is float32-accurate
-    matrix products: the faster route of the CUDA cores (fp32 FMAs) and the
-    tensor cores (3 TF32 passes at the TF32 rate); bound_simt_ms is the CUDA
-    cores' alone."""
-    simt = bound(n_bytes, n_flops)
-    tensor_cores = bound(n_bytes, TF32_PASSES * n_flops, PEAK_TF32_FLOPS)
-    best = min(simt, tensor_cores)
+def bound(n_bytes, n_flops, peak_flops=PEAK_FP32_FLOPS):
+    return _larger(n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops)
+
+
+def bound_products(dtype, n_bytes, input_flops, mixed_flops):
+    """(bound_ms, bound_by, bound_simt_ms) of area attention's matrix
+    products at float32 accuracy: `input_flops` are products of two inputs
+    (q kT, dO vT), `mixed_flops` products of a float32 intermediate (P, dS)
+    and an input. The faster of two routes: the CUDA cores (fp32 FMAs,
+    bound_simt_ms) and the tensor cores. There float32 inputs take 3 TF32
+    passes a product (3xTF32). bfloat16 inputs are exact in TF32, and the
+    product of two is exact in float32: one bfloat16 pass; a float32
+    intermediate times a bfloat16 input takes 2 TF32 passes (A_big B +
+    A_small B: B's small part is 0)."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    if dtype == BF16:
+        t_ops = input_flops / PEAK_BF16_FLOPS + 2 * mixed_flops / PEAK_TF32_FLOPS
+    else:
+        t_ops = TF32_PASSES * (input_flops + mixed_flops) / PEAK_TF32_FLOPS
+    simt = bound(n_bytes, input_flops + mixed_flops)
+    best = min(simt, _larger(t_bytes, t_ops))
     return best[0], best[1], simt[0]
+
+
+def bf16_excess(got, want, scale):
+    """(max |got - want|, the largest excess over one bfloat16 step of `want`
+    plus 1e-6 of `scale`: <= 0 passes). Both are float32 results of the same
+    sums in other orders, each rounded once to bfloat16; near 0 the rounding
+    of the float32 sums' last bits shows, hence the floor."""
+    require(got.dtype == want.dtype == BF16, f"expected bfloat16, got {got.dtype}, {want.dtype}")
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+    d = (g - w).abs()
+    return float(d.max()), float((d - ulp - 1e-6 * scale).max())
+
+
+def meets_bar(got, want, f32_bar, scale):
+    """Whether a kernel's result meets its bar against the plain version's:
+    float32 within `f32_bar`; bfloat16 within one bfloat16 step of `want`
+    plus 1e-6 of `scale` (bf16_excess)."""
+    if got.dtype == BF16:
+        return bf16_excess(got, want, scale)[1] <= 0
+    return float((got - want).abs().max()) <= f32_bar
+
+
+def max_abs(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def _kphase(base, dtype):
+    """The name of kernel phase `base` for a type: `k2`, `k2_bf16`, ..."""
+    return base + ("_bf16" if dtype == BF16 else "")
+
+
+BF16_BAR = "one bfloat16 step + 1e-6 of the terms' scale"
 
 
 def copies_for(n_bytes):
@@ -204,74 +328,105 @@ def phase_k1(gen):
 
     lib_err = float((library(frames[0]).permute(0, 2, 3, 1) - out).abs().max())
     n = len(frames)
-    ms, call_ms = timings(lambda i: letterbox_normalize(frames[i % n], (IMGSZ, IMGSZ)), 50)
-    ms_bf16, call_ms_bf16 = timings(lambda i: letterbox_normalize(
+    ms, call_ms, s1 = timings(lambda i: letterbox_normalize(frames[i % n], (IMGSZ, IMGSZ)), 50)
+    ms_bf16, call_ms_bf16, s1_bf16 = timings(lambda i: letterbox_normalize(
         frames[i % n], (IMGSZ, IMGSZ), out_dtype=torch.bfloat16), 50)
-    plain_ms, plain_call_ms = timings(
+    plain_ms, plain_call_ms, s2 = timings(
         lambda i: letterbox_normalize_plain(frames[i % n], (IMGSZ, IMGSZ)), 10)
-    library_ms, library_call_ms = timings(lambda i: library(frames[i % n]), 20)
+    plain_ms_bf16, _, s2_bf16 = timings(lambda i: letterbox_normalize_plain(
+        frames[i % n], (IMGSZ, IMGSZ), out_dtype=torch.bfloat16), 10)
+    library_ms, library_call_ms, s3 = timings(lambda i: library(frames[i % n]), 20)
+    library_ms_bf16, _, s3_bf16 = timings(lambda i: library(frames[i % n]).to(torch.bfloat16), 20)
     n_in, n_out = B * SRC_HW[0] * SRC_HW[1] * 3, B * IMGSZ * IMGSZ * 3
     # per output value: 2 row blends + 1 column blend (3 ops each) and the /255
     bound_ms, bound_by = bound(n_in + n_out * 4, B * new_h * new_w * 3 * 10)
-    bound_ms_bf16, _ = bound(n_in + n_out * 2, B * new_h * new_w * 3 * 10)
-    row = dict(name="letterbox_normalize", route="cuda",
-               source="yolo_dbl_tpu_torch/csrc/preprocess.cu",
-               replaces="yolo_dbl_tpu/kernels/preprocess.py:144", max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-               ms_bf16=ms_bf16, bound_ms_bf16=bound_ms_bf16)
+    bound_ms_bf16, bound_by_bf16 = bound(n_in + n_out * 2, B * new_h * new_w * 3 * 10)
+    common = dict(route="cuda", source="yolo_dbl_tpu_torch/csrc/preprocess.cu",
+                  replaces="yolo_dbl_tpu/kernels/preprocess.py:144")
+    row = dict(name="letterbox_normalize", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               time_sources=_time_sources([(s1, s2, s3)]), **common)
+    row_bf16 = dict(name="letterbox_normalize_bf16", max_abs_err=err_bf16, ms=ms_bf16,
+                    plain_ms=plain_ms_bf16, bound_ms=bound_ms_bf16, bound_by=bound_by_bf16,
+                    library_ms=library_ms_bf16,
+                    time_sources=_time_sources([(s1_bf16, s2_bf16, s3_bf16)]), **common)
     emit({"phase": "k1", "shape": [B, *SRC_HW, 3], "out": [B, IMGSZ, IMGSZ, 3],
           "max_abs_err_f32": err, "max_abs_err_bf16": err_bf16, "library_vs_kernel": lib_err,
           "odd_geometry": {"batch": ob, "frame": list(o_in), "canvas": list(o_out),
                            "max_abs_err": odd_err},
           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-          "ms_bf16": ms_bf16, "bound_ms_bf16": bound_ms_bf16,
+          "ms_bf16": ms_bf16, "bound_ms_bf16": bound_ms_bf16, "plain_ms_bf16": plain_ms_bf16,
+          "library_ms_bf16": library_ms_bf16,
           "call_ms": call_ms, "call_ms_bf16": call_ms_bf16, "plain_call_ms": plain_call_ms,
           "library_call_ms": library_call_ms})
-    return row
+    return row, row_bf16
 
 
-def _site_coords(gen, h, w, s=2, b=B):
-    """DySample-like pixel coordinates (B, N, G): each output point near its
-    source position with offsets of about a pixel, so edges clip."""
+def _site_coords(gen, h, w, s=2, b=B, dtype=torch.float32):
+    """DySample-like pixel coordinates (B, N, G) in `dtype`: each output point
+    near its source position with offsets of about a pixel, so edges clip."""
     oy = (torch.arange(h * s, dtype=torch.float32) + 0.5) / s - 0.5
     ox = (torch.arange(w * s, dtype=torch.float32) + 0.5) / s - 0.5
     gy, gx = torch.meshgrid(oy, ox, indexing="ij")
     shape = (b, h * s * w * s, GROUPS)
     gy = gy.reshape(1, -1, 1) + torch.randn(shape, generator=gen) * 0.75
     gx = gx.reshape(1, -1, 1) + torch.randn(shape, generator=gen) * 0.75
-    return gy.cuda().contiguous(), gx.cuda().contiguous()
+    return gy.cuda().to(dtype).contiguous(), gx.cuda().to(dtype).contiguous()
+
+
+def _site_inputs(gen, b, h, w, c, dtype, n_bytes):
+    """Copies of a site's x (B, H, W, C) in `dtype`, to rotate through so a
+    timed loop reads past L2 (`n_bytes` a copy, with what is read beside it)."""
+    return [torch.randn((b, h, w, c), generator=gen).cuda().to(dtype)
+            for _ in range(copies_for(n_bytes))]
+
+
+def _uniform_coords(gen, gy, h, w, dtype):
+    """Coordinates drawn uniformly over the image and a pixel past its edges."""
+    uy = (torch.rand(gy.shape, generator=gen) * (h + 2) - 1.5).cuda().to(dtype)
+    ux = (torch.rand(gy.shape, generator=gen) * (w + 2) - 1.5).cuda().to(dtype)
+    return uy, ux
 
 
 def _library_layout(xs, gy, gx):
     """The library yardstick's layout: F.grid_sample over (B*G, C/G, H, W)
-    planes of each NHWC x, with one normalized grid per group."""
+    planes of each NHWC x, with one normalized grid per group, in x's type
+    (formed in float32)."""
     b, h, w, c = xs[0].shape
     cg = c // GROUPS
     planes = [x.reshape(b, h, w, GROUPS, cg).permute(0, 3, 4, 1, 2).reshape(b * GROUPS, cg, h, w)
               .contiguous() for x in xs]
+    gy, gx = gy.float(), gx.float()
     grid = torch.stack([(gx + 0.5) * 2 / w - 1, (gy + 0.5) * 2 / h - 1], -1)
-    grid = grid.permute(0, 2, 1, 3).reshape(b * GROUPS, 2 * h, 2 * w, 2).contiguous()
-    return planes, grid
+    grid = grid.permute(0, 2, 1, 3).reshape(b * GROUPS, 2 * h, 2 * w, 2).to(xs[0].dtype)
+    return planes, grid.contiguous()
 
 
-def phase_k2(gen):
+def _by(rows, key="bound_by"):
+    return "bytes" if {r[key] for r in rows} == {"bytes"} else "operations"
+
+
+def phase_k2(gen, dtype=torch.float32):
+    """The sampler's forward kernel of `dtype` against its plain version at
+    the three sites at serving batch 8, both padding modes, DySample and
+    uniform coordinates; F.grid_sample in `dtype` as the yardstick."""
     from yolo_dbl_tpu_torch.kernels.sampling import sample_bilinear, sample_bilinear_plain
 
-    sites, worst = {}, 0.0
+    es, sites, worst, src = dtype.itemsize, {}, 0.0, []
     for site, (h, w, c) in DYSAMPLE_SITES.items():
         n_x = B * h * w * c
-        xs = [torch.randn((B, h, w, c), generator=gen).cuda() for _ in range(copies_for(n_x * 4))]
-        gy, gx = _site_coords(gen, h, w)
-        uy = (torch.rand(gy.shape, generator=gen) * (h + 2) - 1.5).cuda()
-        ux = (torch.rand(gx.shape, generator=gen) * (w + 2) - 1.5).cuda()
-        errs = {}
+        xs = _site_inputs(gen, B, h, w, c, dtype, n_x * es)
+        gy, gx = _site_coords(gen, h, w, dtype=dtype)
+        uy, ux = _uniform_coords(gen, gy, h, w, dtype)
+        x_max, errs, ok = float(xs[0].abs().max()), {}, True
         for mode in ("border", "zeros"):
             for name, (cy, cx) in {"dysample": (gy, gx), "uniform": (uy, ux)}.items():
-                d = sample_bilinear(xs[0], cy, cx, mode) - sample_bilinear_plain(xs[0], cy, cx, mode)
-                errs[f"{mode}/{name}"] = float(d.abs().max())
-        err = max(errs.values())
-        require(err <= TOL, f"sampler kernel vs plain at {site}: {errs}")
-        worst = max(worst, err)
+                got = sample_bilinear(xs[0], cy, cx, mode)
+                want = sample_bilinear_plain(xs[0], cy, cx, mode)
+                errs[f"{mode}/{name}"] = max_abs(got, want)
+                ok = ok and meets_bar(got, want, TOL, x_max)
+        require(ok, f"sampler kernel vs plain at {site} ({dtype}): {errs}")
+        worst = max(worst, max(errs.values()))
 
         cg, n = c // GROUPS, gy.shape[1]
         planes, grid = _library_layout(xs, gy, gx)
@@ -281,115 +436,143 @@ def phase_k2(gen):
                                  align_corners=False)
 
         lib = library(planes[0]).reshape(B, GROUPS, cg, n).permute(0, 3, 1, 2).reshape(B, n, c)
-        lib_err = float((lib - sample_bilinear(xs[0], gy, gx)).abs().max())
+        lib_err = max_abs(lib, sample_bilinear(xs[0], gy, gx))
         k = len(xs)
-        ms, call_ms = timings(lambda i: sample_bilinear(xs[i % k], gy, gx), 50)
-        plain_ms, plain_call_ms = timings(lambda i: sample_bilinear_plain(xs[i % k], gy, gx), 10)
-        library_ms, library_call_ms = timings(lambda i: library(planes[i % k]), 50)
-        n_bytes = (n_x + B * n * c + 2 * B * n * GROUPS) * 4
+        ms, call_ms, s1 = timings(lambda i: sample_bilinear(xs[i % k], gy, gx), 50)
+        plain_ms, plain_call_ms, s2 = timings(lambda i: sample_bilinear_plain(xs[i % k], gy, gx),
+                                              10)
+        library_ms, library_call_ms, s3 = timings(lambda i: library(planes[i % k]), 50)
+        src.append((s1, s2, s3))
+        # x read, out written, the coordinates read
+        n_bytes = (n_x + B * n * c + 2 * B * n * GROUPS) * es
         bound_ms, bound_by = bound(n_bytes, B * n * c * 11)
         sites[site] = dict(x=[B, h, w, c], n=n, groups=GROUPS, max_abs_err=errs,
                            library_vs_kernel=lib_err, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                            call_ms=call_ms, plain_call_ms=plain_call_ms,
                            library_call_ms=library_call_ms)
-    emit({"phase": "k2", "sites": sites})
+    emit({"phase": _kphase("k2", dtype), "sites": sites,
+          **({"tolerance": BF16_BAR} if dtype == BF16 else {})})
     total = {key: sum(s[key] for s in sites.values())
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by = {s["bound_by"] for s in sites.values()}
-    return dict(name="sample_bilinear", route="cuda", source="yolo_dbl_tpu_torch/csrc/sampling.cu",
+    return dict(name=_kphase("sample_bilinear", dtype), route="cuda",
+                source="yolo_dbl_tpu_torch/csrc/sampling.cu",
                 replaces="yolo_dbl_tpu/kernels/sampling.py:102", max_abs_err=worst,
-                bound_by="bytes" if by == {"bytes"} else "operations", **total)
+                bound_by=_by(sites.values()), time_sources=_time_sources(src), **total)
 
 
-def phase_k2_backward(gen):
-    """The sampler's backward kernel at the three sites at training batch 16,
-    and its forward kernel at the same shapes (the train step runs both).
-    Returns the backward's kernel row and the forward's worst error here."""
+def _time_sources(src, keys=("ms", "plain_ms", "library_ms")):
+    """{row time: its source} from the sites' (source, ...) tuples."""
+    return {key: source_of(*col) for key, col in zip(keys, zip(*src))}
+
+
+def phase_k2_backward(gen, dtype=torch.float32):
+    """The sampler's backward kernel of `dtype` at the three sites at
+    training batch 16, and its forward kernel at the same shapes (the train
+    step runs both), against their plain versions. Returns the backward's
+    kernel row and the forward's worst error here."""
     from yolo_dbl_tpu_torch.kernels.sampling import (backward_window_misses, sample_bilinear,
                                                      sample_bilinear_backward,
                                                      sample_bilinear_backward_plain,
                                                      sample_bilinear_plain)
 
-    b, sites, worst = TRAIN_B, {}, {"dx": 0.0, "dgy_rel": 0.0, "dgx_rel": 0.0}
-    worst_fwd = 0.0
+    b, es, sites, src = TRAIN_B, dtype.itemsize, {}, []
+    worst, worst_fwd = {"dx": 0.0, "dgy_rel": 0.0, "dgx_rel": 0.0}, 0.0
     for site, (h, w, c) in DYSAMPLE_SITES.items():
-        n_x, n = b * h * w * c, 4 * h * w
-        k = copies_for((n_x + b * n * c) * 4)
-        xs = [torch.randn((b, h, w, c), generator=gen).cuda() for _ in range(k)]
-        gs = [torch.randn((b, n, c), generator=gen).cuda() for _ in range(k)]
-        gy, gx = _site_coords(gen, h, w, b=b)
-        uy = (torch.rand(gy.shape, generator=gen) * (h + 2) - 1.5).cuda()
-        ux = (torch.rand(gx.shape, generator=gen) * (w + 2) - 1.5).cuda()
-        errs, fwd_errs, missed = {}, {}, {}
+        n_x, n, cg = b * h * w * c, 4 * h * w, c // GROUPS
+        xs = _site_inputs(gen, b, h, w, c, dtype, (n_x + b * n * c) * es)
+        k = len(xs)
+        gs = [torch.randn((b, n, c), generator=gen).cuda().to(dtype) for _ in range(k)]
+        gy, gx = _site_coords(gen, h, w, b=b, dtype=dtype)
+        uy, ux = _uniform_coords(gen, gy, h, w, dtype)
+        x_max, g_max = float(xs[0].abs().max()), float(gs[0].abs().max())
+        errs, fwd_errs, missed, ok = {}, {}, {}, True
         for mode in ("border", "zeros"):
             for name, (cy, cx) in {"dysample": (gy, gx), "uniform": (uy, ux)}.items():
-                d = sample_bilinear(xs[0], cy, cx, mode) - sample_bilinear_plain(xs[0], cy, cx, mode)
-                fwd_errs[f"{mode}/{name}"] = float(d.abs().max())
-                taps, miss = backward_window_misses(xs[0], cy, cx, gs[0], mode)
-                missed[f"{mode}/{name}"] = miss / taps
-                dx, dgy, dgx = sample_bilinear_backward(xs[0], cy, cx, gs[0], mode)
-                rx, ry, rxx = sample_bilinear_backward_plain(xs[0], cy, cx, gs[0], mode)
-                e = {"dx": float((dx - rx).abs().max()),
-                     "dgy_rel": float((dgy - ry).abs().max() / ry.abs().max()),
-                     "dgx_rel": float((dgx - rxx).abs().max() / rxx.abs().max())}
-                errs[f"{mode}/{name}"] = e
+                case = f"{mode}/{name}"
+                got = sample_bilinear(xs[0], cy, cx, mode)
+                want = sample_bilinear_plain(xs[0], cy, cx, mode)
+                fwd_errs[case] = max_abs(got, want)
+                require(meets_bar(got, want, TOL, x_max),
+                        f"sampler kernel vs plain at {site}, batch {b} ({dtype}): {case} "
+                        f"{fwd_errs[case]}")
+                # the window is the coordinates' (the kernels form taps in
+                # float32 from either type): read on the counted float32 build
+                taps, miss = backward_window_misses(*(t.float() for t in (xs[0], cy, cx, gs[0])),
+                                                    mode)
+                missed[case] = miss / taps
+                got = sample_bilinear_backward(xs[0], cy, cx, gs[0], mode)
+                want = sample_bilinear_backward_plain(xs[0], cy, cx, gs[0], mode)
+                e = {"dx": max_abs(got[0], want[0])}
+                e.update({f"{nm}_rel": max_abs(a, r) / float(r.float().abs().max())
+                          for nm, a, r in zip(("dgy", "dgx"), got[1:], want[1:])})
+                errs[case] = e
                 worst = {key: max(worst[key], e[key]) for key in worst}
-        bad = {key: e for key, e in errs.items()
-               if e["dx"] > 1e-4 or e["dgy_rel"] > 1e-4 or e["dgx_rel"] > 1e-4}
-        require(not bad, f"sampler backward kernel vs plain at {site}: {bad}")
-        require(max(fwd_errs.values()) <= TOL,
-                f"sampler kernel vs plain at {site}, batch {b}: {fwd_errs}")
+                ok = ok and meets_bar(got[0], want[0], 1e-4, 4 * g_max) and all(
+                    meets_bar(a, r, 1e-4 * float(r.abs().max()), cg * g_max * x_max)
+                    for a, r in zip(got[1:], want[1:]))
+        require(ok, f"sampler backward kernel vs plain at {site} ({dtype}): {errs}")
         worst_fwd = max(worst_fwd, max(fwd_errs.values()))
 
         planes, grid = _library_layout(xs, gy, gx)
         planes = [p.requires_grad_() for p in planes]
         grid.requires_grad_()
-        g_planes = [g.reshape(b, 2 * h, 2 * w, GROUPS, c // GROUPS).permute(0, 3, 4, 1, 2)
-                    .reshape(b * GROUPS, c // GROUPS, 2 * h, 2 * w).contiguous() for g in gs]
+        g_planes = [g.reshape(b, 2 * h, 2 * w, GROUPS, cg).permute(0, 3, 4, 1, 2)
+                    .reshape(b * GROUPS, cg, 2 * h, 2 * w).contiguous() for g in gs]
 
         def library(i):
             out = F.grid_sample(planes[i % k], grid, mode="bilinear", padding_mode="border",
                                 align_corners=False)
             return torch.autograd.grad(out, (planes[i % k], grid), g_planes[i % k])
 
-        ms, call_ms = timings(lambda i: sample_bilinear_backward(xs[i % k], gy, gx, gs[i % k]), 30)
-        plain_ms, plain_call_ms = timings(
+        ms, call_ms, s1 = timings(lambda i: sample_bilinear_backward(xs[i % k], gy, gx, gs[i % k]),
+                                  30)
+        plain_ms, plain_call_ms, s2 = timings(
             lambda i: sample_bilinear_backward_plain(xs[i % k], gy, gx, gs[i % k]), 5)
-        library_ms, _ = timings(library, 20, only="grid_sampler_2d_backward")
-        # the zero fill of dx that the window sums and missed taps are added
-        # into; it is part of `ms`
-        zero_fill_ms, _ = timings(lambda i: torch.zeros_like(xs[i % k]), 30)
+        library_ms, _, s3 = timings(library, 20, only="grid_sampler_2d_backward")
+        # the zero fill of the float32 sums that the window sums and missed
+        # taps are added into (dx itself for float32); it is part of `ms`
+        zero_fill_ms, _, s4 = timings(lambda i: torch.zeros(xs[i % k].shape, device="cuda"), 30)
+        src.append((s1, s2, s3, s4))
         # the function's own I/O: x and g read, dx written, coordinates read
-        # and their gradients written (the zero fill is this design's cost)
-        n_bytes = (n_x + b * n * c + n_x + 4 * b * n * GROUPS) * 4
-        bound_ms, bound_by = bound(n_bytes, b * n * c * 24)
+        # and their gradients written; bfloat16 adds its float32 sums (the
+        # zero fill writes them, the rounding pass reads them), float32's
+        # zero fill is this design's cost
+        n_bytes = (n_x + b * n * c + n_x + 4 * b * n * GROUPS) * es
+        scratch = 8 * n_x if dtype == BF16 else 0
+        bound_ms, bound_by = bound(n_bytes + scratch, b * n * c * 24)
         sites[site] = dict(x=[b, h, w, c], n=n, groups=GROUPS, errors=errs,
                            forward_errors=fwd_errs, window_missed_share=missed, ms=ms,
                            zero_fill_ms=zero_fill_ms,
                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, bytes=n_bytes, call_ms=call_ms,
+                           bound_by=bound_by, bytes=n_bytes + scratch, call_ms=call_ms,
                            plain_call_ms=plain_call_ms)
-    emit({"phase": "k2_backward", "batch": b, "tolerance": {"dx": 1e-4, "dg_rel": 1e-4,
-                                                            "forward": TOL},
+        if scratch:
+            sites[site]["bound_ms_without_scratch"] = bound(n_bytes, b * n * c * 24)[0]
+    tolerance = BF16_BAR if dtype == BF16 else {"dx": 1e-4, "dg_rel": 1e-4, "forward": TOL}
+    emit({"phase": _kphase("k2_backward", dtype), "batch": b, "tolerance": tolerance,
           "forward_max_abs_err": worst_fwd, "sites": sites})
-    total = {key: sum(st[key] for st in sites.values())
-             for key in ("ms", "zero_fill_ms", "plain_ms", "library_ms", "bound_ms")}
-    by = {st["bound_by"] for st in sites.values()}
-    return dict(name="sample_bilinear_backward", route="cuda",
+    keys = ("ms", "zero_fill_ms", "plain_ms", "library_ms", "bound_ms")
+    if dtype == BF16:
+        keys += ("bound_ms_without_scratch",)
+    total = {key: sum(st[key] for st in sites.values()) for key in keys}
+    return dict(name=_kphase("sample_bilinear_backward", dtype), route="cuda",
                 source="yolo_dbl_tpu_torch/csrc/sampling.cu",
                 replaces="yolo_dbl_tpu/kernels/sampling.py:142", max_abs_err=worst["dx"],
                 max_rel_err_dgy_dgx=max(worst["dgy_rel"], worst["dgx_rel"]),
-                bound_by="bytes" if by == {"bytes"} else "operations", **total), worst_fwd
+                bound_by=_by(sites.values()),
+                time_sources=_time_sources(src, ("ms", "plain_ms", "library_ms", "zero_fill_ms")),
+                **total), worst_fwd
 
 
-def _k3_inputs(gen, b, site):
+def _k3_inputs(gen, b, site, dtype=torch.float32):
     """Copies (to rotate past L2) of AAttn's packed (BB, N, H, 3 x 32) qkv
-    tensor at one site, as (q, k, v) views, and the shape (BB, N, H)."""
+    tensor in `dtype` at one site, as (q, k, v) views, and the shape
+    (BB, N, H)."""
     areas, n, h = K3_SITES[site]
     bb = b * areas
-    k = copies_for(bb * n * h * 3 * HD * 4)
-    packs = [torch.randn((bb, n, h, 3 * HD), generator=gen).cuda() for _ in range(k)]
+    k = copies_for(bb * n * h * 3 * HD * dtype.itemsize)
+    packs = [torch.randn((bb, n, h, 3 * HD), generator=gen).cuda().to(dtype) for _ in range(k)]
     return [p.split(HD, -1) for p in packs], (bb, n, h)
 
 
@@ -398,87 +581,105 @@ def _sdpa_layout(qkvs):
     return [tuple(t.transpose(1, 2).contiguous() for t in qkv) for qkv in qkvs]
 
 
-def phase_k3(gen):
-    """The forward kernel at the two YOLOv13-s A2C2f sites at serving batch 8.
-    Times are per call; the row sums the 8 calls of a request."""
+K3_REPLACES = "yolo_dbl_tpu/nn/blocks.py:883 -> jax 0.9.0 pallas/ops/tpu/flash_attention.py:"
+
+
+def phase_k3(gen, dtype=torch.float32):
+    """The forward kernel of `dtype` at the two YOLOv13-s A2C2f sites at
+    serving batch 8, on the packed qkv views AAttn passes. Times are per
+    call; the row sums the 8 calls of a request."""
     from yolo_dbl_tpu_torch.kernels.attention import (area_attention_forward,
                                                       area_attention_lse_plain,
                                                       area_attention_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's einsums in full fp32
-    sites, worst = {}, 0.0
+    es, sites, worst, src = dtype.itemsize, {}, 0.0, []
     for site in K3_SITES:
-        qkvs, (bb, n, h) = _k3_inputs(gen, B, site)
+        qkvs, (bb, n, h) = _k3_inputs(gen, B, site, dtype)
         o, lse = area_attention_forward(*qkvs[0])
         plain, plain_lse = area_attention_plain(*qkvs[0]), area_attention_lse_plain(*qkvs[0][:2])
-        err = float((o - plain).abs().max())
-        lse_err = float((lse - plain_lse).abs().max())
-        require(err <= TOL and lse_err <= TOL,
-                f"area attention kernel vs plain at {site}: out {err}, lse {lse_err} (> {TOL})")
+        err, lse_err = max_abs(o, plain), max_abs(lse, plain_lse)
+        require(meets_bar(o, plain, TOL, float(qkvs[0][2].abs().max())) and lse_err <= TOL,
+                f"area attention kernel vs plain at {site} ({dtype}): out {err}, lse {lse_err}")
         worst = max(worst, err)
-        # both float32 sides against float64 (read, not gated)
+        # both sides against float64 (read, not gated)
         qkv64 = [t.double() for t in qkvs[0]]
         o64, lse64 = area_attention_plain(*qkv64), area_attention_lse_plain(*qkv64[:2])
         vs64 = {name: [float((a.double() - r).abs().max()) for a in pair]
                 for name, pair, r in (("o", (o, plain), o64), ("lse", (lse, plain_lse), lse64))}
         lib = _sdpa_layout(qkvs)
-        lib_err = float((F.scaled_dot_product_attention(*lib[0]).transpose(1, 2) - o).abs().max())
+        lib_err = max_abs(F.scaled_dot_product_attention(*lib[0]).transpose(1, 2), o)
         k = len(qkvs)
-        ms, call_ms = timings(lambda i: area_attention_forward(*qkvs[i % k]), 50)
-        plain_ms, plain_call_ms = timings(lambda i: area_attention_plain(*qkvs[i % k]), 10)
-        library_ms, library_call_ms = timings(lambda i: F.scaled_dot_product_attention(*lib[i % k]),
-                                              50)
-        tokens = bb * n * h * HD
-        # q, k, v read, o and lse written; q kT and P v: 4 N^2 hd per sequence-head
-        bound_ms, bound_by, bound_simt_ms = bound_fp32_products((4 * tokens + bb * h * n) * 4,
-                                                                bb * h * 4 * n * n * HD)
+        ms, call_ms, s1 = timings(lambda i: area_attention_forward(*qkvs[i % k]), 50)
+        plain_ms, plain_call_ms, s2 = timings(lambda i: area_attention_plain(*qkvs[i % k]), 10)
+        library_ms, library_call_ms, s3 = timings(
+            lambda i: F.scaled_dot_product_attention(*lib[i % k]), 50)
+        src.append((s1, s2, s3))
+        tokens, rows = bb * n * h * HD, bb * h * n
+        # q, k, v read, o written, lse (float32) written; the products q kT
+        # (two inputs) and P v (P float32), 2 N^2 hd each per sequence-head
+        product = bb * h * 2 * n * n * HD
+        bound_ms, bound_by, bound_simt_ms = bound_products(dtype, 4 * tokens * es + rows * 4,
+                                                           product, product)
         sites[site] = dict(qkv=[bb, n, h, HD], calls_per_request=K3_CALLS_PER_SITE,
                            max_abs_err=err, lse_max_abs_err=lse_err,
                            kernel_and_plain_max_abs_vs_float64=vs64, library_vs_kernel=lib_err,
                            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by, bound_simt_ms=bound_simt_ms, call_ms=call_ms,
                            plain_call_ms=plain_call_ms, library_call_ms=library_call_ms)
-    emit({"phase": "k3", "batch": B, "tolerance": TOL, "tf32_matmul": False, "sites": sites})
+    tolerance = {"o": BF16_BAR, "lse": TOL} if dtype == BF16 else TOL
+    emit({"phase": _kphase("k3", dtype), "batch": B, "tolerance": tolerance, "tf32_matmul": False,
+          "sites": sites})
     total = {key: K3_CALLS_PER_SITE * sum(st[key] for st in sites.values())
              for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_simt_ms")}
-    by = {st["bound_by"] for st in sites.values()}
-    return dict(name="area_attention", route="cuda", source="yolo_dbl_tpu_torch/csrc/attention.cu",
-                replaces="yolo_dbl_tpu/nn/blocks.py:883 -> jax 0.9.0 "
-                         "pallas/ops/tpu/flash_attention.py:758 (forward)",
-                max_abs_err=worst, bound_by="bytes" if by == {"bytes"} else "operations",
-                **total)
+    return dict(name=_kphase("area_attention", dtype), route="cuda",
+                source="yolo_dbl_tpu_torch/csrc/attention.cu",
+                replaces=K3_REPLACES + "758 (forward)", max_abs_err=worst,
+                bound_by=_by(sites.values()), time_sources=_time_sources(src), **total)
 
 
-def phase_k3_backward(gen):
-    """The dq and dkv kernels (and the forward kernel) at the two sites at
-    training batch 16. Returns the dkv and dq kernel rows (times summed over
-    the 8 calls of a step) and the forward's worst error at these shapes."""
+def phase_k3_backward(gen, dtype=torch.float32):
+    """The dq and dkv kernels (and the forward kernel) of `dtype` at the two
+    sites at training batch 16, against the plain versions; a second
+    backward on the same inputs must give the same bits. Returns the dkv and
+    dq kernel rows (times summed over the 8 calls of a step) and the
+    forward's worst error at these shapes."""
     from yolo_dbl_tpu_torch.kernels.attention import (area_attention_backward,
+                                                      area_attention_backward_plain,
                                                       area_attention_forward,
                                                       area_attention_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    b, sites, worst, worst_fwd = TRAIN_B, {}, {"dq": 0.0, "dk": 0.0, "dv": 0.0}, 0.0
+    b, es, sites, src = TRAIN_B, dtype.itemsize, {}, []
+    worst, worst_fwd = {"dq": 0.0, "dk": 0.0, "dv": 0.0}, 0.0
     worst_rel = dict(worst)
     for site in K3_SITES:
-        qkvs, (bb, n, h) = _k3_inputs(gen, b, site)
+        qkvs, (bb, n, h) = _k3_inputs(gen, b, site, dtype)
         k = len(qkvs)
-        grads = [torch.randn((bb, n, h, HD), generator=gen).cuda() for _ in range(k)]
-        saved = [area_attention_forward(*qkv) for qkv in qkvs]
-        fwd_err = float((saved[0][0] - area_attention_plain(*qkvs[0])).abs().max())
-        require(fwd_err <= TOL, f"area attention kernel vs plain at {site}, batch {b}: {fwd_err}")
+        grads = [torch.randn((bb, n, h, HD), generator=gen).cuda().to(dtype) for _ in range(k)]
+        fwd = [area_attention_forward(*qkv, residual=True) for qkv in qkvs]
+        saved = [(o32, lse) for _, lse, o32 in fwd]  # what the backward reads
+        o, plain_o = fwd[0][0], area_attention_plain(*qkvs[0])
+        fwd_err = max_abs(o, plain_o)
+        require(meets_bar(o, plain_o, TOL, float(qkvs[0][2].abs().max())),
+                f"area attention kernel vs plain at {site}, batch {b} ({dtype}): {fwd_err}")
         worst_fwd = max(worst_fwd, fwd_err)
         got = area_attention_backward(*qkvs[0], *saved[0], grads[0])
-        leaves = [t.detach().requires_grad_() for t in qkvs[0]]
-        want = torch.autograd.grad(area_attention_plain(*leaves), leaves, grads[0])
-        errs = {name: float((a - r).abs().max()) for name, a, r in zip(("dq", "dk", "dv"), got, want)}
-        rel = {name: errs[name] / float(r.abs().max()) for name, r in zip(errs, want)}
-        require(max(rel.values()) <= 1e-4,
-                f"area attention backward kernels vs plain at {site} (of each largest): {rel}")
+        want = area_attention_backward_plain(*qkvs[0], grads[0])
+        errs = {name: max_abs(a, r) for name, a, r in zip(("dq", "dk", "dv"), got, want)}
+        rel = {name: errs[name] / float(r.float().abs().max()) for name, r in zip(errs, want)}
+        # dq and dk are near 0 where a row's attention is near uniform: their
+        # bfloat16 bar's floor is 1e-6 of 1e-2 of dv's largest
+        floor = 1e-2 * float(want[2].float().abs().max())
+        require(all(meets_bar(a, r, 1e-4 * float(r.abs().max()),
+                              max(float(r.float().abs().max()), floor))
+                    for a, r in zip(got, want)),
+                f"area attention backward kernels vs plain at {site} ({dtype}): {errs}, of "
+                f"each largest {rel}")
         again = area_attention_backward(*qkvs[0], *saved[0], grads[0])
         require(all(torch.equal(a, r) for a, r in zip(got, again)),
-                f"area attention backward at {site}: a second run gave other bits")
-        # both float32 sides against float64 autograd (read, not gated)
+                f"area attention backward at {site} ({dtype}): a second run gave other bits")
+        # both sides against float64 autograd (read, not gated)
         leaves64 = [t.detach().double().requires_grad_() for t in qkvs[0]]
         want64 = torch.autograd.grad(area_attention_plain(*leaves64), leaves64, grads[0].double())
         rel64 = {name: [float((x.double() - r).abs().max() / r.abs().max()) for x in (a, w)]
@@ -501,22 +702,25 @@ def phase_k3_backward(gen):
             out = F.scaled_dot_product_attention(*lib[i % k])
             return torch.autograd.grad(out, lib[i % k], lib_g[i % k])
 
-        dq_ms, call_ms = timings(backward, 30, only="attention_bwd_dq_kernel")
-        dkv_ms, _ = timings(backward, 30, only="attention_bwd_dkv_kernel")
-        plain_dq_ms, _ = timings(lambda i: plain(i, (0,)), 5)
-        plain_dkv_ms, _ = timings(lambda i: plain(i, (1, 2)), 5)
-        lib_total_ms, _ = timings(library, 20)
-        lib_fwd_ms, _ = timings(lambda i: F.scaled_dot_product_attention(*lib[i % k]), 20)
-        tokens = bb * n * h * HD
-        rows = bb * h * n
-        # the four gradient products, 2 N^2 hd each: dP = dO vT and dQ = dS k
-        # to the dq kernel, dV = PT dO and dK = dST q to the dkv kernel;
-        # recomputing S = q kT in both is this design's cost, not counted.
-        # dq: q, k, v, o, dO, lse read, dq and delta written;
-        # dkv: q, k, v, dO, lse, delta read, dk and dv written
-        flops = bb * h * 4 * n * n * HD
-        dq_bound, dq_by, dq_simt = bound_fp32_products((6 * tokens + 2 * rows) * 4, flops)
-        dkv_bound, dkv_by, dkv_simt = bound_fp32_products((6 * tokens + 2 * rows) * 4, flops)
+        dq_ms, call_ms, s1 = timings(backward, 30, only="attention_bwd_dq_kernel")
+        dkv_ms, _, s2 = timings(backward, 30, only="attention_bwd_dkv_kernel")
+        plain_dq_ms, _, s3 = timings(lambda i: plain(i, (0,)), 5)
+        plain_dkv_ms, _, s4 = timings(lambda i: plain(i, (1, 2)), 5)
+        lib_total_ms, _, s5 = timings(library, 20)
+        lib_fwd_ms, _, s6 = timings(lambda i: F.scaled_dot_product_attention(*lib[i % k]), 20)
+        src.append((s1, s2, s3, s4, source_of(s5, s6)))
+        tokens, rows = bb * n * h * HD, bb * h * n
+        # The products each kernel must form from its inputs, 2 N^2 hd each
+        # per sequence-head: dq: S = q kT and dP = dO vT (two inputs), dQ =
+        # dS k (dS float32); dkv: S and dP again, dV = PT dO and dK = dST q.
+        # dq: q, k, v, dO read and dq written in the inputs' type, o (float32)
+        # and lse read, delta written; dkv: q, k, v, dO read and dk, dv
+        # written in the inputs' type, lse and delta read
+        product = bb * h * 2 * n * n * HD
+        dq_bytes = 5 * tokens * es + tokens * 4 + 2 * rows * 4
+        dq_bound, dq_by, dq_simt = bound_products(dtype, dq_bytes, 2 * product, product)
+        dkv_bound, dkv_by, dkv_simt = bound_products(dtype, 6 * tokens * es + 2 * rows * 4,
+                                                     2 * product, 2 * product)
         sites[site] = dict(qkv=[bb, n, h, HD], calls_per_step=K3_CALLS_PER_SITE,
                            max_abs_errors=errs, rel_errors_of_largest=rel, bitwise_repeat=True,
                            kernel_and_plain_rel_errors_vs_float64=rel64,
@@ -528,9 +732,10 @@ def phase_k3_backward(gen):
                            dq_bound_ms=dq_bound, dq_bound_by=dq_by, dq_bound_simt_ms=dq_simt,
                            dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
                            dkv_bound_simt_ms=dkv_simt)
-    emit({"phase": "k3_backward", "batch": b, "tf32_matmul": False,
-          "tolerance": {"d_rel_of_largest": 1e-4, "forward": TOL},
-          "forward_max_abs_err": worst_fwd, "sites": sites})
+    tolerance = ({"d": BF16_BAR + " (floor: 1e-2 of dv's largest)", "forward": BF16_BAR}
+                 if dtype == BF16 else {"d_rel_of_largest": 1e-4, "forward": TOL})
+    emit({"phase": _kphase("k3_backward", dtype), "batch": b, "tf32_matmul": False,
+          "tolerance": tolerance, "forward_max_abs_err": worst_fwd, "sites": sites})
 
     def total(key):
         return K3_CALLS_PER_SITE * sum(st[key] for st in sites.values())
@@ -538,45 +743,48 @@ def phase_k3_backward(gen):
     common = dict(route="cuda", source="yolo_dbl_tpu_torch/csrc/attention.cu",
                   library_ms=total("library_backward_ms"),
                   library_scope="SDPA backward, dq dk dv together")
-    dkv = dict(name="area_attention_backward_dkv",
-               replaces="yolo_dbl_tpu/nn/blocks.py:883 -> jax 0.9.0 "
-                        "pallas/ops/tpu/flash_attention.py:1121 (bwd dkv)",
+    dkv = dict(name=_kphase("area_attention_backward_dkv", dtype),
+               replaces=K3_REPLACES + "1121 (bwd dkv)",
                max_abs_err=max(worst["dk"], worst["dv"]),
                max_rel_err_of_largest=max(worst_rel["dk"], worst_rel["dv"]),
                ms=total("dkv_ms"), plain_ms=total("plain_dkv_ms"), bound_ms=total("dkv_bound_ms"),
-               bound_by=sites["row6"]["dkv_bound_by"], bound_simt_ms=total("dkv_bound_simt_ms"),
-               **common)
-    dq = dict(name="area_attention_backward_dq",
-              replaces="yolo_dbl_tpu/nn/blocks.py:883 -> jax 0.9.0 "
-                       "pallas/ops/tpu/flash_attention.py:1456 (bwd dq)",
+               bound_by=_by(sites.values(), "dkv_bound_by"),
+               bound_simt_ms=total("dkv_bound_simt_ms"),
+               time_sources=_time_sources([(s[1], s[3], s[4]) for s in src]), **common)
+    dq = dict(name=_kphase("area_attention_backward_dq", dtype),
+              replaces=K3_REPLACES + "1456 (bwd dq)",
               max_abs_err=worst["dq"], max_rel_err_of_largest=worst_rel["dq"],
               ms=total("dq_ms"), plain_ms=total("plain_dq_ms"), bound_ms=total("dq_bound_ms"),
-              bound_by=sites["row6"]["dq_bound_by"], bound_simt_ms=total("dq_bound_simt_ms"),
-              **common)
+              bound_by=_by(sites.values(), "dq_bound_by"), bound_simt_ms=total("dq_bound_simt_ms"),
+              time_sources=_time_sources([(s[0], s[2], s[4]) for s in src]), **common)
     return dkv, dq, worst_fwd
 
 
-def build_models(cfg):
-    """One seeded model of `cfg` on the CPU with the smoke settings, and its copy on the card."""
+def build_models(cfg, dtype=torch.float32):
+    """One seeded model of `cfg` computing in `dtype` on the CPU with the
+    smoke settings, and its copy on the card (the same weights in both
+    types: parameters are float32)."""
     from yolo_dbl_tpu_torch import DetectionModel
     from yolo_dbl_tpu_torch.nn.blocks import FullPAD_Tunnel
 
     name, nc = cfg
-    cpu = DetectionModel(name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0))
+    cpu = DetectionModel(name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0),
+                         dtype=dtype)
     with torch.no_grad():
         for mod in cpu.modules():
             if isinstance(mod, FullPAD_Tunnel):
                 mod.gate.fill_(0.5)  # gates start at 0, which would hide the tunnel inputs
         for lvl in range(len(cpu.strides)):
             getattr(cpu.detect, f"cv3_{lvl}_2").conv.bias.zero_()  # give NMS real candidates
-    gpu = DetectionModel(name, nc=nc, device="cuda")
+    gpu = DetectionModel(name, nc=nc, device="cuda", dtype=dtype)
     gpu.load_state_dict(cpu.state_dict())
     return cpu, gpu
 
 
-def _phase(base, cfg):
-    """The phase name of `base` for a model: `main`, `main_v13`, ..."""
-    return base if cfg == DBL else f"{base}_v13"
+def _phase(base, cfg, dtype=torch.float32):
+    """The phase name of `base` for a model and type: `main`, `main_v13`,
+    `main_bf16`, `main_v13_bf16`, ..."""
+    return (base if cfg == DBL else f"{base}_v13") + ("_bf16" if dtype == BF16 else "")
 
 
 def phase_main(cfg, gpu_model, rng, card):
@@ -599,11 +807,13 @@ def phase_main(cfg, gpu_model, rng, card):
                 "predictor output: expected 8 finite (n, 6) arrays")
         n_boxes.append([len(o) for o in out])
     launches = dict(kernels.launches)
-    want = {k: v * REQUESTS for k, v in PER_REQUEST[cfg].items()}
+    dtype = gpu_model.dtype
+    want = {k: v * REQUESTS for k, v in PER_REQUEST[cfg, dtype].items()}
     require(launches == want, f"launches in {REQUESTS} requests: {launches}, expected {want}")
     require(sum(map(sum, n_boxes)) > 0, "no detections: NMS saw no candidates")
     med = statistics.median(lat)
-    emit({"phase": _phase("main", cfg), "model": cfg[0][:-5], "nc": cfg[1], "imgsz": IMGSZ,
+    emit({"phase": _phase("main", cfg, dtype), "model": cfg[0][:-5], "nc": cfg[1],
+          "dtype": str(dtype).split(".")[-1], "imgsz": IMGSZ,
           "batch": B, "frames": list(SRC_HW), "requests": REQUESTS,
           "latency_ms": [t * 1e3 for t in lat], "median_ms": med * 1e3, "img_per_s": B / med,
           "boxes_per_image": n_boxes, "launches": launches,
@@ -626,14 +836,8 @@ _CATEGORIES = (("letterbox", "k1 letterbox"), ("sample_bilinear_backward", "k2 s
 
 def by_part(fn, calls):
     """Device time per call of fn(i) by kernel and by part (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            fn(i)
-        torch.cuda.synchronize()
     per_kernel, per_part, n_ops = {}, {}, 0
-    for evt in _device_events(prof):
+    for evt in _trace(fn, calls):
         ms = evt.self_device_time_total / 1e3 / calls
         n_ops += evt.count
         per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + ms
@@ -649,7 +853,8 @@ def phase_profile(cfg, pred, rng, median_ms, requests=2):
     """Device time of one request by kernel and by part of the path."""
     frames = [rng.integers(0, 256, (B, *SRC_HW, 3), dtype=np.uint8) for _ in range(requests)]
     p = by_part(lambda i: pred(frames[i]), requests)
-    emit({"phase": _phase("profile", cfg), "requests": requests, "device_ms_per_request": p["device_ms"],
+    emit({"phase": _phase("profile", cfg, pred.model.dtype), "requests": requests,
+          "device_ms_per_request": p["device_ms"],
           "device_ops_per_request": p["device_ops"], "unprofiled_median_ms": median_ms,
           "device_busy_share": p["device_ms"] / median_ms, "by_part_ms": p["by_part_ms"],
           "top_kernels_ms": p["top_kernels_ms"]})
@@ -670,13 +875,14 @@ def train_batches(rng, n, b=TRAIN_B, imgsz=IMGSZ, m=TRAIN_M, nc=NC):
     return out
 
 
-def phase_train(cfg, card):
-    """Training steps of `cfg` on the card through Trainer.step."""
+def phase_train(cfg, card, dtype=torch.float32):
+    """Training steps of `cfg` computing in `dtype` on the card through Trainer.step."""
     from yolo_dbl_tpu_torch import DetectionModel, kernels
     from yolo_dbl_tpu_torch.engine.trainer import Trainer
 
     name, nc = cfg
-    model = DetectionModel(name, nc=nc, device="cuda", generator=torch.Generator().manual_seed(0))
+    model = DetectionModel(name, nc=nc, device="cuda", generator=torch.Generator().manual_seed(0),
+                           dtype=dtype)
     trainer = Trainer(model, {"batch": TRAIN_B}).setup(steps_per_epoch=100)
     batches = train_batches(np.random.default_rng(1), TRAIN_WARMUP + TRAIN_STEPS + 1, nc=nc)
     params = [p for _, p in model.named_parameters()]
@@ -703,10 +909,13 @@ def phase_train(cfg, card):
     ema_moved = sum(not torch.equal(a, e) for a, e in zip(ema_first, trainer.ema))
     require(moved > 0.9 * len(params) and ema_moved > 0.9 * len(params),
             f"{moved} parameters and {ema_moved} EMA tensors of {len(params)} changed")
-    want = {k: v * TRAIN_STEPS for k, v in PER_STEP[cfg].items()}
+    want = {k: v * TRAIN_STEPS for k, v in PER_STEP[cfg, dtype].items()}
     require(launches == want, f"launches in {TRAIN_STEPS} steps: {launches}, expected {want}")
+    require(all(t.dtype == torch.float32 for t in params + trainer.ema),
+            "parameters and EMA must stay float32")
     med = statistics.median(step_ms)
-    emit({"phase": _phase("train", cfg), "model": name[:-5], "nc": nc, "imgsz": IMGSZ,
+    emit({"phase": _phase("train", cfg, dtype), "model": name[:-5], "nc": nc,
+          "dtype": str(dtype).split(".")[-1], "imgsz": IMGSZ,
           "batch": TRAIN_B, "optimizer": trainer.optimizer.name, "steps": TRAIN_STEPS,
           "step_ms": step_ms, "median_ms": med, "img_per_s": TRAIN_B / (med / 1e3),
           "losses": losses, "max_memory_allocated_bytes": peak, "launches": launches,
@@ -714,7 +923,8 @@ def phase_train(cfg, card):
           "tf32_conv": torch.backends.cudnn.allow_tf32, "card": card})
     last = batches[-1]
     p = by_part(lambda i: (trainer.step(last), torch.cuda.synchronize()), 1)
-    emit({"phase": _phase("train_profile", cfg), "steps": 1, "device_ms_per_step": p["device_ms"],
+    emit({"phase": _phase("train_profile", cfg, dtype), "steps": 1,
+          "device_ms_per_step": p["device_ms"],
           "device_ops_per_step": p["device_ops"], "unprofiled_median_ms": med,
           "device_busy_share": p["device_ms"] / med, "by_part_ms": p["by_part_ms"],
           "top_kernels_ms": p["top_kernels_ms"]})
@@ -742,9 +952,9 @@ def phase_parity(cfg, cpu_model, gpu_model, frames):
 
 
 def _float64_grads(cpu_model, cfg, batch):
-    """{name: gradient} of the train-mode loss of a float64 copy of the CPU
-    model (the plain sampler and attention take float64): train_loss's
-    steps, with the images normalized to float64."""
+    """({loss item: value}, {name: gradient}) of the train-mode loss of a
+    float64 copy of the CPU model (the plain sampler and attention take
+    float64): train_loss's steps, with the images normalized to float64."""
     import copy
 
     from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
@@ -754,10 +964,12 @@ def _float64_grads(cpu_model, cfg, batch):
     batch = {k: torch.as_tensor(v) for k, v in batch.items()}
     batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
     names, params = zip(*model.named_parameters())
-    loss, _ = detection_loss(model(device_normalize(batch["img"], torch.float64)), batch,
-                             model.strides, model.nc, box_gain=cfg.box, cls_gain=cfg.cls,
-                             dfl_gain=cfg.dfl)
-    return dict(zip(names, torch.autograd.grad(loss, params)))
+    loss, items = detection_loss(model(device_normalize(batch["img"], torch.float64)), batch,
+                                 model.strides, model.nc, box_gain=cfg.box, cls_gain=cfg.cls,
+                                 dfl_gain=cfg.dfl)
+    values = dict(loss=float(loss.detach()),
+                  **{k: float(v.detach()) for k, v in items._asdict().items()})
+    return values, dict(zip(names, torch.autograd.grad(loss, params)))
 
 
 # leaves named in train_parity, whose gradient comes only through a kernel's
@@ -794,7 +1006,7 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
                              dict(zip(names, (g.cpu() for g in grads))), stats,
                              dict(kernels.launches))
     (lc, gc, sc, _), (lg, gg, sg, launches) = results["cpu"], results["cuda"]
-    require(launches == PER_STEP[cfg], f"launches in one card step: {launches}")
+    require(launches == PER_STEP[cfg, torch.float32], f"launches in one card step: {launches}")
     loss_rel = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc}
     detect = f"m{len(gpu_model.spec.layers) - 1}"
     fed, n_fed = KERNEL_FED_LEAVES[cfg]
@@ -806,7 +1018,7 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     # where float32 itself does not reach that (a leaf whose gradient is a sum
     # that cancels), within 4x the CPU float32's own distance from g64; plus
     # 1e-10 of the model's largest |g64| for leaves whose exact gradient is 0.
-    g64 = _float64_grads(cpu_model, train_cfg, batch)
+    _, g64 = _float64_grads(cpu_model, train_cfg, batch)
     g_max = max(float(g.abs().max()) for g in g64.values())
     leaves = {}
     for n, ref in g64.items():
@@ -834,6 +1046,88 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     require(stats_err <= 1e-4, f"BatchNorm running statistics card vs CPU: {stats_err}")
 
 
+def _boxes_scores(a, b):
+    """(max |d| of the boxes in px, max |d| of the scores) of two (B, 4+nc, A) decodes."""
+    a, b = a.float(), b.float()
+    return float((a[:, :4] - b[:, :4]).abs().max()), float((a[:, 4:] - b[:, 4:]).abs().max())
+
+
+def phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames):
+    """The card's bfloat16 decode against the CPU's float32 one at the same
+    weights and frames, within check_amp's bars; card bfloat16 against CPU
+    bfloat16 beside the CPU's own bfloat16-against-float32 spread."""
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+
+    u8 = torch.from_numpy(frames)
+    pred32 = cpu32.predict(letterbox_normalize(u8, (IMGSZ, IMGSZ)))
+    pred_c16 = cpu16.predict(letterbox_normalize(u8, (IMGSZ, IMGSZ), out_dtype=BF16))
+    pred_g16 = gpu16.predict(letterbox_normalize(u8.cuda(), (IMGSZ, IMGSZ), out_dtype=BF16)).cpu()
+    anchors = sum((IMGSZ // s) ** 2 for s in gpu16.strides)
+    require(pred_g16.dtype == pred_c16.dtype == BF16
+            and pred_g16.shape == pred32.shape == (2, 4 + cfg[1], anchors)
+            and bool(torch.isfinite(pred_g16.float()).all()),
+            f"bf16 predictions: card {pred_g16.dtype} {tuple(pred_g16.shape)}")
+    card_vs_f32 = _boxes_scores(pred_g16, pred32)
+    card_vs_cpu16 = _boxes_scores(pred_g16, pred_c16)
+    cpu16_vs_f32 = _boxes_scores(pred_c16, pred32)
+    box_bar, score_bar = 0.02 * IMGSZ, 0.05
+    emit({"phase": _phase("parity", cfg, BF16), "frames": 2,
+          "card_bf16_vs_cpu_f32": {"box_px": card_vs_f32[0], "score": card_vs_f32[1]},
+          "card_bf16_vs_cpu_bf16": {"box_px": card_vs_cpu16[0], "score": card_vs_cpu16[1]},
+          "cpu_bf16_vs_cpu_f32": {"box_px": cpu16_vs_f32[0], "score": cpu16_vs_f32[1]},
+          "bars": {"box_px": box_bar, "score": score_bar},
+          "max_score": float(pred32[:, 4:].max())})
+    require(card_vs_f32[0] < box_bar and card_vs_f32[1] < score_bar,
+            f"card bf16 vs CPU f32: boxes {card_vs_f32[0]} px (< {box_bar}), scores "
+            f"{card_vs_f32[1]} (< {score_bar})")
+
+
+def phase_train_parity_bf16(cfg, cpu32, cpu16, gpu16):
+    """One train-mode loss and backward of bfloat16 models on the CPU (plain
+    versions) and on the card (kernels): loss items and the leaves a
+    kernel's backward feeds against the CPU's float64, within 4x the CPU
+    bfloat16's own distance from it."""
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.cfg import get_cfg
+    from yolo_dbl_tpu_torch.engine.trainer import train_loss
+
+    train_cfg = get_cfg()
+    batch = train_batches(np.random.default_rng(2), 1, b=2, imgsz=256, nc=cfg[1])[0]
+    results = []
+    for model in (cpu32, cpu16, gpu16):
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Dropout):
+                mod.p = 0.0
+    for model in (cpu16, gpu16):
+        dev = model.device
+        names, params = zip(*model.named_parameters())
+        kernels.reset_launches()
+        loss, items = train_loss(model, train_cfg,
+                                 {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, params)
+        results.append((dict(loss=float(loss.detach()),
+                             **{k: float(v.detach()) for k, v in items._asdict().items()}),
+                        dict(zip(names, (g.cpu() for g in grads))), dict(kernels.launches)))
+    (lc, gc, _), (lg, gg, launches) = results
+    require(launches == PER_STEP[cfg, BF16], f"launches in one bf16 card step: {launches}")
+    l64, g64 = _float64_grads(cpu32, train_cfg, batch)
+    loss_d = {k: dict(card=abs(lg[k] - l64[k]), cpu_bf16=abs(lc[k] - l64[k]), float64=l64[k])
+              for k in l64}
+    fed, n_fed = KERNEL_FED_LEAVES[cfg]
+    g_max = max(float(g.abs().max()) for g in g64.values())
+    leaves = {n: dict(card=float((gg[n].double() - g64[n]).abs().max()),
+                      cpu_bf16=float((gc[n].double() - g64[n]).abs().max()),
+                      leaf_max=float(g64[n].abs().max()))
+              for n in g64 if fed in n}
+    emit({"phase": _phase("train_parity", cfg, BF16), "batch": 2, "imgsz": 256,
+          "loss_distance_from_float64": loss_d, "kernel_fed_leaves": leaves,
+          "model_max_abs_grad": g_max, "launches": launches})
+    require(len(leaves) == n_fed and all(
+        e["card"] <= 4 * e["cpu_bf16"] + 1e-10 * g_max for e in leaves.values()),
+        f"kernel-fed leaves, card bf16 vs CPU float64 past 4x the CPU bf16's distance: {leaves}")
+    require(all(e["card"] <= 4 * e["cpu_bf16"] for e in loss_d.values()),
+            f"loss items, card bf16 vs CPU float64: {loss_d}")
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -860,36 +1154,56 @@ def main():
           "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     gen = torch.Generator().manual_seed(0)
-    k1_row, k2_row = phase_k1(gen), phase_k2(gen)
-    k2_backward_row, k2_train_err = phase_k2_backward(gen)
-    k2_row["max_abs_err_by_path"] = {"serve": k2_row["max_abs_err"], "train": k2_train_err}
-    k2_row["max_abs_err"] = max(k2_row["max_abs_err"], k2_train_err)
-    k3_row = phase_k3(gen)
-    k3_dkv_row, k3_dq_row, k3_train_err = phase_k3_backward(gen)
-    k3_row["max_abs_err_by_path"] = {"serve": k3_row["max_abs_err"], "train": k3_train_err}
-    k3_row["max_abs_err"] = max(k3_row["max_abs_err"], k3_train_err)
-    rows = [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
+    rows = []
+    for dtype, k1_row in zip((torch.float32, BF16), phase_k1(gen)):
+        k2_row = phase_k2(gen, dtype)
+        k2_backward_row, k2_train_err = phase_k2_backward(gen, dtype)
+        k3_row = phase_k3(gen, dtype)
+        k3_dkv_row, k3_dq_row, k3_train_err = phase_k3_backward(gen, dtype)
+        for row, train_err in ((k2_row, k2_train_err), (k3_row, k3_train_err)):
+            row["max_abs_err_by_path"] = {"serve": row["max_abs_err"], "train": train_err}
+            row["max_abs_err"] = max(row["max_abs_err"], train_err)
+        rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
     for cfg in (DBL, V13):
-        cpu_model, gpu_model = build_models(cfg)
-        serve[cfg], frames, predictor, median_ms = phase_main(cfg, gpu_model, rng, card)
-        phase_profile(cfg, predictor, rng, median_ms * 1e3)
-        train[cfg] = phase_train(cfg, card)
-        models[cfg] = (cpu_model, gpu_model, frames)
+        for dtype in (torch.float32, BF16):
+            cpu_model, gpu_model = build_models(cfg, dtype)
+            serve[cfg, dtype], frames, predictor, median_ms = phase_main(cfg, gpu_model, rng, card)
+            phase_profile(cfg, predictor, rng, median_ms * 1e3)
+            train[cfg, dtype] = phase_train(cfg, card, dtype)
+            models[cfg, dtype] = (cpu_model, gpu_model, frames)
     for cfg in (DBL, V13):
-        phase_parity(cfg, *models[cfg])
+        phase_parity(cfg, *models[cfg, torch.float32])
     for cfg in (DBL, V13):
-        phase_train_parity(cfg, *models[cfg][:2])
+        cpu32, _, frames = models[cfg, torch.float32]
+        cpu16, gpu16, _ = models[cfg, BF16]
+        phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames)
+    for cfg in (DBL, V13):
+        phase_train_parity(cfg, *models[cfg, torch.float32][:2])
+    for cfg in (DBL, V13):
+        phase_train_parity_bf16(cfg, models[cfg, torch.float32][0], *models[cfg, BF16][:2])
     # launches: per the path's run (5 requests; 10 train steps) on the path each row serves
-    home = {"letterbox_normalize": serve[DBL], "sample_bilinear": serve[DBL],
-            "sample_bilinear_backward": train[DBL], "area_attention": serve[V13],
-            "area_attention_backward_dkv": train[V13], "area_attention_backward_dq": train[V13]}
+    f32, bf16 = torch.float32, BF16
+    home = {"letterbox_normalize": serve[DBL, f32], "sample_bilinear": serve[DBL, f32],
+            "sample_bilinear_backward": train[DBL, f32], "area_attention": serve[V13, f32],
+            "area_attention_backward_dkv": train[V13, f32],
+            "area_attention_backward_dq": train[V13, f32],
+            "letterbox_normalize_bf16": serve[DBL, bf16], "sample_bilinear_bf16": serve[DBL, bf16],
+            "sample_bilinear_backward_bf16": train[DBL, bf16],
+            "area_attention_bf16": serve[V13, bf16],
+            "area_attention_backward_dkv_bf16": train[V13, bf16],
+            "area_attention_backward_dq_bf16": train[V13, bf16]}
     for row in rows:
         name = row["name"]
         row["launches"] = home[name][name]
-        row["launches_by_path"] = {"serve": serve[DBL][name], "train": train[DBL][name],
-                                   "serve_v13": serve[V13][name], "train_v13": train[V13][name]}
+        require(row["launches"] > 0, f"{name} was not launched on its path")
+        row["launches_by_path"] = {_phase(path, cfg, dt): runs[cfg, dt][name]
+                                   for path, runs in (("serve", serve), ("train", train))
+                                   for cfg in (DBL, V13) for dt in (f32, bf16)}
+    # how often torch.profiler's trace had to be taken again, or gave way
+    # to CUDA-event time (each row's `time_sources` says which it holds)
+    emit({"phase": "timing", **TRACES})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

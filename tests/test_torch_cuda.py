@@ -34,16 +34,22 @@ def cuda():
     return torch.device("cuda")
 
 
+def _letterbox_count(out_dtype):
+    """The launch count of the letterbox kernel writing `out_dtype`."""
+    return "letterbox_normalize" + ("_bf16" if out_dtype == torch.bfloat16 else "")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("in_hw,out_hw", [((250, 333), (256, 320)), ((100, 60), (128, 128))])
 def test_letterbox_kernel_matches_plain(cuda, out_dtype, in_hw, out_hw):
     img = np.random.default_rng(7).integers(0, 256, (3, *in_hw, 3), dtype=np.uint8)
     img = torch.from_numpy(img).to(cuda)
-    before = kernels.launches["letterbox_normalize"]
+    count = _letterbox_count(out_dtype)
+    before = kernels.launches[count]
     out = TP.letterbox_normalize(img, out_hw, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert kernels.launches["letterbox_normalize"] == before + 1
+    assert kernels.launches[count] == before + 1
     ref = TP.letterbox_normalize_plain(img, out_hw, out_dtype=out_dtype)
     tol = TOL if out_dtype == torch.float32 else 4e-3  # one bf16 step at 1.0
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
@@ -72,10 +78,11 @@ def test_letterbox_kernel_geometries(cuda, out_dtype, b, in_hw, out_hw, scaleup,
     ends, not at an allocation."""
     img = np.random.default_rng(9).integers(0, 256, (b + 1, *in_hw, 3), dtype=np.uint8)
     img = torch.from_numpy(img).to(cuda)[1:]
-    before = kernels.launches["letterbox_normalize"]
+    count = _letterbox_count(out_dtype)
+    before = kernels.launches[count]
     out = TP.letterbox_normalize(img, out_hw, pad, scaleup, out_dtype)
     torch.cuda.synchronize()
-    assert kernels.launches["letterbox_normalize"] == before + 1
+    assert kernels.launches[count] == before + 1
     assert out.shape == (b, *out_hw, 3) and out.dtype == out_dtype
     ref = TP.letterbox_normalize_plain(img, out_hw, pad, scaleup, out_dtype)
     tol = TOL if out_dtype == torch.float32 else 4e-3  # one bf16 step at 1.0
@@ -315,15 +322,19 @@ def _sass_functions(lib):
 
 @pytest.mark.cuda
 def test_area_attention_kernels_run_on_the_tensor_cores(cuda):
-    """The forward and both backward kernels issue TF32 tensor-core products
-    (HMMA ... TF32) and no other kind."""
+    """The forward and both backward kernels, each built for float32 and for
+    bfloat16 input, issue TF32 tensor-core products (HMMA ... TF32) and no
+    other kind: the bfloat16 variants convert on load and run the float32
+    kernels' 3xTF32 products."""
     build.library("attention")
     functions = _sass_functions(build.library_path("attention"))
     for kernel in ("attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel"):
-        (sass,) = [body for name, body in functions.items() if kernel in name]
-        hmma = [ln for ln in sass.splitlines() if "HMMA" in ln]
-        assert hmma, kernel
-        assert all("TF32" in ln for ln in hmma), hmma[:3]
+        bodies = {name: body for name, body in functions.items() if kernel in name}
+        assert len(bodies) == 2 and sum("bfloat16" in name for name in bodies) == 1, list(bodies)
+        for name, sass in bodies.items():
+            hmma = [ln for ln in sass.splitlines() if "HMMA" in ln]
+            assert hmma, name
+            assert all("TF32" in ln for ln in hmma), hmma[:3]
 
 
 @pytest.mark.cuda
@@ -359,3 +370,219 @@ def test_area_attention_rejects_what_it_does_not_take(cuda):
         TA.area_attention(q.double(), q.double(), q.double())
     with pytest.raises(ValueError):
         TA.area_attention(q, q, q.cpu())
+
+
+# ---------------------------------------------------------------- bfloat16
+
+
+def _bf16_ulp(t):
+    """The spacing of bfloat16 at each element of `t` (8 significant bits):
+    2^(e - 8) for |t| in [2^(e-1), 2^e)."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _assert_within_bf16_ulp(got, want, scale):
+    """got and want are float32 sums of the same terms in other orders, each
+    rounded once to bfloat16: they may differ by one bfloat16 step of the
+    result, and near 0, where the rounding of the float32 sums' own last
+    bits shows, by 1e-6 of the inputs' scale."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    bar = _bf16_ulp(want) + 1e-6 * scale
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= bar).all()), float((diff - bar).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+@pytest.mark.parametrize("c,g", [(64, 4), (6, 2), (256, 4), (12, 3)])
+def test_sample_bilinear_bf16_kernel_matches_plain(cuda, padding_mode, c, g):
+    """bfloat16 x and coordinates: taps, weights and blend in float32, each
+    output rounded once; within one bfloat16 step of the plain version
+    (float32 on the upcast inputs, rounded once). (64, 4) and (256, 4) take
+    the 16-byte path (8 channels a thread), (6, 2) and (12, 3) the scalar
+    one; one launch of the bfloat16 kernel, none of the float32 one."""
+    rng = np.random.default_rng(18)
+    b, h, w, n = 2, 20, 13, 777
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda).bfloat16()
+    gy, gx = (torch.from_numpy(a).to(cuda).bfloat16() for a in _coords(rng, b, n, h, w, g))
+    before = dict(kernels.launches)
+    out = TS.sample_bilinear(x, gy, gx, padding_mode)
+    torch.cuda.synchronize()
+    assert kernels.launches["sample_bilinear_bf16"] == before["sample_bilinear_bf16"] + 1
+    assert kernels.launches["sample_bilinear"] == before["sample_bilinear"]
+    _assert_within_bf16_ulp(out, TS.sample_bilinear_plain(x, gy, gx, padding_mode),
+                            float(x.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+@pytest.mark.parametrize("c,g", [(64, 4), (6, 2), (512, 2)])
+@pytest.mark.parametrize("coords", ["dysample", "uniform"])
+def test_sample_bilinear_bf16_backward_kernel_matches_plain(cuda, padding_mode, c, g, coords):
+    """bfloat16 in, bfloat16 dx, dgy and dgx out, float32 sums: dx through
+    the float32 scratch and its rounding pass. Each within one bfloat16 step
+    of the plain version, plus 1e-6 of the largest term's scale (g x x for
+    dgy and dgx summed over a group's channels, g for dx); DySample's
+    coordinates take the window path, uniform ones mostly the global
+    atomics."""
+    rng = np.random.default_rng(19)
+    b, h, w = 2, 9, 11
+    n = 4 * h * w
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda).bfloat16()
+    gy, gx = (torch.from_numpy(a.astype(np.float32)).to(cuda).bfloat16()
+              for a in _site_coords(rng, b, h, w, g, coords == "uniform"))
+    grad = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(cuda).bfloat16()
+    before = dict(kernels.launches)
+    got = TS.sample_bilinear_backward(x, gy, gx, grad, padding_mode)
+    torch.cuda.synchronize()
+    name = "sample_bilinear_backward"
+    assert kernels.launches[name + "_bf16"] == before[name + "_bf16"] + 1
+    assert kernels.launches[name] == before[name]
+    want = TS.sample_bilinear_backward_plain(x, gy, gx, grad, padding_mode)
+    g_max, x_max = float(grad.abs().max()), float(x.abs().max())
+    for a, r, scale in zip(got, want, (4 * g_max, c // g * g_max * x_max, c // g * g_max * x_max)):
+        _assert_within_bf16_ulp(a, r, scale)
+
+
+@pytest.mark.cuda
+def test_sample_bilinear_bf16_trains_through_the_kernels(cuda):
+    """A bfloat16 output carries autograd; its backward is the bfloat16
+    backward kernel and the gradients are bfloat16."""
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 16)).astype(np.float32)).to(cuda).bfloat16()
+    gy, gx = (torch.from_numpy(a).to(cuda).bfloat16() for a in _coords(rng, 2, 256, 8, 8, 4))
+    leaves = [t.clone().requires_grad_() for t in (x, gy, gx)]
+    before = dict(kernels.launches)
+    TS.sample_bilinear(*leaves).float().square().sum().backward()
+    torch.cuda.synchronize()
+    for name in ("sample_bilinear_bf16", "sample_bilinear_backward_bf16"):
+        assert kernels.launches[name] == before[name] + 1
+    assert all(t.grad.dtype == torch.bfloat16 for t in leaves)
+
+
+def _packed_qkv_bf16(rng, bb, n, h, device):
+    qkv, _ = _packed_qkv(rng, bb, n, h, device)
+    qkv = qkv.bfloat16()
+    return qkv, qkv.split(32, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bb,n,h", [(2, 1, 1), (3, 17, 2), (2, 65, 3), (4, 400, 4),
+                                    (1, 129, 8), (64, 400, 4)])
+def test_area_attention_bf16_kernel_matches_plain(cuda, bb, n, h):
+    """bfloat16 q, k, v (the packed views) and o, float32 lse: within one
+    bfloat16 step of the plain version (float32 on the upcast inputs, o
+    rounded once) plus 1e-6 of v's largest; lse within 1e-5. One launch of
+    the bfloat16 kernel, none of the float32 one."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, (q, k, v) = _packed_qkv_bf16(np.random.default_rng(21), bb, n, h, cuda)
+    before = dict(kernels.launches)
+    o, lse = TA.area_attention_forward(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches["area_attention_bf16"] == before["area_attention_bf16"] + 1
+    assert kernels.launches["area_attention"] == before["area_attention"]
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _assert_within_bf16_ulp(o, TA.area_attention_plain(q, k, v), float(v.abs().max()))
+    torch.testing.assert_close(lse, TA.area_attention_lse_plain(q, k), atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bb,n,h", [(2, 1, 1), (3, 17, 2), (2, 65, 3), (2, 400, 8),
+                                    (64, 400, 4)])
+def test_area_attention_bf16_backward_kernels_match_plain(cuda, bb, n, h):
+    """bfloat16 dO in, bfloat16 dq, dk, dv out, float32 inside (delta from
+    the forward's float32 O, which its bfloat16 run writes beside o when
+    asked): each within one bfloat16 step of the plain version plus 1e-6 of
+    the tensor's largest (the float32 sums differ at 1e-6 of it, as in
+    float32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(22)
+    _, (q, k, v) = _packed_qkv_bf16(rng, bb, n, h, cuda)
+    grad = torch.from_numpy(rng.standard_normal((bb, n, h, 32)).astype(np.float32)).to(cuda)
+    grad = grad.bfloat16()
+    o, lse, o32 = TA.area_attention_forward(q, k, v, residual=True)
+    assert o32.dtype == torch.float32 and torch.equal(o32.to(torch.bfloat16), o)
+    before = dict(kernels.launches)
+    got = TA.area_attention_backward(q, k, v, o32, lse, grad)
+    torch.cuda.synchronize()
+    for name in ("area_attention_backward_dq", "area_attention_backward_dkv"):
+        assert kernels.launches[name + "_bf16"] == before[name + "_bf16"] + 1
+        assert kernels.launches[name] == before[name]
+    want = TA.area_attention_backward_plain(q, k, v, grad)
+    floor = 1e-2 * float(want[2].float().abs().max())
+    for a, r in zip(got, want):
+        _assert_within_bf16_ulp(a, r, max(float(r.float().abs().max()), floor))
+
+
+@pytest.mark.cuda
+def test_area_attention_bf16_trains_through_the_kernels(cuda):
+    """A bfloat16 output carries autograd; its backward runs the two
+    bfloat16 backward kernels and the gradient reaches the packed bfloat16
+    qkv tensor."""
+    qkv, _ = _packed_qkv_bf16(np.random.default_rng(23), 2, 50, 2, cuda)
+    leaf = qkv.clone().requires_grad_()
+    before = dict(kernels.launches)
+    TA.area_attention(*leaf.split(32, -1)).float().square().sum().backward()
+    torch.cuda.synchronize()
+    for name in ("area_attention_bf16", "area_attention_backward_dq_bf16",
+                 "area_attention_backward_dkv_bf16"):
+        assert kernels.launches[name] == before[name] + 1
+    assert leaf.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_area_attention_without_grad_runs_the_forward_kernel_alone(cuda, dtype):
+    """Serving: under no_grad (and inference_mode) the output is the forward
+    kernel's o, one launch, and no float32 copy of it is made."""
+    _, (q, k, v) = _packed_qkv(np.random.default_rng(26), 2, 50, 2, cuda)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    name = "area_attention" + ("_bf16" if dtype == torch.bfloat16 else "")
+    for mode in (torch.no_grad, torch.inference_mode):
+        before = dict(kernels.launches)
+        with mode():
+            out = TA.area_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and kernels.launches[name] == before[name] + 1
+        assert torch.equal(out, TA.area_attention_forward(q, k, v)[0])
+
+
+@pytest.mark.cuda
+def test_bf16_never_reaches_a_float32_only_launch(cuda):
+    """The counted backward build is float32 only, types may not be mixed,
+    and float16 has no kernel: each raises, none falls back."""
+    x = torch.zeros(1, 4, 4, 8, device=cuda, dtype=torch.bfloat16)
+    c = torch.zeros(1, 5, 2, device=cuda, dtype=torch.bfloat16)
+    g = torch.zeros(1, 5, 8, device=cuda, dtype=torch.bfloat16)
+    before = dict(kernels.launches)
+    with pytest.raises(TypeError):
+        TS.backward_window_misses(x, c, c, g)
+    with pytest.raises(TypeError):
+        TS.sample_bilinear(x, c.float(), c.float())
+    with pytest.raises(ValueError):
+        TS.sample_bilinear_backward(x, c, c, g.float())
+    with pytest.raises(TypeError):
+        TS.sample_bilinear(x.half(), c.half(), c.half())
+    _, (q, k, v) = _packed_qkv_bf16(np.random.default_rng(24), 1, 8, 2, cuda)
+    o, lse, o32 = TA.area_attention_forward(q, k, v, residual=True)
+    with pytest.raises(TypeError):
+        TA.area_attention_backward(q, k, v, o, lse, o)  # o must be the float32 copy
+    with pytest.raises(TypeError):
+        TA.area_attention_backward(q, k, v, o32, lse, o32)
+    with pytest.raises(TypeError):
+        TA.area_attention(q.half(), k.half(), v.half())
+    after = dict(kernels.launches)
+    after["area_attention_bf16"] -= 1
+    assert after == before
+
+
+@pytest.mark.cuda
+def test_letterbox_bf16_output_is_the_float32_output_rounded_once(cuda):
+    """K1 writing bfloat16 gives its own float32 values rounded once, bit for
+    bit: the bits flax's first bfloat16 layer makes of JAX's float32 canvas."""
+    img = np.random.default_rng(25).integers(0, 256, (2, 251, 333, 3), dtype=np.uint8)
+    img = torch.from_numpy(img).to(cuda)
+    f32 = TP.letterbox_normalize(img, (256, 320))
+    bf16 = TP.letterbox_normalize(img, (256, 320), out_dtype=torch.bfloat16)
+    assert torch.equal(bf16, f32.to(torch.bfloat16))

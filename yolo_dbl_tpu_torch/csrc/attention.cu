@@ -10,12 +10,25 @@
 // 128 and masks the pad with segment ids; these kernels mask their own
 // ragged tiles and take any N >= 1.
 //
-// Layout: q, k and v are (BB, N, H, 32) float32 with the head dim contiguous
-// and any 16-byte aligned strides on BB, N and H, so AAttn passes the three
-// views of its (BB, N, H, 3 x 32) qkv tensor (each head holds
-// [q_h | k_h | v_h]) without copies. o, do, dq, dk and dv are contiguous
-// (BB, N, H, 32); lse (natural log, of the scaled scores) and delta are
-// contiguous (BB, H, N).
+// Layout: q, k and v are (BB, N, H, 32) with the head dim contiguous and any
+// 16-byte aligned strides on BB, N and H, so AAttn passes the three views of
+// its (BB, N, H, 3 x 32) qkv tensor (each head holds [q_h | k_h | v_h])
+// without copies. o, do, dq, dk and dv are contiguous (BB, N, H, 32); lse
+// (natural log, of the scaled scores) and delta are contiguous (BB, H, N).
+//
+// Types: q, k, v, o, do, dq, dk and dv are all float32 (the *_f32 entry
+// points) or all bfloat16 (*_bf16); lse and delta are float32 in both. A
+// bfloat16 run is float32 inside, as the JAX flash path casts q, k and v to
+// float32 and its output back (yolo_dbl_tpu/nn/blocks.py:876,885): values
+// are converted as they are loaded, the products and the softmax run as in
+// float32, and each output is rounded to bfloat16 once. A bfloat16 value is
+// exact in TF32, so its 3xTF32 split has a zero small part: a product of
+// two inputs takes one TF32 pass and one with a float32 operand (P, dS)
+// two, with the same result as three (per warp and step the forward issues
+// 24 mma, dq 32, dkv 48). The backward's delta = rowsum(dO * O) takes O in
+// float32, as JAX's flash backward gets its float32 output as residual: a
+// bfloat16 forward run for training also writes O in float32 (o32), and the
+// dq kernel reads o in float32 in both types.
 //
 // Forward (attention_fwd_kernel): over all keys, S = q k^T, an online
 // softmax (running row max m and row sum l) and O += P v; it writes
@@ -88,18 +101,24 @@
 //   4 a SM by shared memory); 32-row blocks would double the blocks but not
 //   the warps in flight, since each block still holds two 64-row tiles.
 // Budget per block of 128 threads (ptxas -v, sm_90a): forward 126
-// registers, dq 156, dkv 217, no spills, so 4, 3 and 2 blocks per SM.
+// registers, dq 156, dkv 217, no spills, so 4, 3 and 2 blocks per SM
+// (bfloat16: 96, 124, 161).
 // Shared memory (dynamic: over the 48 KB of static) two split tiles of
 // 2 x 64 x 36 x 4 B and two raw tiles of 8 KB, 53,248 B (forward and dq;
 // dkv 53,760 with lse and delta).
 // Per warp and 16-row step the forward issues 48 mma (two products, three
 // passes, 8 each), the dq kernel 72 (three products), the dkv kernel 96.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+typedef __nv_bfloat16 bf16;
 
 constexpr int HD = 32;  // head dim: A2C2f's heads are c_ / 32 wide
 
@@ -107,10 +126,14 @@ struct Strides {
   long long b, n, h;  // in elements; the head dim has stride 1
 };
 
-__device__ __forceinline__ const float* row_ptr(const float* base, const Strides& s,
-                                                long long b, long long n, long long h) {
+template <typename T>
+__device__ __forceinline__ const T* row_ptr(const T* base, const Strides& s, long long b,
+                                            long long n, long long h) {
   return base + b * s.b + n * s.n + h * s.h;
 }
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 
 // ------------------------------------------------------------ tensor cores
 //
@@ -177,6 +200,21 @@ __device__ __forceinline__ void mma_pass(float (&d)[4], const FragA& a, const ui
   }
 }
 
+// Whether a product needs pass `pass`. A bfloat16 input is exact in TF32
+// (its small part is 0), so with bfloat16 inputs a product of two inputs
+// (q kT, dO vT, ...) needs only A_big B_big, and one of a float32 A (P, dS)
+// and an input B skips A_big B_small: the skipped passes would add exact
+// zeros. Every product's B is an input, so a bfloat16 run never reads the
+// small parts of a tile.
+template <typename T>
+__device__ __forceinline__ constexpr bool inputs_need(int pass) {
+  return sizeof(T) == 4 || pass == 2;
+}
+template <typename T>
+__device__ __forceinline__ constexpr bool acc_input_needs(int pass) {
+  return sizeof(T) == 4 || pass != 1;
+}
+
 // A tile of TILE rows x HD of the streamed operand, every element split once
 // into its big and small TF32 parts.
 struct SplitTile {
@@ -184,8 +222,11 @@ struct SplitTile {
   uint32_t small[TILE][PAD];
 };
 
-// The same tile as it arrives, before the split.
+// The same tile as it arrives, before the split: TILE rows of HD values of
+// the input type, CHUNKS<T> 16-byte chunks a row (float32 uses all of it).
 typedef float4 RawTile[TILE][HD / 4];
+template <typename T>
+constexpr int CHUNKS = HD * (int)sizeof(T) / 16;
 
 // 16 bytes from global to shared memory, not through registers; zeros
 // (src not read) when !valid.
@@ -205,34 +246,53 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Start copying rows [t0, t0 + TILE) of x into raw. A thread's share is
-// float4 column threadIdx.x % 8 of rows threadIdx.x / 8 + 16 i; rows past N
-// are 0.
-__device__ __forceinline__ void fetch_tile(RawTile& raw, const float* __restrict__ x,
+// 16-byte chunk threadIdx.x % CHUNKS of rows threadIdx.x / CHUNKS + (THREADS
+// / CHUNKS) i; rows past N are 0.
+template <typename T>
+__device__ __forceinline__ void fetch_tile(RawTile& raw, const T* __restrict__ x,
                                            const Strides& s, long long b, long long h, int t0,
                                            int N) {
-  const int c = threadIdx.x % 8;
+  constexpr int C = CHUNKS<T>, VALS = 16 / sizeof(T);
+  uint4(&chunks)[TILE][C] = *reinterpret_cast<uint4(*)[TILE][C]>(&raw);
+  const int c = threadIdx.x % C;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = threadIdx.x / 8 + 16 * i, n = t0 + row;
-    cp_async16(&raw[row][c], n < N ? row_ptr(x, s, b, n, h) + 4 * c : x, n < N);
+  for (int i = 0; i < TILE * C / THREADS; ++i) {
+    const int row = threadIdx.x / C + THREADS / C * i, n = t0 + row;
+    cp_async16(&chunks[row][c], n < N ? row_ptr(x, s, b, n, h) + VALS * c : x, n < N);
   }
 }
 
+// 4 values of the input type as float32.
+__device__ __forceinline__ float4 unpack4(const float4& v) { return v; }
+__device__ __forceinline__ float4 unpack4(const uint2& v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 // The thread's own share of raw (no barrier needed after cp_async_wait_all),
-// split, into dst.
+// converted to float32 and split, into dst.
+template <typename T>
 __device__ __forceinline__ void store_split(SplitTile& dst, const RawTile& raw) {
-  const int c = threadIdx.x % 8;
+  constexpr int C = CHUNKS<T>, VALS = 16 / sizeof(T);
+  typedef typename std::conditional<sizeof(T) == 4, float4, uint2>::type Quad;
+  const Quad(&quads)[TILE][HD / 4] = *reinterpret_cast<const Quad(*)[TILE][HD / 4]>(&raw);
+  const int c = threadIdx.x % C;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = threadIdx.x / 8 + 16 * i;
-    const float4 v = raw[row][c];
-    uint4 big, small;
-    split_tf32(v.x, big.x, small.x);
-    split_tf32(v.y, big.y, small.y);
-    split_tf32(v.z, big.z, small.z);
-    split_tf32(v.w, big.w, small.w);
-    *reinterpret_cast<uint4*>(&dst.big[row][4 * c]) = big;
-    *reinterpret_cast<uint4*>(&dst.small[row][4 * c]) = small;
+  for (int i = 0; i < TILE * C / THREADS; ++i) {
+    const int row = threadIdx.x / C + THREADS / C * i;
+#pragma unroll
+    for (int j = 0; j < VALS / 4; ++j) {
+      const int col = VALS * c + 4 * j;  // the quad's first head dim
+      const float4 v = unpack4(quads[row][col / 4]);
+      uint4 big, small;
+      split_tf32(v.x, big.x, small.x);
+      split_tf32(v.y, big.y, small.y);
+      split_tf32(v.z, big.z, small.z);
+      split_tf32(v.w, big.w, small.w);
+      *reinterpret_cast<uint4*>(&dst.big[row][col]) = big;
+      if constexpr (sizeof(T) == 4) *reinterpret_cast<uint4*>(&dst.small[row][col]) = small;
+    }
   }
 }
 
@@ -251,18 +311,19 @@ struct DkvShared {
 
 // A fragments, one per 8 head dims, of rows w0 .. w0 + 15 of x (the
 // warp's own rows, kept in registers); rows past N are 0.
-__device__ __forceinline__ void frag_a_rows(FragA (&a)[HD / 8], const float* __restrict__ x,
+template <typename T>
+__device__ __forceinline__ void frag_a_rows(FragA (&a)[HD / 8], const T* __restrict__ x,
                                             const Strides& s, long long b, long long h, int w0,
                                             int N, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int n = w0 + g + 8 * r;
-    const float* p = n < N ? row_ptr(x, s, b, n, h) : nullptr;
+    const T* p = n < N ? row_ptr(x, s, b, n, h) : nullptr;
 #pragma unroll
     for (int kk = 0; kk < HD / 8; ++kk) {
-      const float lo = p ? __ldg(p + 8 * kk + t) : 0.f;
-      const float hi = p ? __ldg(p + 8 * kk + t + 4) : 0.f;
+      const float lo = p ? to_float(__ldg(p + 8 * kk + t)) : 0.f;
+      const float hi = p ? to_float(__ldg(p + 8 * kk + t + 4)) : 0.f;
       split_tf32(lo, a[kk].big[r], a[kk].small[r]);
       split_tf32(hi, a[kk].big[2 + r], a[kk].small[2 + r]);
     }
@@ -303,9 +364,18 @@ __device__ __forceinline__ void frag_a_acc(FragA& a, const float (&c)[4]) {
   split_tf32(c[3], a.big[3], a.small[3]);
 }
 
+// Two values to p in the output type, each rounded once.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // Rows g + 8 r of an m16 x HD accumulator (columns 8 nd + 2t, + 1), times
 // scale, to the contiguous (BB, N, H, HD) tensor out; rows past N are not written.
-__device__ __forceinline__ void store_acc(float* __restrict__ out, const float (&acc)[HD / 8][4],
+template <typename T>
+__device__ __forceinline__ void store_acc(T* __restrict__ out, const float (&acc)[HD / 8][4],
                                           float scale, long long b, long long h, int w0, int N,
                                           int H, int lane) {
   const int g = lane >> 2, t = lane & 3;
@@ -313,21 +383,21 @@ __device__ __forceinline__ void store_acc(float* __restrict__ out, const float (
   for (int r = 0; r < 2; ++r) {
     const int n = w0 + g + 8 * r;
     if (n >= N) continue;
-    float* p = out + ((b * N + n) * H + h) * HD + 2 * t;
+    T* p = out + ((b * N + n) * H + h) * HD + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < HD / 8; ++nd) {
-      *reinterpret_cast<float2*>(p + 8 * nd) =
-          make_float2(acc[nd][2 * r] * scale, acc[nd][2 * r + 1] * scale);
+      store2(p + 8 * nd, acc[nd][2 * r] * scale, acc[nd][2 * r + 1] * scale);
     }
   }
 }
 
 // grid (BB * H, ceil(N / ROWS)), THREADS threads; a warp owns 16 query rows
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, Strides qs, Strides ks, Strides vs,
-                         float* __restrict__ o, float* __restrict__ lse, int N, int H,
-                         float scale) {
+    attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, Strides qs, Strides ks, Strides vs,
+                         T* __restrict__ o, float* __restrict__ o32, float* __restrict__ lse,
+                         int N, int H, float scale) {
   extern __shared__ __align__(16) unsigned char shared[];
   KvShared& sh = *reinterpret_cast<KvShared*>(shared);
   SplitTile &Kt = sh.k, &Vt = sh.v;
@@ -350,8 +420,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int t0 = 0; t0 < N; t0 += TILE) {
     cp_async_wait_all();
     __syncthreads();  // the last tile's readers are done
-    store_split(Kt, sh.raw_k);
-    store_split(Vt, sh.raw_v);
+    store_split<T>(Kt, sh.raw_k);
+    store_split<T>(Vt, sh.raw_v);
     __syncthreads();
     if (t0 + TILE < N) {  // the next tile's copies fly during this tile's products
       fetch_tile(sh.raw_k, k, ks, b, h, t0 + TILE, N);
@@ -371,6 +441,7 @@ __global__ void __launch_bounds__(THREADS)
         for (int nt = 0; nt < STEP / 8; ++nt) frag_b_rows(bk[nt], Kt, j0 + 8 * nt, 8 * kk, lane);
 #pragma unroll
         for (int pass = 0; pass < 3; ++pass) {
+          if (!inputs_need<T>(pass)) continue;
 #pragma unroll
           for (int nt = 0; nt < STEP / 8; ++nt) mma_pass(s2[kk & 1][nt], qa[kk], bk[nt], pass);
         }
@@ -410,6 +481,7 @@ __global__ void __launch_bounds__(THREADS)
         for (int nd = 0; nd < HD / 8; ++nd) frag_b_cols(bv[nd], Vt, j0 + 8 * nt, 8 * nd, lane);
 #pragma unroll
         for (int pass = 0; pass < 3; ++pass) {
+          if (!acc_input_needs<T>(pass)) continue;
 #pragma unroll
           for (int nd = 0; nd < HD / 8; ++nd) mma_pass(part[nd], pa, bv[nd], pass);  // O += P V
         }
@@ -437,14 +509,16 @@ __global__ void __launch_bounds__(THREADS)
     for (int e = 0; e < 4; ++e) acc[nd][e] *= inv[e >> 1];
   }
   store_acc(o, acc, 1.f, b, h, w0, N, H, lane);
+  if (o32 != nullptr) store_acc(o32, acc, 1.f, b, h, w0, N, H, lane);
 }
 
 // grid (BB * H, ceil(N / ROWS)), THREADS threads; a warp owns 16 query rows
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, Strides qs, Strides ks, Strides vs,
+    attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, Strides qs, Strides ks, Strides vs,
                             const float* __restrict__ o, const float* __restrict__ lse,
-                            const float* __restrict__ dout, float* __restrict__ dq,
+                            const T* __restrict__ dout, T* __restrict__ dq,
                             float* __restrict__ delta, int N, int H, float scale) {
   extern __shared__ __align__(16) unsigned char shared[];
   KvShared& sh = *reinterpret_cast<KvShared*>(shared);
@@ -472,9 +546,11 @@ __global__ void __launch_bounds__(THREADS)
       float part = 0.f;
       if (n < N) {
         const float* po = o + ((b * N + n) * H + h) * HD + t;
-        const float* pd = dout + ((b * N + n) * H + h) * HD + t;
+        const T* pd = dout + ((b * N + n) * H + h) * HD + t;
 #pragma unroll
-        for (int m = 0; m < HD / 4; ++m) part = fmaf(__ldg(pd + 4 * m), __ldg(po + 4 * m), part);
+        for (int m = 0; m < HD / 4; ++m) {
+          part = fmaf(to_float(__ldg(pd + 4 * m)), __ldg(po + 4 * m), part);
+        }
         lse2[r] = lse[seq * N + n] * LOG2E;
       }
       part += __shfl_xor_sync(0xffffffffu, part, 1);
@@ -489,8 +565,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int t0 = 0; t0 < N; t0 += TILE) {
     cp_async_wait_all();
     __syncthreads();  // the last tile's readers are done
-    store_split(Kt, sh.raw_k);
-    store_split(Vt, sh.raw_v);
+    store_split<T>(Kt, sh.raw_k);
+    store_split<T>(Vt, sh.raw_v);
     __syncthreads();
     if (t0 + TILE < N) {  // the next tile's copies fly during this tile's products
       fetch_tile(sh.raw_k, k, ks, b, h, t0 + TILE, N);
@@ -512,6 +588,7 @@ __global__ void __launch_bounds__(THREADS)
         }
 #pragma unroll
         for (int pass = 0; pass < 3; ++pass) {
+          if (!inputs_need<T>(pass)) continue;
 #pragma unroll
           for (int nt = 0; nt < STEP / 8; ++nt) {
             mma_pass(s[nt], qa[kk], bk[nt], pass);
@@ -534,6 +611,7 @@ __global__ void __launch_bounds__(THREADS)
         for (int nd = 0; nd < HD / 8; ++nd) frag_b_cols(bk[nd], Kt, j0 + 8 * nt, 8 * nd, lane);
 #pragma unroll
         for (int pass = 0; pass < 3; ++pass) {
+          if (!acc_input_needs<T>(pass)) continue;
 #pragma unroll
           for (int nd = 0; nd < HD / 8; ++nd) mma_pass(part[nd], ds, bk[nd], pass);  // dQ += dS K
         }
@@ -550,12 +628,13 @@ __global__ void __launch_bounds__(THREADS)
 
 // grid (BB * H, ceil(N / ROWS)), THREADS threads; a warp owns 16 key
 // rows; reads the delta of the dq kernel
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, Strides qs, Strides ks, Strides vs,
-                             const float* __restrict__ lse, const float* __restrict__ dout,
-                             const float* __restrict__ delta, float* __restrict__ dk,
-                             float* __restrict__ dv, int N, int H, float scale) {
+    attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, Strides qs, Strides ks, Strides vs,
+                             const float* __restrict__ lse, const T* __restrict__ dout,
+                             const float* __restrict__ delta, T* __restrict__ dk,
+                             T* __restrict__ dv, int N, int H, float scale) {
   extern __shared__ __align__(16) unsigned char shared[];
   DkvShared& sh = *reinterpret_cast<DkvShared*>(shared);
   SplitTile &Qt = sh.q, &Dt = sh.d;
@@ -586,8 +665,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int t0 = 0; t0 < N; t0 += TILE) {
     cp_async_wait_all();
     __syncthreads();
-    store_split(Qt, sh.raw_q);
-    store_split(Dt, sh.raw_d);
+    store_split<T>(Qt, sh.raw_q);
+    store_split<T>(Dt, sh.raw_d);
     if (threadIdx.x < TILE) {
       Ls[threadIdx.x] = lr;
       Es[threadIdx.x] = er;
@@ -618,6 +697,7 @@ __global__ void __launch_bounds__(THREADS)
         }
 #pragma unroll
         for (int pass = 0; pass < 3; ++pass) {
+          if (!inputs_need<T>(pass)) continue;
 #pragma unroll
           for (int nt = 0; nt < STEP / 8; ++nt) {
             mma_pass(st[nt], ka[kk], bq[nt], pass);
@@ -650,6 +730,7 @@ __global__ void __launch_bounds__(THREADS)
           }
 #pragma unroll
           for (int pass = 0; pass < 3; ++pass) {
+            if (!acc_input_needs<T>(pass)) continue;
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
               mma_pass(pv[n2 + u], pa, bd[u], pass);
@@ -680,89 +761,110 @@ bool grid_for(int BB, int N, int H, dim3* grid) {
   return true;
 }
 
-}  // namespace
-
-// q, k, v: (BB, N, H, 32) with element strides (b, n, h) given per tensor and
-// 16-byte aligned rows; o (BB, N, H, 32) and lse (BB, H, N) contiguous.
-// Launches on `stream` of `device`; returns cudaGetLastError() of the launch.
-extern "C" int area_attention_fwd_f32(const void* q, const void* k, const void* v,
-                                      long long qsb, long long qsn, long long qsh,
-                                      long long ksb, long long ksn, long long ksh,
-                                      long long vsb, long long vsn, long long vsh, void* o,
-                                      void* lse, int BB, int N, int H, float scale, int device,
-                                      void* stream) {
+// The launchers of the three kernels in the input type T.
+template <typename T>
+int forward(const void* q, const void* k, const void* v, Strides qs, Strides ks, Strides vs,
+            void* o, void* o32, void* lse, int BB, int N, int H, float scale, int device,
+            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)BB * N * H == 0) return 0;
   dim3 grid;
   if (!grid_for(BB, N, H, &grid)) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(attention_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              sizeof(KvShared));
   if (err != cudaSuccess) return (int)err;
-  attention_fwd_kernel<<<grid, THREADS, sizeof(KvShared), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh}, Strides{vsb, vsn, vsh},
-      static_cast<float*>(o), static_cast<float*>(lse), N, H, scale);
+  attention_fwd_kernel<T><<<grid, THREADS, sizeof(KvShared), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qs, ks, vs,
+      static_cast<T*>(o), static_cast<float*>(o32), static_cast<float*>(lse), N, H, scale);
   return (int)cudaGetLastError();
 }
 
-// dq, delta (BB, H, N) from q, k, v (strided as above), o, lse and do
-// (contiguous). Launches on `stream` of `device`; returns cudaGetLastError().
-extern "C" int area_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
-                                         long long qsb, long long qsn, long long qsh,
-                                         long long ksb, long long ksn, long long ksh,
-                                         long long vsb, long long vsn, long long vsh,
-                                         const void* o, const void* lse, const void* dout,
-                                         void* dq, void* delta, int BB, int N, int H,
-                                         float scale, int device, void* stream) {
+template <typename T>
+int backward_dq(const void* q, const void* k, const void* v, Strides qs, Strides ks, Strides vs,
+                const void* o, const void* lse, const void* dout, void* dq, void* delta, int BB,
+                int N, int H, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)BB * N * H == 0) return 0;
   dim3 grid;
   if (!grid_for(BB, N, H, &grid)) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             sizeof(KvShared));
+  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(KvShared));
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_dq_kernel<<<grid, THREADS, sizeof(KvShared),
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh}, Strides{vsb, vsn, vsh},
-      static_cast<const float*>(o), static_cast<const float*>(lse),
-      static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(delta), N,
-      H, scale);
+  attention_bwd_dq_kernel<T><<<grid, THREADS, sizeof(KvShared),
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qs, ks, vs,
+      static_cast<const float*>(o), static_cast<const float*>(lse), static_cast<const T*>(dout),
+      static_cast<T*>(dq), static_cast<float*>(delta), N, H, scale);
   return (int)cudaGetLastError();
 }
 
-// dk, dv from q, k, v (strided as above), lse, do and the delta of
-// area_attention_bwd_dq_f32. Launches on `stream` of `device`; returns
-// cudaGetLastError() of the launch.
-extern "C" int area_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
-                                          long long qsb, long long qsn, long long qsh,
-                                          long long ksb, long long ksn, long long ksh,
-                                          long long vsb, long long vsn, long long vsh,
-                                          const void* lse, const void* dout, const void* delta,
-                                          void* dk, void* dv, int BB, int N, int H,
-                                          float scale, int device, void* stream) {
+template <typename T>
+int backward_dkv(const void* q, const void* k, const void* v, Strides qs, Strides ks, Strides vs,
+                 const void* lse, const void* dout, const void* delta, void* dk, void* dv, int BB,
+                 int N, int H, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((long long)BB * N * H == 0) return 0;
   dim3 grid;
   if (!grid_for(BB, N, H, &grid)) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel,
+  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(DkvShared));
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_dkv_kernel<<<grid, THREADS, sizeof(DkvShared),
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh}, Strides{vsb, vsn, vsh},
-      static_cast<const float*>(lse), static_cast<const float*>(dout),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), N, H,
-      scale);
+  attention_bwd_dkv_kernel<T><<<grid, THREADS, sizeof(DkvShared),
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qs, ks, vs,
+      static_cast<const float*>(lse), static_cast<const T*>(dout),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), N, H, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The entry points, one set per type: q, k, v are (BB, N, H, 32) with
+// element strides (b, n, h) given per tensor and 16-byte aligned rows; o, do,
+// dq, dk, dv (BB, N, H, 32) and lse, delta (BB, H, N, float32) contiguous.
+// The dq kernel's o is float32 in both types. Each launches on `stream` of
+// `device` and returns cudaGetLastError().
+#define QKV_ARGS                                                                           \
+  const void *q, const void *k, const void *v, long long qsb, long long qsn, long long qsh, \
+      long long ksb, long long ksn, long long ksh, long long vsb, long long vsn, long long vsh
+#define QKV q, k, v, Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh}, Strides{vsb, vsn, vsh}
+#define TAIL_ARGS int BB, int N, int H, float scale, int device, void *stream
+#define TAIL BB, N, H, scale, device, stream
+
+// o (BB, N, H, 32) and lse (BB, H, N); for bfloat16, also O in float32 into
+// o32 unless it is null.
+extern "C" int area_attention_fwd_f32(QKV_ARGS, void* o, void* lse, TAIL_ARGS) {
+  return forward<float>(QKV, o, nullptr, lse, TAIL);
+}
+extern "C" int area_attention_fwd_bf16(QKV_ARGS, void* o, void* o32, void* lse, TAIL_ARGS) {
+  return forward<bf16>(QKV, o, o32, lse, TAIL);
+}
+
+// dq and delta (BB, H, N) from q, k, v, o (float32), lse and do.
+extern "C" int area_attention_bwd_dq_f32(QKV_ARGS, const void* o, const void* lse,
+                                         const void* dout, void* dq, void* delta, TAIL_ARGS) {
+  return backward_dq<float>(QKV, o, lse, dout, dq, delta, TAIL);
+}
+extern "C" int area_attention_bwd_dq_bf16(QKV_ARGS, const void* o, const void* lse,
+                                          const void* dout, void* dq, void* delta, TAIL_ARGS) {
+  return backward_dq<bf16>(QKV, o, lse, dout, dq, delta, TAIL);
+}
+
+// dk and dv from q, k, v, lse, do and the delta of the dq kernel.
+extern "C" int area_attention_bwd_dkv_f32(QKV_ARGS, const void* lse, const void* dout,
+                                          const void* delta, void* dk, void* dv, TAIL_ARGS) {
+  return backward_dkv<float>(QKV, lse, dout, delta, dk, dv, TAIL);
+}
+extern "C" int area_attention_bwd_dkv_bf16(QKV_ARGS, const void* lse, const void* dout,
+                                           const void* delta, void* dk, void* dv, TAIL_ARGS) {
+  return backward_dkv<bf16>(QKV, lse, dout, delta, dk, dv, TAIL);
 }
 
 // Bytes of dynamic shared memory a block of each kernel takes: 0 forward,
-// 1 dq, 2 dkv.
+// 1 dq, 2 dkv (the same in both types).
 extern "C" int area_attention_shared_bytes(int kernel) {
   return kernel == 2 ? (int)sizeof(DkvShared) : (int)sizeof(KvShared);
 }

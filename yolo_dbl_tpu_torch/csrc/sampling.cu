@@ -6,10 +6,17 @@
 //
 //   out[b, n, c] = bilinear(x[b, :, :, c], gy[b, n, g], gx[b, n, g]),  g = c / (C / G)
 //
-// x is NHWC (B, H, W, C) float32, gy/gx are pixel coordinates (B, N, G) with
+// x is NHWC (B, H, W, C), gy/gx are pixel coordinates (B, N, G) with
 // one coordinate pair per contiguous channel group, out is (B, N, C).
 // Padding is "border" (taps clamped, so coincident taps add) or "zeros"
 // (out-of-range taps read 0).
+//
+// Types: float32 (sample_bilinear_f32) or bfloat16 (sample_bilinear_bf16)
+// for x, the coordinates and out, all of one type. A bfloat16 run forms the
+// taps and weights in float32 from the bfloat16 coordinates, blends in
+// float32 (the TPU kernel accumulates in float32, sampling.py:77-80) and
+// rounds each output to bfloat16 once; its plain version is the float32 one
+// on the upcast inputs, rounded once.
 //
 // Bound: bytes. Each output element costs 4 loads and ~10 flops, far below
 // the card's 67 TFLOP/s fp32 rate; the least traffic is x read once, out
@@ -18,25 +25,100 @@
 //
 // Design: the TPU kernel turned the gather into dense one-hot matmuls
 // because Mosaic rejects gathers; Hopper gathers from L1/L2 directly, so
-// each thread computes one output vector of 4 channels (float4 loads and
-// stores) and threads run along C, so that a warp's taps and its store are
-// contiguous. Neighbouring output points reuse the same source pixels, and
-// a DySample source (<= 13 MB at batch 8) stays in the 50 MB L2, so x is
-// read from device memory about once. One launch covers all G groups.
+// each thread computes one output vector of 16 bytes (4 floats or 8
+// bfloat16 channels: 16-byte loads and stores) and threads run along C, so
+// that a warp's taps and its store are contiguous. Neighbouring output
+// points reuse the same source pixels, and a DySample source (<= 13 MB at
+// batch 8) stays in the 50 MB L2, so x is read from device memory about
+// once. One launch covers all G groups.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float v) { return __float2bfloat16(v); }
+
+// V consecutive values of p as float32: one 16-byte load for 4 floats or 8
+// bfloat16, one 8-byte load for 4 bfloat16.
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float* v) {
+  if constexpr (V == 8) {
+    static_assert(sizeof(T) == 2, "8 values a load are bfloat16");
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  } else if constexpr (V == 4 && sizeof(T) == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (V == 4) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = to_float(__ldg(p + k));
+  }
+}
+
+// V floats to p in T, each rounded once.
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float* v) {
+  if constexpr (V == 8) {
+    static_assert(sizeof(T) == 2, "8 values a store are bfloat16");
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      w[k] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (V == 4 && sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const uint32_t*>(&a);
+    q.y = *reinterpret_cast<const uint32_t*>(&b);
+    *reinterpret_cast<uint2*>(p) = q;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) p[k] = from_float<T>(v[k]);
+  }
+}
+
 template <int V>
 struct Vec {
   float v[V];
 };
 
-template <int V>
-__device__ __forceinline__ Vec<V> tap(const float* __restrict__ img, float yf, float xf, int H,
+template <typename T, int V>
+__device__ __forceinline__ Vec<V> tap(const T* __restrict__ img, float yf, float xf, int H,
                                       int W, int C, bool zeros) {
   Vec<V> r;
   if (zeros && !(yf >= 0.f && yf <= (float)(H - 1) && xf >= 0.f && xf <= (float)(W - 1))) {
@@ -46,23 +128,13 @@ __device__ __forceinline__ Vec<V> tap(const float* __restrict__ img, float yf, f
   }
   const int yi = (int)fminf(fmaxf(yf, 0.f), (float)(H - 1));
   const int xi = (int)fminf(fmaxf(xf, 0.f), (float)(W - 1));
-  const float* p = img + ((long long)yi * W + xi) * C;
-  if constexpr (V == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    r.v[0] = q.x;
-    r.v[1] = q.y;
-    r.v[2] = q.z;
-    r.v[3] = q.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) r.v[k] = __ldg(p + k);
-  }
+  load_vec<T, V>(img + ((long long)yi * W + xi) * C, r.v);
   return r;
 }
 
-template <int V>
-__global__ void sample_bilinear_kernel(const float* __restrict__ x, const float* __restrict__ gy,
-                                       const float* __restrict__ gx, float* __restrict__ out,
+template <typename T, int V>
+__global__ void sample_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                                       const T* __restrict__ gx, T* __restrict__ out,
                                        int H, int W, int C, int N, int G, bool zeros,
                                        long long total) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -72,17 +144,17 @@ __global__ void sample_bilinear_kernel(const float* __restrict__ x, const float*
   const long long bn = i / cvec;  // b * N + n
   const long long b = bn / N;
   const int g = c / (C / G);
-  const float fy = gy[bn * G + g];
-  const float fx = gx[bn * G + g];
+  const float fy = to_float(gy[bn * G + g]);
+  const float fx = to_float(gx[bn * G + g]);
   const float y0 = floorf(fy);
   const float x0 = floorf(fx);
   const float wy = fy - y0;
   const float wx = fx - x0;
-  const float* img = x + b * H * W * C + c;
-  const Vec<V> v00 = tap<V>(img, y0, x0, H, W, C, zeros);
-  const Vec<V> v01 = tap<V>(img, y0, x0 + 1.f, H, W, C, zeros);
-  const Vec<V> v10 = tap<V>(img, y0 + 1.f, x0, H, W, C, zeros);
-  const Vec<V> v11 = tap<V>(img, y0 + 1.f, x0 + 1.f, H, W, C, zeros);
+  const T* img = x + b * H * W * C + c;
+  const Vec<V> v00 = tap<T, V>(img, y0, x0, H, W, C, zeros);
+  const Vec<V> v01 = tap<T, V>(img, y0, x0 + 1.f, H, W, C, zeros);
+  const Vec<V> v10 = tap<T, V>(img, y0 + 1.f, x0, H, W, C, zeros);
+  const Vec<V> v11 = tap<T, V>(img, y0 + 1.f, x0 + 1.f, H, W, C, zeros);
   Vec<V> r;
 #pragma unroll
   for (int k = 0; k < V; ++k) {
@@ -90,13 +162,7 @@ __global__ void sample_bilinear_kernel(const float* __restrict__ x, const float*
     const float bot = v10.v[k] * (1.f - wx) + v11.v[k] * wx;
     r.v[k] = top * (1.f - wy) + bot * wy;
   }
-  float* o = out + bn * C + c;
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(o) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) o[k] = r.v[k];
-  }
+  store_vec<T, V>(out + bn * C + c, r.v);
 }
 
 // ---------------------------------------------------------------- backward
@@ -115,6 +181,14 @@ __global__ void sample_bilinear_kernel(const float* __restrict__ x, const float*
 // adds 4 taps into dx; the least traffic is x and g read once, dx written
 // once (it is zero-filled first) and the coordinates and their gradients
 // (row 13 at training batch 16: 26 + 105 + 2 x 26 + 7 MB, ~57 us at 3.35 TB/s).
+//
+// bfloat16 (sample_bilinear_backward_bf16): x, the coordinates and g arrive
+// in bfloat16 and dx, dgy and dgx leave in it, with float32 sums: the taps
+// and weights are formed in float32 from the bfloat16 coordinates, dgy and
+// dgx are reduced in float32 and rounded once, and dx is summed in a float32
+// scratch (zero-filled by the wrapper, windows of neighbouring tiles overlap)
+// that a second pass rounds once into dx. A bfloat16 atomicAdd would round
+// at every add. The scratch's write and read are this design's extra bytes.
 //
 // Design: a block of 128 threads owns one (image, group) and a tile of P
 // consecutive output points, P C/G <= 4096 (P = 64 at C/G = 64, 32 at 128).
@@ -167,20 +241,6 @@ int backward_shared_bytes(int cg) {
 }
 
 template <int V>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float* v) {
-  if constexpr (V == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = __ldg(p + k);
-  }
-}
-
-template <int V>
 __device__ __forceinline__ void add_vec(float* p, const float* v, float w) {
   if constexpr (V == 4) {
     atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0] * w, v[1] * w, v[2] * w, v[3] * w));
@@ -222,14 +282,15 @@ __device__ __forceinline__ Taps taps_of(float fy, float fx, int H, int W, bool z
 }
 
 // grid (ceil(N / P), G, B), BWD_THREADS threads, backward_shared_bytes(C / G)
-// of dynamic shared memory. With COUNT, also adds to taps[0] the tile's taps
-// and to taps[1] those that missed the window (a separate build: the counter
-// costs registers).
-template <int V, bool COUNT>
+// of dynamic shared memory. dx is float32 (dx itself, or the scratch of a
+// bfloat16 run). With COUNT, also adds to taps[0] the tile's taps and to
+// taps[1] those that missed the window (a separate build: the counter costs
+// registers).
+template <typename T, int V, bool COUNT>
 __global__ void __launch_bounds__(BWD_THREADS) sample_bilinear_backward_kernel(
-    const float* __restrict__ x, const float* __restrict__ gy, const float* __restrict__ gx,
-    const float* __restrict__ gout, float* __restrict__ dx, float* __restrict__ dgy,
-    float* __restrict__ dgx, int H, int W, int C, int N, int G, bool zeros, int team, int P,
+    const T* __restrict__ x, const T* __restrict__ gy, const T* __restrict__ gx,
+    const T* __restrict__ gout, float* __restrict__ dx, T* __restrict__ dgy,
+    T* __restrict__ dgx, int H, int W, int C, int N, int G, bool zeros, int team, int P,
     unsigned long long* __restrict__ taps) {
   extern __shared__ __align__(16) float smem[];
   const int cg = C / G;
@@ -260,7 +321,7 @@ __global__ void __launch_bounds__(BWD_THREADS) sample_bilinear_backward_kernel(
   Taps own;
   if (mine) {
     const long long p = (b * N + n0 + threadIdx.x) * G + grp;
-    own = taps_of(gy[p], gx[p], H, W, zeros);
+    own = taps_of(to_float(gy[p]), to_float(gx[p]), H, W, zeros);
   }
   {
     int lo = INT_MAX, hi = -1;
@@ -352,11 +413,11 @@ __global__ void __launch_bounds__(BWD_THREADS) sample_bilinear_backward_kernel(
     const long long p = (b * N + n) * G + grp;
     float sy = 0.f, sx = 0.f;
     if (j < P && n < N) {
-      const Taps tp = taps_of(gy[p], gx[p], H, W, zeros);
-      const float* go = gout + (b * N + n) * C + (long long)grp * cg;
+      const Taps tp = taps_of(to_float(gy[p]), to_float(gx[p]), H, W, zeros);
+      const T* go = gout + (b * N + n) * C + (long long)grp * cg;
       for (int c = lane * V; c < cg; c += team * V) {
         float g[V], v[4][V];
-        load_vec<V>(go + c, g);
+        load_vec<T, V>(go + c, g);
         if constexpr (V == 4) {
           *reinterpret_cast<float4*>(gs + j * cg + c) = make_float4(g[0], g[1], g[2], g[3]);
         } else {
@@ -365,7 +426,7 @@ __global__ void __launch_bounds__(BWD_THREADS) sample_bilinear_backward_kernel(
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           if (tp.use[k]) {
-            load_vec<V>(x + img + (long long)tp.pix[k] * C + c, v[k]);
+            load_vec<T, V>(x + img + (long long)tp.pix[k] * C + c, v[k]);
           } else {
 #pragma unroll
             for (int i = 0; i < V; ++i) v[k][i] = 0.f;
@@ -394,8 +455,8 @@ __global__ void __launch_bounds__(BWD_THREADS) sample_bilinear_backward_kernel(
       sx += __shfl_xor_sync(0xffffffffu, sx, o);
     }
     if (j < P && n < N && lane == 0) {
-      dgy[p] = sy;
-      dgx[p] = sx;
+      dgy[p] = from_float<T>(sy);
+      dgx[p] = from_float<T>(sx);
     }
   }
   __syncthreads();
@@ -435,14 +496,31 @@ __global__ void __launch_bounds__(BWD_THREADS) sample_bilinear_backward_kernel(
   }
 }
 
-template <bool COUNT>
-int backward(const void* x, const void* gy, const void* gx, const void* gout, void* dx, void* dgy,
-             void* dgx, int B, int H, int W, int C, int N, int G, int zeros, int device,
-             void* stream, void* taps) {
+// The float32 sums of a bfloat16 run's dx, each rounded once into dx: 4
+// elements a thread, 16-byte loads and 8-byte stores when both are aligned.
+__global__ void round_to_bf16_kernel(const float* __restrict__ acc, bf16* __restrict__ out,
+                                     long long n, bool vec) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (vec && i + 4 <= n) {
+    float v[4];
+    load_vec<float, 4>(acc + i, v);
+    store_vec<bf16, 4>(out + i, v);
+  } else {
+    for (long long j = i; j < i + 4 && j < n; ++j) out[j] = __float2bfloat16(acc[j]);
+  }
+}
+
+// dx_acc: the float32 dx the kernel adds into, zero-filled; for bfloat16,
+// dx_out receives it rounded (for float32 it is dx_acc itself).
+template <typename T, bool COUNT>
+int backward(const void* x, const void* gy, const void* gx, const void* gout, void* dx_acc,
+             void* dx_out, void* dgy, void* dgx, int B, int H, int W, int C, int N, int G,
+             int zeros, int device, void* stream, void* taps) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bool vec4 = (C / G) % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)gout % 16 == 0 &&
-                    (uintptr_t)dx % 16 == 0;
+  constexpr uintptr_t VEC_BYTES = 4 * sizeof(T);
+  const bool vec4 = (C / G) % 4 == 0 && (uintptr_t)x % VEC_BYTES == 0 &&
+                    (uintptr_t)gout % VEC_BYTES == 0 && (uintptr_t)dx_acc % 16 == 0;
   const int v = vec4 ? 4 : 1;
   if ((long long)B * N * G == 0) return 0;
   if (B > 65535 || G > 65535) return (int)cudaErrorInvalidConfiguration;
@@ -451,26 +529,64 @@ int backward(const void* x, const void* gy, const void* gx, const void* gout, vo
   const int P = tile_points(C / G), smem = backward_shared_bytes(C / G);
   const dim3 grid((unsigned)((N + P - 1) / P), (unsigned)G, (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* gyf = static_cast<const float*>(gy);
-  const float* gxf = static_cast<const float*>(gx);
-  const float* gof = static_cast<const float*>(gout);
-  float* dxf = static_cast<float*>(dx);
-  float* dgyf = static_cast<float*>(dgy);
-  float* dgxf = static_cast<float*>(dgx);
+  const T* xt = static_cast<const T*>(x);
+  const T* gyt = static_cast<const T*>(gy);
+  const T* gxt = static_cast<const T*>(gx);
+  const T* got = static_cast<const T*>(gout);
+  float* acc = static_cast<float*>(dx_acc);
+  T* dgyt = static_cast<T*>(dgy);
+  T* dgxt = static_cast<T*>(dgx);
   unsigned long long* count = static_cast<unsigned long long*>(taps);
   if (vec4) {
-    err = cudaFuncSetAttribute(sample_bilinear_backward_kernel<4, COUNT>,
+    err = cudaFuncSetAttribute(sample_bilinear_backward_kernel<T, 4, COUNT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    sample_bilinear_backward_kernel<4, COUNT><<<grid, BWD_THREADS, smem, s>>>(
-        xf, gyf, gxf, gof, dxf, dgyf, dgxf, H, W, C, N, G, zeros != 0, team, P, count);
+    sample_bilinear_backward_kernel<T, 4, COUNT><<<grid, BWD_THREADS, smem, s>>>(
+        xt, gyt, gxt, got, acc, dgyt, dgxt, H, W, C, N, G, zeros != 0, team, P, count);
   } else {
-    err = cudaFuncSetAttribute(sample_bilinear_backward_kernel<1, COUNT>,
+    err = cudaFuncSetAttribute(sample_bilinear_backward_kernel<T, 1, COUNT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    sample_bilinear_backward_kernel<1, COUNT><<<grid, BWD_THREADS, smem, s>>>(
-        xf, gyf, gxf, gof, dxf, dgyf, dgxf, H, W, C, N, G, zeros != 0, team, P, count);
+    sample_bilinear_backward_kernel<T, 1, COUNT><<<grid, BWD_THREADS, smem, s>>>(
+        xt, gyt, gxt, got, acc, dgyt, dgxt, H, W, C, N, G, zeros != 0, team, P, count);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || sizeof(T) == 4) return (int)err;
+  const long long n = (long long)B * H * W * C;
+  const long long blocks = (n + 4 * 256 - 1) / (4 * 256);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const bool vec = (uintptr_t)dx_acc % 16 == 0 && (uintptr_t)dx_out % 8 == 0;
+  round_to_bf16_kernel<<<(unsigned)blocks, 256, 0, s>>>(acc, static_cast<bf16*>(dx_out), n, vec);
+  return (int)cudaGetLastError();
+}
+
+// A thread blends VEC channels: one 16-byte load a tap (4 floats, 8
+// bfloat16) where C / G and the alignment allow, else one channel.
+template <typename T>
+int forward(const void* x, const void* gy, const void* gx, void* out, int B, int H, int W, int C,
+            int N, int G, int zeros, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = C % VEC == 0 && (C / G) % VEC == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
+  const int v = vec ? VEC : 1;
+  const long long total = (long long)B * N * (C / v);
+  if (total == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const T* gyt = static_cast<const T*>(gy);
+  const T* gxt = static_cast<const T*>(gx);
+  T* ot = static_cast<T*>(out);
+  if (vec) {
+    sample_bilinear_kernel<T, VEC><<<(unsigned)blocks, threads, 0, s>>>(xt, gyt, gxt, ot, H, W,
+                                                                        C, N, G, zeros != 0, total);
+  } else {
+    sample_bilinear_kernel<T, 1><<<(unsigned)blocks, threads, 0, s>>>(xt, gyt, gxt, ot, H, W, C,
+                                                                      N, G, zeros != 0, total);
   }
   return (int)cudaGetLastError();
 }
@@ -483,8 +599,20 @@ extern "C" int sample_bilinear_backward_f32(const void* x, const void* gy, const
                                             const void* gout, void* dx, void* dgy, void* dgx,
                                             int B, int H, int W, int C, int N, int G, int zeros,
                                             int device, void* stream) {
-  return backward<false>(x, gy, gx, gout, dx, dgy, dgx, B, H, W, C, N, G, zeros, device, stream,
-                         nullptr);
+  return backward<float, false>(x, gy, gx, gout, dx, dx, dgy, dgx, B, H, W, C, N, G, zeros,
+                                device, stream, nullptr);
+}
+
+// bfloat16 x, gy, gx, gout, dx, dgy and dgx; dx_acc is a zero-filled float32
+// (B, H, W, C) scratch that holds dx's float32 sums. Launches the backward
+// kernel and the rounding pass on `stream` of `device`; returns
+// cudaGetLastError() of the launches.
+extern "C" int sample_bilinear_backward_bf16(const void* x, const void* gy, const void* gx,
+                                             const void* gout, void* dx_acc, void* dx, void* dgy,
+                                             void* dgx, int B, int H, int W, int C, int N, int G,
+                                             int zeros, int device, void* stream) {
+  return backward<bf16, false>(x, gy, gx, gout, dx_acc, dx, dgy, dgx, B, H, W, C, N, G, zeros,
+                               device, stream, nullptr);
 }
 
 // As sample_bilinear_backward_f32, and adds to taps[0] the taps it scattered
@@ -495,8 +623,8 @@ extern "C" int sample_bilinear_backward_taps_f32(const void* x, const void* gy, 
                                                  int B, int H, int W, int C, int N, int G,
                                                  int zeros, int device, void* stream,
                                                  void* taps) {
-  return backward<true>(x, gy, gx, gout, dx, dgy, dgx, B, H, W, C, N, G, zeros, device, stream,
-                        taps);
+  return backward<float, true>(x, gy, gx, gout, dx, dx, dgy, dgx, B, H, W, C, N, G, zeros, device,
+                               stream, taps);
 }
 
 // Bytes of dynamic shared memory a backward block takes at C / G channels a
@@ -509,27 +637,12 @@ extern "C" int sample_bilinear_backward_shared_bytes(int C, int G) {
 extern "C" int sample_bilinear_f32(const void* x, const void* gy, const void* gx, void* out,
                                    int B, int H, int W, int C, int N, int G, int zeros,
                                    int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const bool vec4 = C % 4 == 0 && (C / G) % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                    (uintptr_t)out % 16 == 0;
-  const int v = vec4 ? 4 : 1;
-  const long long total = (long long)B * N * (C / v);
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* gyf = static_cast<const float*>(gy);
-  const float* gxf = static_cast<const float*>(gx);
-  float* of = static_cast<float*>(out);
-  if (vec4) {
-    sample_bilinear_kernel<4><<<(unsigned)blocks, threads, 0, s>>>(xf, gyf, gxf, of, H, W, C, N, G,
-                                                                   zeros != 0, total);
-  } else {
-    sample_bilinear_kernel<1><<<(unsigned)blocks, threads, 0, s>>>(xf, gyf, gxf, of, H, W, C, N, G,
-                                                                   zeros != 0, total);
-  }
-  return (int)cudaGetLastError();
+  return forward<float>(x, gy, gx, out, B, H, W, C, N, G, zeros, device, stream);
+}
+
+// x, gy, gx and out in bfloat16; taps, weights and the blend in float32.
+extern "C" int sample_bilinear_bf16(const void* x, const void* gy, const void* gx, void* out,
+                                    int B, int H, int W, int C, int N, int G, int zeros,
+                                    int device, void* stream) {
+  return forward<bf16>(x, gy, gx, out, B, H, W, C, N, G, zeros, device, stream);
 }

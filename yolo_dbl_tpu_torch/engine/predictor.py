@@ -35,8 +35,13 @@ class DetectionPredictor:
     def infer(self, frames_u8: torch.Tensor):
         """Device-side pass: (B, H, W, 3) uint8 on the model's device → NMS
         output (dets (B, max_det, 6), counts (B,)) in letterboxed pixels."""
-        img = letterbox_normalize(frames_u8, (self.imgsz, self.imgsz), scaleup=False)
+        # K1 writes the model's type. JAX's predictor hands flax the float32
+        # canvas and flax rounds it to bfloat16 (predictor.py:400-405); K1's
+        # bfloat16 output is its float32 value rounded once, the same bits.
+        img = letterbox_normalize(frames_u8, (self.imgsz, self.imgsz), scaleup=False,
+                                  out_dtype=self.model.dtype)
         pred = self.model.predict(img)
+        # the decode's type goes to NMS, as in JAX (predictor.py:459-464)
         return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
                                    max_det=self.max_det)
 

@@ -5,6 +5,9 @@ The train step is the JAX `make_train_step` (:62): uint8 batch → /255 →
 train-mode forward (BatchNorm on batch statistics) → `detection_loss` →
 gradients → optimizer → EMA, with the metrics loss/box_loss/cls_loss/dfl_loss.
 On the card the DySample samplers run the K2 kernels forward and backward.
+A bfloat16 model runs its forward and backward in bfloat16; the loss, the
+TAL assigner, the float32 parameters, their gradients, the optimizer and
+the EMA stay float32, as in JAX.
 
 Not ported, each for a reason of the TPU runtime or of the mesh:
 `make_train_scan` (:111) runs K steps in one dispatch to amortize the TPU
@@ -34,7 +37,7 @@ def train_loss(model: DetectionModel, cfg, batch: Dict[str, torch.Tensor]):
     was_training = model.training
     model.train()
     try:
-        feats = model(device_normalize(batch["img"]))
+        feats = model(device_normalize(batch["img"], model.dtype))
         return detection_loss(feats, batch, model.strides, model.nc,
                               box_gain=cfg.box, cls_gain=cfg.cls, dfl_gain=cfg.dfl)
     finally:

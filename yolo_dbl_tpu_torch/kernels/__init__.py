@@ -8,7 +8,11 @@ path went through.
 
 launches = {"letterbox_normalize": 0, "sample_bilinear": 0, "sample_bilinear_backward": 0,
             "area_attention": 0, "area_attention_backward_dq": 0,
-            "area_attention_backward_dkv": 0}
+            "area_attention_backward_dkv": 0,
+            # the bfloat16 variants: K1 writing bfloat16, K2 and K3 in bfloat16
+            "letterbox_normalize_bf16": 0, "sample_bilinear_bf16": 0,
+            "sample_bilinear_backward_bf16": 0, "area_attention_bf16": 0,
+            "area_attention_backward_dq_bf16": 0, "area_attention_backward_dkv_bf16": 0}
 
 
 def reset_launches():

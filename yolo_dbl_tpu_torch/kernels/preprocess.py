@@ -149,13 +149,17 @@ def letterbox_normalize(images_u8, out_hw=(640, 640), pad_value=114, scaleup=Fal
         images_u8.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16), b, h_in, w_in,
         h_out, w_out, new_h, new_w, top, left, sy, oy, sx, ox, float(pad_value), *plan, dev,
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "letterbox_normalize")
-    launches["letterbox_normalize"] += 1
+    count = "letterbox_normalize" if out_dtype == torch.float32 else "letterbox_normalize_bf16"
+    build.check(err, count)
+    launches[count] += 1
     return out
 
 
 def device_normalize(img, dtype=torch.float32):
-    """uint8 NHWC → [0, 1] float (preprocess.py:159); float input passes through."""
+    """uint8 NHWC → [0, 1] float (preprocess.py:159); float input passes through.
+    In bfloat16, x / 255 is the float32 quotient rounded once (PyTorch
+    divides bfloat16 in float32): the bits of JAX's float32 /255 that flax's
+    first bfloat16 layer rounds."""
     if img.dtype == torch.uint8:
         return img.to(dtype) / 255.0
     return img.to(dtype)

@@ -11,6 +11,13 @@ is sampled at its own coordinates, so one launch serves all of a DySample's
 groups. G = 1 is the plain per-point sampler of the JAX package. On CUDA
 tensors it is a `torch.autograd.Function` whose backward is the backward
 kernel, so DySample trains on the card.
+
+Types: float32, or bfloat16 for x, the coordinates and the output gradient
+(then the output and every gradient are bfloat16 too). A bfloat16 kernel
+forms the taps and weights in float32 from the bfloat16 coordinates, sums
+in float32 and rounds each result once; its plain version is the float32
+one on the upcast inputs, rounded once. Each type has its own kernels and
+launch counts (`sample_bilinear_bf16`, `sample_bilinear_backward_bf16`).
 """
 
 from __future__ import annotations
@@ -22,9 +29,13 @@ import torch
 from . import build, launches
 
 PADDING_MODES = ("border", "zeros")
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the launch count of each type's kernels: forward, backward
+_COUNTS = {torch.float32: ("sample_bilinear", "sample_bilinear_backward"),
+           torch.bfloat16: ("sample_bilinear_bf16", "sample_bilinear_backward_bf16")}
 
 
-def _check(x, gy, gx, padding_mode, dtypes=(torch.float32,)):
+def _check(x, gy, gx, padding_mode, dtypes=KERNEL_DTYPES):
     if padding_mode not in PADDING_MODES:
         raise ValueError(f"padding_mode must be one of {PADDING_MODES}, got {padding_mode!r}")
     if x.dim() != 4 or gy.dim() != 3 or gy.shape != gx.shape:
@@ -39,8 +50,12 @@ def _check(x, gy, gx, padding_mode, dtypes=(torch.float32,)):
 def sample_bilinear_plain(x, gy, gx, padding_mode: str = "border"):
     """Plain PyTorch version: the gather path of yolo_dbl_tpu/ops/resample.py
     (:278-305), applied per channel group. It also takes float64, so a model
-    on the CPU can serve as a float64 reference for float32 runs."""
-    _check(x, gy, gx, padding_mode, (torch.float32, torch.float64))
+    on the CPU can serve as a float64 reference for float32 runs. bfloat16
+    inputs are upcast, sampled in float32 and the result rounded once."""
+    _check(x, gy, gx, padding_mode, (*KERNEL_DTYPES, torch.float64))
+    if x.dtype == torch.bfloat16:
+        return sample_bilinear_plain(x.float(), gy.float(), gx.float(),
+                                     padding_mode).to(torch.bfloat16)
     b, h, w, c = x.shape
     n, g = gy.shape[1:]
     cg = c // g
@@ -71,7 +86,8 @@ def sample_bilinear_plain(x, gy, gx, padding_mode: str = "border"):
 
 def sample_bilinear_backward_plain(x, gy, gx, grad, padding_mode: str = "border"):
     """Plain version of the backward: (dx, dgy, dgx) by autograd through
-    `sample_bilinear_plain`, for the tests and the on-card comparison."""
+    `sample_bilinear_plain`, for the tests and the on-card comparison (in
+    bfloat16: float32 gradients of the upcast inputs, each rounded once)."""
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_() for t in (x, gy, gx)]
         out = sample_bilinear_plain(*inputs, padding_mode)
@@ -80,13 +96,17 @@ def sample_bilinear_backward_plain(x, gy, gx, grad, padding_mode: str = "border"
 
 def _lib():
     lib = build.library("sampling")
-    fwd, bwd = lib.sample_bilinear_f32, lib.sample_bilinear_backward_f32
-    if fwd.argtypes is None:
-        fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.sample_bilinear_backward_taps_f32.argtypes = bwd.argtypes + [ctypes.c_void_p]
+    if lib.sample_bilinear_f32.argtypes is None:
+        for fn in (lib.sample_bilinear_f32, lib.sample_bilinear_bf16):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        bwd = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.sample_bilinear_backward_f32.argtypes = bwd
+        lib.sample_bilinear_backward_bf16.argtypes = [ctypes.c_void_p] + bwd
+        lib.sample_bilinear_backward_taps_f32.argtypes = bwd + [ctypes.c_void_p]
         lib.sample_bilinear_backward_shared_bytes.argtypes = [ctypes.c_int] * 2
-        for fn in (fwd, bwd, lib.sample_bilinear_backward_taps_f32,
+        for fn in (lib.sample_bilinear_f32, lib.sample_bilinear_bf16,
+                   lib.sample_bilinear_backward_f32, lib.sample_bilinear_backward_bf16,
+                   lib.sample_bilinear_backward_taps_f32,
                    lib.sample_bilinear_backward_shared_bytes):
             fn.restype = ctypes.c_int
     return lib
@@ -107,15 +127,18 @@ def _forward_kernel(x, gy, gx, padding_mode):
     b, h, w, c = x.shape
     n, g = gy.shape[1:]
     out = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
-    err = _lib().sample_bilinear_f32(x.data_ptr(), gy.data_ptr(), gx.data_ptr(), out.data_ptr(),
-                                     b, h, w, c, n, g, int(padding_mode == "zeros"), dev, stream)
-    build.check(err, "sample_bilinear")
-    launches["sample_bilinear"] += 1
+    lib = _lib()
+    launch = lib.sample_bilinear_f32 if x.dtype == torch.float32 else lib.sample_bilinear_bf16
+    err = launch(x.data_ptr(), gy.data_ptr(), gx.data_ptr(), out.data_ptr(), b, h, w, c, n, g,
+                 int(padding_mode == "zeros"), dev, stream)
+    count = _COUNTS[x.dtype][0]
+    build.check(err, count)
+    launches[count] += 1
     return out
 
 
-def _check_grad(x, gy, gx, grad, padding_mode):
-    _check(x, gy, gx, padding_mode)
+def _check_grad(x, gy, gx, grad, padding_mode, dtypes=KERNEL_DTYPES):
+    _check(x, gy, gx, padding_mode, dtypes)
     if grad.shape != (x.shape[0], gy.shape[1], x.shape[-1]) or grad.dtype != x.dtype:
         raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} does not match the output")
 
@@ -124,18 +147,24 @@ def _backward_kernel(x, gy, gx, grad, padding_mode, taps=None):
     dev, stream = _check_cuda(x, gy, gx, grad)
     b, h, w, c = x.shape
     n, g = gy.shape[1:]
-    dx = torch.zeros_like(x)  # the kernel adds its blocks' windows and stray taps into dx
+    # the kernel adds its blocks' windows and stray taps into a zeroed float32
+    # dx: dx itself, or for bfloat16 a scratch that it then rounds into dx
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    dx = acc if x.dtype == torch.float32 else torch.empty_like(x)
     dgy, dgx = torch.empty_like(gy), torch.empty_like(gx)
-    args = [x.data_ptr(), gy.data_ptr(), gx.data_ptr(), grad.data_ptr(), dx.data_ptr(),
+    args = [x.data_ptr(), gy.data_ptr(), gx.data_ptr(), grad.data_ptr(), acc.data_ptr(),
             dgy.data_ptr(), dgx.data_ptr(), b, h, w, c, n, g, int(padding_mode == "zeros"), dev,
             stream]
     lib = _lib()
-    if taps is None:
+    if taps is not None:
+        err = lib.sample_bilinear_backward_taps_f32(*args, taps.data_ptr())
+    elif x.dtype == torch.float32:
         err = lib.sample_bilinear_backward_f32(*args)
     else:
-        err = lib.sample_bilinear_backward_taps_f32(*args, taps.data_ptr())
-    build.check(err, "sample_bilinear_backward")
-    launches["sample_bilinear_backward"] += 1
+        err = lib.sample_bilinear_backward_bf16(*args[:5], dx.data_ptr(), *args[5:])
+    count = _COUNTS[x.dtype][1]
+    build.check(err, count)
+    launches[count] += 1
     return dx, dgy, dgx
 
 
@@ -152,8 +181,8 @@ def backward_window_misses(x, gy, gx, grad, padding_mode: str = "border"):
     """(taps, missed): how many taps one launch of the backward kernel
     scattered into dx, and how many of them fell outside their tile's window
     of dx and were added to dx one by one with global atomics. A build of
-    the kernel with a counter; CUDA tensors only."""
-    _check_grad(x, gy, gx, grad, padding_mode)
+    the float32 kernel with a counter; float32 CUDA tensors only."""
+    _check_grad(x, gy, gx, grad, padding_mode, (torch.float32,))
     if x.device.type != "cuda":
         raise ValueError(f"the backward kernel takes CUDA tensors, got {x.device}")
     taps = torch.zeros(2, dtype=torch.int64, device=x.device)
@@ -187,8 +216,8 @@ class SampleBilinear(torch.autograd.Function):
 
 def sample_bilinear(x, gy, gx, padding_mode: str = "border"):
     """(B, N, C) bilinear samples; the CUDA kernels (forward, and backward
-    under autograd, float32) on CUDA tensors, the plain version on CPU
-    tensors."""
+    under autograd; float32 or bfloat16) on CUDA tensors, the plain version
+    on CPU tensors."""
     if x.device.type != "cuda":
         return sample_bilinear_plain(x, gy, gx, padding_mode)
     _check(x, gy, gx, padding_mode)

@@ -5,6 +5,12 @@ dependency order.
 Attribute names are the flax scope names (`cv1`, `m_0`, `edge_generator`,
 ...), so JAX variables load key by key (utils/convert.py). Each class cites
 the JAX class it mirrors.
+
+Each block computes in its input's type (nn/common.py). Where a float32
+parameter or buffer with dimensions meets the activation, PyTorch would
+promote the result to float32; each such place casts it to the
+activation's type, as the JAX block does (`prototype_base`, `gamma`,
+DySample's `init_pos`; the 0-d FullPAD `gate` too, as JAX casts it).
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from torch.nn import functional as F
 
 from ..kernels.attention import area_attention
 from ..ops.resample import avg_pool2, grid_sample_bilinear, nearest_upsample, pixel_shuffle
-from .common import Conv, Conv2d, DSConv
+from .common import Conv, Conv2d, DSConv, linear
 
 
 def _nhwc(x):
@@ -169,8 +175,9 @@ class AdaHyperedgeGen(nn.Module):
         e, nh = self.num_hyperedges, self.num_heads
         hd = d // nh
         ctx = torch.cat([x.mean(1), x.amax(1)], -1)
-        prototypes = self.prototype_base[None] + self.context_net(ctx).reshape(b, e, d)
-        xh = self.pre_head_proj(x).reshape(b, n, nh, hd)
+        prototypes = (self.prototype_base.to(x.dtype)[None]
+                      + linear(self.context_net, ctx).reshape(b, e, d))
+        xh = linear(self.pre_head_proj, x).reshape(b, n, nh, hd)
         ph = prototypes.reshape(b, e, nh, hd)
         logits = torch.einsum("bnhd,behd->bhne", xh, ph) / math.sqrt(hd)
         logits = self.dropout(logits.mean(1))  # (B, N, E)
@@ -188,8 +195,8 @@ class AdaHGConv(nn.Module):
 
     def forward(self, x):
         a = self.edge_generator(x)
-        he = F.gelu(self.edge_proj(torch.einsum("bne,bnd->bed", a, x)))
-        xn = F.gelu(self.node_proj(torch.einsum("bne,bed->bnd", a, he)))
+        he = F.gelu(linear(self.edge_proj, torch.einsum("bne,bnd->bed", a, x)))
+        xn = F.gelu(linear(self.node_proj, torch.einsum("bne,bed->bnd", a, he)))
         return xn + x
 
 
@@ -289,7 +296,7 @@ class FullPAD_Tunnel(nn.Module):
         self.gate = nn.Parameter(torch.zeros(()))
 
     def forward(self, xs):
-        return xs[0] + self.gate * xs[1]
+        return xs[0] + self.gate.to(xs[0].dtype) * xs[1]
 
 
 class AAttn(nn.Module):
@@ -362,7 +369,7 @@ class A2C2f(nn.Module):
                 ys.append(getattr(self, f"m_{i}")(ys[-1]))
         out = self.cv2(torch.cat(ys, 1))
         if self.gamma is not None:
-            return x + self.gamma[None, :, None, None] * out
+            return x + self.gamma.to(out.dtype)[None, :, None, None] * out
         return out
 
 
@@ -394,8 +401,11 @@ class DySample(nn.Module):
     def forward(self, x):
         b, c, h, w = x.shape
         g, s = self.groups, self.scale
-        off = self.offset(x) * 0.25 + self.init_pos[None, :, None, None]
+        off = self.offset(x) * 0.25
+        off = off + self.init_pos.to(off.dtype)[None, :, None, None]
         off = off.reshape(b, 2, g * s * s, h, w)
+        # the coordinates are formed in the offsets' type, in the JAX block's
+        # order (blocks.py:1019-1024): in bfloat16, as JAX forms them there
         coords_w = torch.arange(w, dtype=off.dtype, device=off.device) + 0.5
         coords_h = torch.arange(h, dtype=off.dtype, device=off.device) + 0.5
         gy, gx = torch.meshgrid(coords_h, coords_w, indexing="ij")

@@ -10,6 +10,16 @@ maps onto a `state_dict` key by key (utils/convert.py).
   as flax does (`BatchNorm` below).
 - The TPU-only concat fold (`Conv.call_parts`) and the fused s2d stem are
   not ported: plain concat + conv is the semantics they reproduce.
+- Compute precision is flax's module `dtype` policy (common.py:13-14):
+  parameters and BatchNorm statistics stay float32 and are cast to the
+  compute type at the call, so autograd brings each gradient back to its
+  float32 parameter. A module computes in its input's type and returns it,
+  as a flax module with `dtype=None` does; `DetectionModel` casts its input
+  once to its `dtype`, so every layer runs in it, as in the JAX model whose
+  every module carries that `dtype`. A float64 copy (`.double()`) thus
+  computes in float64, the CPU's reference for float32 runs. BatchNorm
+  reduces and normalizes in float32 whatever its input's type (flax's
+  `force_float32_reductions`).
 """
 
 from __future__ import annotations
@@ -33,6 +43,17 @@ def autopad(k, p=None, d=1):
     return p if isinstance(p, int) else tuple(p)
 
 
+def conv2d(conv: nn.Conv2d, x):
+    """`conv(x)` in `x`'s type: kernel and bias cast to it at the call."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return conv._conv_forward(x, conv.weight.to(x.dtype), bias)
+
+
+def linear(dense: nn.Linear, x):
+    """`dense(x)` in `x`'s type, as a flax Dense with that dtype."""
+    return nn.functional.linear(x, dense.weight.to(x.dtype), dense.bias.to(x.dtype))
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax `nn.BatchNorm` semantics in PyTorch.
 
@@ -44,6 +65,10 @@ class BatchNorm(nn.BatchNorm2d):
     r1 (1 - 1/n) + r0 (1 - m) / n. That costs a few ops on C-element
     vectors, where a second pass over the activation for the biased
     variance cost 14% of a YOLO-DBL-s train step on an H100.
+
+    A bfloat16 input meets float32 statistics and affine parameters:
+    batch_norm then reduces and normalizes in float32 and returns bfloat16,
+    as flax's BatchNorm with a bfloat16 `dtype` does.
     """
 
     def forward(self, x):
@@ -81,7 +106,7 @@ class Conv(nn.Module):
         self.act = _act(act)
 
     def forward(self, x):
-        return self.act(self.bn(self.conv(x)))
+        return self.act(self.bn(conv2d(self.conv, x)))
 
 
 class DWConv(nn.Module):
@@ -95,7 +120,7 @@ class DWConv(nn.Module):
         self.act = _act(act)
 
     def forward(self, x):
-        return self.act(self.bn(self.conv(x)))
+        return self.act(self.bn(conv2d(self.conv, x)))
 
 
 class DSConv(nn.Module):
@@ -109,7 +134,7 @@ class DSConv(nn.Module):
         self.bn = batch_norm(c2)
 
     def forward(self, x):
-        return nn.functional.silu(self.bn(self.pw(self.dw(x))))
+        return nn.functional.silu(self.bn(conv2d(self.pw, conv2d(self.dw, x))))
 
 
 class Conv2d(nn.Module):
@@ -121,7 +146,7 @@ class Conv2d(nn.Module):
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d)
 
     def forward(self, x):
-        return self.conv(x)
+        return conv2d(self.conv, x)
 
 
 def concat(xs, dim: int = 1):

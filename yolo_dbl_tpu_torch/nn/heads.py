@@ -62,11 +62,12 @@ def flatten_levels(feats):
 
 def decode_detections(feats, strides, nc, reg_max=16):
     """Raw NHWC Detect maps → (B, 4+nc, A) xywh + sigmoid scores in input
-    pixels (heads.py:314)."""
+    pixels (heads.py:314), in the maps' type: float32 anchors and strides
+    cast to it, as the JAX decode does."""
     shapes = [f.shape[1:3] for f in feats]
     x = flatten_levels(feats)
-    anchors, stride_t = make_anchors(shapes, strides, dtype=x.dtype, device=x.device)
+    anchors, stride_t = make_anchors(shapes, strides, device=x.device)
     box_logits, cls_logits = x[..., : 4 * reg_max], x[..., 4 * reg_max:]
     dist = dfl_expectation(box_logits, reg_max)
-    dbox = dist2bbox(dist, anchors[None]) * stride_t[None]
+    dbox = dist2bbox(dist, anchors[None].to(dist.dtype)) * stride_t[None].to(dist.dtype)
     return torch.cat([dbox, torch.sigmoid(cls_logits)], dim=-1).transpose(-1, -2)

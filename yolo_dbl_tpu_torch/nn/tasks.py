@@ -331,14 +331,24 @@ class DetectionModel(nn.Module):
     "cuda", which raises without a card). On CUDA the model runs
     channels_last.
 
+    `dtype` is the compute type, the JAX model's `dtype` (tasks.py:623):
+    float32, or bfloat16 for the JAX package's TPU policy. Parameters and
+    BatchNorm statistics stay float32 (no `model.to(torch.bfloat16)`: that
+    would make the master weights and the optimizer bfloat16, which JAX
+    does not); `forward` casts the images once to `dtype` and every layer
+    computes in it (nn/common.py).
+
     `forward` takes NHWC images and returns the raw per-level Detect maps in
-    NHWC, as the JAX module's apply does; `predict` decodes them to
-    (B, 4+nc, A).
+    NHWC and in `dtype`, as the JAX module's apply does; `predict` decodes
+    them to (B, 4+nc, A) in `dtype`.
     """
 
     def __init__(self, cfg="yolov13s_DBL.yaml", ch=3, nc=None, device=None,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, dtype=torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+        self._dtype = dtype
         dev = resolve_device(device)
         d = yaml_model_load(cfg) if isinstance(cfg, (str, Path)) else dict(cfg)
         if nc is not None:
@@ -402,10 +412,18 @@ class DetectionModel(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute type: `dtype` while the parameters are float32; the
+        parameters' own type for a copy cast whole (`.double()`: a float64
+        reference on the CPU)."""
+        p = next(self.parameters()).dtype
+        return self._dtype if p == torch.float32 else p
+
     def forward(self, x):
         """NHWC images → raw per-level NHWC Detect maps (tasks.py:682 routing)."""
         y: List[Any] = []
-        out = x.permute(0, 3, 1, 2)
+        out = x.permute(0, 3, 1, 2).to(self.dtype)
         save = set(self.spec.save)
         for layer in self.spec.layers:
             f = layer.f

@@ -5,6 +5,10 @@ so this is plain PyTorch. The contract is the JAX one: multi-label (anchor,
 class) candidates above `conf_thres` (strict >), the top `pre_nms_topk`,
 class-offset (MAX_WH) exact greedy suppression at strict IoU > `iou_thres`,
 then the top `max_det` rows, zero-padded to (B, max_det, 6) plus counts.
+The class indices are float32, as in the JAX package (nms.py:144,151), so
+bfloat16 predictions are suppressed with float32 class offsets and come
+out as float32 rows: in bfloat16, 79 x MAX_WH would be 4,096 pixels apart
+from its neighbours.
 """
 
 from __future__ import annotations
@@ -68,12 +72,12 @@ def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45, max_det=300
         flat = scores_all.reshape(b, a * nc)
         top_scores, top_idx = _topk(torch.where(flat > conf_thres, flat, ninf), k)
         anchor_idx = top_idx // nc
-        cls_idx = (top_idx % nc).to(prediction.dtype)
+        cls_idx = (top_idx % nc).float()
     else:
         best_score = scores_all.amax(-1)
         best_cls = scores_all.argmax(-1)
         top_scores, anchor_idx = _topk(torch.where(best_score > conf_thres, best_score, ninf), k)
-        cls_idx = best_cls.gather(1, anchor_idx).to(prediction.dtype)
+        cls_idx = best_cls.gather(1, anchor_idx).float()
     cand_boxes = boxes.gather(1, anchor_idx[..., None].expand(b, k, 4))
 
     keep = _suppress(cand_boxes + cls_idx[..., None] * MAX_WH, top_scores, iou_thres)

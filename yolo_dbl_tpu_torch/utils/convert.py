@@ -12,6 +12,11 @@ Module and attribute names of the port are the flax scope names, so a leaf
 
 Any leaf without a rule, and any key missing on either side, raises.
 
+The compute type does not enter here: a bfloat16 model
+(`DetectionModel(..., dtype=torch.bfloat16)`) keeps float32 parameters and
+BatchNorm statistics, as JAX keeps them under its bfloat16 `dtype`, so one
+variable tree loads into a model of either type.
+
 `params_from_jax` maps a tree shaped like JAX `params` (the params
 themselves, EMA params, gradients) onto the port's parameter names, and
 `jax_param_paths` names each of the port's parameters by its JAX path, for
