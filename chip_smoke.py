@@ -22,8 +22,11 @@ Phases, each printing one JSON line:
   5. k3     - area attention forward kernel (3xTF32 on the tensor cores) vs
               its plain version (the einsum path) at the two YOLOv13-s A2C2f
               sites at serving batch 8, on the packed qkv views AAttn passes;
+              a second run on the same inputs must give the same bits;
               lse vs logsumexp; both float32 sides read against float64; SDPA
-              as the library yardstick;
+              as the library yardstick; the bound is the largest of the bytes,
+              the products (on their cheapest route at the accuracy the bars
+              ask for) and the exponentials on the special-function units;
   6. k3_backward - the dq and dkv kernels (3xTF32 on the tensor cores) vs
               autograd through the plain version, and the forward kernel vs
               the plain forward, at the two sites at training batch 16; a
@@ -61,7 +64,8 @@ Phases, each printing one JSON line:
 The bfloat16 policy (DetectionModel(..., dtype=torch.bfloat16): float32
 parameters, bfloat16 compute), beside each float32 phase:
  14. k2_bf16, k2_backward_bf16, k3_bf16, k3_backward_bf16 - phases 3-6 for
-              the bfloat16 kernels (bfloat16 in and out, float32 inside), with
+              the bfloat16 kernels (bfloat16 in and out, float32 inside; the
+              K3 forward and dkv kernels on bfloat16 tensor cores), with
               the same inputs rounded to bfloat16, against the bfloat16 plain
               versions (float32 on the upcast inputs, rounded once): within
               one bfloat16 step of the result plus 1e-6 of the terms' scale;
@@ -88,6 +92,7 @@ from nvidia-smi, and last {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero before the result lines; without CUDA it exits 2.
 """
 
+import functools
 import json
 import statistics
 import subprocess
@@ -104,6 +109,11 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TF32_PASSES = 3  # 3xTF32: float32-accurate products on the tensor cores
+MUFU_PER_CLOCK = 16  # exponentials a clock per SM on the special-function units (sm_90)
+# bfloat16 terms a float32 P or dS is split into, for its product with a
+# bfloat16 input to meet the bars: the fewest (tests/test_torch_attention_split.py
+# emulates the forward's P V and dkv's dV and dK); dq's dS k as dkv's dS
+BF16_TERMS = {"forward": 2, "dq": 3, "dkv": 3}
 TOL = 1e-5
 B, SRC_HW, IMGSZ, NC = 8, (512, 768), 640, 3
 REQUESTS, WARMUP = 5, 2
@@ -188,10 +198,11 @@ def timings(fn, iters, warmup=3, only=None):
     whose name holds `only`, so host launch overhead does not count;
     call_ms is CUDA-event time over back-to-back calls, which does include
     it when the host is slower than the card. Every call launches the same
-    kernels, so a trace that kept them all holds a nonzero multiple of
-    `iters` kernel events; one that did not is taken again, and after three
-    such traces device_ms is call_ms and `source` says "cuda_event" (else
-    "profiler")."""
+    kernels, so in a trace that kept them all each kernel's events number a
+    multiple of `iters` (a check of the total alone passed a trace that had
+    lost whole calls' records); one that did not is taken again, and after
+    three such traces device_ms is call_ms and `source` says "cuda_event"
+    (else "profiler")."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -208,11 +219,11 @@ def timings(fn, iters, warmup=3, only=None):
         events = [e for e in _trace(fn, iters) if only is None or only in e.key]
         n_events = sum(e.count for e in events)
         device_us = sum(e.self_device_time_total for e in events)
-        if n_events and n_events % iters == 0 and device_us > 0:
+        short = [(e.key[:60], e.count) for e in events if e.count % iters]
+        if n_events and not short and device_us > 0:
             return device_us / 1e3 / iters, call_ms, "profiler"
-        print(f"chip_smoke: a trace of {iters} calls held {n_events} kernel events: "
-              f"{[(e.key[:60], e.count) for e in events if e.count % iters][:6]}",
-              file=sys.stderr)
+        print(f"chip_smoke: a trace of {iters} calls held {n_events} kernel events, these not a "
+              f"multiple of the calls: {short[:6]}", file=sys.stderr)
     TRACES["cuda_event_times"] += 1
     print("chip_smoke: torch.profiler lost kernel events in three traces; CUDA-event time "
           "used", file=sys.stderr)
@@ -232,24 +243,50 @@ def bound(n_bytes, n_flops, peak_flops=PEAK_FP32_FLOPS):
     return _larger(n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops)
 
 
-def bound_products(dtype, n_bytes, input_flops, mixed_flops):
-    """(bound_ms, bound_by, bound_simt_ms) of area attention's matrix
-    products at float32 accuracy: `input_flops` are products of two inputs
-    (q kT, dO vT), `mixed_flops` products of a float32 intermediate (P, dS)
-    and an input. The faster of two routes: the CUDA cores (fp32 FMAs,
-    bound_simt_ms) and the tensor cores. There float32 inputs take 3 TF32
-    passes a product (3xTF32). bfloat16 inputs are exact in TF32, and the
-    product of two is exact in float32: one bfloat16 pass; a float32
-    intermediate times a bfloat16 input takes 2 TF32 passes (A_big B +
-    A_small B: B's small part is 0)."""
+@functools.cache
+def sm_clock_max_mhz():
+    """The card's top SM clock, as nvidia-smi gives it (clocks.max.sm)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+def mufu_per_s():
+    """Exponentials a second on the card's special-function units:
+    MUFU_PER_CLOCK a clock per SM at the top SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return MUFU_PER_CLOCK * sms * sm_clock_max_mhz() * 1e6
+
+
+def bound_products(dtype, n_bytes, input_flops, mixed_flops, exps, terms):
+    """{bound_ms, bound_by, bound_route, bound_simt_ms, bound_mufu_ms} of
+    area attention: the largest of three times. The bytes. The matrix
+    products at the accuracy the bars ask for, on the faster of two routes:
+    `input_flops` are products of two inputs (q kT, dO vT), `mixed_flops`
+    products of a float32 intermediate (P, dS) and an input. On the CUDA
+    cores fp32 FMAs (bound_simt_ms: that route with the bytes). On the
+    tensor cores float32 inputs take 3 TF32 passes a product (3xTF32).
+    bfloat16 inputs are exact in bfloat16, and the product of two is exact
+    in float32: one bfloat16 pass; a float32 intermediate times a bfloat16
+    input takes one bfloat16 pass a term of the intermediate, `terms` the
+    fewest that meet the bars (BF16_TERMS; 2 or 3 bfloat16 passes beat the
+    2 TF32 passes, each at half the bfloat16 rate, that the same product
+    takes with its bfloat16 input exact in TF32). And the `exps`
+    exponentials (one a score) on the special-function units
+    (bound_mufu_ms, at mufu_per_s). bound_by is "bytes" or "operations";
+    bound_route says which of bytes, products and mufu sets the bound."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S
     if dtype == BF16:
-        t_ops = input_flops / PEAK_BF16_FLOPS + 2 * mixed_flops / PEAK_TF32_FLOPS
+        t_tensor = (input_flops + terms * mixed_flops) / PEAK_BF16_FLOPS
     else:
-        t_ops = TF32_PASSES * (input_flops + mixed_flops) / PEAK_TF32_FLOPS
-    simt = bound(n_bytes, input_flops + mixed_flops)
-    best = min(simt, _larger(t_bytes, t_ops))
-    return best[0], best[1], simt[0]
+        t_tensor = TF32_PASSES * (input_flops + mixed_flops) / PEAK_TF32_FLOPS
+    t_products = min(t_tensor, (input_flops + mixed_flops) / PEAK_FP32_FLOPS)
+    t_mufu = exps / mufu_per_s()
+    bound_ms, bound_by = _larger(t_bytes, max(t_products, t_mufu))
+    route = ("bytes" if bound_by == "bytes" else "products" if t_products >= t_mufu else "mufu")
+    return dict(bound_ms=bound_ms, bound_by=bound_by, bound_route=route,
+                bound_simt_ms=bound(n_bytes, input_flops + mixed_flops)[0],
+                bound_mufu_ms=t_mufu * 1e3)
 
 
 def bf16_excess(got, want, scale):
@@ -404,6 +441,12 @@ def _library_layout(xs, gy, gx):
 
 def _by(rows, key="bound_by"):
     return "bytes" if {r[key] for r in rows} == {"bytes"} else "operations"
+
+
+def _route(rows, prefix=""):
+    """The route that bounds every site, or "mixed"."""
+    routes = {r[prefix + "bound_route"] for r in rows}
+    return routes.pop() if len(routes) == 1 else "mixed"
 
 
 def phase_k2(gen, dtype=torch.float32):
@@ -602,6 +645,9 @@ def phase_k3(gen, dtype=torch.float32):
         require(meets_bar(o, plain, TOL, float(qkvs[0][2].abs().max())) and lse_err <= TOL,
                 f"area attention kernel vs plain at {site} ({dtype}): out {err}, lse {lse_err}")
         worst = max(worst, err)
+        again = area_attention_forward(*qkvs[0])
+        require(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+                f"area attention forward at {site} ({dtype}): a second run gave other bits")
         # both sides against float64 (read, not gated)
         qkv64 = [t.double() for t in qkvs[0]]
         o64, lse64 = area_attention_plain(*qkv64), area_attention_lse_plain(*qkv64[:2])
@@ -618,24 +664,27 @@ def phase_k3(gen, dtype=torch.float32):
         tokens, rows = bb * n * h * HD, bb * h * n
         # q, k, v read, o written, lse (float32) written; the products q kT
         # (two inputs) and P v (P float32), 2 N^2 hd each per sequence-head
+        # (one exponential a score)
         product = bb * h * 2 * n * n * HD
-        bound_ms, bound_by, bound_simt_ms = bound_products(dtype, 4 * tokens * es + rows * 4,
-                                                           product, product)
+        bounds = bound_products(dtype, 4 * tokens * es + rows * 4, product, product, bb * h * n * n,
+                                BF16_TERMS["forward"])
         sites[site] = dict(qkv=[bb, n, h, HD], calls_per_request=K3_CALLS_PER_SITE,
-                           max_abs_err=err, lse_max_abs_err=lse_err,
+                           max_abs_err=err, lse_max_abs_err=lse_err, bitwise_repeat=True,
                            kernel_and_plain_max_abs_vs_float64=vs64, library_vs_kernel=lib_err,
-                           ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, bound_simt_ms=bound_simt_ms, call_ms=call_ms,
-                           plain_call_ms=plain_call_ms, library_call_ms=library_call_ms)
+                           ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bounds,
+                           call_ms=call_ms, plain_call_ms=plain_call_ms,
+                           library_call_ms=library_call_ms)
     tolerance = {"o": BF16_BAR, "lse": TOL} if dtype == BF16 else TOL
     emit({"phase": _kphase("k3", dtype), "batch": B, "tolerance": tolerance, "tf32_matmul": False,
           "sites": sites})
     total = {key: K3_CALLS_PER_SITE * sum(st[key] for st in sites.values())
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_simt_ms")}
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_simt_ms",
+                         "bound_mufu_ms")}
     return dict(name=_kphase("area_attention", dtype), route="cuda",
                 source="yolo_dbl_tpu_torch/csrc/attention.cu",
                 replaces=K3_REPLACES + "758 (forward)", max_abs_err=worst,
-                bound_by=_by(sites.values()), time_sources=_time_sources(src), **total)
+                bound_by=_by(sites.values()), bound_route=_route(sites.values()),
+                time_sources=_time_sources(src), **total)
 
 
 def phase_k3_backward(gen, dtype=torch.float32):
@@ -716,11 +765,12 @@ def phase_k3_backward(gen, dtype=torch.float32):
         # dq: q, k, v, dO read and dq written in the inputs' type, o (float32)
         # and lse read, delta written; dkv: q, k, v, dO read and dk, dv
         # written in the inputs' type, lse and delta read
-        product = bb * h * 2 * n * n * HD
+        # Each forms P again: one exponential a score.
+        product, scores = bb * h * 2 * n * n * HD, bb * h * n * n
         dq_bytes = 5 * tokens * es + tokens * 4 + 2 * rows * 4
-        dq_bound, dq_by, dq_simt = bound_products(dtype, dq_bytes, 2 * product, product)
-        dkv_bound, dkv_by, dkv_simt = bound_products(dtype, 6 * tokens * es + 2 * rows * 4,
-                                                     2 * product, 2 * product)
+        dq_b = bound_products(dtype, dq_bytes, 2 * product, product, scores, BF16_TERMS["dq"])
+        dkv_b = bound_products(dtype, 6 * tokens * es + 2 * rows * 4, 2 * product, 2 * product,
+                               scores, BF16_TERMS["dkv"])
         sites[site] = dict(qkv=[bb, n, h, HD], calls_per_step=K3_CALLS_PER_SITE,
                            max_abs_errors=errs, rel_errors_of_largest=rel, bitwise_repeat=True,
                            kernel_and_plain_rel_errors_vs_float64=rel64,
@@ -729,9 +779,8 @@ def phase_k3_backward(gen, dtype=torch.float32):
                            plain_dq_ms=plain_dq_ms, plain_dkv_ms=plain_dkv_ms,
                            library_backward_ms=lib_total_ms - lib_fwd_ms,
                            library_forward_backward_ms=lib_total_ms,
-                           dq_bound_ms=dq_bound, dq_bound_by=dq_by, dq_bound_simt_ms=dq_simt,
-                           dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
-                           dkv_bound_simt_ms=dkv_simt)
+                           **{f"dq_{key}": val for key, val in dq_b.items()},
+                           **{f"dkv_{key}": val for key, val in dkv_b.items()})
     tolerance = ({"d": BF16_BAR + " (floor: 1e-2 of dv's largest)", "forward": BF16_BAR}
                  if dtype == BF16 else {"d_rel_of_largest": 1e-4, "forward": TOL})
     emit({"phase": _kphase("k3_backward", dtype), "batch": b, "tf32_matmul": False,
@@ -749,13 +798,16 @@ def phase_k3_backward(gen, dtype=torch.float32):
                max_rel_err_of_largest=max(worst_rel["dk"], worst_rel["dv"]),
                ms=total("dkv_ms"), plain_ms=total("plain_dkv_ms"), bound_ms=total("dkv_bound_ms"),
                bound_by=_by(sites.values(), "dkv_bound_by"),
-               bound_simt_ms=total("dkv_bound_simt_ms"),
+               bound_route=_route(sites.values(), "dkv_"),
+               bound_simt_ms=total("dkv_bound_simt_ms"), bound_mufu_ms=total("dkv_bound_mufu_ms"),
                time_sources=_time_sources([(s[1], s[3], s[4]) for s in src]), **common)
     dq = dict(name=_kphase("area_attention_backward_dq", dtype),
               replaces=K3_REPLACES + "1456 (bwd dq)",
               max_abs_err=worst["dq"], max_rel_err_of_largest=worst_rel["dq"],
               ms=total("dq_ms"), plain_ms=total("plain_dq_ms"), bound_ms=total("dq_bound_ms"),
-              bound_by=_by(sites.values(), "dq_bound_by"), bound_simt_ms=total("dq_bound_simt_ms"),
+              bound_by=_by(sites.values(), "dq_bound_by"),
+              bound_route=_route(sites.values(), "dq_"),
+              bound_simt_ms=total("dq_bound_simt_ms"), bound_mufu_ms=total("dq_bound_mufu_ms"),
               time_sources=_time_sources([(s[0], s[2], s[4]) for s in src]), **common)
     return dkv, dq, worst_fwd
 
@@ -1151,7 +1203,9 @@ def main():
               "sample_bilinear_backward_kernel": {
                   f"C/G={c // GROUPS}": sampling.backward_shared_bytes(c, GROUPS)
                   for c in sorted({c for _, _, c in DYSAMPLE_SITES.values()})}},
-          "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+          "card": card, "sm_clock_max_mhz": sm_clock_max_mhz(),
+          "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
 
     gen = torch.Generator().manual_seed(0)
     rows = []

@@ -323,9 +323,11 @@ def _sass_functions(lib):
 @pytest.mark.cuda
 def test_area_attention_kernels_run_on_the_tensor_cores(cuda):
     """The forward and both backward kernels, each built for float32 and for
-    bfloat16 input, issue TF32 tensor-core products (HMMA ... TF32) and no
-    other kind: the bfloat16 variants convert on load and run the float32
-    kernels' 3xTF32 products."""
+    bfloat16 input, run their products on the tensor cores. The float32
+    kernels and the bfloat16 dq kernel (which converts on load and runs the
+    float32 kernel's 3xTF32 products) issue TF32 HMMAs and no other kind;
+    the bfloat16 forward and dkv kernels (attention_*_kernel_bf16) issue
+    bfloat16 m16n8k16 HMMAs (HMMA.16816.F32.BF16) and no TF32 one."""
     build.library("attention")
     functions = _sass_functions(build.library_path("attention"))
     for kernel in ("attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel"):
@@ -334,7 +336,12 @@ def test_area_attention_kernels_run_on_the_tensor_cores(cuda):
         for name, sass in bodies.items():
             hmma = [ln for ln in sass.splitlines() if "HMMA" in ln]
             assert hmma, name
-            assert all("TF32" in ln for ln in hmma), hmma[:3]
+            if kernel + "_bf16" in name:
+                assert all("HMMA.16816.F32.BF16" in ln for ln in hmma), hmma[:3]
+            else:
+                assert all("TF32" in ln for ln in hmma), hmma[:3]
+        assert (sum(kernel + "_bf16" in name for name in bodies)
+                == (kernel != "attention_bwd_dq_kernel")), list(bodies)
 
 
 @pytest.mark.cuda
@@ -469,12 +476,13 @@ def _packed_qkv_bf16(rng, bb, n, h, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bb,n,h", [(2, 1, 1), (3, 17, 2), (2, 65, 3), (4, 400, 4),
-                                    (1, 129, 8), (64, 400, 4)])
+                                    (1, 129, 8), (64, 400, 4), (2, 800, 4)])
 def test_area_attention_bf16_kernel_matches_plain(cuda, bb, n, h):
     """bfloat16 q, k, v (the packed views) and o, float32 lse: within one
     bfloat16 step of the plain version (float32 on the upcast inputs, o
     rounded once) plus 1e-6 of v's largest; lse within 1e-5. One launch of
-    the bfloat16 kernel, none of the float32 one."""
+    the bfloat16 kernel, none of the float32 one. N = 800 runs the ring of
+    key tiles past the 400 of the model's sites."""
     torch.backends.cuda.matmul.allow_tf32 = False
     _, (q, k, v) = _packed_qkv_bf16(np.random.default_rng(21), bb, n, h, cuda)
     before = dict(kernels.launches)
@@ -489,13 +497,13 @@ def test_area_attention_bf16_kernel_matches_plain(cuda, bb, n, h):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bb,n,h", [(2, 1, 1), (3, 17, 2), (2, 65, 3), (2, 400, 8),
-                                    (64, 400, 4)])
+                                    (64, 400, 4), (2, 800, 4)])
 def test_area_attention_bf16_backward_kernels_match_plain(cuda, bb, n, h):
     """bfloat16 dO in, bfloat16 dq, dk, dv out, float32 inside (delta from
     the forward's float32 O, which its bfloat16 run writes beside o when
     asked): each within one bfloat16 step of the plain version plus 1e-6 of
     the tensor's largest (the float32 sums differ at 1e-6 of it, as in
-    float32)."""
+    float32). N = 800 runs the ring of query tiles past the model's 400."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(22)
     _, (q, k, v) = _packed_qkv_bf16(rng, bb, n, h, cuda)
@@ -513,6 +521,23 @@ def test_area_attention_bf16_backward_kernels_match_plain(cuda, bb, n, h):
     floor = 1e-2 * float(want[2].float().abs().max())
     for a, r in zip(got, want):
         _assert_within_bf16_ulp(a, r, max(float(r.float().abs().max()), floor))
+
+
+@pytest.mark.cuda
+def test_area_attention_bf16_kernels_are_bitwise_repeatable(cuda):
+    """No atomics in bfloat16 either: two forward and two backward launches
+    on the same inputs (row 6's shape at training batch 16) give the same
+    bits."""
+    rng = np.random.default_rng(27)
+    _, (q, k, v) = _packed_qkv_bf16(rng, 64, 400, 4, cuda)
+    grad = torch.from_numpy(rng.standard_normal((64, 400, 4, 32)).astype(np.float32)).to(cuda)
+    first = TA.area_attention_forward(q, k, v, residual=True)
+    second = TA.area_attention_forward(q, k, v, residual=True)
+    got = TA.area_attention_backward(q, k, v, first[2], first[1], grad.bfloat16())
+    again = TA.area_attention_backward(q, k, v, first[2], first[1], grad.bfloat16())
+    torch.cuda.synchronize()
+    for a, b in zip((*first, *got), (*second, *again)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -18,17 +18,25 @@
 //
 // Types: q, k, v, o, do, dq, dk and dv are all float32 (the *_f32 entry
 // points) or all bfloat16 (*_bf16); lse and delta are float32 in both. A
-// bfloat16 run is float32 inside, as the JAX flash path casts q, k and v to
-// float32 and its output back (yolo_dbl_tpu/nn/blocks.py:876,885): values
-// are converted as they are loaded, the products and the softmax run as in
-// float32, and each output is rounded to bfloat16 once. A bfloat16 value is
-// exact in TF32, so its 3xTF32 split has a zero small part: a product of
-// two inputs takes one TF32 pass and one with a float32 operand (P, dS)
-// two, with the same result as three (per warp and step the forward issues
-// 24 mma, dq 32, dkv 48). The backward's delta = rowsum(dO * O) takes O in
-// float32, as JAX's flash backward gets its float32 output as residual: a
-// bfloat16 forward run for training also writes O in float32 (o32), and the
-// dq kernel reads o in float32 in both types.
+// bfloat16 run computes in float32 inside, as the JAX flash path casts q, k
+// and v to float32 and its output back (yolo_dbl_tpu/nn/blocks.py:876,885):
+// the softmax runs in float32 and each output is rounded to bfloat16 once.
+// The bfloat16 dq and dkv kernels form their products to float32 accuracy;
+// the bfloat16 forward keeps P's leading 16 bits in P V (within 2^-16 of
+// each P), so its O is within about 2^-16 of v's largest of the float32
+// one: far inside the one bfloat16 step its output is held to. The
+// bfloat16 forward and dkv kernels are a design of their own
+// (attention_fwd_kernel_bf16 and attention_bwd_dkv_kernel_bf16, after the
+// float32 kernels); the bfloat16 dq kernel is the float32 template
+// converting on load: a bfloat16 value is exact in TF32, so its 3xTF32
+// split has a zero small part, a product of two inputs takes one TF32 pass
+// and one with a float32 operand (dS) two, with the same result as three
+// (32 mma per warp and step). The backward's delta = rowsum(dO * O) takes O
+// in float32, as JAX's flash backward gets its float32 output as residual:
+// a bfloat16 forward run for training also writes its O before the
+// rounding to bfloat16 (o32, with the forward's accuracy above; the dkv
+// emulation in tests/test_torch_attention_split.py takes its delta from
+// it), and the dq kernel reads o in float32 in both types.
 //
 // Forward (attention_fwd_kernel): over all keys, S = q k^T, an online
 // softmax (running row max m and row sum l) and O += P v; it writes
@@ -102,12 +110,50 @@
 //   the warps in flight, since each block still holds two 64-row tiles.
 // Budget per block of 128 threads (ptxas -v, sm_90a): forward 126
 // registers, dq 156, dkv 217, no spills, so 4, 3 and 2 blocks per SM
-// (bfloat16: 96, 124, 161).
+// (bfloat16 dq: 124).
 // Shared memory (dynamic: over the 48 KB of static) two split tiles of
 // 2 x 64 x 36 x 4 B and two raw tiles of 8 KB, 53,248 B (forward and dq;
 // dkv 53,760 with lse and delta).
 // Per warp and 16-row step the forward issues 48 mma (two products, three
 // passes, 8 each), the dq kernel 72 (three products), the dkv kernel 96.
+//
+// The bfloat16 forward and dkv kernels (PERF.md has their times and
+// knock-outs, from tools/exp_k3_bf16_designs.py). They issue 16 (forward)
+// and 32 (dkv) bf16 mma per warp and 16 x 16 scores, against 24 and 48
+// TF32 mma of half the depth, and cut the work around each score.
+// - Tiles reach shared memory as they are, in bfloat16, by 16-byte
+//   cp.async into a ring of two stages of 80 rows (as many as a block
+//   owns, two chunks a thread): one barrier a tile, no conversion pass.
+//   Rows are 80 B apart, which keeps every ldmatrix phase (8 rows of 16 B)
+//   off shared bank conflicts.
+// - Products run on mma.sync m16n8k16 with bfloat16 operands and float32
+//   accumulators. The warp's own 16 rows (q; k and v) sit in registers as
+//   bfloat16 A fragments, 8 registers for 16 x 32, loaded once. B
+//   fragments come by ldmatrix.x4, 16 x 16 of a tile each: plain for
+//   S = q kT (forward), S^T = k qT and dP^T = v dOT (dkv), .trans for P v,
+//   P^T dO and dS^T q, whose k runs over the tile's rows.
+// - A product of two bfloat16 inputs is exact in float32, one pass. A
+//   float32 P or dS times an input is split into bfloat16 terms, one pass a
+//   term (split_bf16x2: leading 8 bits by truncation, PRMT for two values,
+//   the last term rounded): the forward splits P in 2 terms (within 2^-16
+//   of each P), dkv P and dS in 3 (exact): the fewest that meet the bars
+//   (tests/test_torch_attention_split.py emulates both). Two n8
+//   accumulator tiles are, lane for lane, the next product's A fragment.
+// - Each 16-row step's products go to a fresh accumulator, added to the
+//   float32 sum, as in the float32 kernels.
+// - The forward takes one softmax step a tile: S for all 80 keys, one row
+//   max (two shuffles) and one rescale, then P V chunk by chunk. scale
+//   log2(e) is folded into the FFMA before ex2.approx; the row max is
+//   taken on the raw scores and scaled once.
+// - A block has 5 warps (80 rows: N = 400 is 5 blocks, no warp idle), and
+//   the inner loops over a tile's 16-row chunks are unrolled.
+// Budget (ptxas -v, sm_90a, 160 threads): forward 96 registers (capped
+// for 4 blocks an SM), dkv 128 (3 blocks), no spills; dynamic shared
+// memory 25,600 B (forward) and 26,880 B (dkv, with lse and delta).
+// What binds them (the knock-outs, PERF.md): not the exponentials (taking
+// them out saves 0-2%); the products of P take 26% of the forward and half
+// of dkv, where each bf16 mma a chunk costs about as much as the
+// tensor-core issue of mma.sync allows: wgmma is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -753,9 +799,9 @@ __global__ void __launch_bounds__(THREADS)
   store_acc(dv, dva, 1.f, b, h, w0, N, H, lane);
 }
 
-bool grid_for(int BB, int N, int H, dim3* grid) {
+bool grid_for(int BB, int N, int H, dim3* grid, int rows = ROWS) {
   const long long seqs = (long long)BB * H;
-  const long long tiles = (N + ROWS - 1) / ROWS;
+  const long long tiles = (N + rows - 1) / rows;
   if (seqs > 0x7fffffffLL || tiles > 65535) return false;
   *grid = dim3((unsigned)seqs, (unsigned)tiles);
   return true;
@@ -820,6 +866,475 @@ int backward_dkv(const void* q, const void* k, const void* v, Strides qs, Stride
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- bfloat16 tensor cores
+//
+// The bfloat16 forward and dkv kernels (the bfloat16 dq kernel is the
+// template above). Fragment layouts of mma.sync.m16n8k16 with bfloat16
+// operands, two values a 32-bit register, the lower column or k index in
+// the low half; lane = 4 g + t.
+//   A (16 x 16, row):  a0 (g, 2t..2t+1), a1 (g + 8, 2t..2t+1),
+//                      a2 (g, 2t+8..2t+9), a3 (g + 8, 2t+8..2t+9)
+//   B (16 x 8, col):   b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
+//   C (16 x 8):        c0, c1 (g, 2t..2t+1), c2, c3 (g + 8, 2t..2t+1)
+// Two n8 accumulator tiles side by side are, lane for lane, the A fragment
+// of a product whose k runs over their 16 columns: P and dS^T feed the next
+// product with no shuffle and no reordering of B.
+
+constexpr int BROW = 40;  // bfloat16 a shared tile row: 80 B, so the 8 rows of an ldmatrix phase
+                          // fall in 8 distinct 16-byte bank groups
+constexpr int STAGES = 2;  // shared tiles in the ring: one read while the next arrives
+// The designs: warps a block (16 rows each; 5 x 16 = 80 divides N = 400),
+// bfloat16 terms a float32 P or dS is split into, and the blocks an SM
+// ptxas is told to fit (__launch_bounds__): 4 caps the forward at 96
+// registers (20 warps an SM), 3 dkv at 136 (15 warps); left to itself
+// ptxas takes 145 and 169, 2 blocks an SM, and both kernels run slower
+// (tools/exp_k3_bf16_designs.py, which builds copies of this file with
+// these constants changed). A ring stage holds as many rows of the
+// streamed operand as the block owns of its own, 16 WARPS, so each thread
+// copies two 16-byte chunks of a tile.
+constexpr int FWD_WARPS = 5, FWD_TERMS = 2, FWD_MIN_BLOCKS = 4;
+constexpr int DKV_WARPS = 5, DKV_TERMS = 3, DKV_MIN_BLOCKS = 3;
+
+typedef bf16 Bf16Row[BROW];
+// One stage of the ring, R rows: the k and v tiles (forward); q, dO, lse
+// and delta (dkv).
+template <int R>
+struct Bf16KvStage {
+  Bf16Row k[R], v[R];
+};
+template <int R>
+struct Bf16DkvStage {
+  Bf16Row q[R], d[R];
+  float lse[R];    // natural log, as the forward wrote it
+  float delta[R];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes from global to shared memory, zeros (src not read) when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += A B, bfloat16 A (16 x 16) and B (16 x 8), float32 d: the products are exact.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The float32 pair (x, y) as TERMS bfloat16 pairs (x in the low half) that
+// sum to it: each term but the last is the leading 8 significant bits of
+// what is left (its upper 16 bits, one PRMT for the pair; the rest, x less
+// them, is exact in float32), the last what is left rounded to nearest.
+// Three terms carry a float32 exactly (barring underflow below ~2^-110);
+// two keep its leading 16 bits and round the rest, within 2^-16 of it.
+template <int TERMS>
+__device__ __forceinline__ void split_bf16x2(uint32_t (&out)[TERMS], float x, float y) {
+#pragma unroll
+  for (int i = 0; i < TERMS - 1; ++i) {
+    const uint32_t ux = __float_as_uint(x), uy = __float_as_uint(y);
+    out[i] = __byte_perm(ux, uy, 0x7632);
+    x -= __uint_as_float(ux & 0xffff0000u);
+    y -= __uint_as_float(uy & 0xffff0000u);
+  }
+  const __nv_bfloat162 last = __floats2bfloat162_rn(x, y);
+  out[TERMS - 1] = *reinterpret_cast<const uint32_t*>(&last);
+}
+
+// Two n8 accumulator tiles (columns 0-7 and 8-15 of 16 x 16 float32
+// values) as the A fragments of their TERMS bfloat16 terms, k running over
+// the 16 columns; a[0] holds the leading term.
+template <int TERMS>
+__device__ __forceinline__ void frag_a_terms(uint32_t (&a)[TERMS][4], const float (&c)[2][4]) {
+  uint32_t p[4][TERMS];
+  split_bf16x2<TERMS>(p[0], c[0][0], c[0][1]);  // a0: row g, columns 2t, 2t + 1
+  split_bf16x2<TERMS>(p[1], c[0][2], c[0][3]);  // a1: row g + 8
+  split_bf16x2<TERMS>(p[2], c[1][0], c[1][1]);  // a2: row g, columns 2t + 8, 2t + 9
+  split_bf16x2<TERMS>(p[3], c[1][2], c[1][3]);  // a3: row g + 8
+#pragma unroll
+  for (int j = 0; j < TERMS; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[j][i] = p[i][j];
+  }
+}
+
+// The A fragments (head dims 0-15 and 16-31) of rows w0 .. w0 + 15 of x,
+// the warp's own rows, kept in registers as they are; rows past N are 0.
+__device__ __forceinline__ void frag_a_rows_bf16(uint32_t (&a)[HD / 16][4],
+                                                 const bf16* __restrict__ x, const Strides& s,
+                                                 long long b, long long h, int w0, int N,
+                                                 int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = w0 + g + 8 * r;
+    const bf16* p = n < N ? row_ptr(x, s, b, n, h) : nullptr;
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; ++kc) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        a[kc][r + 2 * half] =
+            p ? __ldg(reinterpret_cast<const unsigned*>(p + 16 * kc + 8 * half + 2 * t)) : 0u;
+      }
+    }
+  }
+}
+
+// Start copying rows [t0, t0 + 16 WARPS) of x into dst by 16-byte
+// cp.async, as they are: 4 chunks a row, two a thread; rows past N are 0.
+template <int WARPS>
+__device__ __forceinline__ void fetch_rows(Bf16Row* dst, const bf16* __restrict__ x,
+                                           const Strides& s, long long b, long long h, int t0,
+                                           int N) {
+  static_assert(WARPS * WARP_ROWS * HD * 2 / 16 == 2 * WARPS * 32, "two chunks a thread");
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int i = threadIdx.x + u * WARPS * 32, row = i >> 2, c = i & 3, n = t0 + row;
+    cp_async16(&dst[row][8 * c], n < N ? row_ptr(x, s, b, n, h) + 8 * c : x, n < N);
+  }
+}
+
+// B fragments of S = X Y^T over 8 rows r0 .. r0 + 7 of a tile of Y (n)
+// and all HD head dims (k): b[2 kc], b[2 kc + 1] are b0, b1 of head dims
+// 16 kc .. 16 kc + 15. Lane l points ldmatrix at row r0 + l % 8, head dim
+// 8 (l / 8).
+__device__ __forceinline__ void frag_b_rows_bf16(uint32_t (&b)[4], const Bf16Row* tile, int r0,
+                                                 int lane) {
+  ldmatrix_x4(b, &tile[r0 + (lane & 7)][8 * (lane >> 3)]);
+}
+
+// B fragments of X = P Y over rows r0 .. r0 + 15 of a tile of Y (k) and
+// head dims 8 n0 .. 8 n0 + 15 (n): b[0], b[1] are b0, b1 of n8 tile n0,
+// b[2], b[3] those of n0 + 1 (ldmatrix.trans: lane l points at row
+// r0 + l % 16, head dim 8 (n0 + l / 16)).
+__device__ __forceinline__ void frag_b_cols_bf16(uint32_t (&b)[4], const Bf16Row* tile, int r0,
+                                                 int n0, int lane) {
+  ldmatrix_x4_trans(b, &tile[r0 + (lane & 15)][8 * (n0 + (lane >> 4))]);
+}
+
+// grid (BB * H, ceil(N / (16 FWD_WARPS))), 32 FWD_WARPS threads; a warp owns
+// 16 query rows
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_MIN_BLOCKS)
+    attention_fwd_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, Strides qs, Strides ks, Strides vs,
+                              bf16* __restrict__ o, float* __restrict__ o32,
+                              float* __restrict__ lse, int N, int H, float scale) {
+  constexpr int R = FWD_WARPS * WARP_ROWS, CH = R / STEP;  // rows a tile, 16-key chunks a tile
+  extern __shared__ __align__(16) unsigned char shared[];
+  Bf16KvStage<R>* ring = reinterpret_cast<Bf16KvStage<R>*>(shared);
+  const long long seq = blockIdx.x;
+  const long long b = seq / H, h = seq % H;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int w0 = blockIdx.y * R + threadIdx.x / 32 * WARP_ROWS;
+  const bool active = w0 < N;  // the warp has a query row
+  fetch_rows<FWD_WARPS>(ring[0].k, k, ks, b, h, 0, N);
+  fetch_rows<FWD_WARPS>(ring[0].v, v, vs, b, h, 0, N);
+  cp_async_commit();
+
+  uint32_t qa[HD / 16][4] = {};
+  if (active) frag_a_rows_bf16(qa, q, qs, b, h, w0, N, lane);
+
+  const float c = scale * LOG2E;
+  float acc[HD / 8][4] = {};            // O at the running max, summed chunk by chunk in float32
+  float m[2] = {-INFINITY, -INFINITY};  // rows g, g + 8: running max of S c
+  float l[2] = {0.f, 0.f};              // the lane's part of their running sums
+  int stage = 0;
+  for (int t0 = 0; t0 < N; t0 += R, stage ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed, and every warp is done with the other stage
+    if (t0 + R < N) {  // the next tile's copies fly during this tile's products
+      fetch_rows<FWD_WARPS>(ring[stage ^ 1].k, k, ks, b, h, t0 + R, N);
+      fetch_rows<FWD_WARPS>(ring[stage ^ 1].v, v, vs, b, h, t0 + R, N);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const Bf16Row *Kt = ring[stage].k, *Vt = ring[stage].v;
+    const int nk = min(R, N - t0);
+    // S = Q K^T over the tile's keys, two n8 tiles a chunk (keys past N
+    // read 0); one softmax step a tile
+    float s[CH][2][4];
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        uint32_t kb[4];
+        frag_b_rows_bf16(kb, Kt, STEP * j + 8 * nt, lane);
+        s[j][nt][0] = s[j][nt][1] = s[j][nt][2] = s[j][nt][3] = 0.f;
+        mma_bf16(s[j][nt], qa[0], kb[0], kb[1]);
+        mma_bf16(s[j][nt], qa[1], kb[2], kb[3]);
+      }
+    }
+    if (nk < R) {  // a ragged tile: keys past N get P = 0
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (STEP * j + 8 * nt + 2 * t + (e & 1) >= nk) s[j][nt][e] = -INFINITY;
+          }
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, alpha[2];
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][nt][e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the row max over the row's 4 lanes, times c > 0; finite, since key t0 < N
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mx[r] = fmaxf(m[r], mx[r] * c);
+      alpha[r] = exp2_approx(m[r] - mx[r]);  // 0 at the first tile
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
+    }
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      if (STEP * j >= nk) break;  // chunks wholly past N
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // P = 2^(S c - m), scale and log2(e) in one FFMA
+          const float x = fmaf(s[j][nt][e], c, -m[e >> 1]);
+          s[j][nt][e] = exp2_approx(x);
+          l[e >> 1] += s[j][nt][e];
+        }
+      }
+      float part[HD / 8][4] = {};  // this chunk's P V, in a fresh accumulator
+      uint32_t pa[FWD_TERMS][4], vb[2][4];
+      frag_a_terms<FWD_TERMS>(pa, s[j]);
+      frag_b_cols_bf16(vb[0], Vt, STEP * j, 0, lane);
+      frag_b_cols_bf16(vb[1], Vt, STEP * j, 2, lane);
+#pragma unroll
+      for (int i = FWD_TERMS - 1; i >= 0; --i) {  // the smallest term first
+#pragma unroll
+        for (int nd = 0; nd < HD / 8; ++nd) {
+          mma_bf16(part[nd], pa[i], vb[nd >> 1][2 * (nd & 1)], vb[nd >> 1][2 * (nd & 1) + 1]);
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] += part[nd][e];
+      }
+    }
+  }
+  if (!active) return;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+    const int n = w0 + g + 8 * r;
+    if (t == 0 && n < N) lse[seq * N + n] = fmaf(m[r], LN2, logf(l[r]));
+  }
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] *= inv[e >> 1];
+  }
+  store_acc(o, acc, 1.f, b, h, w0, N, H, lane);
+  if (o32 != nullptr) store_acc(o32, acc, 1.f, b, h, w0, N, H, lane);
+}
+
+// Start copying the lse and delta of queries [t0, t0 + 16 WARPS) into st,
+// one value a thread; queries past N read 0.
+template <int WARPS>
+__device__ __forceinline__ void fetch_rowstats(Bf16DkvStage<WARPS * WARP_ROWS>& st,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta, long long seq,
+                                               int t0, int N) {
+  constexpr int R = WARPS * WARP_ROWS;
+  static_assert(2 * R == WARPS * 32, "one value a thread");
+  const bool first = threadIdx.x < R;
+  const int j = first ? threadIdx.x : threadIdx.x - R, n = t0 + j;
+  const float* src = first ? lse : delta;
+  cp_async4(first ? &st.lse[j] : &st.delta[j], n < N ? src + seq * N + n : src, n < N);
+}
+
+// grid (BB * H, ceil(N / (16 DKV_WARPS))), 32 DKV_WARPS threads; a warp owns
+// 16 key rows; reads the delta of the dq kernel
+__global__ void __launch_bounds__(DKV_WARPS * 32, DKV_MIN_BLOCKS)
+    attention_bwd_dkv_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, Strides qs, Strides ks, Strides vs,
+                                  const float* __restrict__ lse, const bf16* __restrict__ dout,
+                                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                                  bf16* __restrict__ dv, int N, int H, float scale) {
+  constexpr int R = DKV_WARPS * WARP_ROWS, CH = R / STEP;  // rows a tile, 16-query chunks a tile
+  extern __shared__ __align__(16) unsigned char shared[];
+  Bf16DkvStage<R>* ring = reinterpret_cast<Bf16DkvStage<R>*>(shared);
+  const Strides os = {(long long)N * H * HD, (long long)H * HD, HD};
+  const long long seq = blockIdx.x;
+  const long long b = seq / H, h = seq % H;
+  const int lane = threadIdx.x % 32, t = lane & 3;
+  const int w0 = blockIdx.y * R + threadIdx.x / 32 * WARP_ROWS;
+  const bool active = w0 < N;  // the warp has a key row
+  fetch_rows<DKV_WARPS>(ring[0].q, q, qs, b, h, 0, N);
+  fetch_rows<DKV_WARPS>(ring[0].d, dout, os, b, h, 0, N);
+  fetch_rowstats<DKV_WARPS>(ring[0], lse, delta, seq, 0, N);
+  cp_async_commit();
+
+  uint32_t ka[HD / 16][4] = {}, va[HD / 16][4] = {};
+  if (active) {
+    frag_a_rows_bf16(ka, k, ks, b, h, w0, N, lane);
+    frag_a_rows_bf16(va, v, vs, b, h, w0, N, lane);
+  }
+
+  const float c = scale * LOG2E;
+  float dka[HD / 8][4] = {}, dva[HD / 8][4] = {};  // dK / scale, dV, summed in float32
+  int stage = 0;
+  for (int t0 = 0; t0 < N; t0 += R, stage ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed, and every warp is done with the other stage
+    if (t0 + R < N) {
+      fetch_rows<DKV_WARPS>(ring[stage ^ 1].q, q, qs, b, h, t0 + R, N);
+      fetch_rows<DKV_WARPS>(ring[stage ^ 1].d, dout, os, b, h, t0 + R, N);
+      fetch_rowstats<DKV_WARPS>(ring[stage ^ 1], lse, delta, seq, t0 + R, N);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const Bf16DkvStage<R>& st = ring[stage];
+    const int nq = min(R, N - t0);
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int j0 = STEP * j;
+      if (j0 >= nq) break;  // chunks wholly past N
+      // S^T = K Q^T and dP^T = V dO^T over 16 queries
+      float sp[2][4] = {}, ds[2][4] = {};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        uint32_t qb[4], db[4];
+        frag_b_rows_bf16(qb, st.q, j0 + 8 * nt, lane);
+        frag_b_rows_bf16(db, st.d, j0 + 8 * nt, lane);
+        mma_bf16(sp[nt], ka[0], qb[0], qb[1]);
+        mma_bf16(ds[nt], va[0], db[0], db[1]);
+        mma_bf16(sp[nt], ka[1], qb[2], qb[3]);
+        mma_bf16(ds[nt], va[1], db[2], db[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int i0 = j0 + 8 * nt + 2 * t;  // the lane's queries i0, i0 + 1 in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(&st.lse[i0]);
+        const float2 d2 = *reinterpret_cast<const float2*>(&st.delta[i0]);
+        const float lg[2] = {l2.x * LOG2E, l2.y * LOG2E}, dl[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // P^T and dS^T = P^T (dP^T - delta); P = 0 past N
+          const float x = fmaf(sp[nt][e], c, -lg[e & 1]);
+          float p = exp2_approx(x);
+          if (nq < R && i0 + (e & 1) >= nq) p = 0.f;
+          sp[nt][e] = p;
+          ds[nt][e] = p * (ds[nt][e] - dl[e & 1]);
+        }
+      }
+      float pv[HD / 8][4] = {}, pk[HD / 8][4] = {};  // this chunk's P^T dO, dS^T Q
+      uint32_t pa[DKV_TERMS][4], dsa[DKV_TERMS][4], db[2][4], qb[2][4];
+      frag_a_terms<DKV_TERMS>(pa, sp);
+      frag_a_terms<DKV_TERMS>(dsa, ds);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        frag_b_cols_bf16(db[u], st.d, j0, 2 * u, lane);
+        frag_b_cols_bf16(qb[u], st.q, j0, 2 * u, lane);
+      }
+#pragma unroll
+      for (int i = DKV_TERMS - 1; i >= 0; --i) {  // the smallest term first
+#pragma unroll
+        for (int nd = 0; nd < HD / 8; ++nd) {
+          const int u = nd >> 1, w = 2 * (nd & 1);
+          mma_bf16(pv[nd], pa[i], db[u][w], db[u][w + 1]);   // dV += P^T dO
+          mma_bf16(pk[nd], dsa[i], qb[u][w], qb[u][w + 1]);  // dK += dS^T Q
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dva[nd][e] += pv[nd][e];
+          dka[nd][e] += pk[nd][e];
+        }
+      }
+    }
+  }
+  if (!active) return;
+  store_acc(dk, dka, scale, b, h, w0, N, H, lane);
+  store_acc(dv, dva, 1.f, b, h, w0, N, H, lane);
+}
+
+// Dynamic shared memory of a block of the bfloat16 kernels.
+constexpr int BF16_FWD_SHARED = STAGES * sizeof(Bf16KvStage<FWD_WARPS * WARP_ROWS>);
+constexpr int BF16_DKV_SHARED = STAGES * sizeof(Bf16DkvStage<DKV_WARPS * WARP_ROWS>);
+
+// The launchers of the bfloat16 kernels.
+int forward_bf16(const void* q, const void* k, const void* v, Strides qs, Strides ks, Strides vs,
+                 void* o, void* o32, void* lse, int BB, int N, int H, float scale, int device,
+                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)BB * N * H == 0) return 0;
+  dim3 grid;
+  if (!grid_for(BB, N, H, &grid, FWD_WARPS * WARP_ROWS)) return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(attention_fwd_kernel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BF16_FWD_SHARED);
+  if (err != cudaSuccess) return (int)err;
+  attention_fwd_kernel_bf16<<<grid, FWD_WARPS * 32, BF16_FWD_SHARED,
+                              static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          qs, ks, vs, static_cast<bf16*>(o), static_cast<float*>(o32), static_cast<float*>(lse),
+          N, H, scale);
+  return (int)cudaGetLastError();
+}
+
+int backward_dkv_bf16(const void* q, const void* k, const void* v, Strides qs, Strides ks,
+                      Strides vs, const void* lse, const void* dout, const void* delta, void* dk,
+                      void* dv, int BB, int N, int H, float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)BB * N * H == 0) return 0;
+  dim3 grid;
+  if (!grid_for(BB, N, H, &grid, DKV_WARPS * WARP_ROWS)) return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, BF16_DKV_SHARED);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_dkv_kernel_bf16<<<grid, DKV_WARPS * 32, BF16_DKV_SHARED,
+                                  static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          qs, ks, vs, static_cast<const float*>(lse), static_cast<const bf16*>(dout),
+          static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, H,
+          scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The entry points, one set per type: q, k, v are (BB, N, H, 32) with
@@ -840,7 +1355,7 @@ extern "C" int area_attention_fwd_f32(QKV_ARGS, void* o, void* lse, TAIL_ARGS) {
   return forward<float>(QKV, o, nullptr, lse, TAIL);
 }
 extern "C" int area_attention_fwd_bf16(QKV_ARGS, void* o, void* o32, void* lse, TAIL_ARGS) {
-  return forward<bf16>(QKV, o, o32, lse, TAIL);
+  return forward_bf16(QKV, o, o32, lse, TAIL);
 }
 
 // dq and delta (BB, H, N) from q, k, v, o (float32), lse and do.
@@ -860,11 +1375,13 @@ extern "C" int area_attention_bwd_dkv_f32(QKV_ARGS, const void* lse, const void*
 }
 extern "C" int area_attention_bwd_dkv_bf16(QKV_ARGS, const void* lse, const void* dout,
                                            const void* delta, void* dk, void* dv, TAIL_ARGS) {
-  return backward_dkv<bf16>(QKV, lse, dout, delta, dk, dv, TAIL);
+  return backward_dkv_bf16(QKV, lse, dout, delta, dk, dv, TAIL);
 }
 
 // Bytes of dynamic shared memory a block of each kernel takes: 0 forward,
-// 1 dq, 2 dkv (the same in both types).
-extern "C" int area_attention_shared_bytes(int kernel) {
+// 1 dq, 2 dkv; of the bfloat16 kernels when bf16 is not 0.
+extern "C" int area_attention_shared_bytes(int kernel, int bf16) {
+  if (bf16 && kernel == 0) return BF16_FWD_SHARED;
+  if (bf16 && kernel == 2) return BF16_DKV_SHARED;
   return kernel == 2 ? (int)sizeof(DkvShared) : (int)sizeof(KvShared);
 }

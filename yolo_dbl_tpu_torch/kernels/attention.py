@@ -10,8 +10,11 @@ blocks.py:888-890, which the JAX package runs everywhere but on a TPU.
 softmax(q kᵀ / √hd) v in the same layout. On CUDA tensors it is a
 `torch.autograd.Function` whose forward kernel also keeps the row
 log-sum-exp, and whose backward runs the dq kernel (which also forms
-delta = rowsum(dO ∘ O)) and then the dkv kernel. All three run their
-products on the tensor cores in 3xTF32 (float32-accurate TF32 `mma.sync`).
+delta = rowsum(dO ∘ O)) and then the dkv kernel. All run their products
+on the tensor cores: the float32 kernels in 3xTF32 (float32-accurate TF32
+`mma.sync`), the bfloat16 forward and dkv kernels in bfloat16 `mma.sync`
+m16n8k16, P and dS split into bfloat16 terms (dkv: 3, which carry them
+exactly; the forward: 2, P's leading 16 bits, within 2^-16 of each P).
 The kernels take hd = 32 (A2C2f's heads are c_ // 32 wide, blocks.py:961)
 and any strides on BB, N and H, so AAttn hands them the three views of its
 packed qkv tensor.
@@ -19,9 +22,10 @@ packed qkv tensor.
 Types: float32, or bfloat16 in and out (q, k, v, the output and its
 gradient, dq, dk, dv), float32 inside, as the JAX flash path casts q, k and
 v to float32 and its output back to their type (blocks.py:876,885); the
-row log-sum-exp stays float32. A bfloat16 input is exact in TF32, so the
-bfloat16 kernels run a product of two inputs in one TF32 pass and one with
-a float32 operand (P, dS) in two, the passes of 3xTF32 that are not zero.
+row log-sum-exp stays float32. A product of two bfloat16 inputs is exact
+in float32; one of a float32 P or dS and an input takes one bfloat16 pass
+a term of P or dS (forward 2 terms, dkv 3) or, in the bfloat16 dq kernel,
+the two TF32 passes of 3xTF32 that are not zero.
 The plain versions compute bfloat16 the same way: in float32 on the upcast
 inputs, each result rounded once. The backward reads the forward's output
 in float32, as JAX's flash backward gets it: a bfloat16 forward that
@@ -92,15 +96,17 @@ def _lib():
                 fn = getattr(lib, f"area_attention_{kernel}_{suffix}")
                 fn.argtypes = [ctypes.c_void_p] * 3 + strides + [ctypes.c_void_p] * n_ptrs + tail
                 fn.restype = ctypes.c_int
-        lib.area_attention_shared_bytes.argtypes = [ctypes.c_int]
+        lib.area_attention_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.area_attention_shared_bytes.restype = ctypes.c_int
     return lib
 
 
 def shared_bytes():
-    """{kernel: bytes of dynamic shared memory a block takes}."""
+    """{kernel: {type: bytes of dynamic shared memory a block takes}}."""
     names = ("attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
-    return {name: _lib().area_attention_shared_bytes(i) for i, name in enumerate(names)}
+    return {name: {"float32": _lib().area_attention_shared_bytes(i, 0),
+                   "bfloat16": _lib().area_attention_shared_bytes(i, 1)}
+            for i, name in enumerate(names)}
 
 
 def _check_cuda(q, k, v, *contiguous):
@@ -132,7 +138,10 @@ def area_attention_forward(q, k, v, residual=False):
     """(o, lse): the forward kernel, on CUDA tensors only. o is
     (BB, N, H, hd) in q's type, lse (BB, H, N) float32. With `residual`,
     (o, lse, o32): o32 is o in float32 for the backward, o itself for
-    float32 inputs and a second output of the kernel for bfloat16 ones."""
+    float32 inputs and a second output of the kernel for bfloat16 ones: its
+    O before the rounding to bfloat16 (o32.to(bfloat16) == o), within about
+    2^-16 of v's largest of the float32-accurate O, since the bfloat16
+    forward keeps 16 bits of P in P V (csrc/attention.cu)."""
     dev, stream, strides = _check_cuda(q, k, v)
     bb, n, h, hd = q.shape
     suffix, count = _SUFFIX[q.dtype]
