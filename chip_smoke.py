@@ -65,7 +65,7 @@ The bfloat16 policy (DetectionModel(..., dtype=torch.bfloat16): float32
 parameters, bfloat16 compute), beside each float32 phase:
  14. k2_bf16, k2_backward_bf16, k3_bf16, k3_backward_bf16 - phases 3-6 for
               the bfloat16 kernels (bfloat16 in and out, float32 inside; the
-              K3 forward and dkv kernels on bfloat16 tensor cores), with
+              three K3 kernels on bfloat16 tensor cores), with
               the same inputs rounded to bfloat16, against the bfloat16 plain
               versions (float32 on the upcast inputs, rounded once): within
               one bfloat16 step of the result plus 1e-6 of the terms' scale;
@@ -111,8 +111,9 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TF32_PASSES = 3  # 3xTF32: float32-accurate products on the tensor cores
 MUFU_PER_CLOCK = 16  # exponentials a clock per SM on the special-function units (sm_90)
 # bfloat16 terms a float32 P or dS is split into, for its product with a
-# bfloat16 input to meet the bars: the fewest (tests/test_torch_attention_split.py
-# emulates the forward's P V and dkv's dV and dK); dq's dS k as dkv's dS
+# bfloat16 input to meet the bars: the fewest, as csrc/attention.cu ships them
+# (tests/test_torch_attention_split.py emulates the forward's P V, dq's dS K
+# and dkv's dV and dK, and holds this line to the source)
 BF16_TERMS = {"forward": 2, "dq": 3, "dkv": 3}
 TOL = 1e-5
 B, SRC_HW, IMGSZ, NC = 8, (512, 768), 640, 3

@@ -1,24 +1,27 @@
 """The arithmetic of the bfloat16 area-attention kernels (K3), on the CPU.
 
-The bfloat16 forward and dkv kernels in yolo_dbl_tpu_torch/csrc/attention.cu
-run every product on the bfloat16 tensor cores (mma.sync m16n8k16, float32
-accumulators). A product of two bfloat16 inputs (S = q kT, dPT = v dOT) is
-exact in float32. A float32 intermediate (P, dS) times an input is split
+The bfloat16 forward, dq and dkv kernels in
+yolo_dbl_tpu_torch/csrc/attention.cu run every product on the bfloat16
+tensor cores (mma.sync m16n8k16, float32 accumulators). A product of two
+bfloat16 inputs (S = q kT, dP = dO vT, their transposes) is exact in
+float32. A float32 intermediate (P, dS) times an input is split
 into bfloat16 terms, one product a term: each term but the last is the
 leading 8 significant bits of what is left (a truncation), the last what is
 left rounded to nearest (`split_bf16x2`). Each 16-row step's products go to
 a fresh accumulator, added to the running float32 sum.
 
 Here that arithmetic runs in plain torch: the split's exactness, and an
-emulation of both kernels held against the plain versions under the bars
-the card's tests hold the kernels to (tests/test_torch_cuda.py,
+emulation of the three kernels held against the plain versions under the
+bars the card's tests hold the kernels to (tests/test_torch_cuda.py,
 chip_smoke.py). It is how the number of terms was chosen: the fewest that
-meet the bars, the forward's 2 and the dkv's 3, as the source ships them.
-No JAX, a few seconds:
+meet the bars, the forward's 2 and the dq's and dkv's 3, as the source
+ships them; chip_smoke.py charges the same counts in its bounds. No JAX, a
+few seconds:
 
     python -m pytest -q tests/test_torch_attention_split.py
 """
 
+import ast
 import math
 import re
 from pathlib import Path
@@ -30,17 +33,18 @@ import torch
 from yolo_dbl_tpu_torch.kernels.attention import (area_attention_backward_plain,
                                                   area_attention_lse_plain, area_attention_plain)
 
-SOURCE = Path(__file__).resolve().parent.parent / "yolo_dbl_tpu_torch" / "csrc" / "attention.cu"
+ROOT = Path(__file__).resolve().parent.parent
+SOURCE = ROOT / "yolo_dbl_tpu_torch" / "csrc" / "attention.cu"
 LOG2E = 1.4426950408889634
 STEP = 16  # rows of the streamed operand a step (two n8 accumulator tiles)
 
 
 def _shipped(what):
-    """{"forward": n, "dkv": n} of `what` ("TERMS", "WARPS") as attention.cu
-    ships them."""
+    """{"forward": n, "dq": n, "dkv": n} of `what` ("TERMS", "WARPS") as
+    attention.cu ships them."""
     text = SOURCE.read_text()
-    return {kernel: int(re.search(rf"{name}_{what} = (\d+)", text).group(1))
-            for kernel, name in (("forward", "FWD"), ("dkv", "DKV"))}
+    return {kernel: int(re.search(rf"\b{name}_{what} = (\d+)", text).group(1))
+            for kernel, name in (("forward", "FWD"), ("dq", "DQ"), ("dkv", "DKV"))}
 
 
 def _split(x, terms):
@@ -121,6 +125,27 @@ def _dkv(q, k, v, grad, terms):
             dv.transpose(1, 2).to(torch.bfloat16))
 
 
+def _dq(q, k, v, grad, terms):
+    """The dq kernel's arithmetic from the query side over 16-key steps:
+    P = 2^(S c - lse log2 e) by one FMA, dS = P (dP - delta) split into
+    `terms` for dQ = scale dS k, each step into a fresh accumulator; lse
+    and delta = rowsum(dO O) in float32 from the forward's arithmetic with
+    the shipped terms (its lse and float32 O), as on the card."""
+    _, lse, o32 = _forward(q, k, v, _shipped("TERMS")["forward"])
+    delta = (grad.float() * o32).sum(-1).transpose(1, 2)
+    q, k, v, grad = (t.float().transpose(1, 2) for t in (q, k, v, grad))
+    scale = q.shape[-1] ** -0.5
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    lg = (lse * LOG2E)[..., None]
+    dq = torch.zeros(q.shape)
+    for j in range(0, k.shape[2], STEP):
+        kj, vj = k[:, :, j:j + STEP], v[:, :, j:j + STEP]
+        p = torch.exp2(_fma(q @ kj.transpose(-1, -2), c, -lg))
+        ds = p * (grad @ vj.transpose(-1, -2) - delta[..., None])
+        dq = dq + _product(ds, kj, terms)
+    return (dq * scale).transpose(1, 2).to(torch.bfloat16)
+
+
 def _excess(got, want, scale):
     """The largest excess of |got - want| over the bar: one bfloat16 step of
     want plus 1e-6 of scale (<= 0 meets it)."""
@@ -197,3 +222,25 @@ def test_dkv_emulation_meets_the_bar(terms):
     excess = max(_excess(a, r, max(float(r.float().abs().max()), floor))
                  for a, r in zip(got, (want_dk, want_dv)))
     assert (excess <= 0) == (terms >= _shipped("TERMS")["dkv"]), excess
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3])
+def test_dq_emulation_meets_the_bar(terms):
+    """The dq kernel's arithmetic against autograd through the plain
+    version: dq within one bfloat16 step + 1e-6 of its largest (floored at
+    1e-2 of dv's largest). Two terms miss it by a few 1e-7 near 0, one by
+    about 1e-3; the shipped split is the fewest terms that meet it."""
+    q, k, v, grad = _inputs()
+    want_dq, _, want_dv = area_attention_backward_plain(q, k, v, grad)
+    floor = 1e-2 * float(want_dv.float().abs().max())
+    excess = _excess(_dq(q, k, v, grad, terms), want_dq,
+                     max(float(want_dq.float().abs().max()), floor))
+    assert (excess <= 0) == (terms >= _shipped("TERMS")["dq"]), excess
+
+
+def test_chip_smoke_charges_the_shipped_terms():
+    """chip_smoke.py's bounds charge a float32 P or dS times an input one
+    bfloat16 pass a term, at the terms each kernel ships with."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    charged = re.search(r"^BF16_TERMS = (\{.*\})$", text, re.M).group(1)
+    assert ast.literal_eval(charged) == _shipped("TERMS"), charged

@@ -324,10 +324,10 @@ def _sass_functions(lib):
 def test_area_attention_kernels_run_on_the_tensor_cores(cuda):
     """The forward and both backward kernels, each built for float32 and for
     bfloat16 input, run their products on the tensor cores. The float32
-    kernels and the bfloat16 dq kernel (which converts on load and runs the
-    float32 kernel's 3xTF32 products) issue TF32 HMMAs and no other kind;
-    the bfloat16 forward and dkv kernels (attention_*_kernel_bf16) issue
-    bfloat16 m16n8k16 HMMAs (HMMA.16816.F32.BF16) and no TF32 one."""
+    kernels (the 3xTF32 template, built for float32 only: no bfloat16
+    instance of it ships) issue TF32 HMMAs and no other kind; the bfloat16
+    forward, dq and dkv kernels (attention_*_kernel_bf16) issue bfloat16
+    m16n8k16 HMMAs (HMMA.16816.F32.BF16) and no TF32 one."""
     build.library("attention")
     functions = _sass_functions(build.library_path("attention"))
     for kernel in ("attention_fwd_kernel", "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel"):
@@ -340,8 +340,7 @@ def test_area_attention_kernels_run_on_the_tensor_cores(cuda):
                 assert all("HMMA.16816.F32.BF16" in ln for ln in hmma), hmma[:3]
             else:
                 assert all("TF32" in ln for ln in hmma), hmma[:3]
-        assert (sum(kernel + "_bf16" in name for name in bodies)
-                == (kernel != "attention_bwd_dq_kernel")), list(bodies)
+        assert sum(kernel + "_bf16" in name for name in bodies) == 1, list(bodies)
 
 
 @pytest.mark.cuda
@@ -450,6 +449,60 @@ def test_sample_bilinear_bf16_backward_kernel_matches_plain(cuda, padding_mode, 
     g_max, x_max = float(grad.abs().max()), float(x.abs().max())
     for a, r, scale in zip(got, want, (4 * g_max, c // g * g_max * x_max, c // g * g_max * x_max)):
         _assert_within_bf16_ulp(a, r, scale)
+
+
+# (C, G, N, coordinates) of the forward kernel's cases. A block takes runs
+# of FWD_THREADS / (lanes a point and group x groups) consecutive points (8
+# at C/G = 64) of one image: N = 575 is not a multiple of any block's
+# points, N = 5 is less than one run; "shifted" moves every point 6 rows
+# down from its DySample position (most taps clip at the image's edge),
+# "uniform" spreads the taps over the image and a margin. C/G = 2048 makes
+# a lane loop over its group's vectors, G = 128 a thread over groups.
+FORWARD_CASES = [(256, 4, 575, "dysample"), (512, 4, 575, "shifted"), (256, 4, 5, "uniform"),
+                 (128, 1, 575, "uniform"), (64, 1, 5, "dysample"), (12, 3, 575, "shifted"),
+                 (6, 2, 575, "uniform"), (2048, 1, 37, "uniform"), (256, 128, 37, "dysample")]
+
+
+def _forward_coords(rng, b, n, h, w, g, kind):
+    """(B, n, G) coordinates: the first n points of DySample's 2x grid with
+    offsets of 0.75 pixel (shifted 6 rows down), or uniform."""
+    if kind == "uniform":
+        return _coords(rng, b, n, h, w, g)
+    oy, ox = ((np.arange(2 * s) + 0.5) / 2 - 0.5 for s in (h, w))
+    base = [grid.reshape(-1)[np.arange(n) % (4 * h * w)][None, :, None]
+            for grid in np.meshgrid(oy, ox, indexing="ij")]
+    base[0] = base[0] + (6.0 if kind == "shifted" else 0.0)
+    return tuple((t + rng.standard_normal((b, n, g)) * 0.75).astype(np.float32) for t in base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+@pytest.mark.parametrize("c,g,n,kind", FORWARD_CASES)
+def test_sample_bilinear_forward_kernel_cases(cuda, dtype, padding_mode, c, g, n, kind):
+    """The forward kernel at the model's C/G (64, 128), at 2048, at 4 (16
+    bytes in float32, one channel a lane in bfloat16) and at 3 and 2 (one
+    channel a lane), G = 1 to 4 and 128, runs of points cut by N, DySample's,
+    shifted and uniform coordinates: float32 within 1e-5 of the plain
+    version, bfloat16 within one bfloat16 step of it; one launch of the
+    type's kernel, and a second launch gives the same bits."""
+    rng = np.random.default_rng(28)
+    b, h, w = 2, 13, 11
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda).to(dtype)
+    gy, gx = (torch.from_numpy(a).to(cuda).to(dtype)
+              for a in _forward_coords(rng, b, n, h, w, g, kind))
+    name = "sample_bilinear" + ("_bf16" if dtype == torch.bfloat16 else "")
+    before = dict(kernels.launches)
+    out = TS.sample_bilinear(x, gy, gx, padding_mode)
+    again = TS.sample_bilinear(x, gy, gx, padding_mode)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before[name] + 2
+    assert torch.equal(out, again)
+    want = TS.sample_bilinear_plain(x, gy, gx, padding_mode)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=TOL, rtol=0)
+    else:
+        _assert_within_bf16_ulp(out, want, float(x.float().abs().max()))
 
 
 @pytest.mark.cuda

@@ -1,38 +1,41 @@
 #!/usr/bin/env python3
-"""The bfloat16 area-attention forward and dkv kernels (K3) against the
+"""The bfloat16 area-attention kernels (K3: forward, dq, dkv) against the
 bfloat16 kernels they replaced, and knock-outs of their design, on one GPU.
 
     python3 tools/exp_k3_bf16_designs.py
 
 Builds with nvcc, into build/exp_k3_bf16/, one library a design (one nvcc
 each, all started together), each a copy of the shipped
-yolo_dbl_tpu_torch/csrc/attention.cu with its bfloat16 forward and dkv
-kernels' constants (warps a block, bfloat16 terms of P or dS, blocks an SM
-for ptxas) or code edited:
-  - `shipped`: the file as it is, with entry points added for `pr8`: the
+yolo_dbl_tpu_torch/csrc/attention.cu with its bfloat16 kernels'
+constants (warps a block, bfloat16 terms of P or dS, blocks an SM for
+ptxas) or code edited:
+  - `shipped`: the file as it is, with entry points added for `tf32`: the
     template the float32 kernels share, instantiated for bfloat16
     (converted on load, TF32 `mma.sync` m16n8k8, the passes that add exact
-    zeros skipped), which shipped for bfloat16 before;
-  - `terms_3` (forward), `terms_2` (dkv): the other split (the forward's
-    3-term split is exact; the dkv's 2-term one misses its bar, by CPU
-    emulation: tests/test_torch_attention_split.py);
+    zeros skipped), which shipped for bfloat16 before (the dq kernel until
+    its redesign, the forward and dkv kernels before theirs);
+  - `terms_3` (forward), `terms_2` (dkv, dq): the other split (the
+    forward's 3-term split is exact; the 2-term one of dkv and dq misses
+    its bar, by CPU emulation: tests/test_torch_attention_split.py);
   - `min_blocks_N`: ptxas told to fit N blocks an SM (the register cap),
-    against the shipped 4 (forward) and 3 (dkv);
+    against the shipped 4 (forward, dq) and 3 (dkv);
   - `warps_4`, `warps_8`: 4 or 8 warps a block, against 5, at about the
-    same registers a thread (min blocks 5 and 2 forward, 4 and 2 dkv);
+    same registers a thread (min blocks 5 and 2 forward and dq, 4 and 2
+    dkv);
   - three copies timed only, their output being wrong: `no_exp` (the
     per-score exponentials replaced by a multiply), `no_products` (the
-    products of P skipped: forward P V, dkv dV and dK; P and dS are still
-    formed) and `no_exp_no_products` (both);
+    products of P or dS with a tile skipped: forward P V, dkv dV and dK,
+    dq dS K; P and dS are still formed) and `no_exp_no_products` (both);
 and prints, from cuobjdump -sass, each bfloat16 kernel's instruction count
 and its most common opcodes. Then, at the smoke's two YOLOv13-s sites
-(forward at serving batch 8, dkv at training batch 16, on the packed
-bfloat16 qkv views AAttn passes), it checks every full design against the
-plain version under the tests' bar (one bfloat16 step + 1e-6 of the scale)
-and times each with its inputs rotated past the 50 MB L2: the device time
+(forward at serving batch 8, dq and dkv at training batch 16, on the
+packed bfloat16 qkv views AAttn passes), it checks every full design
+against the plain version under the tests' bar (one bfloat16 step + 1e-6
+of the scale, floored at 1e-2 of dv's largest for dq, dk and dv) and times
+each with its inputs rotated past the 50 MB L2: the device time
 torch.profiler records over 30 back-to-back launches, in turns (A B ... B A)
 over 4 rounds; the median per launch. The last line is JSON: ms a request
-(forward, 8 calls) and a step (dkv, 8 calls) per design.
+(forward, 8 calls) and a step (dq and dkv, 8 calls each) per design.
 """
 
 import ctypes
@@ -61,27 +64,36 @@ SITES = {"row6": (4, 400, 4), "row8": (1, 400, 8)}  # (areas, N, heads) an image
 CALLS_PER_SITE = 4
 SERVE_B, TRAIN_B = 8, 16
 ITERS, ROUNDS = 30, 4
+KERNELS = ("FWD", "DKV", "DQ")  # the constants' prefixes in attention.cu
 # library: ((forward design, its warps, terms, min blocks), (dkv design, ...),
-# knock-outs). The knock-outs keep the shipped constants, so that they
-# change only what they knock out.
+# (dq design, ...), knock-outs). The knock-outs keep the shipped constants,
+# so that they change only what they knock out.
 LIBRARIES = {
-    "shipped": (("shipped", 5, 2, 4), ("shipped", 5, 3, 3), ()),
-    "terms": (("terms_3", 5, 3, 4), ("terms_2", 5, 2, 3), ()),
-    "min_blocks_fewer": (("min_blocks_3", 5, 2, 3), ("min_blocks_2", 5, 3, 2), ()),
-    "min_blocks_more": (("min_blocks_5", 5, 2, 5), ("min_blocks_4", 5, 3, 4), ()),
-    "warps_4": (("warps_4", 4, 2, 5), ("warps_4", 4, 3, 4), ()),
-    "warps_8": (("warps_8", 8, 2, 2), ("warps_8", 8, 3, 2), ()),
-    "no_exp": (("no_exp", 5, 2, 4), ("no_exp", 5, 3, 3), ("exp",)),
-    "no_products": (("no_products", 5, 2, 4), ("no_products", 5, 3, 3), ("products",)),
+    "shipped": (("shipped", 5, 2, 4), ("shipped", 5, 3, 3), ("shipped", 5, 3, 4), ()),
+    "terms": (("terms_3", 5, 3, 4), ("terms_2", 5, 2, 3), ("terms_2", 5, 2, 4), ()),
+    "min_blocks_fewer": (("min_blocks_3", 5, 2, 3), ("min_blocks_2", 5, 3, 2),
+                         ("min_blocks_3", 5, 3, 3), ()),
+    "min_blocks_more": (("min_blocks_5", 5, 2, 5), ("min_blocks_4", 5, 3, 4),
+                        ("min_blocks_5", 5, 3, 5), ()),
+    "warps_4": (("warps_4", 4, 2, 5), ("warps_4", 4, 3, 4), ("warps_4", 4, 3, 5), ()),
+    "warps_8": (("warps_8", 8, 2, 2), ("warps_8", 8, 3, 2), ("warps_8", 8, 3, 2), ()),
+    "no_exp": (("no_exp", 5, 2, 4), ("no_exp", 5, 3, 3), ("no_exp", 5, 3, 4), ("exp",)),
+    "no_products": (("no_products", 5, 2, 4), ("no_products", 5, 3, 3),
+                    ("no_products", 5, 3, 4), ("products",)),
     "no_exp_no_products": (("no_exp_no_products", 5, 2, 4), ("no_exp_no_products", 5, 3, 3),
-                           ("exp", "products"))}
+                           ("no_exp_no_products", 5, 3, 4), ("exp", "products"))}
 TIMED_ONLY = ("no_exp", "no_products", "no_exp_no_products")
 # (warps, terms, min blocks an SM) as attention.cu ships them
-SHIPPED = {"FWD": LIBRARIES["shipped"][0][1:], "DKV": LIBRARIES["shipped"][1][1:]}
+SHIPPED = {kernel: design[1:] for kernel, design in zip(KERNELS, LIBRARIES["shipped"])}
 # the knock-outs' edits of the kernels' code
 KNOCK_OUTS = {
     "exp": [("          s[j][nt][e] = exp2_approx(x);", "          s[j][nt][e] = x * 0.03125f;"),
-            ("          float p = exp2_approx(x);", "          float p = x * 0.03125f;")],
+            ("""          const float x = fmaf(sp[nt][e], c, -lg[e & 1]);
+          float p = exp2_approx(x);""", """          const float x = fmaf(sp[nt][e], c, -lg[e & 1]);
+          float p = x * 0.03125f;"""),
+            ("""          const float x = fmaf(s[nt][e], c, -lse2[e >> 1]);
+          float p = exp2_approx(x);""", """          const float x = fmaf(s[nt][e], c, -lse2[e >> 1]);
+          float p = x * 0.03125f;""")],
     "products": [
         ("""      uint32_t pa[FWD_TERMS][4], vb[2][4];
       frag_a_terms<FWD_TERMS>(pa, s[j]);
@@ -120,14 +132,35 @@ KNOCK_OUTS = {
           pk[0][e] += ds[nt][e];
         }
       }
+"""),
+        ("""      uint32_t dsa[DQ_TERMS][4], kb[2][4];
+      frag_a_terms<DQ_TERMS>(dsa, s);
+      frag_b_cols_bf16(kb[0], Kt, j0, 0, lane);
+      frag_b_cols_bf16(kb[1], Kt, j0, 2, lane);
+#pragma unroll
+      for (int i = DQ_TERMS - 1; i >= 0; --i) {  // the smallest term first
+#pragma unroll
+        for (int nd = 0; nd < HD / 8; ++nd) {
+          mma_bf16(part[nd], dsa[i], kb[nd >> 1][2 * (nd & 1)], kb[nd >> 1][2 * (nd & 1) + 1]);
+        }
+      }
+""", """#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {  // keep dS alive: all but its product
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[0][e] += s[nt][e];
+      }
 """)]}
-PR8_ENTRY_POINTS = """
-extern "C" int fwd_pr8(QKV_ARGS, void* o, void* o32, void* lse, TAIL_ARGS) {
+TF32_ENTRY_POINTS = """
+extern "C" int fwd_tf32(QKV_ARGS, void* o, void* o32, void* lse, TAIL_ARGS) {
   return forward<bf16>(QKV, o, o32, lse, TAIL);
 }
-extern "C" int dkv_pr8(QKV_ARGS, const void* lse, const void* dout, const void* delta, void* dk,
+extern "C" int dkv_tf32(QKV_ARGS, const void* lse, const void* dout, const void* delta, void* dk,
                        void* dv, TAIL_ARGS) {
   return backward_dkv<bf16>(QKV, lse, dout, delta, dk, dv, TAIL);
+}
+extern "C" int dq_tf32(QKV_ARGS, const void* o, const void* lse, const void* dout, void* dq,
+                      void* delta, TAIL_ARGS) {
+  return backward_dq<bf16>(QKV, o, lse, dout, dq, delta, TAIL);
 }
 """
 
@@ -150,11 +183,11 @@ def sources():
     """{library: CUDA source}: attention.cu, its bfloat16 designs edited."""
     shipped = (ROOT / "yolo_dbl_tpu_torch/csrc/attention.cu").read_text()
     out = {}
-    for lib, (fwd, dkv, knocks) in LIBRARIES.items():
+    for lib, (*designs, knocks) in LIBRARIES.items():
         cuts = [(_constants(kernel, *SHIPPED[kernel]), _constants(kernel, *design[1:]))
-                for kernel, design in (("FWD", fwd), ("DKV", dkv))]
+                for kernel, design in zip(KERNELS, designs)]
         out[lib] = edited(shipped, cuts + [c for k in knocks for c in KNOCK_OUTS[k]])
-    out["shipped"] += PR8_ENTRY_POINTS
+    out["shipped"] += TF32_ENTRY_POINTS
     return out
 
 
@@ -165,13 +198,13 @@ def _short(name):
 
 
 def _designed(name):
-    """Whether a kernel is one of the bfloat16 forward or dkv kernels."""
-    return "bfloat16" in name and "bwd_dq" not in name
+    """Whether a kernel is one of the bfloat16 kernels of this design."""
+    return "_kernel_bf16" in name
 
 
 def sass_counts(lib):
-    """{kernel: {instructions, opcodes of note}} of the bfloat16 forward and
-    dkv kernels, from cuobjdump -sass."""
+    """{kernel: {instructions, opcodes of note}} of the bfloat16 kernels,
+    from cuobjdump -sass."""
     sass = subprocess.run([str(CUDA / "bin/cuobjdump"), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)", sass)
@@ -190,7 +223,7 @@ def sass_counts(lib):
 
 
 def ptxas_lines(log):
-    """{kernel: its ptxas -v lines} of the bfloat16 forward and dkv kernels."""
+    """{kernel: its ptxas -v lines} of the bfloat16 kernels."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"entry function '(\w+)'", ln)
@@ -223,7 +256,8 @@ def build():
 
 def launchers(libs):
     """{"forward": {design: fn(q, k, v, o, lse)},
-    "dkv": {design: fn(q, k, v, lse, dout, delta, dk, dv)}}."""
+    "dkv": {design: fn(q, k, v, lse, dout, delta, dk, dv)},
+    "dq": {design: fn(q, k, v, o32, lse, dout, dq, delta)}}."""
     dev = torch.cuda.current_device()
     stream = torch.cuda.current_stream().cuda_stream
     qkv_args = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 9
@@ -244,20 +278,25 @@ def launchers(libs):
         if err:
             raise RuntimeError(f"{f.__name__}: cudaError_t {err}")
 
-    fwd = {"pr8": fn("shipped", "fwd_pr8", 3)}
-    dkv = {"pr8": fn("shipped", "dkv_pr8", 5)}
-    for lib, (fwd_design, dkv_design, _) in LIBRARIES.items():
+    fwd = {"tf32": fn("shipped", "fwd_tf32", 3)}
+    dkv = {"tf32": fn("shipped", "dkv_tf32", 5)}
+    dq = {"tf32": fn("shipped", "dq_tf32", 5)}
+    for lib, (fwd_design, dkv_design, dq_design, _) in LIBRARIES.items():
         fwd[fwd_design[0]] = fn(lib, "area_attention_fwd_bf16", 3)
         dkv[dkv_design[0]] = fn(lib, "area_attention_bwd_dkv_bf16", 5)
+        dq[dq_design[0]] = fn(lib, "area_attention_bwd_dq_bf16", 5)
     return {"forward": {name: (lambda q, k, v, o, lse, f=f: call(f, q, k, v, o, None, lse))
                         for name, f in fwd.items()},
             "dkv": {name: (lambda q, k, v, lse, d, delta, dk, dv, b=b:
-                           call(b, q, k, v, lse, d, delta, dk, dv)) for name, b in dkv.items()}}
+                           call(b, q, k, v, lse, d, delta, dk, dv)) for name, b in dkv.items()},
+            "dq": {name: (lambda q, k, v, o32, lse, d, dq, delta, b=b:
+                          call(b, q, k, v, o32, lse, d, dq, delta)) for name, b in dq.items()}}
 
 
 def inputs(gen, b, site):
     """Copies (rotated past L2) of the packed bfloat16 qkv views at a site,
-    with an output gradient, the forward's lse and delta = rowsum(dO O)."""
+    with an output gradient, the forward's lse, delta = rowsum(dO O) and
+    the forward's float32 O."""
     areas, n, h = SITES[site]
     bb = b * areas
     copies = max(2, int(np.ceil(100e6 / (bb * n * h * 4 * HEAD_DIM * 2))))
@@ -268,7 +307,7 @@ def inputs(gen, b, site):
         d = torch.randn((bb, n, h, HEAD_DIM), generator=gen).cuda().bfloat16()
         _, lse, o32 = area_attention_forward(q, k, v, residual=True)
         delta = (d.float() * o32).sum(-1).transpose(1, 2).contiguous()
-        sets.append((q, k, v, d, lse, delta))
+        sets.append((q, k, v, d, lse, delta, o32))
     return sets
 
 
@@ -314,21 +353,22 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     fns = launchers(build())
     gen = torch.Generator().manual_seed(0)
-    total = {"forward": {}, "dkv": {}}
+    total = {"forward": {}, "dkv": {}, "dq": {}}
     for site in SITES:
-        for kernel, b in (("forward", SERVE_B), ("dkv", TRAIN_B)):
+        for kernel, b in (("forward", SERVE_B), ("dkv", TRAIN_B), ("dq", TRAIN_B)):
             sets = inputs(gen, b, site)
-            q, k, v, d, lse, delta = sets[0]
+            q, k, v, d, lse, delta, o32 = sets[0]
             shape = q.shape
             o = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
-            lse_out = torch.empty_like(lse)
-            dk, dv = (torch.empty(shape, dtype=torch.bfloat16, device="cuda") for _ in range(2))
+            lse_out, delta_out = torch.empty_like(lse), torch.empty_like(delta)
+            dq, dk, dv = (torch.empty(shape, dtype=torch.bfloat16, device="cuda") for _ in range(3))
             if kernel == "forward":
                 want = [area_attention_plain(q, k, v)]
                 scales = [float(v.float().abs().max())]
             else:
-                want = list(area_attention_backward_plain(q, k, v, d)[1:])
-                floor = 1e-2 * float(want[1].float().abs().max())
+                grads = area_attention_backward_plain(q, k, v, d)
+                want = [grads[0]] if kernel == "dq" else list(grads[1:])
+                floor = 1e-2 * float(grads[2].float().abs().max())
                 scales = [max(float(w.float().abs().max()), floor) for w in want]
             errors = {}
             for name, fn in fns[kernel].items():
@@ -337,16 +377,22 @@ def main():
                 if kernel == "forward":
                     fn(q, k, v, o, lse_out)
                     got = [o]
-                else:
+                elif kernel == "dkv":
                     fn(q, k, v, lse, d, delta, dk, dv)
                     got = [dk, dv]
+                else:
+                    fn(q, k, v, o32, lse, d, dq, delta_out)
+                    got = [dq]
                 torch.cuda.synchronize()
                 errors[name] = max(excess(g, w, s) for g, w, s in zip(got, want, scales))
 
             def run(fn, kernel=kernel):
                 if kernel == "forward":
                     return lambda i: fn(*sets[i][:3], o, lse_out)
-                return lambda i: fn(*sets[i][:3], sets[i][4], sets[i][3], sets[i][5], dk, dv)
+                if kernel == "dkv":
+                    return lambda i: fn(*sets[i][:3], sets[i][4], sets[i][3], sets[i][5], dk, dv)
+                return lambda i: fn(*sets[i][:3], sets[i][6], sets[i][4], sets[i][3], dq,
+                                    delta_out)
 
             ms = timed({name: run(fn) for name, fn in fns[kernel].items()}, len(sets))
             for name, t in ms.items():
@@ -355,7 +401,7 @@ def main():
                               "bar_excess": errors, "ms": ms}), flush=True)
     print(card, flush=True)
     print(json.dumps({"forward_ms_per_request": total["forward"],
-                      "dkv_ms_per_step": total["dkv"]}))
+                      "dkv_ms_per_step": total["dkv"], "dq_ms_per_step": total["dq"]}))
     return 0
 
 

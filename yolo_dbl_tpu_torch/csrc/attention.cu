@@ -25,18 +25,15 @@
 // the bfloat16 forward keeps P's leading 16 bits in P V (within 2^-16 of
 // each P), so its O is within about 2^-16 of v's largest of the float32
 // one: far inside the one bfloat16 step its output is held to. The
-// bfloat16 forward and dkv kernels are a design of their own
-// (attention_fwd_kernel_bf16 and attention_bwd_dkv_kernel_bf16, after the
-// float32 kernels); the bfloat16 dq kernel is the float32 template
-// converting on load: a bfloat16 value is exact in TF32, so its 3xTF32
-// split has a zero small part, a product of two inputs takes one TF32 pass
-// and one with a float32 operand (dS) two, with the same result as three
-// (32 mma per warp and step). The backward's delta = rowsum(dO * O) takes O
-// in float32, as JAX's flash backward gets its float32 output as residual:
-// a bfloat16 forward run for training also writes its O before the
-// rounding to bfloat16 (o32, with the forward's accuracy above; the dkv
-// emulation in tests/test_torch_attention_split.py takes its delta from
-// it), and the dq kernel reads o in float32 in both types.
+// bfloat16 kernels are a design of their own (attention_fwd_kernel_bf16,
+// attention_bwd_dq_kernel_bf16 and attention_bwd_dkv_kernel_bf16, after
+// the float32 kernels); the float32 kernels are one template, built for
+// float32 only. The backward's delta = rowsum(dO * O) takes O in float32,
+// as JAX's flash backward gets its float32 output as residual: a bfloat16
+// forward run for training also writes its O before the rounding to
+// bfloat16 (o32, with the forward's accuracy above; the dq and dkv
+// emulations in tests/test_torch_attention_split.py take lse and delta
+// from it), and the dq kernel reads o in float32 in both types.
 //
 // Forward (attention_fwd_kernel): over all keys, S = q k^T, an online
 // softmax (running row max m and row sum l) and O += P v; it writes
@@ -109,51 +106,60 @@
 //   4 a SM by shared memory); 32-row blocks would double the blocks but not
 //   the warps in flight, since each block still holds two 64-row tiles.
 // Budget per block of 128 threads (ptxas -v, sm_90a): forward 126
-// registers, dq 156, dkv 217, no spills, so 4, 3 and 2 blocks per SM
-// (bfloat16 dq: 124).
+// registers, dq 156, dkv 217, no spills, so 4, 3 and 2 blocks per SM.
 // Shared memory (dynamic: over the 48 KB of static) two split tiles of
 // 2 x 64 x 36 x 4 B and two raw tiles of 8 KB, 53,248 B (forward and dq;
 // dkv 53,760 with lse and delta).
 // Per warp and 16-row step the forward issues 48 mma (two products, three
 // passes, 8 each), the dq kernel 72 (three products), the dkv kernel 96.
 //
-// The bfloat16 forward and dkv kernels (PERF.md has their times and
-// knock-outs, from tools/exp_k3_bf16_designs.py). They issue 16 (forward)
-// and 32 (dkv) bf16 mma per warp and 16 x 16 scores, against 24 and 48
-// TF32 mma of half the depth, and cut the work around each score.
+// The bfloat16 kernels (PERF.md has their times and knock-outs, from
+// tools/exp_k3_bf16_designs.py). They issue 16 (forward), 20 (dq) and 32
+// (dkv) bf16 mma per warp and 16 x 16 scores, against 24, 32 and 48 TF32
+// mma of half the depth in the float32 template that ran them in bfloat16
+// before (converting on load, the TF32 passes that add exact zeros
+// skipped), and cut the work around each score.
 // - Tiles reach shared memory as they are, in bfloat16, by 16-byte
 //   cp.async into a ring of two stages of 80 rows (as many as a block
 //   owns, two chunks a thread): one barrier a tile, no conversion pass.
 //   Rows are 80 B apart, which keeps every ldmatrix phase (8 rows of 16 B)
 //   off shared bank conflicts.
 // - Products run on mma.sync m16n8k16 with bfloat16 operands and float32
-//   accumulators. The warp's own 16 rows (q; k and v) sit in registers as
-//   bfloat16 A fragments, 8 registers for 16 x 32, loaded once. B
-//   fragments come by ldmatrix.x4, 16 x 16 of a tile each: plain for
-//   S = q kT (forward), S^T = k qT and dP^T = v dOT (dkv), .trans for P v,
-//   P^T dO and dS^T q, whose k runs over the tile's rows.
+//   accumulators. The warp's own 16 rows (q; q and dO; k and v) sit in
+//   registers as bfloat16 A fragments, 8 registers for 16 x 32, loaded
+//   once. B fragments come by ldmatrix.x4, 16 x 16 of a tile each: plain
+//   for S = q kT (forward, dq), dP = dO vT (dq), S^T = k qT and
+//   dP^T = v dOT (dkv), .trans for P v, dS k, P^T dO and dS^T q, whose k
+//   runs over the tile's rows.
 // - A product of two bfloat16 inputs is exact in float32, one pass. A
 //   float32 P or dS times an input is split into bfloat16 terms, one pass a
 //   term (split_bf16x2: leading 8 bits by truncation, PRMT for two values,
 //   the last term rounded): the forward splits P in 2 terms (within 2^-16
-//   of each P), dkv P and dS in 3 (exact): the fewest that meet the bars
-//   (tests/test_torch_attention_split.py emulates both). Two n8
-//   accumulator tiles are, lane for lane, the next product's A fragment.
+//   of each P), dq dS and dkv P and dS in 3 (exact): the fewest that meet
+//   the bars (tests/test_torch_attention_split.py emulates the three; 2
+//   terms miss dq's and dkv's by under 1e-6 near 0). Two n8 accumulator
+//   tiles are, lane for lane, the next product's A fragment.
 // - Each 16-row step's products go to a fresh accumulator, added to the
 //   float32 sum, as in the float32 kernels.
 // - The forward takes one softmax step a tile: S for all 80 keys, one row
 //   max (two shuffles) and one rescale, then P V chunk by chunk. scale
 //   log2(e) is folded into the FFMA before ex2.approx; the row max is
 //   taken on the raw scores and scaled once.
+// - The dq kernel is dkv's design seen from the query side: k and v
+//   stream through the forward's ring, q and dO are the warp's fragments,
+//   and delta comes from o32 and dO as in the float32 kernel.
 // - A block has 5 warps (80 rows: N = 400 is 5 blocks, no warp idle), and
 //   the inner loops over a tile's 16-row chunks are unrolled.
 // Budget (ptxas -v, sm_90a, 160 threads): forward 96 registers (capped
-// for 4 blocks an SM), dkv 128 (3 blocks), no spills; dynamic shared
-// memory 25,600 B (forward) and 26,880 B (dkv, with lse and delta).
+// for 4 blocks an SM), dq 92 (capped for 4), dkv 128 (3 blocks), no
+// spills; dynamic shared memory 25,600 B (forward, dq) and 26,880 B (dkv,
+// with lse and delta).
 // What binds them (the knock-outs, PERF.md): not the exponentials (taking
-// them out saves 0-2%); the products of P take 26% of the forward and half
-// of dkv, where each bf16 mma a chunk costs about as much as the
-// tensor-core issue of mma.sync allows: wgmma is the next step.
+// them out saves 0-2%); the products of P or dS with a tile take 26% of
+// the forward and of dq and half of dkv, where each bf16 mma a chunk costs
+// about as much as the tensor-core issue of mma.sync allows: wgmma is the
+// next step. The rest, about 0.26 ms a training step in dq and in dkv
+// alike (S and dP, the tiles, the fragments), is common to both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -558,6 +564,39 @@ __global__ void __launch_bounds__(THREADS)
   if (o32 != nullptr) store_acc(o32, acc, 1.f, b, h, w0, N, H, lane);
 }
 
+// The dq kernels' statistics of the lane's rows w0 + g and w0 + g + 8:
+// lse2 = lse log2(e), and dl = delta = rowsum(dO * O) with O in float32,
+// each lane forming 8 of the row's 32 products and the row's 4 lanes
+// summing them; delta is also written for the dkv kernel. Rows past N
+// read 0.
+template <typename T>
+__device__ __forceinline__ void dq_row_stats(float (&lse2)[2], float (&dl)[2],
+                                             const float* __restrict__ o,
+                                             const float* __restrict__ lse,
+                                             const T* __restrict__ dout, float* __restrict__ delta,
+                                             long long seq, long long b, long long h, int w0,
+                                             int N, int H, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = w0 + g + 8 * r;
+    float part = 0.f;
+    if (n < N) {
+      const float* po = o + ((b * N + n) * H + h) * HD + t;
+      const T* pd = dout + ((b * N + n) * H + h) * HD + t;
+#pragma unroll
+      for (int m = 0; m < HD / 4; ++m) {
+        part = fmaf(to_float(__ldg(pd + 4 * m)), __ldg(po + 4 * m), part);
+      }
+      lse2[r] = lse[seq * N + n] * LOG2E;
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    dl[r] = part;
+    if (t == 0 && n < N) delta[seq * N + n] = part;
+  }
+}
+
 // grid (BB * H, ceil(N / ROWS)), THREADS threads; a warp owns 16 query rows
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -572,7 +611,7 @@ __global__ void __launch_bounds__(THREADS)
   const Strides os = {(long long)N * H * HD, (long long)H * HD, HD};
   const long long seq = blockIdx.x;
   const long long b = seq / H, h = seq % H;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int lane = threadIdx.x % 32, t = lane & 3;
   const int w0 = blockIdx.y * ROWS + threadIdx.x / 32 * WARP_ROWS;
   const bool active = w0 < N;  // the warp has a query row
   fetch_tile(sh.raw_k, k, ks, b, h, 0, N);
@@ -584,26 +623,7 @@ __global__ void __launch_bounds__(THREADS)
   if (active) {
     frag_a_rows(qa, q, qs, b, h, w0, N, lane);
     frag_a_rows(da, dout, os, b, h, w0, N, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // delta = rowsum(dO * O): the lane's 8 of the row's 32 products, then
-      // the sum over the 4 lanes of the row
-      const int n = w0 + g + 8 * r;
-      float part = 0.f;
-      if (n < N) {
-        const float* po = o + ((b * N + n) * H + h) * HD + t;
-        const T* pd = dout + ((b * N + n) * H + h) * HD + t;
-#pragma unroll
-        for (int m = 0; m < HD / 4; ++m) {
-          part = fmaf(to_float(__ldg(pd + 4 * m)), __ldg(po + 4 * m), part);
-        }
-        lse2[r] = lse[seq * N + n] * LOG2E;
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      dl[r] = part;
-      if (t == 0 && n < N) delta[seq * N + n] = part;
-    }
+    dq_row_stats(lse2, dl, o, lse, dout, delta, seq, b, h, w0, N, H, lane);
   }
 
   const float c = scale * LOG2E;
@@ -868,8 +888,8 @@ int backward_dkv(const void* q, const void* k, const void* v, Strides qs, Stride
 
 // ------------------------------------------------- bfloat16 tensor cores
 //
-// The bfloat16 forward and dkv kernels (the bfloat16 dq kernel is the
-// template above). Fragment layouts of mma.sync.m16n8k16 with bfloat16
+// The bfloat16 forward, dq and dkv kernels. Fragment layouts of
+// mma.sync.m16n8k16 with bfloat16
 // operands, two values a 32-bit register, the lower column or k index in
 // the low half; lane = 4 g + t.
 //   A (16 x 16, row):  a0 (g, 2t..2t+1), a1 (g + 8, 2t..2t+1),
@@ -885,15 +905,16 @@ constexpr int BROW = 40;  // bfloat16 a shared tile row: 80 B, so the 8 rows of 
 constexpr int STAGES = 2;  // shared tiles in the ring: one read while the next arrives
 // The designs: warps a block (16 rows each; 5 x 16 = 80 divides N = 400),
 // bfloat16 terms a float32 P or dS is split into, and the blocks an SM
-// ptxas is told to fit (__launch_bounds__): 4 caps the forward at 96
-// registers (20 warps an SM), 3 dkv at 136 (15 warps); left to itself
-// ptxas takes 145 and 169, 2 blocks an SM, and both kernels run slower
-// (tools/exp_k3_bf16_designs.py, which builds copies of this file with
-// these constants changed). A ring stage holds as many rows of the
+// ptxas is told to fit (__launch_bounds__): 4 caps the forward and dq at
+// 96 registers (20 warps an SM), 3 dkv at 136 (15 warps); left to itself
+// ptxas takes 145 and 169 for the forward and dkv, 2 blocks an SM, and
+// both run slower (tools/exp_k3_bf16_designs.py, which builds copies of
+// this file with these constants changed). A ring stage holds as many rows of the
 // streamed operand as the block owns of its own, 16 WARPS, so each thread
 // copies two 16-byte chunks of a tile.
 constexpr int FWD_WARPS = 5, FWD_TERMS = 2, FWD_MIN_BLOCKS = 4;
 constexpr int DKV_WARPS = 5, DKV_TERMS = 3, DKV_MIN_BLOCKS = 3;
+constexpr int DQ_WARPS = 5, DQ_TERMS = 3, DQ_MIN_BLOCKS = 4;
 
 typedef bf16 Bf16Row[BROW];
 // One stage of the ring, R rows: the k and v tiles (forward); q, dO, lse
@@ -1291,9 +1312,101 @@ __global__ void __launch_bounds__(DKV_WARPS * 32, DKV_MIN_BLOCKS)
   store_acc(dv, dva, 1.f, b, h, w0, N, H, lane);
 }
 
+// grid (BB * H, ceil(N / (16 DQ_WARPS))), 32 DQ_WARPS threads; a warp owns
+// 16 query rows; writes delta for the dkv kernel
+__global__ void __launch_bounds__(DQ_WARPS * 32, DQ_MIN_BLOCKS)
+    attention_bwd_dq_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, Strides qs, Strides ks, Strides vs,
+                                 const float* __restrict__ o, const float* __restrict__ lse,
+                                 const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                                 float* __restrict__ delta, int N, int H, float scale) {
+  constexpr int R = DQ_WARPS * WARP_ROWS, CH = R / STEP;  // rows a tile, 16-key chunks a tile
+  extern __shared__ __align__(16) unsigned char shared[];
+  Bf16KvStage<R>* ring = reinterpret_cast<Bf16KvStage<R>*>(shared);
+  const Strides os = {(long long)N * H * HD, (long long)H * HD, HD};
+  const long long seq = blockIdx.x;
+  const long long b = seq / H, h = seq % H;
+  const int lane = threadIdx.x % 32, t = lane & 3;
+  const int w0 = blockIdx.y * R + threadIdx.x / 32 * WARP_ROWS;
+  const bool active = w0 < N;  // the warp has a query row
+  fetch_rows<DQ_WARPS>(ring[0].k, k, ks, b, h, 0, N);
+  fetch_rows<DQ_WARPS>(ring[0].v, v, vs, b, h, 0, N);
+  cp_async_commit();
+
+  uint32_t qa[HD / 16][4] = {}, da[HD / 16][4] = {};
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // rows g, g + 8; 0 past N
+  if (active) {
+    frag_a_rows_bf16(qa, q, qs, b, h, w0, N, lane);
+    frag_a_rows_bf16(da, dout, os, b, h, w0, N, lane);
+    dq_row_stats(lse2, dl, o, lse, dout, delta, seq, b, h, w0, N, H, lane);
+  }
+
+  const float c = scale * LOG2E;
+  float acc[HD / 8][4] = {};  // dQ / scale, summed chunk by chunk in float32
+  int stage = 0;
+  for (int t0 = 0; t0 < N; t0 += R, stage ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile has landed, and every warp is done with the other stage
+    if (t0 + R < N) {  // the next tile's copies fly during this tile's products
+      fetch_rows<DQ_WARPS>(ring[stage ^ 1].k, k, ks, b, h, t0 + R, N);
+      fetch_rows<DQ_WARPS>(ring[stage ^ 1].v, v, vs, b, h, t0 + R, N);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const Bf16Row *Kt = ring[stage].k, *Vt = ring[stage].v;
+    const int nk = min(R, N - t0);
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int j0 = STEP * j;
+      if (j0 >= nk) break;  // chunks wholly past N
+      // S = Q K^T and dP = dO V^T over 16 keys
+      float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        uint32_t kb[4], vb[4];
+        frag_b_rows_bf16(kb, Kt, j0 + 8 * nt, lane);
+        frag_b_rows_bf16(vb, Vt, j0 + 8 * nt, lane);
+        mma_bf16(s[nt], qa[0], kb[0], kb[1]);
+        mma_bf16(dp[nt], da[0], vb[0], vb[1]);
+        mma_bf16(s[nt], qa[1], kb[2], kb[3]);
+        mma_bf16(dp[nt], da[1], vb[2], vb[3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // dS = P (dP - delta); keys past N have P = 0
+          const float x = fmaf(s[nt][e], c, -lse2[e >> 1]);
+          float p = exp2_approx(x);
+          if (nk < R && j0 + 8 * nt + 2 * t + (e & 1) >= nk) p = 0.f;
+          s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);
+        }
+      }
+      float part[HD / 8][4] = {};  // this chunk's dS K, in a fresh accumulator
+      uint32_t dsa[DQ_TERMS][4], kb[2][4];
+      frag_a_terms<DQ_TERMS>(dsa, s);
+      frag_b_cols_bf16(kb[0], Kt, j0, 0, lane);
+      frag_b_cols_bf16(kb[1], Kt, j0, 2, lane);
+#pragma unroll
+      for (int i = DQ_TERMS - 1; i >= 0; --i) {  // the smallest term first
+#pragma unroll
+        for (int nd = 0; nd < HD / 8; ++nd) {
+          mma_bf16(part[nd], dsa[i], kb[nd >> 1][2 * (nd & 1)], kb[nd >> 1][2 * (nd & 1) + 1]);
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] += part[nd][e];
+      }
+    }
+  }
+  if (active) store_acc(dq, acc, scale, b, h, w0, N, H, lane);
+}
+
 // Dynamic shared memory of a block of the bfloat16 kernels.
 constexpr int BF16_FWD_SHARED = STAGES * sizeof(Bf16KvStage<FWD_WARPS * WARP_ROWS>);
 constexpr int BF16_DKV_SHARED = STAGES * sizeof(Bf16DkvStage<DKV_WARPS * WARP_ROWS>);
+constexpr int BF16_DQ_SHARED = STAGES * sizeof(Bf16KvStage<DQ_WARPS * WARP_ROWS>);
 
 // The launchers of the bfloat16 kernels.
 int forward_bf16(const void* q, const void* k, const void* v, Strides qs, Strides ks, Strides vs,
@@ -1335,6 +1448,26 @@ int backward_dkv_bf16(const void* q, const void* k, const void* v, Strides qs, S
   return (int)cudaGetLastError();
 }
 
+int backward_dq_bf16(const void* q, const void* k, const void* v, Strides qs, Strides ks,
+                     Strides vs, const void* o, const void* lse, const void* dout, void* dq,
+                     void* delta, int BB, int N, int H, float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)BB * N * H == 0) return 0;
+  dim3 grid;
+  if (!grid_for(BB, N, H, &grid, DQ_WARPS * WARP_ROWS)) return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(attention_bwd_dq_kernel_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, BF16_DQ_SHARED);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_dq_kernel_bf16<<<grid, DQ_WARPS * 32, BF16_DQ_SHARED,
+                                 static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          qs, ks, vs, static_cast<const float*>(o), static_cast<const float*>(lse),
+          static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<float*>(delta), N,
+          H, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The entry points, one set per type: q, k, v are (BB, N, H, 32) with
@@ -1365,7 +1498,7 @@ extern "C" int area_attention_bwd_dq_f32(QKV_ARGS, const void* o, const void* ls
 }
 extern "C" int area_attention_bwd_dq_bf16(QKV_ARGS, const void* o, const void* lse,
                                           const void* dout, void* dq, void* delta, TAIL_ARGS) {
-  return backward_dq<bf16>(QKV, o, lse, dout, dq, delta, TAIL);
+  return backward_dq_bf16(QKV, o, lse, dout, dq, delta, TAIL);
 }
 
 // dk and dv from q, k, v, lse, do and the delta of the dq kernel.
@@ -1381,7 +1514,6 @@ extern "C" int area_attention_bwd_dkv_bf16(QKV_ARGS, const void* lse, const void
 // Bytes of dynamic shared memory a block of each kernel takes: 0 forward,
 // 1 dq, 2 dkv; of the bfloat16 kernels when bf16 is not 0.
 extern "C" int area_attention_shared_bytes(int kernel, int bf16) {
-  if (bf16 && kernel == 0) return BF16_FWD_SHARED;
-  if (bf16 && kernel == 2) return BF16_DKV_SHARED;
+  if (bf16) return kernel == 0 ? BF16_FWD_SHARED : kernel == 1 ? BF16_DQ_SHARED : BF16_DKV_SHARED;
   return kernel == 2 ? (int)sizeof(DkvShared) : (int)sizeof(KvShared);
 }

@@ -23,14 +23,33 @@
 // written once and the coordinates read once (DySample row 13 of YOLO-DBL-s
 // at batch 8: 13.1 MB + 52.4 MB + 1.6 MB, about 20 us at 3.35 TB/s).
 //
-// Design: the TPU kernel turned the gather into dense one-hot matmuls
-// because Mosaic rejects gathers; Hopper gathers from L1/L2 directly, so
-// each thread computes one output vector of 16 bytes (4 floats or 8
-// bfloat16 channels: 16-byte loads and stores) and threads run along C, so
-// that a warp's taps and its store are contiguous. Neighbouring output
-// points reuse the same source pixels, and a DySample source (<= 13 MB at
-// batch 8) stays in the 50 MB L2, so x is read from device memory about
-// once. One launch covers all G groups.
+// Design (PERF.md has the times; tools/exp_k2_forward_designs.py builds
+// the designs and knock-outs). The TPU kernel turned the gather into dense
+// one-hot matmuls because Mosaic rejects gathers; Hopper gathers from L1
+// and L2 directly. The first design (tools/exp_k2_forward_first.cu: a
+// thread a 16-byte output vector, its point and channel found from its
+// flat index by 64-bit division, the coordinates loaded and the taps
+// formed by every lane) ran at 2x (float32) and 3.6x (bfloat16) its byte
+// bound. Its knock-outs showed what held it: the spread of its tap
+// gathers (all taps from one pixel: 28% and 43% faster) and, in bfloat16,
+// its index math (32-bit: 21%); not the repeated coordinate loads, and not
+// the output's writes (zeros stored alone: under half its time). So:
+// - No division: a 3D block (lanes along a group's 16-byte vectors, then
+//   points, then groups) over a 2D grid (runs of points, images).
+// - A thread forms its point's taps once (offsets, clamps, zeros-mode
+//   flags, weights) and blends FWD_VECS vectors of its group from them,
+//   their 4 FWD_VECS tap loads in flight together; the blend goes 32 bits
+//   at a time, so few values are live (at most 64 registers: 8 blocks of
+//   128 threads an SM).
+// - A block takes FWD_RUN runs of consecutive points in turn. DySample's
+//   points are row-major over its 2H x 2W output, so a run's taps fall on
+//   the source pixels the last run brought into L1.
+// - 16-byte evict-first stores: the output streams past L2, where x stays.
+// A band of source rows staged in shared memory (as the backward stages
+// its window) was not built: at DySample's offsets a run's taps spread
+// over several source rows, and staging them would read from L2 about as
+// many bytes as the gather's L1 misses do. One launch covers all G groups;
+// where C / G or the alignment refuses 16 bytes, a lane takes one channel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,21 +70,11 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_float<bf16>(float v) { return __float2bfloat16(v); }
 
-// V consecutive values of p as float32: one 16-byte load for 4 floats or 8
-// bfloat16, one 8-byte load for 4 bfloat16.
+// V consecutive values of p as float32 (the backward's): one 16-byte load
+// for 4 floats, one 8-byte load for 4 bfloat16.
 template <typename T, int V>
 __device__ __forceinline__ void load_vec(const T* __restrict__ p, float* v) {
-  if constexpr (V == 8) {
-    static_assert(sizeof(T) == 2, "8 values a load are bfloat16");
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
-  } else if constexpr (V == 4 && sizeof(T) == 4) {
+  if constexpr (V == 4 && sizeof(T) == 4) {
     const float4 q = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = q.x;
     v[1] = q.y;
@@ -85,84 +94,155 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float* v) {
   }
 }
 
-// V floats to p in T, each rounded once.
-template <typename T, int V>
-__device__ __forceinline__ void store_vec(T* __restrict__ p, const float* v) {
-  if constexpr (V == 8) {
-    static_assert(sizeof(T) == 2, "8 values a store are bfloat16");
-    uint32_t w[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-      w[k] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else if constexpr (V == 4 && sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (V == 4) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 q;
-    q.x = *reinterpret_cast<const uint32_t*>(&a);
-    q.y = *reinterpret_cast<const uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = q;
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) p[k] = from_float<T>(v[k]);
-  }
+// 4 floats to p in bfloat16, each rounded once: one 8-byte store.
+__device__ __forceinline__ void store_bf16x4(bf16* __restrict__ p, const float* v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 q;
+  q.x = *reinterpret_cast<const uint32_t*>(&a);
+  q.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = q;
 }
 
-template <int V>
-struct Vec {
-  float v[V];
+// 16 bytes (or one value, V = 1) of p as they are: V values of T.
+template <typename T, int V>
+struct Raw {
+  typedef uint4 type;
+};
+template <typename T>
+struct Raw<T, 1> {
+  typedef T type;
 };
 
 template <typename T, int V>
-__device__ __forceinline__ Vec<V> tap(const T* __restrict__ img, float yf, float xf, int H,
-                                      int W, int C, bool zeros) {
-  Vec<V> r;
-  if (zeros && !(yf >= 0.f && yf <= (float)(H - 1) && xf >= 0.f && xf <= (float)(W - 1))) {
-#pragma unroll
-    for (int k = 0; k < V; ++k) r.v[k] = 0.f;
-    return r;
+__device__ __forceinline__ typename Raw<T, V>::type load_raw(const T* __restrict__ p) {
+  if constexpr (V == 1) {
+    return __ldg(p);
+  } else {
+    static_assert(V * sizeof(T) == 16, "a vector is 16 bytes");
+    return __ldg(reinterpret_cast<const uint4*>(p));
   }
-  const int yi = (int)fminf(fmaxf(yf, 0.f), (float)(H - 1));
-  const int xi = (int)fminf(fmaxf(xf, 0.f), (float)(W - 1));
-  load_vec<T, V>(img + ((long long)yi * W + xi) * C, r.v);
-  return r;
 }
 
 template <typename T, int V>
-__global__ void sample_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ gy,
-                                       const T* __restrict__ gx, T* __restrict__ out,
-                                       int H, int W, int C, int N, int G, bool zeros,
-                                       long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int cvec = C / V;
-  const int c = (int)(i % cvec) * V;
-  const long long bn = i / cvec;  // b * N + n
-  const long long b = bn / N;
-  const int g = c / (C / G);
-  const float fy = to_float(gy[bn * G + g]);
-  const float fx = to_float(gx[bn * G + g]);
-  const float y0 = floorf(fy);
-  const float x0 = floorf(fx);
-  const float wy = fy - y0;
-  const float wx = fx - x0;
-  const T* img = x + b * H * W * C + c;
-  const Vec<V> v00 = tap<T, V>(img, y0, x0, H, W, C, zeros);
-  const Vec<V> v01 = tap<T, V>(img, y0, x0 + 1.f, H, W, C, zeros);
-  const Vec<V> v10 = tap<T, V>(img, y0 + 1.f, x0, H, W, C, zeros);
-  const Vec<V> v11 = tap<T, V>(img, y0 + 1.f, x0 + 1.f, H, W, C, zeros);
-  Vec<V> r;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const float top = v00.v[k] * (1.f - wx) + v01.v[k] * wx;
-    const float bot = v10.v[k] * (1.f - wx) + v11.v[k] * wx;
-    r.v[k] = top * (1.f - wy) + bot * wy;
+__device__ __forceinline__ typename Raw<T, V>::type zero_raw() {
+  if constexpr (V == 1) {
+    return from_float<T>(0.f);
+  } else {
+    return make_uint4(0u, 0u, 0u, 0u);
   }
-  store_vec<T, V>(out + bn * C + c, r.v);
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// The bilinear blend of one channel's 4 taps, in the plain version's order.
+__device__ __forceinline__ float bilerp(float v00, float v01, float v10, float v11, float wy,
+                                        float wx) {
+  const float top = v00 * (1.f - wx) + v01 * wx;
+  const float bot = v10 * (1.f - wx) + v11 * wx;
+  return top * (1.f - wy) + bot * wy;
+}
+
+// The blend of 4 raw taps (00, 01, 10, 11) to p, each value rounded once to
+// T, 32 bits at a time (one float32 or two bfloat16 channels), so few of
+// the V x 4 values are live at once; a 16-byte vector goes by an
+// evict-first store (st.global.cs), so the output streams past L2 instead
+// of pushing x out of it.
+template <typename T, int V>
+__device__ __forceinline__ void blend_store(T* __restrict__ p,
+                                            const typename Raw<T, V>::type (&tap)[4], float wy,
+                                            float wx) {
+  if constexpr (V == 1) {
+    *p = from_float<T>(bilerp(to_float(tap[0]), to_float(tap[1]), to_float(tap[2]),
+                              to_float(tap[3]), wy, wx));
+  } else {
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        o[i] = __float_as_uint(bilerp(__uint_as_float(word(tap[0], i)),
+                                      __uint_as_float(word(tap[1], i)),
+                                      __uint_as_float(word(tap[2], i)),
+                                      __uint_as_float(word(tap[3], i)), wy, wx));
+      } else {
+        float2 f[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const uint32_t w = word(tap[k], i);
+          f[k] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+        }
+        const __nv_bfloat162 h =
+            __floats2bfloat162_rn(bilerp(f[0].x, f[1].x, f[2].x, f[3].x, wy, wx),
+                                  bilerp(f[0].y, f[1].y, f[2].y, f[3].y, wy, wx));
+        o[i] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(o[0], o[1], o[2], o[3]));
+  }
+}
+
+// The forward's block: FWD_THREADS threads, ptxas told to fit
+// FWD_MIN_BLOCKS of them an SM (the register cap); each thread blends
+// FWD_VECS output vectors of one point and group from one set of taps, for
+// FWD_RUN points in turn (tools/exp_k2_forward_designs.py builds copies of
+// this file with these changed).
+constexpr int FWD_THREADS = 128, FWD_MIN_BLOCKS = 8, FWD_VECS = 2, FWD_RUN = 2;
+
+// grid (ceil(N / (FWD_RUN blockDim.y)), B); block (lanes along a group's
+// vectors, points, groups): a thread blends vectors threadIdx.x + k
+// blockDim.x of its group of its points; cg = C / G channels a group, V a
+// vector.
+template <typename T, int V>
+__global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)
+    sample_bilinear_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                           const T* __restrict__ gx, T* __restrict__ out, int H, int W, int C,
+                           int N, int G, int cg, bool zeros) {
+  const T* img = x + (long long)blockIdx.y * H * W * C;
+  for (int run = 0; run < FWD_RUN; ++run) {
+    const int n = (blockIdx.x * FWD_RUN + run) * blockDim.y + threadIdx.y;
+    if (n >= N) return;
+    const long long pt = (long long)blockIdx.y * N + n;  // b N + n
+    for (int grp = threadIdx.z; grp < G; grp += blockDim.z) {
+      // the point's taps, once for the thread's vectors: clamped pixel
+      // offsets, whether each counts (zeros mode drops taps out of range),
+      // and the weights
+      const float fy = to_float(gy[pt * G + grp]), fx = to_float(gx[pt * G + grp]);
+      const float y0 = floorf(fy), x0 = floorf(fx);
+      const float wy = fy - y0, wx = fx - x0;
+      long long off[4];
+      bool use[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float yf = y0 + (float)(k >> 1), xf = x0 + (float)(k & 1);
+        use[k] =
+            !zeros || (yf >= 0.f && yf <= (float)(H - 1) && xf >= 0.f && xf <= (float)(W - 1));
+        const int yi = (int)fminf(fmaxf(yf, 0.f), (float)(H - 1));
+        const int xi = (int)fminf(fmaxf(xf, 0.f), (float)(W - 1));
+        off[k] = (long long)(yi * W + xi) * C + grp * cg;
+      }
+      T* dst = out + pt * C + grp * cg;
+      for (int c0 = threadIdx.x * V; c0 < cg; c0 += FWD_VECS * blockDim.x * V) {
+        // every tap of every vector in flight before the first blend; a tap
+        // that does not count reads as 0
+        typename Raw<T, V>::type raw[FWD_VECS][4];
+#pragma unroll
+        for (int j = 0; j < FWD_VECS; ++j) {
+          const int c = c0 + j * blockDim.x * V;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            raw[j][k] = c < cg && use[k] ? load_raw<T, V>(img + off[k] + c) : zero_raw<T, V>();
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < FWD_VECS; ++j) {
+          const int c = c0 + j * blockDim.x * V;
+          if (c < cg) blend_store<T, V>(dst + c, raw[j], wy, wx);
+        }
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------- backward
@@ -504,7 +584,7 @@ __global__ void round_to_bf16_kernel(const float* __restrict__ acc, bf16* __rest
   if (vec && i + 4 <= n) {
     float v[4];
     load_vec<float, 4>(acc + i, v);
-    store_vec<bf16, 4>(out + i, v);
+    store_bf16x4(out + i, v);
   } else {
     for (long long j = i; j < i + 4 && j < n; ++j) out[j] = __float2bfloat16(acc[j]);
   }
@@ -560,33 +640,38 @@ int backward(const void* x, const void* gy, const void* gx, const void* gout, vo
   return (int)cudaGetLastError();
 }
 
-// A thread blends VEC channels: one 16-byte load a tap (4 floats, 8
-// bfloat16) where C / G and the alignment allow, else one channel.
+// A vector is VEC channels, one 16-byte load a tap (4 floats, 8 bfloat16),
+// where C / G and the alignment allow, else one channel. A block takes
+// FWD_THREADS threads: lanes along a group's vectors (FWD_VECS a lane, at
+// most 32 lanes), then up to 64 groups, then points.
 template <typename T>
 int forward(const void* x, const void* gy, const void* gx, void* out, int B, int H, int W, int C,
             int N, int G, int zeros, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   constexpr int VEC = 16 / sizeof(T);
-  const bool vec = C % VEC == 0 && (C / G) % VEC == 0 && (uintptr_t)x % 16 == 0 &&
-                   (uintptr_t)out % 16 == 0;
+  const int cg = C / G;
+  const bool vec = cg % VEC == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
   const int v = vec ? VEC : 1;
-  const long long total = (long long)B * N * (C / v);
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if ((long long)B * N * C == 0) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int cgv = cg / v;
+  const int lanes = (cgv + FWD_VECS - 1) / FWD_VECS, tx = lanes < 32 ? lanes : 32;
+  const int groups = G < 64 ? G : 64, tz = groups < FWD_THREADS / tx ? groups : FWD_THREADS / tx;
+  const int ty = FWD_THREADS / (tx * tz);  // points a block
+  const dim3 block(tx, ty, tz), grid((unsigned)((N + FWD_RUN * ty - 1) / (FWD_RUN * ty)),
+                                     (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   const T* gyt = static_cast<const T*>(gy);
   const T* gxt = static_cast<const T*>(gx);
   T* ot = static_cast<T*>(out);
   if (vec) {
-    sample_bilinear_kernel<T, VEC><<<(unsigned)blocks, threads, 0, s>>>(xt, gyt, gxt, ot, H, W,
-                                                                        C, N, G, zeros != 0, total);
+    sample_bilinear_kernel<T, VEC><<<grid, block, 0, s>>>(xt, gyt, gxt, ot, H, W, C, N, G, cg,
+                                                          zeros != 0);
   } else {
-    sample_bilinear_kernel<T, 1><<<(unsigned)blocks, threads, 0, s>>>(xt, gyt, gxt, ot, H, W, C,
-                                                                      N, G, zeros != 0, total);
+    sample_bilinear_kernel<T, 1><<<grid, block, 0, s>>>(xt, gyt, gxt, ot, H, W, C, N, G, cg,
+                                                        zeros != 0);
   }
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,9 @@ softmax(q kᵀ / √hd) v in the same layout. On CUDA tensors it is a
 log-sum-exp, and whose backward runs the dq kernel (which also forms
 delta = rowsum(dO ∘ O)) and then the dkv kernel. All run their products
 on the tensor cores: the float32 kernels in 3xTF32 (float32-accurate TF32
-`mma.sync`), the bfloat16 forward and dkv kernels in bfloat16 `mma.sync`
-m16n8k16, P and dS split into bfloat16 terms (dkv: 3, which carry them
-exactly; the forward: 2, P's leading 16 bits, within 2^-16 of each P).
+`mma.sync`), the bfloat16 kernels in bfloat16 `mma.sync` m16n8k16, P and
+dS split into bfloat16 terms (dq and dkv: 3, which carry them exactly;
+the forward: 2, P's leading 16 bits, within 2^-16 of each P).
 The kernels take hd = 32 (A2C2f's heads are c_ // 32 wide, blocks.py:961)
 and any strides on BB, N and H, so AAttn hands them the three views of its
 packed qkv tensor.
@@ -24,8 +24,7 @@ gradient, dq, dk, dv), float32 inside, as the JAX flash path casts q, k and
 v to float32 and its output back to their type (blocks.py:876,885); the
 row log-sum-exp stays float32. A product of two bfloat16 inputs is exact
 in float32; one of a float32 P or dS and an input takes one bfloat16 pass
-a term of P or dS (forward 2 terms, dkv 3) or, in the bfloat16 dq kernel,
-the two TF32 passes of 3xTF32 that are not zero.
+a term of P or dS (forward 2 terms, dq and dkv 3).
 The plain versions compute bfloat16 the same way: in float32 on the upcast
 inputs, each result rounded once. The backward reads the forward's output
 in float32, as JAX's flash backward gets it: a bfloat16 forward that
