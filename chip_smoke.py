@@ -84,6 +84,21 @@ parameters, bfloat16 compute), beside each float32 phase:
               px of bfloat16 models on the CPU and the card: loss items and
               the leaves K2 or K3 feed against the CPU's float64, within 4x the
               CPU bfloat16's own distance from it.
+The engine slice (DetectionValidator over 4 batches of 16 seeded 640x640
+images with 1-3 filled rectangles each, conf 0.001, iou 0.7, max_det 300, the
+COCO 12 stats; random weights, so the mAP is no quality claim):
+ 19. val      - YOLO-DBL-s (nc=3, f32; main's weights with the Detect class
+              biases of the model's own init): metrics, img/s, K2 launches (3 a
+              batch); gate: the first 2 images through the same validator on
+              the CPU (TF32 off): the same kept count per image, rows within
+              0.05 px and 1e-3, each metric within 1e-3;
+ 20. val_bf16 - the same with a bfloat16 model (the bfloat16 K2 kernel only),
+              its metrics beside the float32 ones; gate: its decode on 2 images
+              against the CPU's float32 within check_amp's bars;
+ 21. v8       - yolov8n (nc=3, f32, 3,011,417 parameters; no hand kernel):
+              card decode against the CPU's on 2 images (0.05 px, 1e-3), 2
+              warm-up and 10 timed Trainer.steps at batch 16 (step ms, img/s,
+              peak memory), then the validator over the val batches.
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -92,6 +107,7 @@ from nvidia-smi, and last {"ok": true, "device": {...}}. Any failure raises and
 exits non-zero before the result lines; without CUDA it exits 2.
 """
 
+import contextlib
 import functools
 import json
 import statistics
@@ -813,10 +829,12 @@ def phase_k3_backward(gen, dtype=torch.float32):
     return dkv, dq, worst_fwd
 
 
-def build_models(cfg, dtype=torch.float32):
+def build_models(cfg, dtype=torch.float32, zero_class_bias=True):
     """One seeded model of `cfg` computing in `dtype` on the CPU with the
     smoke settings, and its copy on the card (the same weights in both
-    types: parameters are float32)."""
+    types: parameters are float32). `zero_class_bias=False` keeps the Detect
+    class biases of the model's own init (the stride-aware prior), whose
+    spread of scores keeps NMS away from near-ties at a low threshold."""
     from yolo_dbl_tpu_torch import DetectionModel
     from yolo_dbl_tpu_torch.nn.blocks import FullPAD_Tunnel
 
@@ -827,7 +845,7 @@ def build_models(cfg, dtype=torch.float32):
         for mod in cpu.modules():
             if isinstance(mod, FullPAD_Tunnel):
                 mod.gate.fill_(0.5)  # gates start at 0, which would hide the tunnel inputs
-        for lvl in range(len(cpu.strides)):
+        for lvl in range(len(cpu.strides) if zero_class_bias else 0):
             getattr(cpu.detect, f"cv3_{lvl}_2").conv.bias.zero_()  # give NMS real candidates
     gpu = DetectionModel(name, nc=nc, device="cuda", dtype=dtype)
     gpu.load_state_dict(cpu.state_dict())
@@ -1181,6 +1199,242 @@ def phase_train_parity_bf16(cfg, cpu32, cpu16, gpu16):
     require(all(e["card"] <= 4 * e["cpu_bf16"] for e in loss_d.values()),
             f"loss items, card bf16 vs CPU float64: {loss_d}")
 
+# validation: 4 batches of 16 seeded 640x640 images, each with 1-3 filled
+# rectangles of a class colour on a noise background
+VAL_BATCHES, VAL_B = 4, 16
+VAL_COLOURS = ((230, 200, 60), (60, 220, 220), (10, 10, 120))
+V8, V8_PARAMS = ("yolov8n.yaml", NC), 3011417
+METRIC_KEYS = ("mAP50", "mAP50-95", "precision", "recall")
+NOT_A_QUALITY_CLAIM = "random weights: the mAP shows the path runs, it is no quality claim"
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for a card-against-CPU check; the previous settings after it."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def val_batches(rng, n=VAL_BATCHES, b=VAL_B, imgsz=IMGSZ, m=TRAIN_M, nc=NC):
+    """Seeded validation batches: uint8 images with 1-3 filled rectangles
+    each (drawn by slicing) and their boxes in the loss's form (normalized
+    xywh, classes, mask; padded to m)."""
+    out = []
+    for _ in range(n):
+        img = rng.integers(30, 70, (b, imgsz, imgsz, 3), dtype=np.uint8)
+        boxes = np.zeros((b, m, 4), np.float32)
+        cls = np.zeros((b, m), np.int32)
+        mask = np.zeros((b, m), np.float32)
+        for i in range(b):
+            for j in range(int(rng.integers(1, 4))):
+                w, h = (int(v) for v in rng.integers(imgsz // 10, imgsz // 3, 2))
+                x1, y1 = int(rng.integers(0, imgsz - w)), int(rng.integers(0, imgsz - h))
+                c = int(rng.integers(0, nc))
+                img[i, y1:y1 + h, x1:x1 + w] = VAL_COLOURS[c]
+                boxes[i, j] = ((x1 + w / 2) / imgsz, (y1 + h / 2) / imgsz, w / imgsz, h / imgsz)
+                cls[i, j], mask[i, j] = c, 1.0
+        out.append(dict(img=img, gt_boxes=boxes, gt_cls=cls, gt_mask=mask))
+    return out
+
+
+def _first_images(batch, n=2):
+    return {k: v[:n] for k, v in batch.items()}
+
+
+def _metrics(res):
+    return {**{k: res[k] for k in METRIC_KEYS}, **res["coco_stats"]}
+
+
+def run_validator(model, batches):
+    """The port's DetectionValidator over `batches` (conf 0.001, iou 0.7,
+    max_det 300, the COCO 12 stats) after one warm-up batch: its results,
+    the kernels it launched, its wall seconds, the loop's img/s, and the
+    device time of one batch's inference by part (`infer`: /255, forward,
+    decode, NMS) with the device's busy share over the loop's inference."""
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.engine.validator import DetectionValidator
+
+    val = DetectionValidator(model, conf=0.001, iou=0.7, max_det=300, use_coco_stats=True)
+    val(batches[:1])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = val(batches)
+    wall = time.perf_counter() - t0
+    speed = res["speed_ms_per_image"]
+    launches = dict(kernels.launches)
+    img = torch.from_numpy(batches[-1]["img"]).to(model.device)
+    p = by_part(lambda i: val.infer(img), 1)
+    per_batch_ms = speed["inference"] * len(batches[-1]["img"])
+    profile = {"device_ms_per_batch": p["device_ms"], "device_ops_per_batch": p["device_ops"],
+               "inference_ms_per_batch": per_batch_ms,
+               "device_busy_share": p["device_ms"] / per_batch_ms, "by_part_ms": p["by_part_ms"],
+               "top_kernels_ms": p["top_kernels_ms"][:6]}
+    return res, launches, wall, 1e3 / (speed["inference"] + speed["postprocess"]), profile
+
+
+def _gt_near(dets, counts, rng, top=6):
+    """Ground truth next to detections: each image's top `top` rows, moved
+    by 2 px and given another class now and then. Random weights score 0 on
+    the drawn rectangles; against these boxes the metrics compared are not 0."""
+    labels = []
+    for d, k in zip(dets, counts):
+        d = d[:min(int(k), top)].astype(np.float64)
+        cls = np.where(rng.random(len(d)) < 0.8, d[:, 5], rng.integers(0, NC, len(d)))
+        labels.append({"boxes": (d[:, :4] + rng.normal(0, 2, (len(d), 4))).astype(np.float32),
+                       "cls": cls.astype(np.int32)})
+    return labels
+
+
+def check_val_against_cpu(gpu_model, cpu_model, batch):
+    """The first 2 images through the validator on the card and on the CPU
+    (TF32 off): the same kept count per image, rows within 0.05 px and 1e-3,
+    each metric and COCO stat within 1e-3, against the drawn rectangles and
+    against boxes next to the CPU's detections (where the metrics are not 0)."""
+    from yolo_dbl_tpu_torch.engine.validator import DetectionValidator
+
+    two = _first_images(batch)
+    with tf32_off():
+        vals = [DetectionValidator(m, conf=0.001, iou=0.7, max_det=300, use_coco_stats=True)
+                for m in (gpu_model, cpu_model)]
+        (dg, ng), (dc, nc) = ([t.cpu().numpy() for t in v.infer(torch.from_numpy(two["img"])
+                                                                  .to(v.model.device))]
+                              for v in vals)
+        near = [{"img": two["img"], "labels": _gt_near(dc, nc, np.random.default_rng(5))}]
+        mg, mc = ({**_metrics(v([two])), **{f"near_{k}": x for k, x in _metrics(v(near)).items()}}
+                  for v in vals)
+    require(np.array_equal(ng, nc) and nc.sum() > 0,
+            f"kept per image, card {ng.tolist()} vs CPU {nc.tolist()} (some must be kept)")
+    box_err = max(float(np.abs(dg[i, :k, :4] - dc[i, :k, :4]).max(initial=0))
+                  for i, k in enumerate(nc))
+    score_err = max(float(np.abs(dg[i, :k, 4] - dc[i, :k, 4]).max(initial=0))
+                    for i, k in enumerate(nc))
+    cls_equal = all(np.array_equal(dg[i, :k, 5], dc[i, :k, 5]) for i, k in enumerate(nc))
+    metric_err = max(abs(mg[k] - mc[k]) for k in mc)
+    gate = {"images": 2, "kept": nc.tolist(), "box_max_abs_px": box_err,
+            "score_max_abs": score_err, "classes_equal": cls_equal,
+            "metric_max_abs": metric_err, "tf32": False,
+            "metrics_gt_near_detections_cpu": {k[5:]: v for k, v in mc.items()
+                                               if k.startswith("near_")}}
+    require(box_err < 0.05 and score_err <= 1e-3 and cls_equal and metric_err <= 1e-3
+            and mc["near_mAP50"] > 0, f"validator card vs CPU on 2 images: {gate}")
+    return gate
+
+
+def phase_val(card, dtype=torch.float32, cpu32=None, f32_metrics=None):
+    """YOLO-DBL-s (nc=3, 640) through DetectionValidator on the card: the
+    main phase's seeded weights with the Detect class biases of the model's
+    own init. Float32: gated against the CPU on 2 images; bfloat16: its
+    decode on 2 images against the CPU's float32 within check_amp's bars.
+    Returns the CPU float32 model, the metrics and the launches."""
+    batches = val_batches(np.random.default_rng(4))
+    cpu, gpu = build_models(DBL, dtype, zero_class_bias=False)
+    torch.backends.cudnn.allow_tf32 = True  # as in the timed float32 phases
+    res, launches, wall, img_s, profile = run_validator(gpu, batches)
+    want = _launches({"sample_bilinear": 3 * VAL_BATCHES}, dtype)
+    require(launches == want, f"launches in {VAL_BATCHES} val batches: {launches}, expected {want}")
+    require(res["images"] == VAL_BATCHES * VAL_B and all(np.isfinite(v) and v >= -1
+                                                         for v in _metrics(res).values()),
+            f"validator results {res}")
+    if dtype == torch.float32:
+        cpu32, gate = cpu, check_val_against_cpu(gpu, cpu, batches[0])
+    else:
+        from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
+
+        img = torch.from_numpy(batches[0]["img"][:2])
+        with tf32_off():
+            pred32 = cpu32.predict(device_normalize(img))
+            pred16 = gpu.predict(device_normalize(img.cuda(), BF16)).cpu()
+        box, score = _boxes_scores(pred16, pred32)
+        gate = {"images": 2, "card_bf16_vs_cpu_f32": {"box_px": box, "score": score},
+                "bars": {"box_px": 0.02 * IMGSZ, "score": 0.05}}
+        require(box < 0.02 * IMGSZ and score < 0.05, f"val bf16 decode vs CPU f32: {gate}")
+    metrics = _metrics(res)
+    emit({"phase": "val" + ("_bf16" if dtype == BF16 else ""), "model": DBL[0][:-5], "nc": NC,
+          "dtype": str(dtype).split(".")[-1], "imgsz": IMGSZ, "batches": VAL_BATCHES,
+          "batch": VAL_B, "images": res["images"], "conf": 0.001, "iou": 0.7, "max_det": 300,
+          **{k: res[k] for k in METRIC_KEYS}, "coco_stats": res["coco_stats"],
+          **({"float32": f32_metrics} if f32_metrics else {}),
+          "speed_ms_per_image": res["speed_ms_per_image"], "img_per_s": img_s,
+          "validator_seconds": wall, "launches": launches, "profile": profile, "gate": gate,
+          "tf32_conv": torch.backends.cudnn.allow_tf32, "note": NOT_A_QUALITY_CLAIM,
+          "card": card})
+    return cpu32, metrics, launches
+
+
+def phase_v8(card):
+    """yolov8n (nc=3, 640, float32): card decode against the CPU's on 2
+    images, training steps through Trainer.step, then the validator over
+    the val batches. No hand kernel runs on this model."""
+    from yolo_dbl_tpu_torch import DetectionModel, kernels
+    from yolo_dbl_tpu_torch.engine.trainer import Trainer
+    from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
+
+    name, nc = V8
+    cpu = DetectionModel(name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu = DetectionModel(name, nc=nc, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    n_params = sum(p.numel() for p in gpu.parameters())
+    require(n_params == V8_PARAMS, f"yolov8n parameters {n_params}, expected {V8_PARAMS}")
+    batches = val_batches(np.random.default_rng(4))
+    img = torch.from_numpy(batches[0]["img"][:2])
+    kernels.reset_launches()
+    with tf32_off():
+        pred_c = cpu.predict(device_normalize(img))
+        pred_g = gpu.predict(device_normalize(img.cuda())).cpu()
+    require(pred_g.shape == pred_c.shape and bool(torch.isfinite(pred_g).all()),
+            f"yolov8n predictions {tuple(pred_g.shape)}")
+    box_err, score_err = _boxes_scores(pred_g, pred_c)
+    require(box_err < 0.05 and score_err <= 1e-3,
+            f"yolov8n card vs CPU: boxes {box_err} px (< 0.05), scores {score_err} (<= 1e-3)")
+
+    torch.backends.cudnn.allow_tf32 = True  # as in the timed float32 phases
+    trainer = Trainer(gpu, {"batch": TRAIN_B}).setup(steps_per_epoch=100)
+    train = train_batches(np.random.default_rng(1), TRAIN_WARMUP + TRAIN_STEPS, nc=nc)
+    losses, step_ms = [], []
+    for i, batch in enumerate(train):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in trainer.step(batch).items()}
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(v) for m in losses for v in m.values()), f"non-finite losses {losses}")
+    step_profile = by_part(lambda i: (trainer.step(train[-1]), torch.cuda.synchronize()), 1)
+    res, val_launches, wall, img_s, val_profile = run_validator(gpu, batches)
+    launches = dict(kernels.launches)
+    require(launches == NO_LAUNCH and val_launches == NO_LAUNCH,
+            f"a hand kernel ran on yolov8n: {launches}, {val_launches}")
+    require(res["images"] == VAL_BATCHES * VAL_B, f"validator results {res}")
+    med = statistics.median(step_ms)
+    emit({"phase": "v8", "model": name[:-5], "nc": nc, "dtype": "float32", "imgsz": IMGSZ,
+          "n_params": n_params, "parity": {"frames": 2, "box_max_abs_px": box_err,
+                                           "score_max_abs": score_err, "tf32": False},
+          "train": {"batch": TRAIN_B, "optimizer": trainer.optimizer.name,
+                    "steps": TRAIN_STEPS, "step_ms": step_ms, "median_ms": med,
+                    "img_per_s": TRAIN_B / (med / 1e3), "losses": losses,
+                    "max_memory_allocated_bytes": peak,
+                    "profile": {"device_ms_per_step": step_profile["device_ms"],
+                                "device_ops_per_step": step_profile["device_ops"],
+                                "device_busy_share": step_profile["device_ms"] / med,
+                                "by_part_ms": step_profile["by_part_ms"],
+                                "top_kernels_ms": step_profile["top_kernels_ms"][:6]}},
+          "val": {"images": res["images"], **{k: res[k] for k in METRIC_KEYS},
+                  "coco_stats": res["coco_stats"], "speed_ms_per_image": res["speed_ms_per_image"],
+                  "img_per_s": img_s, "validator_seconds": wall, "profile": val_profile,
+                  "note": NOT_A_QUALITY_CLAIM},
+          "launches": launches, "hand_kernels": "none: yolov8n runs no hand kernel",
+          "tf32_conv": torch.backends.cudnn.allow_tf32, "card": card})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -1238,6 +1492,10 @@ def main():
         phase_train_parity(cfg, *models[cfg, torch.float32][:2])
     for cfg in (DBL, V13):
         phase_train_parity_bf16(cfg, models[cfg, torch.float32][0], *models[cfg, BF16][:2])
+    del models
+    cpu32, f32_metrics, val = phase_val(card)
+    _, _, val_bf16 = phase_val(card, BF16, cpu32, f32_metrics)
+    phase_v8(card)
     # launches: per the path's run (5 requests; 10 train steps) on the path each row serves
     f32, bf16 = torch.float32, BF16
     home = {"letterbox_normalize": serve[DBL, f32], "sample_bilinear": serve[DBL, f32],
@@ -1256,6 +1514,7 @@ def main():
         row["launches_by_path"] = {_phase(path, cfg, dt): runs[cfg, dt][name]
                                    for path, runs in (("serve", serve), ("train", train))
                                    for cfg in (DBL, V13) for dt in (f32, bf16)}
+        row["launches_by_path"].update(val=val[name], val_bf16=val_bf16[name])
     # how often torch.profiler's trace had to be taken again, or gave way
     # to CUDA-event time (each row's `time_sources` says which it holds)
     emit({"phase": "timing", **TRACES})

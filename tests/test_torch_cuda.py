@@ -664,3 +664,26 @@ def test_letterbox_bf16_output_is_the_float32_output_rounded_once(cuda):
     f32 = TP.letterbox_normalize(img, (256, 320))
     bf16 = TP.letterbox_normalize(img, (256, 320), out_dtype=torch.bfloat16)
     assert torch.equal(bf16, f32.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_yolov8n_card_decode_matches_cpu(cuda):
+    """yolov8n (C2f, SPPF, the legacy Detect) at 64 px: the card's decode
+    against the CPU's at the same weights, TF32 off: boxes < 0.05 px, scores
+    <= 1e-3 (the repo's fidelity bar). No hand kernel runs on this model."""
+    from yolo_dbl_tpu_torch import DetectionModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = DetectionModel("yolov8n.yaml", nc=3, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    gpu = DetectionModel("yolov8n.yaml", nc=3, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    kernels.reset_launches()
+    pred_g = gpu.predict(x.to(cuda)).cpu()
+    pred_c = cpu.predict(x)
+    assert pred_g.shape == pred_c.shape == (2, 7, 84) and bool(torch.isfinite(pred_g).all())
+    assert float((pred_g[:, :4] - pred_c[:, :4]).abs().max()) < 0.05
+    assert float((pred_g[:, 4:] - pred_c[:, 4:]).abs().max()) <= 1e-3
+    assert kernels.launches == dict.fromkeys(kernels.launches, 0)

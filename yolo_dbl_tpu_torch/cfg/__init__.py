@@ -21,7 +21,7 @@ _BOOL_KEYS = {"cos_lr", "grad_accumulate"}
 
 
 def load_default_cfg() -> Dict:
-    from ..nn.tasks import load_yaml
+    from ..utils.yaml_subset import load_yaml
 
     return load_yaml(DEFAULT_CFG_PATH.read_text())
 

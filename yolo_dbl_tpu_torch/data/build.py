@@ -1,0 +1,161 @@
+"""Batch assembly: fixed-shape padded batches (port of yolo_dbl_tpu/data/build.py).
+
+`format_batch` (:22) stacks uint8 images and pads each image's boxes to
+`max_gt` with a validity mask, the batch contract of the loss and the
+validator. `DataLoader` (:94) is the JAX loader's Python lane: the same
+shuffle, the same per-sample generators (one stream, or one spawned per
+sample with `workers > 1`) and the same background prefetch thread, so a
+seeded run gives the JAX package's batches bit for bit. The JAX loader's
+native decode lane for validation batches (:169-241) waits for the port's
+native loader; this loader always runs the Python lane. The task batches
+(`format_batch_task`: masks, keypoints, rotated boxes) come with their heads.
+"""
+
+from __future__ import annotations
+
+import queue as queue_mod
+import threading
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+from .augment import TrainTransforms, ValTransforms
+from .dataset import YOLODataset
+
+
+def format_batch(images, labels_list, imgsz: int, max_gt: int) -> Dict[str, np.ndarray]:
+    """Stack images and pad labels. Boxes become normalized xywh (the loss
+    contract, losses/detection.py). uint8 images stay uint8 (the device
+    normalizes them); float images are divided by 255 here."""
+    b = len(images)
+    img = np.stack(images)
+    if img.dtype != np.uint8:
+        img = img.astype(np.float32) / 255.0  # NHWC [0,1]
+    gt_boxes = np.zeros((b, max_gt, 4), np.float32)
+    gt_cls = np.zeros((b, max_gt), np.int32)
+    gt_mask = np.zeros((b, max_gt), np.float32)
+    for i, lab in enumerate(labels_list):
+        boxes = lab["boxes"][:max_gt]
+        n = len(boxes)
+        if n:
+            x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+            cx, cy = (x1 + x2) / 2 / imgsz, (y1 + y2) / 2 / imgsz
+            w, h = (x2 - x1) / imgsz, (y2 - y1) / imgsz
+            gt_boxes[i, :n] = np.stack([cx, cy, w, h], axis=1)
+            gt_cls[i, :n] = lab["cls"][:max_gt][:n]
+            gt_mask[i, :n] = 1.0
+    return {"img": img, "gt_boxes": gt_boxes, "gt_cls": gt_cls, "gt_mask": gt_mask}
+
+
+class DataLoader:
+    """Epoch iterator over a detect dataset with a background prefetch thread.
+
+    Decode and augmentation run on a host thread while the card runs the
+    previous step. With ``workers > 1`` the per-sample work also fans out
+    over a thread pool (cv2 releases the GIL), each sample drawing from its
+    own generator, spawned from the epoch's (``Generator.spawn``): still
+    deterministic for a fixed (seed, epoch, workers > 1), but another stream
+    than the sequential one, as in JAX. Batches are dicts of numpy arrays:
+    ``img`` (B, S, S, 3) uint8, ``gt_boxes``, ``gt_cls``, ``gt_mask``,
+    ``indices``, and, without augmentation, ``labels`` (per-image boxes in
+    letterboxed pixels, classes, ``ratio_pad``, ``orig_shape``).
+    """
+
+    def __init__(self, dataset: YOLODataset, batch_size: int = 16, imgsz: int = 640,
+                 augment: bool = True, hyp: Optional[dict] = None, max_gt: int = 64,
+                 shuffle: Optional[bool] = None, seed: int = 0, drop_last: bool = True,
+                 prefetch: int = 2, workers: int = 0):
+        if getattr(dataset, "task", "detect") != "detect":
+            raise NotImplementedError(f"only detect batches are ported, got task {dataset.task!r}")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.imgsz = imgsz
+        self.max_gt = max_gt
+        self.augment = augment
+        self.transforms = TrainTransforms(imgsz, hyp) if augment else ValTransforms(imgsz)
+        self.shuffle = augment if shuffle is None else shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.workers = int(workers)
+        self._pool = None
+        self._epoch = 0
+
+    def close_mosaic(self):
+        if isinstance(self.transforms, TrainTransforms):
+            self.transforms.close_mosaic()
+
+    def close(self):
+        """Shut down the worker pool. Idempotent; a later iteration makes a new one."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def set_epoch(self, epoch: int):
+        """Make the NEXT iteration reproduce epoch `epoch` (0-based) of a
+        fresh run (the resume counterpart of DistributedSampler.set_epoch)."""
+        self._epoch = int(epoch)
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _make_batches(self):
+        rng = np.random.default_rng(self.seed + self._epoch)
+        order = rng.permutation(len(self.dataset)) if self.shuffle else np.arange(len(self.dataset))
+        for bi in range(len(self)):
+            idxs = order[bi * self.batch_size : (bi + 1) * self.batch_size]
+            if len(idxs) == 0:
+                break
+            if self.workers > 1:
+                if self._pool is None:
+                    from concurrent.futures import ThreadPoolExecutor
+
+                    self._pool = ThreadPoolExecutor(max_workers=self.workers,
+                                                    thread_name_prefix="yolo-dbl-data")
+                rngs = rng.spawn(len(idxs))
+                out = list(self._pool.map(
+                    lambda a: self.transforms(self.dataset, int(a[0]), a[1]),
+                    zip(idxs, rngs)))
+                images = [o[0] for o in out]
+                labels = [o[1] for o in out]
+            else:
+                images, labels = [], []
+                for j in idxs:
+                    img, lab = self.transforms(self.dataset, int(j), rng)
+                    images.append(img)
+                    labels.append(lab)
+            batch = format_batch(images, labels, self.imgsz, self.max_gt)
+            batch["indices"] = np.asarray(idxs)
+            if not self.augment:
+                batch["labels"] = labels  # eval metadata (ratio_pad, orig_shape)
+            yield batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        self._epoch += 1
+        if self.prefetch <= 0:
+            yield from self._make_batches()
+            return
+        q: queue_mod.Queue = queue_mod.Queue(maxsize=self.prefetch)
+        sentinel = object()
+
+        def producer():
+            try:
+                for b in self._make_batches():
+                    q.put(b)
+            finally:
+                q.put(sentinel)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item

@@ -1,7 +1,7 @@
 """YOLO-DBL and YOLOv13 building blocks (NCHW inside, PyTorch).
 
-Port of the DBL and stock-YOLOv13 subset of yolo_dbl_tpu/nn/blocks.py, in
-dependency order.
+Port of the DBL, stock-YOLOv13 and YOLOv8 subset of yolo_dbl_tpu/nn/blocks.py,
+in dependency order.
 Attribute names are the flax scope names (`cv1`, `m_0`, `edge_generator`,
 ...), so JAX variables load key by key (utils/convert.py). Each class cites
 the JAX class it mirrors.
@@ -22,7 +22,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..kernels.attention import area_attention
-from ..ops.resample import avg_pool2, grid_sample_bilinear, nearest_upsample, pixel_shuffle
+from ..ops.resample import (avg_pool2, grid_sample_bilinear, max_pool, nearest_upsample,
+                            pixel_shuffle)
 from .common import Conv, Conv2d, DSConv, linear
 
 
@@ -69,6 +70,42 @@ def _add_chain(module: nn.Module, blocks):
     for i, blk in enumerate(blocks):
         module.add_module(f"m_{i}", blk)
     return len(blocks)
+
+
+class C2f(nn.Module):
+    """cv1 split in two, n 3x3 Bottlenecks (e=1.0) chained on the last part,
+    cv2 over every part (blocks.py:72; JAX's `call_parts` is this concat)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=False, g=1, e=0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        self.n = _add_chain(self, [Bottleneck(c, c, shortcut, g, (3, 3), 1.0) for _ in range(n)])
+        self.cv2 = Conv((2 + n) * c, c2, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        ys = [y[:, :self.c], y[:, self.c:]]
+        for i in range(self.n):
+            ys.append(getattr(self, f"m_{i}")(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling, fast: cv1, three chained k x k max pools
+    (stride 1, padding k // 2), cv2 over the four maps (blocks.py:142)."""
+
+    def __init__(self, c1, c2, k=5):
+        super().__init__()
+        self.k = k
+        self.cv1 = Conv(c1, c1 // 2, 1, 1)
+        self.cv2 = Conv(c1 // 2 * 4, c2, 1, 1)
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for _ in range(3):
+            ys.append(_nchw(max_pool(_nhwc(ys[-1]), self.k, 1, self.k // 2)))
+        return self.cv2(torch.cat(ys, 1))
 
 
 class C3k(nn.Module):

@@ -15,33 +15,39 @@ from .common import Conv, Conv2d, DWConv
 
 
 class Detect(nn.Module):
-    """Anchor-free decoupled head with the legacy=False DWConv class branch (heads.py:24)."""
+    """Anchor-free decoupled head (heads.py:24). The class branch is two 3x3
+    Convs and a 1x1 Conv2d for v8 (`legacy=True`), or the DWConv branch of
+    YOLO-DBL and YOLOv13 (`legacy=False`)."""
 
     def __init__(self, nc=80, ch=(), reg_max=16, legacy=False):
         super().__init__()
-        if legacy:
-            raise NotImplementedError("only the legacy=False Detect head (YOLO-DBL) is ported")
-        self.nc, self.nl, self.reg_max = nc, len(ch), reg_max
+        self.nc, self.nl, self.reg_max, self.legacy = nc, len(ch), reg_max, legacy
         c2 = max(16, ch[0] // 4, reg_max * 4)
         c3 = max(ch[0], min(nc, 100))
         for i, c1 in enumerate(ch):
             self.add_module(f"cv2_{i}_0", Conv(c1, c2, 3))
             self.add_module(f"cv2_{i}_1", Conv(c2, c2, 3))
             self.add_module(f"cv2_{i}_2", Conv2d(c2, 4 * reg_max, 1))
-            self.add_module(f"cv3_{i}_0_0", DWConv(c1, c1, 3))
-            self.add_module(f"cv3_{i}_0_1", Conv(c1, c3, 1))
-            self.add_module(f"cv3_{i}_1_0", DWConv(c3, c3, 3))
-            self.add_module(f"cv3_{i}_1_1", Conv(c3, c3, 1))
+            if legacy:
+                self.add_module(f"cv3_{i}_0", Conv(c1, c3, 3))
+                self.add_module(f"cv3_{i}_1", Conv(c3, c3, 3))
+            else:
+                self.add_module(f"cv3_{i}_0_0", DWConv(c1, c1, 3))
+                self.add_module(f"cv3_{i}_0_1", Conv(c1, c3, 1))
+                self.add_module(f"cv3_{i}_1_0", DWConv(c3, c3, 3))
+                self.add_module(f"cv3_{i}_1_1", Conv(c3, c3, 1))
             self.add_module(f"cv3_{i}_2", Conv2d(c3, nc, 1))
 
     def forward(self, xs):
+        cls_names = (("cv3_{}_0", "cv3_{}_1", "cv3_{}_2") if self.legacy else
+                     ("cv3_{}_0_0", "cv3_{}_0_1", "cv3_{}_1_0", "cv3_{}_1_1", "cv3_{}_2"))
         outs = []
         for i, x in enumerate(xs):
             box = x
             for name in ("cv2_{}_0", "cv2_{}_1", "cv2_{}_2"):
                 box = getattr(self, name.format(i))(box)
             cls = x
-            for name in ("cv3_{}_0_0", "cv3_{}_0_1", "cv3_{}_1_0", "cv3_{}_1_1", "cv3_{}_2"):
+            for name in cls_names:
                 cls = getattr(self, name.format(i))(cls)
             outs.append(torch.cat([box, cls], 1))
         return outs

@@ -1,9 +1,9 @@
 """YAML → model compiler and the detection model (port of yolo_dbl_tpu/nn/tasks.py).
 
-Only the branches the YOLO-DBL and stock YOLOv13 rows use are ported; any
-other module name raises NotImplementedError. The model YAMLs are the
-port's own verbatim copies under cfg/, read by path with a small reader for
-the model-config subset of YAML (so the port needs no YAML package).
+Only the branches the YOLO-DBL, stock YOLOv13 and YOLOv8 rows use are
+ported; any other module name raises NotImplementedError. The model YAMLs
+are the port's own verbatim copies under cfg/, read by path with the port's
+small YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
 """
 
 from __future__ import annotations
@@ -20,101 +20,12 @@ from torch import nn
 
 from ..ops.resample import nearest_upsample
 from ..utils.device import resolve_device
+from ..utils.yaml_subset import load_yaml
 from . import blocks as B
 from .common import Conv, DSConv, DWConv
 from .heads import Detect, decode_detections
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
-
-# ---------------------------------------------------------------- YAML subset
-
-_TOKEN = re.compile(r"\[|\]|,|\"[^\"]*\"|'[^']*'|[^\[\],]+")
-
-
-def _scalar(tok: str):
-    if tok[0] in "\"'":
-        return tok[1:-1]
-    if tok in ("true", "True", "TRUE"):
-        return True
-    if tok in ("false", "False", "FALSE"):
-        return False
-    if tok in ("null", "Null", "NULL", "~"):
-        return None
-    for cast in (int, float):
-        try:
-            return cast(tok)
-        except ValueError:
-            pass
-    return tok
-
-
-def _flow(text: str):
-    """A flow sequence (`[a, [b, c]]`) or a scalar."""
-    tokens = [t.strip() for t in _TOKEN.findall(text) if t.strip()]
-    pos = 0
-
-    def value():
-        nonlocal pos
-        tok = tokens[pos]
-        pos += 1
-        if tok != "[":
-            return _scalar(tok)
-        out = []
-        if tokens[pos] == "]":
-            pos += 1
-            return out
-        while True:
-            out.append(value())
-            tok = tokens[pos]
-            pos += 1
-            if tok == "]":
-                return out
-            if tok != ",":
-                raise ValueError(f"bad flow sequence: {text!r}")
-
-    result = value()
-    if pos != len(tokens):
-        raise ValueError(f"trailing tokens in {text!r}")
-    return result
-
-
-def _strip_comment(line: str) -> str:
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            quote = None if ch == quote else quote
-        elif ch in "\"'":
-            quote = ch
-        elif ch == "#":
-            return line[:i]
-    return line
-
-
-def load_yaml(text: str) -> Dict[str, Any]:
-    """Read a model config: top-level `key: value`, one nested mapping level
-    (`scales:`) and block lists of flow sequences (`- [from, n, m, args]`)."""
-    d: Dict[str, Any] = {}
-    key = None
-    for raw in text.splitlines():
-        line = _strip_comment(raw).rstrip()
-        if not line.strip():
-            continue
-        s = line.strip()
-        if not line[0].isspace() and not s.startswith("-"):
-            key, _, rest = s.partition(":")
-            key = key.strip()
-            d[key] = _flow(rest.strip()) if rest.strip() else None
-        elif s.startswith("-"):
-            if d.get(key) is None:
-                d[key] = []
-            d[key].append(_flow(s[1:].strip()))
-        else:
-            sub, _, rest = s.partition(":")
-            if d.get(key) is None:
-                d[key] = {}
-            d[key][_scalar(sub.strip())] = _flow(rest.strip())
-    return d
-
 
 # ---------------------------------------------------------------- spec pass
 
@@ -169,10 +80,10 @@ class ModelSpec:
     scale: str
 
 
-# the DBL and YOLOv13 subset of the JAX module families (tasks.py:102-138)
-_C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "DSC3k2", "DSC3k",
-              "A2C2f"}
-_REPEAT_INSERT = {"DSC3k2", "DSC3k", "A2C2f"}
+# the DBL, YOLOv13 and YOLOv8 subset of the JAX module families (tasks.py:102-138)
+_C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "C2f", "DSC3k2",
+              "DSC3k", "SPPF", "A2C2f"}
+_REPEAT_INSERT = {"C2f", "DSC3k2", "DSC3k", "A2C2f"}
 _LEGACY_FALSE = {"DSC3k2", "A2C2f"}
 _C1_ONLY = {"DySample", "LSKblock"}
 
@@ -182,8 +93,9 @@ def _not_ported(m: str):
 
 
 def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
-    """Resolve a model YAML dict into a ModelSpec (tasks.py:141), DBL and
-    YOLOv13 rows only."""
+    """Resolve a model YAML dict into a ModelSpec (tasks.py:141), DBL,
+    YOLOv13 and YOLOv8 rows only. Detect keeps `legacy=True` (the v8 class
+    branch) unless a DSC3k2, A2C2f or HyperACE row comes before it."""
     if d.get("activation"):
         raise _not_ported(f"activation {d['activation']}")
     nc = d.get("nc", 80)
@@ -284,6 +196,10 @@ def _build_module(spec: LayerSpec):
         return B.Bottleneck(a[0], a[1], **kw)
     if m == "DSBottleneck":
         return B.DSBottleneck(*a)
+    if m == "C2f":
+        return B.C2f(*a)
+    if m == "SPPF":
+        return B.SPPF(*a)
     if m == "DSC3k2":
         return B.DSC3k2(*a)
     if m == "DSC3k":
@@ -355,6 +271,7 @@ class DetectionModel(nn.Module):
             d["nc"] = nc
         self.spec = parse_model_spec(d, ch=ch)
         self.nc = self.spec.nc
+        self.names = {i: f"{i}" for i in range(self.nc)}
         self.reg_max = 16
         with torch.device("meta"):
             for layer in self.spec.layers:

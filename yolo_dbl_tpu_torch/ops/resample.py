@@ -12,6 +12,8 @@ through the hand kernel on a CUDA tensor.
 
 from __future__ import annotations
 
+from torch.nn import functional as F
+
 from ..kernels.sampling import sample_bilinear
 
 
@@ -29,6 +31,13 @@ def avg_pool2(x):
     x = x[:, : h // 2 * 2, : w // 2 * 2, :]
     x = x.reshape(b, h // 2, 2, w // 2, 2, c)
     return (x[:, :, 0, :, 0] + x[:, :, 0, :, 1] + x[:, :, 1, :, 0] + x[:, :, 1, :, 1]) * 0.25
+
+
+def max_pool(x, k: int, stride: int = 1, padding: int = 0):
+    """k x k max pool with symmetric padding on NHWC (resample.py:44). The
+    padding is -inf, as in JAX, which F.max_pool2d also pads with; it pools
+    the NCHW view of the same memory (channels_last on the card)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), k, stride, padding).permute(0, 2, 3, 1)
 
 
 def pixel_shuffle(x, r: int):
