@@ -99,6 +99,24 @@ COCO 12 stats; random weights, so the mAP is no quality claim):
               card decode against the CPU's on 2 images (0.05 px, 1e-3), 2
               warm-up and 10 timed Trainer.steps at batch 16 (step ms, img/s,
               peak memory), then the validator over the val batches.
+The engine slice, part 2 (the facade; needs cv2, through tests/fixtures.py):
+ 22. facade   - YOLO-DBL-s (nc=3, 640, f32, full width and depth) through
+              YOLO on a seeded shapes set (32 train, 16 val images): train 1
+              epoch (batch 16), then resume=True to 2 (it must continue at
+              epoch 1 and step 2); YOLO(best.ckpt) validates (the native val
+              lane where the native loader built) and predicts a directory of
+              12 JPEG frames of two sizes (two buckets; K1 once a bucket, the
+              K2 forward 3 times a forward, its backward 3 times a train step),
+              with classes=[1] and agnostic_nms=True; request ms, launches,
+              loader lane, checkpoint bytes and wall seconds; gate: 2 frames
+              through the same checkpoint on the CPU (TF32 off, conf 0.001):
+              equal kept counts, boxes < 0.05 px, scores <= 1e-3; and
+              `python -m yolo_dbl_tpu_torch detect predict` in a process of
+              its own prints the same counts;
+ 23. converge - the convergence run of record through the facade: yolov8n
+              from random init on the shapes set (32 train, 16 val at 160 px),
+              60 epochs, tests/test_convergence.py's arguments; gate: best val
+              mAP50 >= 0.8 and best fitness > 0.2.
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -110,6 +128,7 @@ exits non-zero before the result lines; without CUDA it exits 2.
 import contextlib
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -907,8 +926,24 @@ _CATEGORIES = (("letterbox", "k1 letterbox"), ("sample_bilinear_backward", "k2 s
 
 def by_part(fn, calls):
     """Device time per call of fn(i) by kernel and by part (torch.profiler)."""
+    return _parts(_trace(fn, calls), calls)
+
+
+def traced_once(fn):
+    """(fn()'s device time by kernel and by part, its result): one call
+    under torch.profiler, with no warm-up call, for work that cannot run
+    twice (a training run that resumes from its own checkpoint)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return _parts(_device_events(prof), 1), out
+
+
+def _parts(events, calls):
     per_kernel, per_part, n_ops = {}, {}, 0
-    for evt in _trace(fn, calls):
+    for evt in events:
         ms = evt.self_device_time_total / 1e3 / calls
         n_ops += evt.count
         per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + ms
@@ -1435,6 +1470,212 @@ def phase_v8(card):
           "tf32_conv": torch.backends.cudnn.allow_tf32, "card": card})
 
 
+# the facade phase: YOLO-DBL-s through YOLO at full width and depth on a
+# shapes set at 640 (32 train, 16 val images), batch 16; then the best
+# checkpoint validates and predicts 12 JPEG frames of two sizes (two buckets)
+FACADE_TRAIN, FACADE_VAL, FACADE_B = 32, 16, 16
+FACADE_SIZES, FACADE_FRAMES, FACADE_REQUESTS = ((512, 768), (480, 640)), 12, 3
+# the convergence run of record (tests/test_convergence.py's arguments)
+CONVERGE = dict(epochs=60, batch=8, imgsz=160, lr0=0.01, patience=61, mosaic=1.0, close_mosaic=15,
+                warmup_epochs=3.0, workers=0, plots=False, verbose=False)
+
+
+def _counts(results):
+    return [len(r) for r in results]
+
+
+def _facade_gate(best, frames):
+    """The best checkpoint on the card and on the CPU (TF32 off) over 2
+    frames of the two sizes at conf 0.001: equal kept counts, boxes within
+    0.05 px, scores within 1e-3, equal classes."""
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+
+    with tf32_off():
+        got = YOLO(best).predict(frames, conf=0.001)
+        want = YOLO(best, device="cpu").predict(frames, conf=0.001)
+    box = max(float(np.abs(g.boxes.xyxy - w.boxes.xyxy).max(initial=0)) for g, w in zip(got, want))
+    score = max(float(np.abs(g.boxes.conf - w.boxes.conf).max(initial=0)) for g, w in zip(got, want))
+    cls_equal = all(np.array_equal(g.boxes.cls, w.boxes.cls) for g, w in zip(got, want))
+    gate = {"frames": 2, "conf": 0.001, "kept_card": _counts(got), "kept_cpu": _counts(want),
+            "box_max_abs_px": box, "score_max_abs": score, "classes_equal": cls_equal, "tf32": False}
+    require(_counts(got) == _counts(want) and sum(_counts(want)) > 0 and box < 0.05
+            and score <= 1e-3 and cls_equal, f"facade card vs CPU: {gate}")
+    return gate
+
+
+def phase_facade(card):
+    """YOLO-DBL-s (nc=3, 640, float32, full width and depth) through the
+    facade on the card: train 1 epoch, resume to 2, then the best checkpoint
+    validates and predicts (plain, classes=[1], agnostic_nms), and the CLI
+    predicts in a process of its own. Returns the launches by path."""
+    import tempfile
+
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+    from yolo_dbl_tpu_torch.native import loader as native
+
+    from tests.fixtures import make_shapes_dataset
+    from tests.torch_fixtures import write_jpeg_frames
+
+    t_start = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True  # as in the timed float32 phases
+    launches, wall = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = make_shapes_dataset(tmp / "shapes", n_train=FACADE_TRAIN, n_val=FACADE_VAL,
+                                   imgsz=IMGSZ)
+        frames_dir = tmp / "frames"
+        paths = write_jpeg_frames(frames_dir, FACADE_SIZES, FACADE_FRAMES, seed=6)
+        args = dict(batch=FACADE_B, imgsz=IMGSZ, project=str(tmp / "runs"), name="facade",
+                    workers=0, plots=False, verbose=False)
+        legs = []
+        for epochs, extra in ((1, {}), (2, {"resume": True})):
+            y = YOLO(DBL[0], nc=NC)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            if extra:  # the resumed epoch runs under the profiler: its device time by part
+                epoch_profile, out = traced_once(lambda: y.train(data, epochs=epochs, **args,
+                                                                 **extra))
+            else:
+                out = y.train(data, epochs=epochs, **args)
+            torch.cuda.synchronize()
+            wall[f"train_epochs_{epochs}"] = time.perf_counter() - t0
+            legs.append((out, y.trainer.steps, dict(kernels.launches)))
+        (out1, steps1, l1), (out2, steps2, l2) = legs
+        epoch_profile["device_busy_share"] = epoch_profile["device_ms"] / (wall["train_epochs_2"] * 1e3)
+        per_epoch = FACADE_TRAIN // FACADE_B  # steps; the val set is one batch
+        want = _launches({"sample_bilinear": 3 * (per_epoch + 1),
+                          "sample_bilinear_backward": 3 * per_epoch}, torch.float32)
+        require([h["epoch"] for h in out1["history"]] == [0]
+                and [h["epoch"] for h in out2["history"]] == [1]
+                and (steps1, steps2) == (per_epoch, 2 * per_epoch),
+                f"resume: epochs {out1['history']}, {out2['history']}, steps {steps1}, {steps2}")
+        require(l1 == want and l2 == want, f"train launches {l1}, {l2}, expected {want} an epoch")
+        require(all(np.isfinite(v) for h in out1["history"] + out2["history"] for v in h.values()),
+                "non-finite train history")
+        launches["facade_train"] = {k: l1[k] + l2[k] for k in l1}
+        run = Path(out2["run_dir"])
+        best = run / "best.ckpt"
+        ckpt_bytes = {f.name: f.stat().st_size for f in sorted(run.glob("*.ckpt"))}
+
+        yb = YOLO(best)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics = yb.val(data, imgsz=IMGSZ, batch=FACADE_B)
+        torch.cuda.synchronize()
+        wall["val"] = time.perf_counter() - t0
+        launches["facade_val"] = dict(kernels.launches)
+        require(launches["facade_val"] == _launches({"sample_bilinear": 3}, torch.float32)
+                and metrics["images"] == FACADE_VAL, f"val: {metrics}, {launches['facade_val']}")
+        # the val loader's lane: native wherever the native loader built and is not turned off
+        lane = ("native" if native.is_available() and os.environ.get("YOLO_DBL_NATIVE_LOADER") != "0"
+                else "python")
+
+        per_request = _launches({"letterbox_normalize": len(FACADE_SIZES),
+                                 "sample_bilinear": 3 * len(FACADE_SIZES)}, torch.float32)
+        yb.predict(frames_dir)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        request_ms, counts = [], []
+        for _ in range(FACADE_REQUESTS):
+            t0 = time.perf_counter()
+            res = yb.predict(frames_dir)
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+            counts.append(_counts(res))
+        launches["facade_predict"] = dict(kernels.launches)
+        require(launches["facade_predict"] == {k: v * FACADE_REQUESTS for k, v in per_request.items()}
+                and len(res) == FACADE_FRAMES
+                and [r.orig_shape for r in res] == [FACADE_SIZES[i % 2] for i in range(FACADE_FRAMES)],
+                f"predict: {launches['facade_predict']}, {[r.orig_shape for r in res]}")
+        request_profile = by_part(lambda i: yb.predict(frames_dir), 1)
+        request_profile["device_busy_share"] = (request_profile["device_ms"]
+                                                / statistics.median(request_ms))
+        frames = [r.orig_img for r in res]
+        t0 = time.perf_counter()
+        decoded = yb.predict(frames)
+        list_ms = (time.perf_counter() - t0) * 1e3
+        require(_counts(decoded) == counts[-1], "predict on decoded frames vs on the directory")
+
+        plain, one_class, agnostic = (yb.predict(frames_dir, conf=0.001, **kw) for kw in
+                                      ({}, {"classes": [1]}, {"agnostic_nms": True}))
+        require(sum(_counts(one_class)) > 0 and all((r.boxes.cls == 1).all() for r in one_class),
+                "classes=[1] must keep class 1 only")
+        require(sum(_counts(agnostic)) <= sum(_counts(plain)), "agnostic NMS kept more boxes")
+        gate = _facade_gate(best, frames[:2])
+
+        # the CLI in a process of its own, against this process at its settings
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "yolo_dbl_tpu_torch", "detect", "predict",
+                              f"model={best}", f"source={frames_dir}", "conf=0.001"],
+                             capture_output=True, text=True, cwd=Path(__file__).resolve().parent)
+        wall["cli_predict"] = time.perf_counter() - t0
+        cli_counts = [int(ln.split()[-2]) for ln in cli.stdout.splitlines()
+                      if ln.endswith(" detections")]
+        require(cli.returncode == 0 and cli_counts == _counts(plain),
+                f"CLI predict: rc {cli.returncode}, counts {cli_counts} vs {_counts(plain)}; "
+                f"{cli.stderr[-2000:]}")
+    emit({"phase": "facade", "model": DBL[0][:-5], "nc": NC, "dtype": "float32", "imgsz": IMGSZ,
+          "train": {"images": FACADE_TRAIN, "batch": FACADE_B, "steps": [steps1, steps2],
+                    "history": out1["history"] + out2["history"], "resumed_at_epoch": 1},
+          "val": {"images": metrics["images"], **{k: metrics[k] for k in METRIC_KEYS},
+                  "speed_ms_per_image": metrics["speed_ms_per_image"], "loader_lane": lane,
+                  "native_build_error": (native.build_error() or "")[-500:]},
+          "predict": {"frames": FACADE_FRAMES, "sizes": FACADE_SIZES, "requests": FACADE_REQUESTS,
+                      "request_ms": request_ms, "median_request_ms": statistics.median(request_ms),
+                      "decoded_frames_request_ms": list_ms, "boxes_per_image": counts[-1],
+                      "conf_0.001_boxes": sum(_counts(plain)),
+                      "classes_1_boxes": sum(_counts(one_class)),
+                      "agnostic_boxes": sum(_counts(agnostic))},
+          "cli": {"rc": cli.returncode, "counts": cli_counts},
+          "profile": {"request": request_profile,
+                      "resumed_epoch": {"steps": per_epoch, "val_batches": 1, **epoch_profile}},
+          "checkpoint_bytes": ckpt_bytes, "launches": launches, "gate": gate,
+          "wall_s": {**wall, "phase": time.perf_counter() - t_start},
+          "tf32_conv": torch.backends.cudnn.allow_tf32, "note": NOT_A_QUALITY_CLAIM, "card": card})
+    return launches
+
+
+def phase_converge(card):
+    """yolov8n (nc=3) from random init on the shapes set (32 train, 16 val
+    images at 160 px) through the facade for 60 epochs: the convergence run
+    of record, gated at best val mAP50 >= 0.8 and best fitness > 0.2."""
+    import tempfile
+
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+
+    from tests.fixtures import make_shapes_dataset
+
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_shapes_dataset(Path(tmp) / "shapes", n_train=32, n_val=16,
+                                   imgsz=CONVERGE["imgsz"], seed=0, max_objects=3)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = YOLO(V8[0], nc=NC).train(data, project=str(Path(tmp) / "runs"), name="conv",
+                                       **CONVERGE)
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    hist = out["history"]
+    map50 = [h["val_mAP50"] for h in hist]
+    best = int(np.argmax(map50))
+    first = next((h["epoch"] for h in hist if h["val_mAP50"] >= 0.8), None)
+    emit({"phase": "converge", "model": V8[0][:-5], "nc": NC, "args": CONVERGE,
+          "epochs_run": len(hist), "first_epoch_at_0.8": first, "best_mAP50": map50[best],
+          "best_epoch": hist[best]["epoch"], "best_fitness": out["best_fitness"],
+          "seconds_per_epoch": statistics.median(h["seconds"] for h in hist), "wall_s": wall,
+          "mAP50_by_epoch": map50, "mAP50-95_by_epoch": [h["val_mAP50-95"] for h in hist],
+          "loss_by_epoch": [h["loss"] for h in hist], "launches": launches,
+          "jax_record": {"first_epoch_at_0.8": 19, "best_mAP50": 0.9514, "best_epoch": 44,
+                         "source": "runs/convergence_r5/results.csv"},
+          "tf32_conv": torch.backends.cudnn.allow_tf32, "card": card})
+    require(map50[best] >= 0.8 and out["best_fitness"] > 0.2,
+            f"no convergence: best val mAP50 {map50[best]} (epoch {hist[best]['epoch']}), "
+            f"best fitness {out['best_fitness']}")
+    require(launches == NO_LAUNCH, f"a hand kernel ran on yolov8n: {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -1496,6 +1737,8 @@ def main():
     cpu32, f32_metrics, val = phase_val(card)
     _, _, val_bf16 = phase_val(card, BF16, cpu32, f32_metrics)
     phase_v8(card)
+    facade = phase_facade(card)
+    converge = phase_converge(card)
     # launches: per the path's run (5 requests; 10 train steps) on the path each row serves
     f32, bf16 = torch.float32, BF16
     home = {"letterbox_normalize": serve[DBL, f32], "sample_bilinear": serve[DBL, f32],
@@ -1514,7 +1757,9 @@ def main():
         row["launches_by_path"] = {_phase(path, cfg, dt): runs[cfg, dt][name]
                                    for path, runs in (("serve", serve), ("train", train))
                                    for cfg in (DBL, V13) for dt in (f32, bf16)}
-        row["launches_by_path"].update(val=val[name], val_bf16=val_bf16[name])
+        row["launches_by_path"].update(val=val[name], val_bf16=val_bf16[name],
+                                       converge=converge[name],
+                                       **{path: runs[name] for path, runs in facade.items()})
     # how often torch.profiler's trace had to be taken again, or gave way
     # to CUDA-event time (each row's `time_sources` says which it holds)
     emit({"phase": "timing", **TRACES})

@@ -687,3 +687,55 @@ def test_yolov8n_card_decode_matches_cpu(cuda):
     assert float((pred_g[:, :4] - pred_c[:, :4]).abs().max()) < 0.05
     assert float((pred_g[:, 4:] - pred_c[:, 4:]).abs().max()) <= 1e-3
     assert kernels.launches == dict.fromkeys(kernels.launches, 0)
+
+
+@pytest.mark.cuda
+def test_yolo_predict_on_card_matches_cpu(cuda, tmp_path):
+    """`YOLO.predict` on a directory of JPEG frames of two sizes (two
+    buckets, K1 once each, the K2 forward 3 times each) on the card against
+    the CPU at the same weights, TF32 off: equal kept counts, boxes within
+    0.05 px, scores within 1e-3."""
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+
+    from tests.torch_fixtures import write_jpeg_frames
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    write_jpeg_frames(tmp_path, ((96, 160), (120, 100)), 4, seed=3)
+    cpu = YOLO("yolov13n_DBL.yaml", nc=3, device="cpu")
+    gpu = YOLO("yolov13n_DBL.yaml", nc=3, device=cuda)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    kernels.reset_launches()
+    got = gpu.predict(tmp_path, imgsz=128, conf=0.001)
+    launches = dict(kernels.launches)
+    want = cpu.predict(tmp_path, imgsz=128, conf=0.001)
+    assert launches["letterbox_normalize"] == 2 and launches["sample_bilinear"] == 6
+    assert [len(r) for r in got] == [len(r) for r in want] and sum(map(len, want)) > 0
+    for g, w in zip(got, want):
+        assert g.path == w.path and g.orig_shape == w.orig_shape
+        assert np.abs(g.boxes.xyxy - w.boxes.xyxy).max(initial=0) < 0.05
+        assert np.abs(g.boxes.conf - w.boxes.conf).max(initial=0) <= 1e-3
+        np.testing.assert_array_equal(g.boxes.cls, w.boxes.cls)
+
+
+@pytest.mark.cuda
+@pytest.mark.compileheavy
+def test_shapes_convergence_map50_on_card(cuda, tmp_path):
+    """tests/test_convergence.py's run through the port's facade on the card:
+    yolov8n from random init on the shapes set (32 train, 16 val images at
+    160 px) reaches val mAP50 >= 0.8 within 60 epochs. The JAX package's run
+    of record crossed 0.8 at epoch 19 (runs/convergence_r5/results.csv)."""
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+
+    from tests.fixtures import make_shapes_dataset
+
+    data = make_shapes_dataset(tmp_path / "ds", n_train=32, n_val=16, imgsz=160, seed=0,
+                               max_objects=3)
+    epochs = 60
+    out = YOLO("yolov8n.yaml", nc=3, device=cuda).train(
+        data, epochs=epochs, batch=8, imgsz=160, lr0=0.01, patience=epochs + 1, mosaic=1.0,
+        close_mosaic=epochs // 4, warmup_epochs=3.0, project=str(tmp_path / "runs"), name="conv",
+        workers=0, plots=False, verbose=False)
+    best50 = max(h["val_mAP50"] for h in out["history"])
+    assert best50 >= 0.8, f"val mAP50 never reached 0.8 in {epochs} epochs (best {best50:.3f})"
+    assert out["best_fitness"] > 0.2

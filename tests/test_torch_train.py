@@ -297,7 +297,7 @@ def test_lr_schedule_and_auto_match_jax():
 
 def test_cfg_matches_jax_defaults_and_rejects_unknown_keys():
     port, ref = vars(get_cfg()), vars(jax_get_cfg())
-    assert len(port) == 17 and all(port[k] == ref[k] for k in port)
+    assert len(port) == len(ref) == 95 and all(port[k] == ref[k] for k in ref)
     assert get_cfg(overrides={"lr0": 1, "freeze": [0, "m1"]}).lr0 == 1.0
     with pytest.raises(KeyError):
         get_cfg(overrides={"lr_zero": 0.1})

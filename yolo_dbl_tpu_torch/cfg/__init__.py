@@ -1,9 +1,9 @@
-"""Training config (port of the training keys of yolo_dbl_tpu/cfg/__init__.py).
+"""Config (port of yolo_dbl_tpu/cfg/__init__.py).
 
-`default.yaml` here holds the JAX package's training keys with its defaults,
-read with the port's small YAML reader. `get_cfg` merges overrides, rejects
-unknown keys and checks types as the JAX `get_cfg`/`check_cfg` do
-(cfg/__init__.py:101, :48).
+`default.yaml` here is a byte copy of the JAX package's, read with the
+port's small YAML reader: the same keys with the same defaults. `get_cfg`
+merges overrides, rejects unknown keys and checks types as the JAX
+`get_cfg`/`check_cfg` do (cfg/__init__.py:101, :48).
 """
 
 from __future__ import annotations
@@ -15,9 +15,21 @@ from typing import Dict, Optional
 CFG_DIR = Path(__file__).resolve().parent
 DEFAULT_CFG_PATH = CFG_DIR / "default.yaml"
 
-_FLOAT_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs", "box", "cls", "dfl"}
-_INT_KEYS = {"epochs", "seed", "nbs"}
-_BOOL_KEYS = {"cos_lr", "grad_accumulate"}
+_FLOAT_KEYS = {
+    "lr0", "lrf", "momentum", "weight_decay", "warmup_epochs", "warmup_momentum",
+    "warmup_bias_lr", "box", "cls", "dfl", "pose", "kobj", "label_smoothing",
+    "hsv_h", "hsv_s", "hsv_v", "degrees", "translate", "scale", "shear",
+    "perspective", "flipud", "fliplr", "bgr", "mosaic", "mixup", "copy_paste",
+    "erasing", "crop_fraction", "fraction", "conf", "iou",
+}
+_INT_KEYS = {"epochs", "patience", "workers", "seed", "close_mosaic", "max_det", "nbs",
+             "save_period", "vid_stride"}
+_BOOL_KEYS = {
+    "save", "exist_ok", "pretrained", "verbose", "deterministic", "single_cls",
+    "rect", "cos_lr", "resume", "amp", "profile", "multi_scale", "val", "save_json",
+    "half", "plots", "augment", "grad_accumulate", "agnostic_nms", "dynamic", "simplify", "nms",
+    "overlap_mask",
+}
 
 
 def load_default_cfg() -> Dict:
@@ -39,6 +51,10 @@ def check_cfg(cfg: Dict) -> Dict:
         elif k in _BOOL_KEYS:
             if not isinstance(v, bool):
                 raise TypeError(f"cfg key '{k}' expects bool, got {type(v).__name__}={v!r}")
+            out[k] = v
+        elif k == "cache":
+            if not (isinstance(v, bool) or v in ("ram", "disk")):
+                raise TypeError(f"cfg key 'cache' expects bool or 'ram'/'disk', got {v!r}")
             out[k] = v
         else:
             out[k] = v

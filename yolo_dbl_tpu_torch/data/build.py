@@ -5,14 +5,18 @@
 validator. `DataLoader` (:94) is the JAX loader's Python lane: the same
 shuffle, the same per-sample generators (one stream, or one spawned per
 sample with `workers > 1`) and the same background prefetch thread, so a
-seeded run gives the JAX package's batches bit for bit. The JAX loader's
-native decode lane for validation batches (:169-241) waits for the port's
-native loader; this loader always runs the Python lane. The task batches
-(`format_batch_task`: masks, keypoints, rotated boxes) come with their heads.
+seeded run gives the JAX package's batches bit for bit. Validation batches
+take the native lane (:169-241) where the native loader built: decode,
+letterbox and collate of the whole batch in its C++ worker pool, with the
+Python transform's semantics; `YOLO_DBL_NATIVE_LOADER=0` turns it off, and
+without g++, libjpeg or libpng the loader runs the Python lane. The task
+batches (`format_batch_task`: masks, keypoints, rotated boxes) come with
+their heads.
 """
 
 from __future__ import annotations
 
+import os
 import queue as queue_mod
 import threading
 from typing import Dict, Iterator, Optional
@@ -79,6 +83,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.workers = int(workers)
         self._pool = None
+        self._native = None  # native decode pool: None = untried, False = off
         self._epoch = 0
 
     def close_mosaic(self):
@@ -86,10 +91,13 @@ class DataLoader:
             self.transforms.close_mosaic()
 
     def close(self):
-        """Shut down the worker pool. Idempotent; a later iteration makes a new one."""
+        """Shut down the worker pools. Idempotent; a later iteration makes new ones."""
         if self._pool is not None:
             self._pool.shutdown(wait=False)
             self._pool = None
+        if self._native not in (None, False):
+            self._native.close()
+            self._native = None
 
     def __del__(self):
         try:
@@ -106,6 +114,74 @@ class DataLoader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def _native_val_batch(self, idxs):
+        """The validation lane of the native loader: decode, letterbox and
+        collate the whole batch in the C++ worker pool (native/loader.py)
+        into the (B, S, S, 3) uint8 batch. The semantics are ValTransforms':
+        gain min(S/h0, S/w0) with scale-up, centered 114 padding, boxes in
+        letterboxed pixels. Returns None for the Python lane."""
+        if self.augment or os.environ.get("YOLO_DBL_NATIVE_LOADER", "1") == "0":
+            return None
+        ds = self.dataset
+        if getattr(ds, "_cache", None) is not None or not hasattr(ds, "im_files"):
+            return None  # RAM-cached datasets: decode happens once anyway
+        if self._native is None:
+            try:
+                from ..native.loader import NativePool
+
+                self._native = NativePool(self.workers if self.workers > 1
+                                          else (os.cpu_count() or 4))
+            except Exception:
+                self._native = False
+        if self._native is False:
+            return None
+        paths = [ds.im_files[int(j)] for j in idxs]
+        img, gains, pads, orig_hw, status = self._native.decode_letterbox_batch(
+            paths, self.imgsz, scaleup=True)
+        b = len(idxs)
+        gt_boxes = np.zeros((b, self.max_gt, 4), np.float32)
+        gt_cls = np.zeros((b, self.max_gt), np.int32)
+        gt_mask = np.zeros((b, self.max_gt), np.float32)
+        labels_meta = []
+        for i, j in enumerate(idxs):
+            if status[i] != 0:
+                # unreadable, undecodable or neither JPEG nor PNG: this slot
+                # goes through the Python transform
+                im_i, lab = self.transforms(ds, int(j), None)
+                img[i] = im_i
+                boxes, cls = lab["boxes"], lab["cls"]
+                labels_meta.append(lab)
+            else:
+                lab0 = ds.labels[int(j)]
+                h0, w0 = int(orig_hw[i, 0]), int(orig_hw[i, 1])
+                xywhn = lab0["xywhn"][:, :4]
+                g, (px, py) = float(gains[i]), pads[i]
+                if len(xywhn):
+                    cx, cy = xywhn[:, 0] * w0 * g + px, xywhn[:, 1] * h0 * g + py
+                    bw, bh = xywhn[:, 2] * w0 * g, xywhn[:, 3] * h0 * g
+                    boxes = np.stack(
+                        [cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1
+                    ).astype(np.float32)
+                else:
+                    boxes = np.zeros((0, 4), np.float32)
+                cls = lab0["cls"].copy()
+                labels_meta.append({"boxes": boxes, "cls": cls,
+                                    "orig_shape": (h0, w0),
+                                    "ratio_pad": (g, (float(px), float(py)))})
+            n = min(len(boxes), self.max_gt)
+            if n:
+                bx = boxes[:n]
+                x1, y1, x2, y2 = bx[:, 0], bx[:, 1], bx[:, 2], bx[:, 3]
+                gt_boxes[i, :n] = np.stack(
+                    [(x1 + x2) / 2, (y1 + y2) / 2, (x2 - x1), (y2 - y1)], 1
+                ) / self.imgsz
+                gt_cls[i, :n] = cls[:n]
+                gt_mask[i, :n] = 1.0
+        batch = {"img": img, "gt_boxes": gt_boxes, "gt_cls": gt_cls,
+                 "gt_mask": gt_mask, "indices": np.asarray(idxs),
+                 "labels": labels_meta}
+        return batch
+
     def _make_batches(self):
         rng = np.random.default_rng(self.seed + self._epoch)
         order = rng.permutation(len(self.dataset)) if self.shuffle else np.arange(len(self.dataset))
@@ -113,6 +189,10 @@ class DataLoader:
             idxs = order[bi * self.batch_size : (bi + 1) * self.batch_size]
             if len(idxs) == 0:
                 break
+            native = self._native_val_batch(idxs)
+            if native is not None:
+                yield native
+                continue
             if self.workers > 1:
                 if self._pool is None:
                     from concurrent.futures import ThreadPoolExecutor

@@ -121,6 +121,7 @@ class Optimizer:
         self.count = 0  # the inner chain's step count: skipped steps do not advance it
         self.notfinite_count = 0
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
+        self.trace = self.mu = self.nu = None
         if name == "SGD":
             self.trace = zeros()
         elif name == "RMSProp":
@@ -130,6 +131,29 @@ class Optimizer:
         self.accumulate = max(int(accumulate), 1)
         self.mini_step = 0
         self.acc = zeros() if self.accumulate > 1 else None
+
+    def _buffers(self) -> Dict[str, List[torch.Tensor]]:
+        return {k: getattr(self, k) for k in ("trace", "mu", "nu", "acc")
+                if getattr(self, k) is not None}
+
+    def state_dict(self) -> Dict:
+        """The chain's state: its counters and its moment (and accumulator)
+        tensors, one per parameter in order, by reference."""
+        return {"name": self.name, "count": self.count, "notfinite_count": self.notfinite_count,
+                "mini_step": self.mini_step, **self._buffers()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict):
+        """Copy a `state_dict()` into this optimizer's tensors, in place."""
+        if state["name"] != self.name:
+            raise ValueError(f"optimizer state of {state['name']}, this optimizer is {self.name}")
+        self.count, self.notfinite_count = int(state["count"]), int(state["notfinite_count"])
+        self.mini_step = int(state["mini_step"])
+        for k, dst in self._buffers().items():
+            src = state[k]
+            if len(src) != len(dst):
+                raise ValueError(f"optimizer state {k}: {len(src)} tensors for {len(dst)} parameters")
+            torch._foreach_copy_(dst, [s.to(d.device) for s, d in zip(src, dst)])
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]):

@@ -269,6 +269,7 @@ class DetectionModel(nn.Module):
         d = yaml_model_load(cfg) if isinstance(cfg, (str, Path)) else dict(cfg)
         if nc is not None:
             d["nc"] = nc
+        self.yaml = d
         self.spec = parse_model_spec(d, ch=ch)
         self.nc = self.spec.nc
         self.names = {i: f"{i}" for i in range(self.nc)}
@@ -312,6 +313,16 @@ class DetectionModel(nn.Module):
             elif isinstance(mod, B.DySample):
                 mod.init_pos = mod._init_pos()
         self._bias_init()
+
+    def reset_weights(self, seed: int):
+        """Draw the weights anew from `seed` on the CPU, as construction does,
+        and put them back where the model lives."""
+        dev = self.device
+        self.to("cpu")
+        self.init_weights(torch.Generator().manual_seed(seed))
+        self.to(dev)
+        if dev.type == "cuda":
+            self.to(memory_format=torch.channels_last)
 
     @torch.no_grad()
     def _bias_init(self):

@@ -3,8 +3,8 @@
 The JAX package builds NMS from XLA operations, not from a Pallas kernel,
 so this is plain PyTorch. The contract is the JAX one: multi-label (anchor,
 class) candidates above `conf_thres` (strict >), the top `pre_nms_topk`,
-class-offset (MAX_WH) exact greedy suppression at strict IoU > `iou_thres`,
-then the top `max_det` rows, zero-padded to (B, max_det, 6) plus counts.
+exact greedy suppression at strict IoU > `iou_thres` with class offsets
+(MAX_WH; none with `class_agnostic`), then the top `max_det` rows, zero-padded to (B, max_det, 6) plus counts.
 The class indices are float32, as in the JAX package (nms.py:144,151), so
 bfloat16 predictions are suppressed with float32 class offsets and come
 out as float32 rows: in bfloat16, 79 x MAX_WH would be 4,096 pixels apart
@@ -53,8 +53,9 @@ def _suppress(boxes, scores, iou_thres):
 
 
 def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45, max_det=300,
-                        pre_nms_topk=1024, multi_label=True):
-    """Batched fixed-shape, class-aware NMS (nms.py:96).
+                        pre_nms_topk=1024, multi_label=True, class_agnostic=False):
+    """Batched fixed-shape NMS (nms.py:96), class-aware unless
+    `class_agnostic`, which suppresses across classes (no class offset).
 
     prediction: (B, 4+nc, A) decoded xywh + class scores (the Detect decode layout).
     Returns dets (B, max_det, 6) [x1, y1, x2, y2, conf, cls], zero-padded,
@@ -80,7 +81,8 @@ def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45, max_det=300
         cls_idx = best_cls.gather(1, anchor_idx).float()
     cand_boxes = boxes.gather(1, anchor_idx[..., None].expand(b, k, 4))
 
-    keep = _suppress(cand_boxes + cls_idx[..., None] * MAX_WH, top_scores, iou_thres)
+    offset = 0.0 if class_agnostic else cls_idx[..., None] * MAX_WH
+    keep = _suppress(cand_boxes + offset, top_scores, iou_thres)
 
     n_out = min(max_det, k)
     final_scores, order = _topk(torch.where(keep, top_scores, ninf), n_out)
