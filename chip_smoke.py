@@ -12,11 +12,14 @@ Phases, each printing one JSON line:
               float32 and bfloat16 out (each timed beside its own byte bound), and
               at one odd geometry (odd canvas width, a batch starting mid-chunk);
   3. k2     - DySample sampler kernel vs its plain version at the three
-              YOLO-DBL-s DySample sites, both padding modes;
+              YOLO-DBL-s DySample sites and two of YOLO-DBL2-l's (20x20x1024
+              -> 40^2, 256 channels a group; 40x40x512, 128), both padding
+              modes;
   4. k2_backward - the sampler's backward kernel vs autograd through the plain
               version, and its forward kernel vs the plain forward, at the three
-              sites at training batch 16, both padding modes, DySample and
-              uniform coordinates; the share of taps that missed their tile's
+              sites at training batch 16 (and the two YOLO-DBL2-l sites),
+              both padding modes, DySample and uniform coordinates; the share
+              of taps that missed their tile's
               window of dx; the zero fill of dx timed alone; F.grid_sample's
               backward kernel as the library yardstick;
   5. k3     - area attention forward kernel (3xTF32 on the tensor cores) vs
@@ -117,6 +120,24 @@ The engine slice, part 2 (the facade; needs cv2, through tests/fixtures.py):
               from random init on the shapes set (32 train, 16 val at 160 px),
               60 epochs, tests/test_convergence.py's arguments; gate: best val
               mAP50 >= 0.8 and best fitness > 0.2.
+The rest of the v13/DBL family:
+ 24. main_dbl2, profile_dbl2, train_dbl2, train_profile_dbl2, parity_dbl2
+              and their _bf16 phases (parity_dbl2_bf16: parity_bf16's bars) -
+              YOLO-DBL2-l (yolov13l_DBL2, C3Ghost, nc=3, 640) as main,
+              profile, train and parity: K1 and 3 K2 forward launches a
+              request, 3 K2 forward and 3 backward launches a step (DySample
+              at 128, 256 and 128 channels a group);
+ 25. family   - the other six configs (edit9, edit10, v3edit5_attn,
+              v3edit5_attn2, v3edit6, edit_template) at scale s and 320:
+              card decode against the CPU's on 2 frames (TF32 off; 0.05 px,
+              1e-3) and one train step at batch 4 each, with each config's
+              launches (edit9: K2; v3edit6, edit_template: K3; edit10 runs
+              DLU, the v3edit5 pair SLA, neither a kernel); SLA's first
+              module also card against CPU with non-zero proj_l and out_proj
+              (inert at init) and its block top-k margin;
+ 26. facade_dbl2 - YOLO-DBL2-l through YOLO on the shapes set: train 1
+              epoch (2 steps at batch 16, 640), val, predict 8 frames from
+              memory; gate as facade's.
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -157,7 +178,11 @@ TRAIN_B, TRAIN_M, TRAIN_WARMUP, TRAIN_STEPS = 16, 16, 2, 10
 # (H, W, C) of the DySample inputs of YOLO-DBL-s at 640 (rows 13, 18, 22); scale 2, 4 groups
 DYSAMPLE_SITES = {"row13": (40, 40, 256), "row18": (20, 20, 512), "row22": (40, 40, 256)}
 GROUPS = 4
-DBL, V13 = ("yolov13s_DBL.yaml", NC), ("yolov13s.yaml", 80)
+# (H, W, C) of two of YOLO-DBL2-l's DySample inputs at 640 (rows 18 and 13;
+# row 22 is row 13's shape): 256 and 128 channels a group
+DBL2_SITES = {"dbl2_row18": (20, 20, 1024), "dbl2_row13": (40, 40, 512)}
+DBL, V13, DBL2 = ("yolov13s_DBL.yaml", NC), ("yolov13s.yaml", 80), ("yolov13l_DBL2.yaml", NC)
+SUFFIX = {DBL: "", V13: "_v13", DBL2: "_dbl2"}
 # YOLOv13-s A2C2f sites at 640: (areas, N, heads) per image; each site runs
 # 4 AAttn (2 repeats x 2 ABlocks), hd 32. Row 6: 40x40 tokens in 4 areas.
 K3_SITES = {"row6": (4, 400, 4), "row8": (1, 400, 8)}
@@ -178,9 +203,11 @@ def _launches(counts, dtype):
 
 PER_REQUEST = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
     (DBL, {"letterbox_normalize": 1, "sample_bilinear": 3}),
+    (DBL2, {"letterbox_normalize": 1, "sample_bilinear": 3}),
     (V13, {"letterbox_normalize": 1, "area_attention": 8}))}
 PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
     (DBL, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
+    (DBL2, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
     (V13, {"area_attention": 8, "area_attention_backward_dq": 8,
            "area_attention_backward_dkv": 8}))}
 
@@ -492,7 +519,7 @@ def phase_k2(gen, dtype=torch.float32):
     from yolo_dbl_tpu_torch.kernels.sampling import sample_bilinear, sample_bilinear_plain
 
     es, sites, worst, src = dtype.itemsize, {}, 0.0, []
-    for site, (h, w, c) in DYSAMPLE_SITES.items():
+    for site, (h, w, c) in {**DYSAMPLE_SITES, **DBL2_SITES}.items():
         n_x = B * h * w * c
         xs = _site_inputs(gen, B, h, w, c, dtype, n_x * es)
         gy, gx = _site_coords(gen, h, w, dtype=dtype)
@@ -532,12 +559,21 @@ def phase_k2(gen, dtype=torch.float32):
                            library_call_ms=library_call_ms)
     emit({"phase": _kphase("k2", dtype), "sites": sites,
           **({"tolerance": BF16_BAR} if dtype == BF16 else {})})
-    total = {key: sum(s[key] for s in sites.values())
+    total = {key: sum(sites[s][key] for s in DYSAMPLE_SITES)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return dict(name=_kphase("sample_bilinear", dtype), route="cuda",
                 source="yolo_dbl_tpu_torch/csrc/sampling.cu",
                 replaces="yolo_dbl_tpu/kernels/sampling.py:102", max_abs_err=worst,
-                bound_by=_by(sites.values()), time_sources=_time_sources(src), **total)
+                bound_by=_by(sites[s] for s in DYSAMPLE_SITES), time_sources=_time_sources(src),
+                dbl2_l_sites=_dbl2_sites(sites, ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by")), **total)
+
+
+def _dbl2_sites(sites, keys):
+    """The YOLO-DBL2-l sites' numbers for a kernel row (its own totals are
+    YOLO-DBL-s's three sites, a request or step of its path)."""
+    return {site: {"x": sites[site]["x"], "channels_a_group": sites[site]["x"][3] // GROUPS,
+                   **{k: sites[site][k] for k in keys}} for site in DBL2_SITES}
 
 
 def _time_sources(src, keys=("ms", "plain_ms", "library_ms")):
@@ -550,14 +586,15 @@ def phase_k2_backward(gen, dtype=torch.float32):
     training batch 16, and its forward kernel at the same shapes (the train
     step runs both), against their plain versions. Returns the backward's
     kernel row and the forward's worst error here."""
-    from yolo_dbl_tpu_torch.kernels.sampling import (backward_window_misses, sample_bilinear,
+    from yolo_dbl_tpu_torch.kernels.sampling import (backward_shared_bytes,
+                                                     backward_window_misses, sample_bilinear,
                                                      sample_bilinear_backward,
                                                      sample_bilinear_backward_plain,
                                                      sample_bilinear_plain)
 
     b, es, sites, src = TRAIN_B, dtype.itemsize, {}, []
     worst, worst_fwd = {"dx": 0.0, "dgy_rel": 0.0, "dgx_rel": 0.0}, 0.0
-    for site, (h, w, c) in DYSAMPLE_SITES.items():
+    for site, (h, w, c) in {**DYSAMPLE_SITES, **DBL2_SITES}.items():
         n_x, n, cg = b * h * w * c, 4 * h * w, c // GROUPS
         xs = _site_inputs(gen, b, h, w, c, dtype, (n_x + b * n * c) * es)
         k = len(xs)
@@ -621,7 +658,8 @@ def phase_k2_backward(gen, dtype=torch.float32):
         scratch = 8 * n_x if dtype == BF16 else 0
         bound_ms, bound_by = bound(n_bytes + scratch, b * n * c * 24)
         sites[site] = dict(x=[b, h, w, c], n=n, groups=GROUPS, errors=errs,
-                           forward_errors=fwd_errs, window_missed_share=missed, ms=ms,
+                           forward_errors=fwd_errs, window_missed_share=missed,
+                           shared_bytes=backward_shared_bytes(c, GROUPS), ms=ms,
                            zero_fill_ms=zero_fill_ms,
                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by, bytes=n_bytes + scratch, call_ms=call_ms,
@@ -634,12 +672,15 @@ def phase_k2_backward(gen, dtype=torch.float32):
     keys = ("ms", "zero_fill_ms", "plain_ms", "library_ms", "bound_ms")
     if dtype == BF16:
         keys += ("bound_ms_without_scratch",)
-    total = {key: sum(st[key] for st in sites.values()) for key in keys}
+    total = {key: sum(sites[st][key] for st in DYSAMPLE_SITES) for key in keys}
     return dict(name=_kphase("sample_bilinear_backward", dtype), route="cuda",
                 source="yolo_dbl_tpu_torch/csrc/sampling.cu",
                 replaces="yolo_dbl_tpu/kernels/sampling.py:142", max_abs_err=worst["dx"],
                 max_rel_err_dgy_dgx=max(worst["dgy_rel"], worst["dgx_rel"]),
-                bound_by=_by(sites.values()),
+                bound_by=_by(sites[st] for st in DYSAMPLE_SITES),
+                dbl2_l_sites=_dbl2_sites(sites, ("ms", "zero_fill_ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by", "window_missed_share",
+                                                 "shared_bytes")),
                 time_sources=_time_sources(src, ("ms", "plain_ms", "library_ms", "zero_fill_ms")),
                 **total), worst_fwd
 
@@ -873,8 +914,8 @@ def build_models(cfg, dtype=torch.float32, zero_class_bias=True):
 
 def _phase(base, cfg, dtype=torch.float32):
     """The phase name of `base` for a model and type: `main`, `main_v13`,
-    `main_bf16`, `main_v13_bf16`, ..."""
-    return (base if cfg == DBL else f"{base}_v13") + ("_bf16" if dtype == BF16 else "")
+    `main_dbl2`, `main_bf16`, `main_v13_bf16`, ..."""
+    return base + SUFFIX[cfg] + ("_bf16" if dtype == BF16 else "")
 
 
 def phase_main(cfg, gpu_model, rng, card):
@@ -1676,6 +1717,187 @@ def phase_converge(card):
     return launches
 
 
+# the other six configs of the family at scale s and 320: {name: the
+# kernels a forward launches and a train step launches}
+FAMILY_IMGSZ, FAMILY_TRAIN_B = 320, 4
+FAMILY = {
+    "yolov13s_edit9.yaml": ({"letterbox_normalize": 1, "sample_bilinear": 3},
+                            {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
+    "yolov13s_edit10.yaml": ({"letterbox_normalize": 1}, {}),
+    "yolov13s_v3edit5_attn.yaml": ({"letterbox_normalize": 1}, {}),
+    "yolov13s_v3edit5_attn2.yaml": ({"letterbox_normalize": 1}, {}),
+    "yolov13s_v3edit6.yaml": ({"letterbox_normalize": 1, "area_attention": 8},
+                              {"area_attention": 8, "area_attention_backward_dq": 8,
+                               "area_attention_backward_dkv": 8}),
+    "yolov13s_edit_template.yaml": ({"letterbox_normalize": 1, "area_attention": 8},
+                                    {"area_attention": 8, "area_attention_backward_dq": 8,
+                                     "area_attention_backward_dkv": 8}),
+}
+
+
+def _sla_check(cpu_model, gpu_model, gen):
+    """The first SLA module (P3) of a config, card against CPU (TF32 off) on
+    its own input shape with random non-zero proj_l and out_proj (both zero
+    at init, where the block is inert): the same key blocks picked on both
+    devices (a near-tie between the k-th and (k+1)-th block scores could
+    part them; the smallest gap, over the scores' scale, is printed), then
+    the outputs within 1e-4 of their largest."""
+    from yolo_dbl_tpu_torch.nn.attention.sla import SLA, block_mask
+
+    name, cpu = next((n, m) for n, m in cpu_model.named_modules() if isinstance(m, SLA))
+    gpu = gpu_model.get_submodule(name)
+    c = cpu.out_proj.in_channels
+    hw = FAMILY_IMGSZ // 8
+    x = torch.randn((2, c, hw, hw), generator=gen)
+    with torch.no_grad():
+        for p in (cpu.out_proj.weight, cpu.proj_l.weight, cpu.proj_l.bias):
+            p.copy_(torch.randn(p.shape, generator=gen) / np.sqrt(p.shape[-1]))
+        gpu.load_state_dict(cpu.state_dict())
+        with tf32_off():
+            masks = []
+            x_card = x.cuda().contiguous(memory_format=torch.channels_last)
+            for mod, xd in ((cpu, x), (gpu, x_card)):
+                qkv = mod.qkv_proj(xd).flatten(2).transpose(1, 2)
+                q, k, _ = (t.reshape(2, hw * hw, mod.num_heads, mod.head_dim).transpose(1, 2)
+                           for t in qkv.split(c, -1))
+                mask, score = block_mask(q, k, mod.topk, mod.blkq, mod.blkk)
+                masks.append(mask.cpu())
+            want, got = cpu(x), gpu(x_card).cpu()
+        topk = int(masks[0].sum(-1).max())
+        top = score.cpu().topk(topk + 1, -1).values
+        gap = float((top[..., topk - 1] - top[..., topk]).min() / top.abs().max())
+    err = float((got - want).abs().max() / want.abs().max())
+    out = {"module": name, "tokens": hw * hw, "key_blocks": score.shape[-1], "topk": topk,
+           "same_key_blocks": torch.equal(*masks), "topk_gap_of_scale": gap,
+           "max_rel_err": err, "max_abs_out": float(want.abs().max())}
+    require(out["same_key_blocks"] and err <= 1e-4 and float(want.abs().max()) > 0,
+            f"SLA card vs CPU with non-zero projections: {out}")
+    return out
+
+
+def phase_family(card):
+    """The other six configs of the family at scale s and 320: the card's
+    decode against the CPU's on 2 frames (TF32 off; boxes 0.05 px, scores
+    1e-3), launches of a forward, and one train step at batch 4 each."""
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.engine.trainer import Trainer
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+
+    t_start = time.perf_counter()
+    rng, gen = np.random.default_rng(8), torch.Generator().manual_seed(8)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, *SRC_HW, 3), dtype=np.uint8))
+    size = (FAMILY_IMGSZ, FAMILY_IMGSZ)
+    out, launches = {}, {}
+    for name, (per_forward, per_step) in FAMILY.items():
+        cpu, gpu = build_models((name, NC))
+        n_params = sum(p.numel() for p in gpu.parameters())
+        row = {"params": n_params}
+        kernels.reset_launches()
+        with tf32_off():
+            pred_c = cpu.predict(letterbox_normalize(frames, size))
+            pred_g = gpu.predict(letterbox_normalize(frames.cuda(), size)).cpu()
+        fwd = dict(kernels.launches)
+        anchors = sum((FAMILY_IMGSZ // st) ** 2 for st in gpu.strides)
+        require(pred_g.shape == pred_c.shape == (2, 4 + NC, anchors)
+                and bool(torch.isfinite(pred_g).all()), f"{name}: predictions {pred_g.shape}")
+        box, score = _boxes_scores(pred_g, pred_c)
+        row.update(box_max_abs_px=box, score_max_abs=score, forward_launches=fwd)
+        require(box < 0.05 and score <= 1e-3 and fwd == _launches(per_forward, torch.float32),
+                f"{name} card vs CPU: {row}")
+        if any(m.__class__.__name__ == "SLA" for m in cpu.modules()):
+            row["sla"] = _sla_check(cpu, gpu, gen)
+        torch.backends.cudnn.allow_tf32 = True
+        trainer = Trainer(gpu, {"batch": FAMILY_TRAIN_B}).setup(steps_per_epoch=100)
+        batch = train_batches(rng, 1, b=FAMILY_TRAIN_B, imgsz=FAMILY_IMGSZ)[0]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        losses = {k: float(v) for k, v in trainer.step(batch).items()}
+        torch.cuda.synchronize()
+        row.update(step_ms=(time.perf_counter() - t0) * 1e3, losses=losses,
+                   step_launches=dict(kernels.launches))
+        require(all(np.isfinite(v) for v in losses.values())
+                and row["step_launches"] == _launches(per_step, torch.float32),
+                f"{name} train step: {row}")
+        launches[name] = {k: fwd[k] + row["step_launches"][k] for k in fwd}
+        out[name[:-5]] = row
+        del cpu, gpu, trainer
+    emit({"phase": "family", "imgsz": FAMILY_IMGSZ, "nc": NC, "frames": 2,
+          "train_batch": FAMILY_TRAIN_B, "configs": out, "tf32_parity": False,
+          "seconds": time.perf_counter() - t_start, "card": card})
+    return launches
+
+
+def phase_facade_dbl2(card):
+    """YOLO-DBL2-l (nc=3, 640, float32) through the facade on the card:
+    train 1 epoch (2 steps of 16), validate, predict 8 frames from memory;
+    gate: the best checkpoint on the card and on the CPU over 2 frames."""
+    import tempfile
+
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+
+    from tests.fixtures import make_shapes_dataset
+
+    t_start = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True  # as in the timed float32 phases
+    frames = list(np.random.default_rng(9).integers(0, 256, (B, *SRC_HW, 3), dtype=np.uint8))
+    launches, wall = {}, {}
+    per_epoch = FACADE_TRAIN // FACADE_B
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = make_shapes_dataset(tmp / "shapes", n_train=FACADE_TRAIN, n_val=FACADE_VAL,
+                                   imgsz=IMGSZ)
+        y = YOLO(DBL2[0], nc=NC)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = y.train(data, epochs=1, batch=FACADE_B, imgsz=IMGSZ, project=str(tmp / "runs"),
+                      name="dbl2", workers=0, plots=False, verbose=False)
+        torch.cuda.synchronize()
+        wall["train_epoch"] = time.perf_counter() - t0
+        launches["facade_dbl2_train"] = dict(kernels.launches)
+        want = _launches({"sample_bilinear": 3 * (per_epoch + 1),
+                          "sample_bilinear_backward": 3 * per_epoch}, torch.float32)
+        require(launches["facade_dbl2_train"] == want and y.trainer.steps == per_epoch
+                and all(np.isfinite(v) for h in out["history"] for v in h.values()),
+                f"train: {out['history']}, launches {launches['facade_dbl2_train']}")
+        best = Path(out["run_dir"]) / "best.ckpt"
+        ckpt_bytes = {f.name: f.stat().st_size for f in sorted(best.parent.glob("*.ckpt"))}
+        yb = YOLO(best)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics = yb.val(data, imgsz=IMGSZ, batch=FACADE_B)
+        torch.cuda.synchronize()
+        wall["val"] = time.perf_counter() - t0
+        launches["facade_dbl2_val"] = dict(kernels.launches)
+        require(launches["facade_dbl2_val"] == _launches({"sample_bilinear": 3}, torch.float32)
+                and metrics["images"] == FACADE_VAL, f"val: {metrics}")
+        yb.predict(frames)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        request_ms = []
+        for _ in range(FACADE_REQUESTS):
+            t0 = time.perf_counter()
+            res = yb.predict(frames)
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+        launches["facade_dbl2_predict"] = dict(kernels.launches)
+        require(launches["facade_dbl2_predict"] == {
+            k: v * FACADE_REQUESTS for k, v in PER_REQUEST[DBL2, torch.float32].items()}
+            and len(res) == B, f"predict: {launches['facade_dbl2_predict']}")
+        gate = _facade_gate(best, frames[:2])
+    emit({"phase": "facade_dbl2", "model": DBL2[0][:-5], "nc": NC, "dtype": "float32",
+          "imgsz": IMGSZ, "train": {"images": FACADE_TRAIN, "batch": FACADE_B,
+                                    "steps": per_epoch, "history": out["history"]},
+          "val": {"images": metrics["images"], **{k: metrics[k] for k in METRIC_KEYS},
+                  "speed_ms_per_image": metrics["speed_ms_per_image"]},
+          "predict": {"frames": B, "requests": FACADE_REQUESTS, "request_ms": request_ms,
+                      "median_request_ms": statistics.median(request_ms),
+                      "boxes_per_image": _counts(res)},
+          "checkpoint_bytes": ckpt_bytes, "launches": launches, "gate": gate,
+          "wall_s": {**wall, "phase": time.perf_counter() - t_start},
+          "tf32_conv": torch.backends.cudnn.allow_tf32, "note": NOT_A_QUALITY_CLAIM, "card": card})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -1698,7 +1920,8 @@ def main():
               **attention.shared_bytes(),
               "sample_bilinear_backward_kernel": {
                   f"C/G={c // GROUPS}": sampling.backward_shared_bytes(c, GROUPS)
-                  for c in sorted({c for _, _, c in DYSAMPLE_SITES.values()})}},
+                  for c in sorted({c for _, _, c in (*DYSAMPLE_SITES.values(),
+                                                     *DBL2_SITES.values())})}},
           "card": card, "sm_clock_max_mhz": sm_clock_max_mhz(),
           "sms": torch.cuda.get_device_properties(0).multi_processor_count,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -1716,16 +1939,16 @@ def main():
         rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
-    for cfg in (DBL, V13):
+    for cfg in (DBL, V13, DBL2):
         for dtype in (torch.float32, BF16):
             cpu_model, gpu_model = build_models(cfg, dtype)
             serve[cfg, dtype], frames, predictor, median_ms = phase_main(cfg, gpu_model, rng, card)
             phase_profile(cfg, predictor, rng, median_ms * 1e3)
             train[cfg, dtype] = phase_train(cfg, card, dtype)
             models[cfg, dtype] = (cpu_model, gpu_model, frames)
-    for cfg in (DBL, V13):
+    for cfg in (DBL, V13, DBL2):
         phase_parity(cfg, *models[cfg, torch.float32])
-    for cfg in (DBL, V13):
+    for cfg in (DBL, V13, DBL2):
         cpu32, _, frames = models[cfg, torch.float32]
         cpu16, gpu16, _ = models[cfg, BF16]
         phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames)
@@ -1739,6 +1962,8 @@ def main():
     phase_v8(card)
     facade = phase_facade(card)
     converge = phase_converge(card)
+    family = phase_family(card)
+    facade.update(phase_facade_dbl2(card))
     # launches: per the path's run (5 requests; 10 train steps) on the path each row serves
     f32, bf16 = torch.float32, BF16
     home = {"letterbox_normalize": serve[DBL, f32], "sample_bilinear": serve[DBL, f32],
@@ -1756,10 +1981,12 @@ def main():
         require(row["launches"] > 0, f"{name} was not launched on its path")
         row["launches_by_path"] = {_phase(path, cfg, dt): runs[cfg, dt][name]
                                    for path, runs in (("serve", serve), ("train", train))
-                                   for cfg in (DBL, V13) for dt in (f32, bf16)}
+                                   for cfg in (DBL, V13, DBL2) for dt in (f32, bf16)}
         row["launches_by_path"].update(val=val[name], val_bf16=val_bf16[name],
                                        converge=converge[name],
-                                       **{path: runs[name] for path, runs in facade.items()})
+                                       **{path: runs[name] for path, runs in facade.items()},
+                                       **{f"family_{cfg[9:-5]}": runs.get(name, 0)
+                                          for cfg, runs in family.items()})
     # how often torch.profiler's trace had to be taken again, or gave way
     # to CUDA-event time (each row's `time_sources` says which it holds)
     emit({"phase": "timing", **TRACES})

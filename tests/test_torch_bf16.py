@@ -60,6 +60,7 @@ from yolo_dbl_tpu_torch.utils.convert import load_jax_variables, params_from_jax
 from tests.test_torch_modules import jax_tree, random_variables, to_nchw, to_nhwc
 from tests.test_torch_train import TRAIN_OVERRIDES, _NoDropout
 from tests.test_torch_v13 import _pallas_area_attention, _qkv
+from tests.torch_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
 
 BF16 = torch.bfloat16
 IMGSZ = 64

@@ -739,3 +739,67 @@ def test_shapes_convergence_map50_on_card(cuda, tmp_path):
     best50 = max(h["val_mAP50"] for h in out["history"])
     assert best50 >= 0.8, f"val mAP50 never reached 0.8 in {epochs} epochs (best {best50:.3f})"
     assert out["best_fitness"] > 0.2
+
+
+# YOLO-DBL2-l's DySample sites at 640 (rows 18 and 13): (H, W, C), 4 groups,
+# 256 and 128 channels a group; at 256 the backward's tile holds 16 points
+DBL2_K2_SITES = [(20, 20, 1024), (40, 40, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("padding_mode", ["border", "zeros"])
+@pytest.mark.parametrize("h,w,c", DBL2_K2_SITES)
+def test_sample_bilinear_kernels_at_dbl2_sites(cuda, dtype, padding_mode, h, w, c):
+    """The forward and backward kernels of `dtype` at YOLO-DBL2-l's sites
+    (batch 2, DySample coordinates) against the plain versions: float32
+    within 1e-5 (forward), 1e-4 (dx) and 1e-4 of the largest (dgy, dgx);
+    bfloat16 within one bfloat16 step plus 1e-6 of the terms' scale."""
+    rng = np.random.default_rng(27)
+    b, g = 2, 4
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda).to(dtype)
+    gy, gx = (torch.from_numpy(a.astype(np.float32)).to(cuda).to(dtype)
+              for a in _site_coords(rng, b, h, w, g, False))
+    grad = torch.from_numpy(rng.standard_normal((b, 4 * h * w, c)).astype(np.float32))
+    grad = grad.to(cuda).to(dtype)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    before = dict(kernels.launches)
+    out = TS.sample_bilinear(x, gy, gx, padding_mode)
+    got = TS.sample_bilinear_backward(x, gy, gx, grad, padding_mode)
+    torch.cuda.synchronize()
+    for name in ("sample_bilinear", "sample_bilinear_backward"):
+        assert kernels.launches[name + suffix] == before[name + suffix] + 1
+    want_out = TS.sample_bilinear_plain(x, gy, gx, padding_mode)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want_out, atol=TOL, rtol=0)
+        _assert_backward_matches_plain(got, x, gy, gx, grad, padding_mode)
+        return
+    g_max, x_max, cg = float(grad.abs().max()), float(x.abs().max()), c // g
+    _assert_within_bf16_ulp(out, want_out, x_max)
+    want = TS.sample_bilinear_backward_plain(x, gy, gx, grad, padding_mode)
+    for a, r, scale in zip(got, want, (4 * g_max, cg * g_max * x_max, cg * g_max * x_max)):
+        _assert_within_bf16_ulp(a, r, scale)
+
+
+@pytest.mark.cuda
+def test_dbl2_l_card_forward_matches_cpu_at_640(cuda):
+    """YOLO-DBL2-l (C3Ghost, DySample at 128, 256 and 128 channels a group)
+    on one 640 frame: the card's decode (K2 forward, 3 launches) against the
+    CPU port's at the same weights, TF32 off: boxes < 0.05 px, scores
+    <= 1e-3."""
+    from yolo_dbl_tpu_torch import DetectionModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = DetectionModel("yolov13l_DBL2.yaml", nc=3, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    gpu = DetectionModel("yolov13l_DBL2.yaml", nc=3, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.rand((1, 640, 640, 3), generator=torch.Generator().manual_seed(2))
+    kernels.reset_launches()
+    pred_g = gpu.predict(x.to(cuda)).cpu()
+    assert kernels.launches["sample_bilinear"] == 3
+    pred_c = cpu.predict(x)
+    assert pred_g.shape == pred_c.shape == (1, 7, 8400) and bool(torch.isfinite(pred_g).all())
+    assert float((pred_g[:, :4] - pred_c[:, :4]).abs().max()) < 0.05
+    assert float((pred_g[:, 4:] - pred_c[:, 4:]).abs().max()) <= 1e-3

@@ -55,7 +55,7 @@ from yolo_dbl_tpu_torch.utils.settings import SettingsManager
 
 from tests.fixtures import make_shapes_dataset
 from tests.test_torch_modules import random_variables
-from tests.torch_fixtures import write_jpeg_frames
+from tests.torch_fixtures import one_torch_thread, write_jpeg_frames  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 NC = 3
@@ -70,18 +70,6 @@ RESUME = dict(batch=4, imgsz=64, lr0=0.005, lrf=1.0, warmup_epochs=1.0, mosaic=0
               hsv_v=0.0, erasing=0.0, close_mosaic=0, multi_scale=False, patience=100, workers=0,
               plots=False, verbose=False)
 PRED_IMGSZ = 128
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's CPU runs here are small (64-128 px): one intra-op thread.
-    Under the parallel test lane, 8 spinning OpenMP threads a worker stall
-    thousands of tiny parallel regions on a saturated machine (the resume
-    test took 597 s there against 5 s alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _numpy(tree):

@@ -1,4 +1,5 @@
-"""JPEG frames for the port's predictor tests and chip_smoke.py's facade phase."""
+"""Shared pieces of the port's tests: one torch thread for a test module,
+and JPEG frames for the predictor tests and chip_smoke.py's facade phases."""
 
 from __future__ import annotations
 
@@ -6,6 +7,8 @@ from pathlib import Path
 
 import cv2
 import numpy as np
+import pytest
+import torch
 
 # fill colours of the shapes set's classes (tests/fixtures.py), RGB
 COLOURS = ((230, 200, 60), (60, 220, 220), (10, 10, 120))
@@ -29,3 +32,16 @@ def write_jpeg_frames(directory, sizes, n, seed=0):
         paths.append(directory / f"frame{i:02d}.jpg")
         cv2.imwrite(str(paths[-1]), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
     return paths
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU runs in the tests are small (64-128 px): one intra-op
+    thread. Under the parallel test lane, 8 spinning OpenMP threads a worker
+    stall thousands of tiny parallel regions on a saturated machine (a resume
+    test took 597 s there against 5 s alone). Import it into a test module
+    to apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -134,9 +134,12 @@ class Trainer:
 
     def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The train step (:62): loss, gradients, optimizer, EMA. Returns
-        {name: 0-d tensor} metrics, left on the device."""
+        {name: 0-d tensor} metrics, left on the device. A parameter that
+        the loss does not reach (a YAML row whose output no later row reads,
+        as in yolov13_v3edit5_attn and yolov13_v3edit6) gets a zero
+        gradient, as under jax.grad."""
         loss, items = train_loss(self.model, self.cfg, self.to_device(batch))
-        grads = torch.autograd.grad(loss, self._params)
+        grads = torch.autograd.grad(loss, self._params, materialize_grads=True)
         self.optimizer.step(grads)
         self.steps += 1
         self.ema_updates += 1.0

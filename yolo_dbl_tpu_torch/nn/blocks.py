@@ -1,6 +1,6 @@
 """YOLO-DBL and YOLOv13 building blocks (NCHW inside, PyTorch).
 
-Port of the DBL, stock-YOLOv13 and YOLOv8 subset of yolo_dbl_tpu/nn/blocks.py,
+Port of the YOLOv13/DBL-family and YOLOv8 subset of yolo_dbl_tpu/nn/blocks.py,
 in dependency order.
 Attribute names are the flax scope names (`cv1`, `m_0`, `edge_generator`,
 ...), so JAX variables load key by key (utils/convert.py). Each class cites
@@ -24,7 +24,7 @@ from torch.nn import functional as F
 from ..kernels.attention import area_attention
 from ..ops.resample import (avg_pool2, grid_sample_bilinear, max_pool, nearest_upsample,
                             pixel_shuffle)
-from .common import Conv, Conv2d, DSConv, linear
+from .common import Conv, Conv2d, DSConv, DWConv, linear
 
 
 def _nhwc(x):
@@ -117,6 +117,63 @@ class C3k(nn.Module):
         self.cv1 = Conv(c1, c_, 1, 1)
         self.cv2 = Conv(c1, c_, 1, 1)
         self.n = _add_chain(self, [Bottleneck(c_, c_, shortcut, g, (k, k), 1.0) for _ in range(n)])
+        self.cv3 = Conv(2 * c_, c2, 1)
+
+    def forward(self, x):
+        a = self.cv1(x)
+        for i in range(self.n):
+            a = getattr(self, f"m_{i}")(a)
+        return self.cv3(torch.cat([a, self.cv2(x)], 1))
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution (blocks.py:160): a primary conv makes half the
+    channels, a 5x5 depthwise Conv over them the other half."""
+
+    def __init__(self, c1, c2, k=1, s=1, g=1, act=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, None, g, act=act)
+        self.cv2 = Conv(c_, c_, 5, 1, None, c_, act=act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """GhostConv, a stride-2 depthwise conv when s=2, a linear GhostConv;
+    the shortcut is x, or at s=2 a depthwise and a 1x1 conv (blocks.py:179)."""
+
+    def __init__(self, c1, c2, k=3, s=1):
+        super().__init__()
+        c_ = c2 // 2
+        self.s = s
+        self.gc1 = GhostConv(c1, c_, 1, 1)
+        self.gc2 = GhostConv(c_, c2, 1, 1, act=False)
+        if s == 2:
+            self.dw = DWConv(c_, c_, k, s, act=False)
+            self.sc_dw = DWConv(c1, c1, k, s, act=False)
+            self.sc_pw = Conv(c1, c2, 1, 1, act=False)
+
+    def forward(self, x):
+        y = self.gc1(x)
+        if self.s == 2:
+            y = self.dw(y)
+        y = self.gc2(y)
+        return y + (self.sc_pw(self.sc_dw(x)) if self.s == 2 else x)
+
+
+class C3Ghost(nn.Module):
+    """C3 over GhostBottlenecks (blocks.py:203). `shortcut` and `g` are
+    taken and unused, as in JAX: every GhostBottleneck adds its input."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.n = _add_chain(self, [GhostBottleneck(c_, c_) for _ in range(n)])
         self.cv3 = Conv(2 * c_, c2, 1)
 
     def forward(self, x):
@@ -311,6 +368,18 @@ class HyperACE(nn.Module):
             ys.append(last)
         ys.append(self.branch2(y1))
         return self.cv2(torch.cat(ys, 1))
+
+
+class HyperACE2(HyperACE):
+    """HyperACE over FuseModule2 (blocks.py:770-784), whose fuse conv takes
+    the concat's own width: flax reads it from the inputs, so JAX's module
+    fits any three widths. `c_cat` is that width (the model passes its
+    rows'); 4 * c1 on the v13 pyramid (c1, c1, 2 c1), as HyperACE's."""
+
+    def __init__(self, c1, c2, n=1, num_hyperedges=8, dsc3k=True, shortcut=False, e1=0.5,
+                 e2=1.0, context="both", c_cat=None):
+        super().__init__(c1, c2, n, num_hyperedges, dsc3k, shortcut, e1, e2, context)
+        self.fuse.conv_out = Conv(c_cat or 4 * c1, c1, 1)
 
 
 class DownsampleConv(nn.Module):

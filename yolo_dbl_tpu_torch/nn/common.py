@@ -87,6 +87,12 @@ def batch_norm(c: int) -> BatchNorm:
     return BatchNorm(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
+def flax_batch_norm(c: int) -> BatchNorm:
+    """A flax `nn.BatchNorm` called directly, with flax's own defaults
+    (momentum 0.99, epsilon 1e-5), not through `Conv`."""
+    return BatchNorm(c, eps=1e-5, momentum=0.01)
+
+
 def _act(act) -> nn.Module:
     if act is True:
         return nn.SiLU()
@@ -138,12 +144,13 @@ class DSConv(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """Bare conv with bias, no BN/act (common.py:333); `conv` level as in flax."""
+    """Bare conv, with a bias unless `bias=False`, no BN/act (common.py:333);
+    `conv` level as in flax."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
-                 g: int = 1, d: int = 1):
+                 g: int = 1, d: int = 1, bias: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d)
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=bias)
 
     def forward(self, x):
         return conv2d(self.conv, x)

@@ -1,9 +1,10 @@
 """YAML → model compiler and the detection model (port of yolo_dbl_tpu/nn/tasks.py).
 
-Only the branches the YOLO-DBL, stock YOLOv13 and YOLOv8 rows use are
-ported; any other module name raises NotImplementedError. The model YAMLs
-are the port's own verbatim copies under cfg/, read by path with the port's
-small YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
+Only the branches the YOLOv13/DBL family (`cfg/models/v13/`) and YOLOv8
+rows use are ported; any other module name raises NotImplementedError. The
+model YAMLs are the port's own verbatim copies under cfg/, read by path with
+the port's small YAML reader (utils/yaml_subset.py), so the port needs no
+YAML package.
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ from ..ops.resample import nearest_upsample
 from ..utils.device import resolve_device
 from ..utils.yaml_subset import load_yaml
 from . import blocks as B
+from .attention import SLA
 from .common import Conv, DSConv, DWConv
 from .heads import Detect, decode_detections
+from .upsample import carafe as U
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
 
@@ -80,12 +83,20 @@ class ModelSpec:
     scale: str
 
 
-# the DBL, YOLOv13 and YOLOv8 subset of the JAX module families (tasks.py:102-138)
+# the v13/DBL-family and YOLOv8 subset of the JAX module families (tasks.py:102-138)
 _C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "C2f", "DSC3k2",
-              "DSC3k", "SPPF", "A2C2f"}
-_REPEAT_INSERT = {"C2f", "DSC3k2", "DSC3k", "A2C2f"}
+              "DSC3k", "SPPF", "A2C2f", "GhostConv", "GhostBottleneck", "C3Ghost"}
+_REPEAT_INSERT = {"C2f", "DSC3k2", "DSC3k", "A2C2f", "C3Ghost"}
 _LEGACY_FALSE = {"DSC3k2", "A2C2f"}
-_C1_ONLY = {"DySample", "LSKblock"}
+_C1_ONLY = {"DySample", "LSKblock", "SLA", "DLU", "CARAFE", "CARAFEPack"}
+# rows whose args pass through unchanged and whose width is their input's
+# (the final `else` of tasks.py:141's branches)
+_ARGS_AS_GIVEN = {"CARAFE_XiaLiPKU", "CARAFE_simplified"}
+# modules built as Module(*resolved args)
+_FROM_ARGS = {"GhostConv": B.GhostConv, "GhostBottleneck": B.GhostBottleneck,
+              "C3Ghost": B.C3Ghost, "DySample": B.DySample, "SLA": SLA, "DLU": U.DLU,
+              "CARAFE": U.CARAFE, "CARAFEPack": U.CARAFEPack,
+              "CARAFE_XiaLiPKU": U.CARAFE_XiaLiPKU, "CARAFE_simplified": U.CARAFE_simplified}
 
 
 def _not_ported(m: str):
@@ -93,9 +104,9 @@ def _not_ported(m: str):
 
 
 def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
-    """Resolve a model YAML dict into a ModelSpec (tasks.py:141), DBL,
-    YOLOv13 and YOLOv8 rows only. Detect keeps `legacy=True` (the v8 class
-    branch) unless a DSC3k2, A2C2f or HyperACE row comes before it."""
+    """Resolve a model YAML dict into a ModelSpec (tasks.py:141), v13/DBL
+    family and YOLOv8 rows only. Detect keeps `legacy=True` (the v8 class
+    branch) unless a DSC3k2, A2C2f or HyperACE(2) row comes before it."""
     if d.get("activation"):
         raise _not_ported(f"activation {d['activation']}")
     nc = d.get("nc", 80)
@@ -139,7 +150,7 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
             if m == "A2C2f" and scale in "lx" and scale:
                 args.append(True)  # residual
                 args.append(1.5)  # mlp_ratio
-        elif m == "HyperACE":
+        elif m in ("HyperACE", "HyperACE2"):
             legacy = False
             c1 = chs[f[1]]
             c2 = make_divisible(min(args[0], max_channels) * width, 8)
@@ -169,6 +180,8 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
             args.append([chs[x] for x in f])
             args.append(legacy)
             c2 = 0
+        elif m in _ARGS_AS_GIVEN:
+            c2 = chs[f] if isinstance(f, int) else chs[f[-1]]
         else:
             raise _not_ported(m)
 
@@ -180,8 +193,10 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
     return ModelSpec(layers=layers, save=sorted(set(save)), nc=nc, scale=scale)
 
 
-def _build_module(spec: LayerSpec):
-    """The PyTorch module for one LayerSpec row (one repeat), or None."""
+def _build_module(spec: LayerSpec, c_in: List[int]):
+    """The PyTorch module for one LayerSpec row (one repeat), or None.
+    `c_in`: the widths of the row's inputs (HyperACE2's fuse conv takes
+    their sum, which flax reads from the inputs)."""
     m, a = spec.name, spec.args
     if m == "Conv":
         return Conv(*a)
@@ -208,12 +223,14 @@ def _build_module(spec: LayerSpec):
         return B.A2C2f(*a)
     if m == "HyperACE":
         return B.HyperACE(*a)
+    if m == "HyperACE2":
+        return B.HyperACE2(*a, c_cat=sum(c_in))
     if m == "DownsampleConv":
         return B.DownsampleConv(a[0], channel_adjust=True)
     if m == "FullPAD_Tunnel":
         return B.FullPAD_Tunnel()
-    if m == "DySample":
-        return B.DySample(*a)
+    if m in _FROM_ARGS:
+        return _FROM_ARGS[m](*a)
     if m == "LSKblock":
         return B.LSKblock(a[0])
     if m == "Detect":
@@ -275,11 +292,15 @@ class DetectionModel(nn.Module):
         self.names = {i: f"{i}" for i in range(self.nc)}
         self.reg_max = 16
         with torch.device("meta"):
+            widths = []  # each row's output width
             for layer in self.spec.layers:
+                src = [layer.f] if isinstance(layer.f, int) else layer.f
+                c_in = [widths[j] for j in src] if widths else [ch]
                 for name in _layer_names(layer):
-                    module = _build_module(layer)
+                    module = _build_module(layer, c_in)
                     if module is not None:
                         self.add_module(name, module)
+                widths.append(layer.c2)
             self.strides = self._probe_strides(ch)
         self.to_empty(device="cpu")
         self.init_weights(generator if generator is not None else torch.Generator().manual_seed(0))
@@ -295,9 +316,14 @@ class DetectionModel(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
         """flax default initialisers (lecun_normal kernels, zero biases, unit
-        BatchNorm, xavier_uniform prototypes, zero gates) + the bias prior."""
+        BatchNorm, xavier_uniform prototypes, zero gates; zero kernels where
+        flax's `kernel_init` is zeros, marked `zero_init`) + the bias prior."""
         for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            if isinstance(mod, (nn.Conv2d, nn.Linear)) and getattr(mod, "zero_init", False):
+                mod.weight.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, (nn.Conv2d, nn.Linear)):
                 std = math.sqrt(1.0 / mod.weight[0].numel()) / _TRUNC_STD
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
                 if mod.bias is not None:

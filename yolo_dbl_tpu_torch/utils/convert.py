@@ -10,7 +10,12 @@ Module and attribute names of the port are the flax scope names, so a leaf
 - `prototype_base`, the FullPAD `gate` and the A2C2f `gamma` are copied as
   they are.
 
-Any leaf without a rule, and any key missing on either side, raises.
+Any leaf without a rule, and any key missing on either side, raises. The
+v13 family's other leaves take the same rules: a flax BatchNorm called
+directly (the CARAFE body's `comp_bn`, `enc_bn`), a bias-free `nn.Conv`
+(SLA's `out_proj`, a (1, 1, C, C) kernel) and an `nn.Dense` (SLA's
+`proj_l`) sit where the port's `BatchNorm`, `nn.Conv2d` and `nn.Linear` of
+the same names sit.
 
 The compute type does not enter here: a bfloat16 model
 (`DetectionModel(..., dtype=torch.bfloat16)`) keeps float32 parameters and
