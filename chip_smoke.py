@@ -138,6 +138,20 @@ The rest of the v13/DBL family:
  26. facade_dbl2 - YOLO-DBL2-l through YOLO on the shapes set: train 1
               epoch (2 steps at batch 16, 640), val, predict 8 frames from
               memory; gate as facade's.
+Data parallel (parallel/, Trainer(mesh=...); rank bodies in tests/torch_ranks.py):
+ 27. dp       - YOLO-DBL-s (nc=3, 640, global batch 16, 3 steps, TF32 off)
+              through Trainer(mesh=...) against the one-process Trainer on
+              the same weights and batches: NCCL at world 1 in this process,
+              and Gloo at world 2 in two processes on this one card (8 rows
+              each; NCCL refuses two ranks on one card, which the phase
+              tries and prints), in float32 and bfloat16; loss items 1e-4,
+              the first step's gradient 1e-3 of each leaf's largest (float64
+              CPU where a leaf misses it by float32 order), BatchNorm
+              statistics 1e-4, the parameters bit for bit equal on the
+              ranks; bfloat16 within 4x the one-process bfloat16 step's
+              distance from the float32 one; K2 forward and backward 3
+              launches a step on every rank; per rank step ms, all-reduce ms
+              and device-busy share.
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -1898,6 +1912,115 @@ def phase_facade_dbl2(card):
     return launches
 
 
+DP_B, DP_STEPS = 16, 3
+
+
+def phase_dp(card):
+    """Data-parallel training of YOLO-DBL-s (nc=3, 640, global batch 16, 3
+    steps) through `Trainer(mesh=...)` against the one-process Trainer on the
+    same weights and batches, TF32 off on both: (a) NCCL at world 1 in this
+    process; (b) Gloo at world 2, two processes on this one card, 8 rows
+    each (NCCL refuses two ranks on one card: "Duplicate GPU detected",
+    tried and printed here); (c) (b) in bfloat16. Bars: loss items 1e-4
+    relative; the first step's gradient 1e-3 of each leaf's largest (a leaf
+    that misses it by float32 order: both runs against a float64 CPU
+    gradient, as train_parity); BatchNorm statistics after the steps 1e-4;
+    the parameters bit for bit equal on the ranks; bfloat16: loss items and
+    the K2-fed leaves within 4x the one-process bfloat16 step's distance from
+    the float32 one. K2's forward and backward launch 3 times a step on
+    every rank. Per rank: step ms, the gradient all-reduce's ms a step (CUDA
+    events) and the device-busy share of one more step."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from yolo_dbl_tpu_torch import DetectionModel
+    from yolo_dbl_tpu_torch.parallel import distributed_init, make_mesh
+
+    from yolo_dbl_tpu_torch.cfg import get_cfg
+
+    from tests.torch_ranks import (all_reduce_rank, card_steps, check_dp_bf16, check_dp_float32,
+                                   dp_card_rank, launch)
+
+    t_start = time.perf_counter()
+    name, nc = DBL
+    cpu = DetectionModel(name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0))
+    for mod in cpu.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0  # as card_steps sets it on the card's models
+    batches = train_batches(np.random.default_rng(5), DP_STEPS, b=DP_B)
+    fed, n_fed = KERNEL_FED_LEAVES[DBL]
+    per_step = {dt: {k: v * DP_STEPS for k, v in PER_STEP[DBL, dt].items() if v}
+                for dt in (torch.float32, BF16)}
+    g64 = {}
+
+    def float64():  # computed once, and only for a leaf that misses the float32 bar
+        if not g64:
+            g64.update(_float64_grads(cpu, get_cfg(), batches[0])[1])
+        return g64
+
+    def on_card(dtype):
+        model = DetectionModel(name, nc=nc, device="cuda", dtype=dtype)
+        model.load_state_dict(cpu.state_dict())
+        return model
+
+    with tempfile.TemporaryDirectory() as tmp, tf32_off():
+        state_path = str(Path(tmp) / "state.pt")
+        torch.save(cpu.state_dict(), state_path)
+        one = card_steps(on_card(torch.float32), batches, profile=True)
+        one16 = card_steps(on_card(BF16), batches[:1])
+        torch.cuda.empty_cache()
+        # (a) NCCL at world 1: the group, cross-rank BatchNorm and the bucket all-reduce
+        distributed_init(f"file://{Path(tmp) / 'nccl_store'}", 1, 0, "nccl")
+        try:
+            nccl = dp_card_rank(make_mesh(), name, nc, ["float32"], state_path, batches,
+                                True)["float32"]
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        nccl_two_ranks = None  # NCCL's refusal of two ranks on one card, which (b) works around
+        try:
+            launch(all_reduce_rank, 2, devices="cuda:0", backend="nccl", timeout=120, workdir=tmp)
+        except (RuntimeError, TimeoutError) as err:
+            lines = str(err).splitlines()
+            nccl_two_ranks = next((ln.strip() for ln in lines if "Duplicate GPU" in ln),
+                                  lines[-1] if lines else repr(err))
+        require(nccl_two_ranks is not None, "NCCL ran two ranks on one card: (b) could use it")
+        # (b), (c): Gloo at world 2 on this card
+        ranks = launch(dp_card_rank, 2, name, nc, ["float32", "bfloat16"], state_path, batches,
+                       True, devices="cuda:0", backend="gloo", timeout=900, workdir=tmp)
+    f32 = {"nccl_world1": check_dp_float32(one, [nccl], float64),
+           "gloo_world2": check_dp_float32(one, [r["float32"] for r in ranks], float64)}
+    bf16 = check_dp_bf16(one, one16, ranks[0]["bfloat16"], fed, n_fed)
+    sums16 = {r["bfloat16"]["checksum"] for r in ranks}
+    runs = {"one_process": one, "nccl_world1": nccl,
+            **{f"gloo_rank{i}": r["float32"] for i, r in enumerate(ranks)},
+            **{f"gloo_bf16_rank{i}": r["bfloat16"] for i, r in enumerate(ranks)}}
+
+    def timing(r):
+        return {"step_ms": r["step_ms"], "median_ms": statistics.median(r["step_ms"][1:]),
+                "allreduce_ms": r["allreduce_ms"], "device_ms": r["device_ms"],
+                "profiled_step_ms": r["profiled_step_ms"],
+                "device_busy_share": r["device_busy_share"], "top_host_ms": r["top_host_ms"]}
+
+    launches = {k: r["launches"] for k, r in runs.items() if k != "one_process"}
+    emit({"phase": "dp", "model": name[:-5], "nc": nc, "imgsz": IMGSZ, "global_batch": DP_B,
+          "steps": DP_STEPS, "world": {"nccl": 1, "gloo": 2}, "tf32": False,
+          "nccl_two_ranks_one_card": nccl_two_ranks,
+          "float32": {k: v[0] for k, v in f32.items()}, "bfloat16": bf16[0],
+          "bf16_param_checksums_equal": len(sums16) == 1, "launches": launches,
+          "timing": {k: timing(r) for k, r in runs.items() if "device_ms" in r},
+          "wall_s": time.perf_counter() - t_start, "card": card})
+    for k, (_, failures) in f32.items():
+        require(not failures, f"dp {k} against the one-process step: {failures}")
+    require(not bf16[1], f"dp bf16 against the one-process bf16 step: {bf16[1]}")
+    require(len(sums16) == 1, f"dp bf16: the ranks' parameters differ: {sums16}")
+    for k, got in launches.items():
+        want = per_step[BF16 if "bf16" in k else torch.float32]
+        require(got == want, f"dp {k}: launches {got}, expected {want} in {DP_STEPS} steps")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -1964,6 +2087,7 @@ def main():
     converge = phase_converge(card)
     family = phase_family(card)
     facade.update(phase_facade_dbl2(card))
+    dp = phase_dp(card)
     # launches: per the path's run (5 requests; 10 train steps) on the path each row serves
     f32, bf16 = torch.float32, BF16
     home = {"letterbox_normalize": serve[DBL, f32], "sample_bilinear": serve[DBL, f32],
@@ -1986,7 +2110,9 @@ def main():
                                        converge=converge[name],
                                        **{path: runs[name] for path, runs in facade.items()},
                                        **{f"family_{cfg[9:-5]}": runs.get(name, 0)
-                                          for cfg, runs in family.items()})
+                                          for cfg, runs in family.items()},
+                                       **{f"dp_{path}": runs.get(name, 0)
+                                          for path, runs in dp.items()})
     # how often torch.profiler's trace had to be taken again, or gave way
     # to CUDA-event time (each row's `time_sources` says which it holds)
     emit({"phase": "timing", **TRACES})

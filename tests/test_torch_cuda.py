@@ -803,3 +803,68 @@ def test_dbl2_l_card_forward_matches_cpu_at_640(cuda):
     assert pred_g.shape == pred_c.shape == (1, 7, 8400) and bool(torch.isfinite(pred_g).all())
     assert float((pred_g[:, :4] - pred_c[:, :4]).abs().max()) < 0.05
     assert float((pred_g[:, 4:] - pred_c[:, 4:]).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_dp_gloo_two_ranks_on_one_card_match_one_process(cuda, tmp_path):
+    """chip_smoke.py's dp phase, part (b), at 128 px: YOLO-DBL-s (nc=3),
+    global batch 4, 3 steps of Trainer(mesh=...) over a Gloo group of two
+    processes on this card (2 rows each) against the one-process Trainer on
+    the same weights and batches, TF32 off: loss items 1e-4 relative, the
+    first step's gradient 1e-3 of each leaf's largest (float64 CPU where a
+    leaf misses it by float32 order), BatchNorm statistics 1e-4, the
+    parameters bit for bit equal on the ranks, and K2's forward and backward
+    3 launches a step on each rank."""
+    from chip_smoke import _float64_grads, train_batches
+    from tests.torch_ranks import card_steps, check_dp_float32, dp_card_rank, launch
+    from yolo_dbl_tpu_torch import DetectionModel
+    from yolo_dbl_tpu_torch.cfg import get_cfg
+
+    name, steps = "yolov13s_DBL.yaml", 3
+    cpu = DetectionModel(name, nc=3, device="cpu", generator=torch.Generator().manual_seed(0))
+    for mod in cpu.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+    batches = train_batches(np.random.default_rng(5), steps, b=4, imgsz=128)
+    gpu = DetectionModel(name, nc=3, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    state_path = str(tmp_path / "state.pt")
+    torch.save(cpu.state_dict(), state_path)
+    try:
+        one = card_steps(gpu, batches)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    del gpu
+    ranks = launch(dp_card_rank, 2, name, 3, ["float32"], state_path, batches, devices="cuda:0",
+                   backend="gloo", timeout=600, workdir=tmp_path)
+    ranks = [r["float32"] for r in ranks]
+    readings, failures = check_dp_float32(one, ranks,
+                                          lambda: _float64_grads(cpu, get_cfg(), batches[0])[1])
+    assert not failures, (failures, readings)
+    want = {"sample_bilinear": 3 * steps, "sample_bilinear_backward": 3 * steps}
+    assert one["launches"] == want and all(r["launches"] == want for r in ranks)
+    assert all(len(r["allreduce_ms"]) == steps for r in ranks)
+
+
+@pytest.mark.cuda
+def test_kernel_launches_leave_the_current_device(cuda):
+    """Each launcher sets the CUDA device of its tensors; the wrappers run it
+    inside torch.cuda.device, so a launch on another card's tensors leaves
+    torch's current device as it was. Needs two cards: skips with one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a launch on the current card cannot show the device kept")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(9)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 48, 64, 3), dtype=np.uint8)).to(other)
+    TP.letterbox_normalize(frames, (64, 64))
+    assert torch.cuda.current_device() == 0
+    x = torch.from_numpy(rng.normal(size=(1, 8, 8, 32)).astype(np.float32)).to(other)
+    gy, gx = (torch.from_numpy(a).to(other) for a in _coords(rng, 1, 64, 8, 8, 4))
+    x.requires_grad_()
+    TS.sample_bilinear(x, gy, gx).sum().backward()
+    assert torch.cuda.current_device() == 0
+    qkv, _ = _packed_qkv(rng, 2, 64, 2, other)
+    qkv.requires_grad_()
+    TA.area_attention(*qkv.split(32, -1)).sum().backward()
+    assert torch.cuda.current_device() == 0

@@ -23,6 +23,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from ..parallel.mesh import local_rows
 from .augment import TrainTransforms, ValTransforms
 from .dataset import YOLODataset
 
@@ -63,14 +64,27 @@ class DataLoader:
     ``img`` (B, S, S, 3) uint8, ``gt_boxes``, ``gt_cls``, ``gt_mask``,
     ``indices``, and, without augmentation, ``labels`` (per-image boxes in
     letterboxed pixels, classes, ``ratio_pad``, ``orig_shape``).
+
+    With a ``mesh`` (parallel/mesh.py) ``batch_size`` is the global batch and
+    each batch holds this rank's rows of it (rank r of N: rows r B/N to
+    (r + 1) B/N), bit for bit those rows of the one-process loader's batch,
+    so the ranks' batches joined in rank order are the global batch. With
+    ``workers > 1`` a rank spawns every row's generator of the batch and
+    draws only its own rows. The sequential stream (``workers <= 1``) draws
+    the rows one after another from one generator, so there a rank makes the
+    whole global batch and keeps its rows.
     """
 
     def __init__(self, dataset: YOLODataset, batch_size: int = 16, imgsz: int = 640,
                  augment: bool = True, hyp: Optional[dict] = None, max_gt: int = 64,
                  shuffle: Optional[bool] = None, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 2, workers: int = 0):
+                 prefetch: int = 2, workers: int = 0, mesh=None):
         if getattr(dataset, "task", "detect") != "detect":
             raise NotImplementedError(f"only detect batches are ported, got task {dataset.task!r}")
+        if mesh is not None and batch_size % mesh.world:
+            raise ValueError(f"a global batch of {batch_size} does not split over "
+                             f"{mesh.world} ranks")
+        self.mesh = mesh
         self.dataset = dataset
         self.batch_size = batch_size
         self.imgsz = imgsz
@@ -189,7 +203,8 @@ class DataLoader:
             idxs = order[bi * self.batch_size : (bi + 1) * self.batch_size]
             if len(idxs) == 0:
                 break
-            native = self._native_val_batch(idxs)
+            mine = slice(None) if self.mesh is None else local_rows(self.mesh, len(idxs))
+            native = self._native_val_batch(idxs[mine])
             if native is not None:
                 yield native
                 continue
@@ -202,7 +217,7 @@ class DataLoader:
                 rngs = rng.spawn(len(idxs))
                 out = list(self._pool.map(
                     lambda a: self.transforms(self.dataset, int(a[0]), a[1]),
-                    zip(idxs, rngs)))
+                    zip(idxs[mine], rngs[mine])))
                 images = [o[0] for o in out]
                 labels = [o[1] for o in out]
             else:
@@ -211,8 +226,9 @@ class DataLoader:
                     img, lab = self.transforms(self.dataset, int(j), rng)
                     images.append(img)
                     labels.append(lab)
+                images, labels = images[mine], labels[mine]
             batch = format_batch(images, labels, self.imgsz, self.max_gt)
-            batch["indices"] = np.asarray(idxs)
+            batch["indices"] = np.asarray(idxs[mine])
             if not self.augment:
                 batch["labels"] = labels  # eval metadata (ratio_pad, orig_shape)
             yield batch

@@ -15,7 +15,11 @@ epoch, `results.csv`, `best.ckpt` (deploy), `last.ckpt` and
 `multi_scale`, callbacks, and `resume`, which restores the train args, the
 state and the epoch from `last.ckpt`. The JAX facade chunks its steps into
 `lax.scan` dispatches, which is numerically a loop of steps; the port steps
-one batch at a time. Only detection models are ported; `track`, `export`
+one batch at a time. `train(data, mesh=make_mesh())` in every process of a
+`torchrun` launch trains data-parallel (engine/trainer.py): `batch` is the
+global batch, each rank loads its rows, rank 0 alone validates, writes the
+run directory and runs the callbacks, and every rank returns the same
+history. Only detection models are ported; `track`, `export`
 and `benchmark` wait for the trackers and the exporter (ROADMAP Queue 1
 item 6).
 """
@@ -85,11 +89,21 @@ class YOLO:
         return max(self.model.strides, default=1)
 
     # ------------------------------------------------------------------ train
-    def train(self, data: Union[str, Path], **overrides) -> Dict:
-        """Train on a YOLO-format dataset; returns {history, best_fitness, run_dir}."""
+    def train(self, data: Union[str, Path], mesh=None, **overrides) -> Dict:
+        """Train on a YOLO-format dataset; returns {history, best_fitness,
+        run_dir}. With a `mesh` (parallel/mesh.py), this process is one rank
+        of a data-parallel run (module note); the model moves to the rank's
+        device."""
         from ..data.build import DataLoader
         from ..data.dataset import YOLODataset
         from ..utils import set_verbosity
+
+        main = mesh is None or mesh.is_main
+        callbacks = self.callbacks if main else Callbacks()  # rank 0 runs the callbacks
+        if mesh is not None and self.model.device != mesh.device:
+            self.model.to(mesh.device)
+            if mesh.device.type == "cuda":
+                self.model.to(memory_format=torch.channels_last)
 
         resume = overrides.get("resume", False)
         ckpt_path = None
@@ -107,7 +121,7 @@ class YOLO:
             overrides = restored
         cfg = get_cfg(overrides=overrides)
         set_verbosity(bool(cfg.verbose))
-        self.callbacks.run("on_pretrain_routine_start", model=self, cfg=cfg)
+        callbacks.run("on_pretrain_routine_start", model=self, cfg=cfg)
         cfg.imgsz = check_imgsz(cfg.imgsz, stride=self._stride())
         train_ds = YOLODataset(data, split="train", imgsz=cfg.imgsz, single_cls=cfg.single_cls,
                                fraction=cfg.fraction, cache_images=cfg.cache)
@@ -122,23 +136,27 @@ class YOLO:
                 "flipud", "bgr", "erasing")}
         workers = int(cfg.workers or 0)
         train_loader = DataLoader(train_ds, batch_size=cfg.batch, imgsz=cfg.imgsz, augment=True,
-                                  hyp=hyp, seed=cfg.seed, workers=workers)
+                                  hyp=hyp, seed=cfg.seed, workers=workers, mesh=mesh)
         val_loader = DataLoader(val_ds, batch_size=cfg.batch, imgsz=cfg.imgsz, augment=False,
                                 shuffle=False, drop_last=False, workers=workers)
 
-        trainer = Trainer(self.model, overrides=dict(overrides))
+        trainer = Trainer(self.model, overrides=dict(overrides), mesh=mesh)
         trainer.setup(steps_per_epoch=max(len(train_loader), 1), seed=cfg.seed)
         self.trainer = trainer
-        validator = DetectionValidator(trainer.ema_model())
+        validator = DetectionValidator(trainer.ema_model()) if main else None
 
+        run_dir = None
         if resume:
             run_dir = ckpt_path.parent
-        else:
+        elif main:
             from ..utils.files import increment_path
 
             run_dir = increment_path(Path(cfg.project or "runs") / (cfg.name or "train"),
                                      exist_ok=cfg.exist_ok)
-        run_dir.mkdir(parents=True, exist_ok=True)
+        if mesh is not None:
+            run_dir = mesh.broadcast_object(run_dir)
+        if main:
+            run_dir.mkdir(parents=True, exist_ok=True)
         best_fitness, best_epoch, start_epoch = -1.0, -1, 0
         if resume:
             meta = trainer.restore(ckpt_path)
@@ -149,10 +167,10 @@ class YOLO:
         train_args = {k: v for k, v in vars(cfg).items() if k != "resume"}
         history = []
         mosaic_closed = False
-        self.callbacks.run("on_pretrain_routine_end", model=self, cfg=cfg)
-        self.callbacks.run("on_train_start", model=self, cfg=cfg)
+        callbacks.run("on_pretrain_routine_end", model=self, cfg=cfg)
+        callbacks.run("on_train_start", model=self, cfg=cfg)
         for epoch in range(start_epoch, cfg.epochs):
-            self.callbacks.run("on_train_epoch_start", model=self, epoch=epoch)
+            callbacks.run("on_train_epoch_start", model=self, epoch=epoch)
             if cfg.close_mosaic and not mosaic_closed and epoch >= cfg.epochs - cfg.close_mosaic:
                 train_loader.close_mosaic()
                 mosaic_closed = True
@@ -165,40 +183,47 @@ class YOLO:
                 ms_rng = np.random.default_rng(cfg.seed + epoch)
             for batch in train_loader:
                 batch = {k: v for k, v in batch.items() if k not in ("labels", "indices")}
-                if cfg.multi_scale:
+                if cfg.multi_scale:  # one draw of the scale on every rank: one seeded stream
                     batch["img"] = resize_batch(batch["img"], sample_scale(ms_sizes, ms_rng))
                 # in key order, as JAX's metrics pytree gives them (results.csv columns)
-                for k, v in sorted(trainer.step(batch).items()):
+                for k, v in sorted(trainer.step(batch, local=True).items()):
                     running[k] = running.get(k, 0.0) + float(v)
                 count += 1
             avg = {k: v / max(count, 1) for k, v in running.items()}
 
-            trainer.ema_model()  # the EMA weights with the live BatchNorm statistics
-            val_metrics = validator(val_loader)
+            val_metrics = None
+            if main:
+                trainer.ema_model()  # the EMA weights with the live BatchNorm statistics
+                val_metrics = validator(val_loader)
+                avg.update(epoch=epoch, seconds=time.time() - t0,
+                           **{f"val_{k}": v for k, v in val_metrics.items()
+                              if isinstance(v, (int, float))})
+            if mesh is not None:  # rank 0's validation and clock on every rank
+                avg, val_metrics = mesh.broadcast_object((avg, val_metrics))
             fitness = val_metrics["fitness"]
-            avg.update(epoch=epoch, seconds=time.time() - t0,
-                       **{f"val_{k}": v for k, v in val_metrics.items() if isinstance(v, (int, float))})
             history.append(avg)
-            csv_path = run_dir / "results.csv"
-            num_keys = [k for k in avg if isinstance(avg[k], (int, float))]
-            if not csv_path.is_file():
-                csv_path.write_text(",".join(num_keys) + "\n")
-            with open(csv_path, "a") as f:
-                f.write(",".join(f"{avg.get(k, float('nan')):.6g}" for k in num_keys) + "\n")
-            self.callbacks.run("on_train_epoch_end", model=self, epoch=epoch, metrics=avg)
-            self.callbacks.run("on_fit_epoch_end", model=self, epoch=epoch, metrics=avg)
+            if main:
+                csv_path = run_dir / "results.csv"
+                num_keys = [k for k in avg if isinstance(avg[k], (int, float))]
+                if not csv_path.is_file():
+                    csv_path.write_text(",".join(num_keys) + "\n")
+                with open(csv_path, "a") as f:
+                    f.write(",".join(f"{avg.get(k, float('nan')):.6g}" for k in num_keys) + "\n")
+            callbacks.run("on_train_epoch_end", model=self, epoch=epoch, metrics=avg)
+            callbacks.run("on_fit_epoch_end", model=self, epoch=epoch, metrics=avg)
             state = trainer.state_dict()
             if fitness > best_fitness:
                 best_fitness, best_epoch = fitness, epoch
-                save_deploy(run_dir / "best.ckpt",
-                            {"params": state["ema_params"], "batch_stats": state["batch_stats"]},
-                            model_yaml=self.model.yaml, nc=self.model.nc)
-                self.callbacks.run("on_model_save", model=self, path=run_dir / "best.ckpt")
+                if main:
+                    save_deploy(run_dir / "best.ckpt",
+                                {"params": state["ema_params"], "batch_stats": state["batch_stats"]},
+                                model_yaml=self.model.yaml, nc=self.model.nc)
+                callbacks.run("on_model_save", model=self, path=run_dir / "best.ckpt")
             # the full effective config, so that a bare resume=True rebuilds the run
             names = ["last.ckpt"]
             if cfg.save_period and cfg.save_period > 0 and epoch % cfg.save_period == 0:
                 names.append(f"epoch{epoch}.ckpt")
-            for name in names:
+            for name in names if main else ():
                 save_checkpoint(run_dir / name, state, best_fitness=best_fitness,
                                 train_args=train_args, metrics=val_metrics, epoch=epoch,
                                 best_epoch=best_epoch)
@@ -206,18 +231,20 @@ class YOLO:
                 break
         train_loader.close()
         val_loader.close()
-        if cfg.plots and history:
+        if cfg.plots and history and main:
             from ..utils.plotting import plot_results
 
             try:
                 plot_results(history, save_path=str(run_dir / "results.png"))
             except Exception:
                 pass  # best effort: matplotlib may be missing or headless-broken
+        if mesh is not None:
+            mesh.barrier()  # the run directory is whole when any rank returns
         # from here on the facade serves the EMA weights, as JAX's does
         self.model = trainer.ema_model()
         out = {"history": history, "best_fitness": best_fitness, "run_dir": str(run_dir)}
-        self.callbacks.run("on_train_end", model=self, metrics=history[-1] if history else {})
-        self.callbacks.run("teardown", model=self)
+        callbacks.run("on_train_end", model=self, metrics=history[-1] if history else {})
+        callbacks.run("teardown", model=self)
         return out
 
     # -------------------------------------------------------------------- val

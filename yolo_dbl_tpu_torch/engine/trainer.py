@@ -9,40 +9,103 @@ A bfloat16 model runs its forward and backward in bfloat16; the loss, the
 TAL assigner, the float32 parameters, their gradients, the optimizer and
 the EMA stay float32, as in JAX.
 
-Not ported, each for a reason of the TPU runtime or of the mesh:
-`make_train_scan` (:111) runs K steps in one dispatch to amortize the TPU
-runtime's per-call cost, which eager PyTorch does not pay in that form;
-buffer donation (:170-181) works around an XLA runtime fault; the mesh
-branches (:183-217) wait for DDP (ROADMAP Queue 1, data parallel).
+Data parallel (the mesh branches, :183-217): with a `mesh`
+(parallel/mesh.py) each rank is a process holding its rows of the global
+batch, and a step computes the one-device step on the global batch, as
+JAX's single SPMD program does: BatchNorm takes its statistics over every
+rank's rows (nn/common.py `cross_rank`), the loss normalizer and batch size
+are global (losses/detection.py), each rank differentiates its share of the
+global loss, and the gradients are summed over the ranks in buckets (one
+all-reduce a bucket) before the clip, the optimizer and the EMA. Not DDP's
+mean of per-rank losses: that is another function of the batch. `setup`
+broadcasts rank 0's weights, so every rank starts from one draw, and the
+all-reduces give every rank the same bits, so the parameters stay equal.
+
+Not ported, each for a reason of the TPU runtime: `make_train_scan` (:111)
+runs K steps in one dispatch to amortize the TPU runtime's per-call cost,
+which eager PyTorch does not pay in that form; buffer donation (:170-181)
+works around an XLA runtime fault. The 'model' axis waits with
+parallel/shardings.py (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
 
 import copy
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
 from ..cfg import get_cfg
 from ..kernels.preprocess import device_normalize
 from ..losses.detection import detection_loss
+from ..nn.common import cross_rank
 from ..nn.tasks import DetectionModel
+from ..parallel.mesh import Mesh, shard_batch
 from .train_state import build_optimizer, ema_update
 
+# bytes of gradient a bucket of the cross-rank sum holds (DDP's default)
+BUCKET_BYTES = 25 * 2**20
 
-def train_loss(model: DetectionModel, cfg, batch: Dict[str, torch.Tensor]):
+
+def train_loss(model: DetectionModel, cfg, batch: Dict[str, torch.Tensor],
+               mesh: Optional[Mesh] = None):
     """(loss, LossItems) of one batch with the model in train mode (BatchNorm
     on batch statistics, its running statistics updated); the model's mode is
-    restored afterwards."""
+    restored afterwards. Under a `mesh`, `batch` is this rank's rows and the
+    loss is this rank's share of the global batch's."""
     was_training = model.training
     model.train()
     try:
-        feats = model(device_normalize(batch["img"], model.dtype))
-        return detection_loss(feats, batch, model.strides, model.nc,
-                              box_gain=cfg.box, cls_gain=cfg.cls, dfl_gain=cfg.dfl)
+        with cross_rank(model, mesh):
+            feats = model(device_normalize(batch["img"], model.dtype))
+        return detection_loss(feats, batch, model.strides, model.nc, box_gain=cfg.box,
+                              cls_gain=cfg.cls, dfl_gain=cfg.dfl, mesh=mesh)
     finally:
         model.train(was_training)
+
+
+def _buckets(tensors: Sequence[torch.Tensor], limit: int = BUCKET_BYTES) -> List[List[int]]:
+    """Indices of `tensors` in buckets of one type and at most `limit` bytes
+    (a larger tensor alone), in order within each type."""
+    out = []
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        bucket, size = None, 0
+        for i, t in enumerate(tensors):
+            if t.dtype != dtype:
+                continue
+            n = t.numel() * t.element_size()
+            if bucket is None or size + n > limit:
+                bucket, size = [], 0
+                out.append(bucket)
+            bucket.append(i)
+            size += n
+    return out
+
+
+@torch.no_grad()
+def _coalesced(tensors: Sequence[torch.Tensor], collective: Callable):
+    """Run the in-place `collective` on `tensors` one bucket at a time (one
+    flat tensor a call) and copy its result back into each tensor, in
+    place: each keeps its memory format (a channels_last gradient stays
+    one, so the optimizer's multi-tensor updates keep their fast path)."""
+    for idx in _buckets(tensors):
+        flat = collective(torch.cat([tensors[i].reshape(-1) for i in idx]))
+        parts = flat.split([tensors[i].numel() for i in idx])
+        torch._foreach_copy_([tensors[i] for i in idx],
+                             [part.view(tensors[i].shape) for i, part in zip(idx, parts)])
+
+
+def all_reduce_coalesced(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum `tensors` over the ranks, in place; returns them."""
+    tensors = list(tensors)
+    _coalesced(tensors, mesh.all_reduce)
+    return tensors
+
+
+def broadcast_coalesced(mesh: Mesh, tensors: Sequence[torch.Tensor], src: int = 0):
+    """Copy rank `src`'s `tensors` into every rank's, in place."""
+    _coalesced(tensors, lambda flat: mesh.broadcast(flat, src))
 
 
 class Trainer:
@@ -64,10 +127,20 @@ class Trainer:
     `{ema_params, batch_stats}`; the training model's weights are never
     swapped. Dropout draws from torch's generator, which no checkpoint
     carries.
+
+    With a `mesh` the trainer is one rank of a data-parallel run (see the
+    module note): the model must live on the mesh's device, `cfg.batch` is
+    the global batch, `step` takes the global batch (or, with
+    `local=True`, this rank's rows of it) and returns the global metrics,
+    and `state_dict()` is the same on every rank.
     """
 
-    def __init__(self, model: DetectionModel, overrides: Optional[Dict] = None):
+    def __init__(self, model: DetectionModel, overrides: Optional[Dict] = None,
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None and model.device != mesh.device:
+            raise ValueError(f"the model lives on {model.device}, this rank's device is {mesh.device}")
         self.model = model
+        self.mesh = mesh
         self.cfg = get_cfg(overrides=overrides or {})
         self.optimizer = None
         self.lr_schedule = None
@@ -80,6 +153,8 @@ class Trainer:
     def setup(self, steps_per_epoch: int, seed: Optional[int] = None) -> "Trainer":
         if seed is not None:
             self.model.reset_weights(seed)
+        if self.mesh is not None:
+            broadcast_coalesced(self.mesh, list(self.model.state_dict().values()))
         self.optimizer, self.lr_schedule = build_optimizer(self.model, self.model.nc, self.cfg,
                                                            steps_per_epoch)
         self._params = [p for _, p in self.model.named_parameters()]
@@ -128,23 +203,37 @@ class Trainer:
             dst.copy_(src)
         return self._ema_model
 
-    def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+    def to_device(self, batch: Dict, local: bool = False) -> Dict[str, torch.Tensor]:
+        """The batch on the model's device; under a mesh, this rank's rows of
+        a global batch (`local=True`: the batch holds only those rows)."""
+        if self.mesh is not None and not local:
+            return shard_batch(self.mesh, batch)
         dev = self.model.device
         return {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
 
-    def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
+    def all_reduce_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The sums over the ranks of every rank's gradient of its share."""
+        return all_reduce_coalesced(self.mesh, grads)
+
+    def step(self, batch: Dict, local: bool = False) -> Dict[str, torch.Tensor]:
         """The train step (:62): loss, gradients, optimizer, EMA. Returns
         {name: 0-d tensor} metrics, left on the device. A parameter that
         the loss does not reach (a YAML row whose output no later row reads,
         as in yolov13_v3edit5_attn and yolov13_v3edit6) gets a zero
-        gradient, as under jax.grad."""
-        loss, items = train_loss(self.model, self.cfg, self.to_device(batch))
+        gradient, as under jax.grad. Under a mesh the gradients and metrics
+        are the global batch's on every rank."""
+        loss, items = train_loss(self.model, self.cfg, self.to_device(batch, local), self.mesh)
         grads = torch.autograd.grad(loss, self._params, materialize_grads=True)
+        values = torch.stack([loss.detach(), *(v.detach() for v in items)])
+        if self.mesh is not None:
+            grads = self.all_reduce_grads(grads)
+            self.mesh.all_reduce(values)
         self.optimizer.step(grads)
         self.steps += 1
         self.ema_updates += 1.0
         ema_update(self.ema, self._params, self.ema_updates)
-        return {"loss": loss.detach(), **{f"{k}_loss": v.detach() for k, v in items._asdict().items()}}
+        names = ["loss", *(f"{k}_loss" for k in items._fields)]
+        return dict(zip(names, values.unbind()))
 
     def fit(self, train_iter: Iterable, epochs: Optional[int] = None,
             steps_per_epoch: Optional[int] = None, on_epoch_end: Optional[Callable] = None):

@@ -151,8 +151,9 @@ def area_attention_forward(q, k, v, residual=False):
     if q.dtype == torch.bfloat16:
         o32 = torch.empty(o.shape, dtype=torch.float32, device=q.device) if residual else None
         outs = [o.data_ptr(), None if o32 is None else o32.data_ptr(), lse.data_ptr()]
-    err = getattr(_lib(), f"area_attention_fwd_{suffix}")(*_ptrs(q, k, v), *strides, *outs,
-                                                          bb, n, h, hd ** -0.5, dev, stream)
+    with torch.cuda.device(dev):  # the launcher sets the device; torch's comes back after it
+        err = getattr(_lib(), f"area_attention_fwd_{suffix}")(*_ptrs(q, k, v), *strides, *outs,
+                                                              bb, n, h, hd ** -0.5, dev, stream)
     build.check(err, "area_attention" + count)
     launches["area_attention" + count] += 1
     return (o, lse, o32) if residual else (o, lse)
@@ -175,14 +176,16 @@ def area_attention_backward(q, k, v, o, lse, grad):
     suffix, count = _SUFFIX[q.dtype]
     dq, dk, dv = (torch.empty((bb, n, h, hd), dtype=q.dtype, device=q.device) for _ in range(3))
     delta = torch.empty_like(lse)
-    err = getattr(lib, f"area_attention_bwd_dq_{suffix}")(
-        *_ptrs(q, k, v), *strides, *_ptrs(o, lse, grad, dq, delta), bb, n, h, hd ** -0.5, dev,
-        stream)
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"area_attention_bwd_dq_{suffix}")(
+            *_ptrs(q, k, v), *strides, *_ptrs(o, lse, grad, dq, delta), bb, n, h, hd ** -0.5, dev,
+            stream)
     build.check(err, "area_attention_backward_dq" + count)
     launches["area_attention_backward_dq" + count] += 1
-    err = getattr(lib, f"area_attention_bwd_dkv_{suffix}")(
-        *_ptrs(q, k, v), *strides, *_ptrs(lse, grad, delta, dk, dv), bb, n, h, hd ** -0.5, dev,
-        stream)
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"area_attention_bwd_dkv_{suffix}")(
+            *_ptrs(q, k, v), *strides, *_ptrs(lse, grad, delta, dk, dv), bb, n, h, hd ** -0.5, dev,
+            stream)
     build.check(err, "area_attention_backward_dkv" + count)
     launches["area_attention_backward_dkv" + count] += 1
     return dq, dk, dv

@@ -145,10 +145,11 @@ def letterbox_normalize(images_u8, out_hw=(640, 640), pad_value=114, scaleup=Fal
     dev = dev if dev is not None else torch.cuda.current_device()
     plan = _plan(w_in, new_w, h_out, w_out, b, out_dtype,
                  torch.cuda.get_device_properties(dev).multi_processor_count)
-    err = _lib().letterbox_normalize_u8(
-        images_u8.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16), b, h_in, w_in,
-        h_out, w_out, new_h, new_w, top, left, sy, oy, sx, ox, float(pad_value), *plan, dev,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the launcher sets the device; torch's comes back after it
+        err = _lib().letterbox_normalize_u8(
+            images_u8.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16), b, h_in, w_in,
+            h_out, w_out, new_h, new_w, top, left, sy, oy, sx, ox, float(pad_value), *plan, dev,
+            torch.cuda.current_stream(dev).cuda_stream)
     count = "letterbox_normalize" if out_dtype == torch.float32 else "letterbox_normalize_bf16"
     build.check(err, count)
     launches[count] += 1

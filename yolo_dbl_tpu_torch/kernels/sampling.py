@@ -129,8 +129,9 @@ def _forward_kernel(x, gy, gx, padding_mode):
     out = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
     lib = _lib()
     launch = lib.sample_bilinear_f32 if x.dtype == torch.float32 else lib.sample_bilinear_bf16
-    err = launch(x.data_ptr(), gy.data_ptr(), gx.data_ptr(), out.data_ptr(), b, h, w, c, n, g,
-                 int(padding_mode == "zeros"), dev, stream)
+    with torch.cuda.device(dev):  # the launcher sets the device; torch's comes back after it
+        err = launch(x.data_ptr(), gy.data_ptr(), gx.data_ptr(), out.data_ptr(), b, h, w, c, n, g,
+                     int(padding_mode == "zeros"), dev, stream)
     count = _COUNTS[x.dtype][0]
     build.check(err, count)
     launches[count] += 1
@@ -156,12 +157,13 @@ def _backward_kernel(x, gy, gx, grad, padding_mode, taps=None):
             dgy.data_ptr(), dgx.data_ptr(), b, h, w, c, n, g, int(padding_mode == "zeros"), dev,
             stream]
     lib = _lib()
-    if taps is not None:
-        err = lib.sample_bilinear_backward_taps_f32(*args, taps.data_ptr())
-    elif x.dtype == torch.float32:
-        err = lib.sample_bilinear_backward_f32(*args)
-    else:
-        err = lib.sample_bilinear_backward_bf16(*args[:5], dx.data_ptr(), *args[5:])
+    with torch.cuda.device(dev):
+        if taps is not None:
+            err = lib.sample_bilinear_backward_taps_f32(*args, taps.data_ptr())
+        elif x.dtype == torch.float32:
+            err = lib.sample_bilinear_backward_f32(*args)
+        else:
+            err = lib.sample_bilinear_backward_bf16(*args[:5], dx.data_ptr(), *args[5:])
     count = _COUNTS[x.dtype][1]
     build.check(err, count)
     launches[count] += 1

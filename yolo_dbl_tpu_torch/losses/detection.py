@@ -53,10 +53,16 @@ def _df_loss(pred_dist, target, reg_max=16):
 
 def detection_loss(feats: Sequence[torch.Tensor], batch, strides: Tuple[int, ...], nc: int,
                    reg_max: int = 16, box_gain: float = 7.5, cls_gain: float = 0.5,
-                   dfl_gain: float = 1.5, tal_topk: int = 10):
+                   dfl_gain: float = 1.5, tal_topk: int = 10, mesh=None):
     """Total detection loss and its LossItems from raw per-level NHWC Detect
     maps (detection.py:63): targets scaled to input pixels, predictions
-    decoded in grid units, TAL assignment on stride-scaled boxes."""
+    decoded in grid units, TAL assignment on stride-scaled boxes.
+
+    Under a `mesh` (parallel/mesh.py) `feats` and `batch` hold this rank's
+    rows of the global batch: the normalizer `target_scores_sum` is summed
+    over the ranks before its clamp, the total is scaled by the global batch,
+    and the total and items are this rank's shares of JAX's global values
+    (they sum to them over the ranks). The assigner works per image."""
     b = feats[0].shape[0]
     imgsz_h = feats[0].shape[1] * strides[0]
     imgsz_w = feats[0].shape[2] * strides[0]
@@ -87,7 +93,10 @@ def detection_loss(feats: Sequence[torch.Tensor], batch, strides: Tuple[int, ...
     target_bboxes = target_bboxes / stride_tensor[None]
     fg = fg_mask.float()
 
-    target_scores_sum = torch.clamp(target_scores.sum(), min=1.0)
+    target_scores_sum = target_scores.sum()
+    if mesh is not None:
+        mesh.all_reduce(target_scores_sum)
+    target_scores_sum = torch.clamp(target_scores_sum, min=1.0)
 
     # classification BCE over all anchors
     loss_cls = _bce_with_logits(pred_scores, target_scores).sum() / target_scores_sum
@@ -104,5 +113,5 @@ def detection_loss(feats: Sequence[torch.Tensor], batch, strides: Tuple[int, ...
     loss_dfl = (dfl * weight).sum() / target_scores_sum
 
     items = LossItems(box=loss_box * box_gain, cls=loss_cls * cls_gain, dfl=loss_dfl * dfl_gain)
-    total = (items.box + items.cls + items.dfl) * b
+    total = (items.box + items.cls + items.dfl) * (b * (1 if mesh is None else mesh.world))
     return total, items

@@ -8,6 +8,10 @@ maps onto a `state_dict` key by key (utils/convert.py).
   PyTorch's 1e-5; momentum 0.03 is the torch form of flax's 0.97. In
   training it updates the running variance with the biased batch variance,
   as flax does (`BatchNorm` below).
+- Under a data-parallel mesh (`cross_rank`, entered by the trainer for a
+  step) BatchNorm takes its statistics over every rank's rows, as flax's
+  does over JAX's global batch (`CrossRankBatchNorm`); without one the
+  fused path below is unchanged.
 - The TPU-only concat fold (`Conv.call_parts`) and the fused s2d stem are
   not ported: plain concat + conv is the semantics they reproduce.
 - Compute precision is flax's module `dtype` policy (common.py:13-14):
@@ -24,6 +28,7 @@ maps onto a `state_dict` key by key (utils/convert.py).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Union
 
@@ -71,9 +76,14 @@ class BatchNorm(nn.BatchNorm2d):
     as flax's BatchNorm with a bfloat16 `dtype` does.
     """
 
+    mesh = None  # a parallel.Mesh inside `cross_rank`: statistics over every rank's rows
+
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None:
+            return CrossRankBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
+                                            self.running_var, self.momentum, self.eps, self.mesh)
         r1 = self.running_var.clone()
         out = nn.functional.batch_norm(x, self.running_mean, r1, self.weight, self.bias, True,
                                        self.momentum, self.eps)
@@ -81,6 +91,71 @@ class BatchNorm(nn.BatchNorm2d):
             n = x.numel() // x.shape[1]
             self.running_var.mul_((1.0 - self.momentum) / n).add_(r1, alpha=1.0 - 1.0 / n)
         return out
+
+
+class CrossRankBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the rows of every rank of a mesh, as flax's
+    BatchNorm computes it over JAX's global batch: mean and
+    var = max(E[x²] - E[x]², 0) in float32 (flax 0.12.3 `_compute_stats`,
+    `use_fast_variance`), from one all-reduce of [Σx, Σx², n] a layer; the
+    running variance moves toward this biased variance. The backward takes
+    one all-reduce of [Σdy, Σdy·x̂] for the input's gradient, which then
+    holds every rank's share of the loss, and returns this rank's Σdy·x̂ and
+    Σdy as the weight's and bias's gradients (the trainer sums those over the
+    ranks with the others). A bfloat16 input keeps float32 statistics and
+    returns bfloat16; a float64 one computes in float64."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps, mesh):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        xf = x.to(acc)
+        stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims), xf.new_full((1,), x.numel() // c)])
+        mesh.all_reduce(stats)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = (xf - mean.view(shape)) * (invstd * weight.to(acc)).view(shape) + bias.to(acc).view(shape)
+        with torch.no_grad():
+            running_mean.mul_(1.0 - momentum).add_(mean.to(running_mean.dtype), alpha=momentum)
+            running_var.mul_(1.0 - momentum).add_(var.to(running_var.dtype), alpha=momentum)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mesh = mesh
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        xhat = (x.to(mean.dtype) - mean.view(shape)) * invstd.view(shape)
+        dyf = dy.to(mean.dtype)
+        local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
+        dbias, dweight = local[:c].clone(), local[c:].clone()
+        glob = ctx.mesh.all_reduce(local) / n
+        dx = (dyf - glob[:c].view(shape) - xhat * glob[c:].view(shape)) \
+            * (invstd * weight.to(mean.dtype)).view(shape)
+        return (dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(weight.dtype),
+                None, None, None, None, None)
+
+
+@contextlib.contextmanager
+def cross_rank(model: nn.Module, mesh=None):
+    """Inside the block, every BatchNorm of `model` in training takes its
+    statistics over the rows of all of `mesh`'s ranks (`CrossRankBatchNorm`);
+    with no mesh, nothing changes."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)] if mesh is not None else []
+    for m in layers:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in layers:
+            del m.mesh
 
 
 def batch_norm(c: int) -> BatchNorm:
