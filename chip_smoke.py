@@ -152,6 +152,26 @@ Data parallel (parallel/, Trainer(mesh=...); rank bodies in tests/torch_ranks.py
               distance from the float32 one; K2 forward and backward 3
               launches a step on every rank; per rank step ms, all-reduce ms
               and device-busy share.
+The mesh's 'model' axis (parallel/shardings.py, tensor.py, spatial.py):
+ 28. tp       - YOLO-DBL-s (nc=3, 640, float32, TF32 off) tensor-parallel
+              over Gloo on this one card: a 1x2 mesh (2 processes) and a 2x2
+              mesh (4) train 3 steps at global batch 8 through
+              Trainer(mesh=...) against the one-process Trainer, at dp's
+              bars (replicated leaves and whole gathered parameters bit for
+              bit equal on the ranks); each rank holds the specs' share of
+              the parameter, EMA and moment bytes; then the 1x2 ranks serve
+              3 requests of 8 u8 frames through a `shard_variables` model in
+              float32 and bfloat16 (decode against the one-process float32
+              one: 0.05 px and 1e-3, bf16 at parity_bf16's bars; float32
+              kept counts equal); the collectives a step by kind and bytes,
+              with the column -> row pairing and without it (one more step);
+              K2 forward and backward 3 launches a step, K1 once and K2 3
+              times a request, on every rank;
+ 29. sp       - YOLO-DBL-s (nc=3, 640, float32) spatial-parallel over Gloo
+              1x2 on this card: 3 requests of 8 u8 frames through
+              `spatial(model, mesh)` (320 image rows a rank, halo
+              exchanges, DySample and the hypergraph on gathered maps),
+              held as tp's serving; halo and gather bytes a request.
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -2021,6 +2041,204 @@ def phase_dp(card):
     return launches
 
 
+TP_B, TP_STEPS, TP_REQUESTS = 8, 3, 3
+
+
+def _parallel_models(tmp):
+    """The tp and sp phases' YOLO-DBL-s (nc=3, seeded, dropout off) saved to
+    `tmp` for training and, with main's serving settings (`build_models`:
+    FullPAD gates 0.5, Detect class biases 0, so that NMS keeps boxes), for
+    serving; its global batches, 8 u8 frames, and the one-process card
+    decode of their K1 batch in float32 and bfloat16 (TF32 off)."""
+    from yolo_dbl_tpu_torch import DetectionModel
+    from yolo_dbl_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+
+    name, nc = DBL
+    cpu = DetectionModel(name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0))
+    for mod in cpu.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+    state_path = str(Path(tmp) / "parallel_state.pt")
+    torch.save(cpu.state_dict(), state_path)
+    serve_path = str(Path(tmp) / "parallel_serve_state.pt")
+    serve_state = build_models(DBL)[0].state_dict()
+    torch.save(serve_state, serve_path)
+    frames = np.random.default_rng(8).integers(0, 256, (B, *SRC_HW, 3), dtype=np.uint8)
+    refs, kept = {}, {}
+    with tf32_off(), torch.no_grad():
+        for dtype in (torch.float32, BF16):
+            model = DetectionModel(name, nc=nc, device="cuda", dtype=dtype).eval()
+            model.load_state_dict(serve_state)
+            u8 = torch.from_numpy(frames).cuda()
+            refs[dtype] = model.predict(letterbox_normalize(u8, (IMGSZ, IMGSZ),
+                                                            out_dtype=dtype)).float().cpu()
+            kept[dtype] = [len(o) for o in DetectionPredictor(
+                model, conf=0.25, iou=0.45, max_det=300, imgsz=IMGSZ)(frames)]
+            del model
+    torch.cuda.empty_cache()
+    return dict(cpu=cpu, state_path=state_path, serve_path=serve_path, frames=frames, refs=refs,
+                kept=kept,
+                batches=train_batches(np.random.default_rng(7), TP_STEPS, b=TP_B))
+
+
+def _serve_checks(tag, res, setup, dtype, requests, launches_per_request):
+    """The serving bars of a rank's `_serve` result against the one-process
+    float32 decode: float32 boxes < 0.05 px, scores <= 1e-3 and the boxes
+    NMS keeps per image; bfloat16 at parity_bf16's bars (boxes 0.02 of
+    imgsz, scores 0.05); the launches."""
+    ref32 = setup["refs"][torch.float32]
+    want_kept = setup["kept"][dtype]
+    require(sum(res["kept"]) > 0, f"{tag}: no detections: NMS saw no candidates")
+    if dtype == torch.float32:
+        require(res["kept"] == want_kept, f"{tag}: kept {res['kept']}, one process {want_kept}")
+    if res["decode"] is not None:
+        box, score = _boxes_scores(res["decode"], ref32)
+        res["box_max_abs_px"], res["score_max_abs"] = box, score
+        bars = (0.05, 1e-3) if dtype == torch.float32 else (0.02 * IMGSZ, 0.05)
+        require(res["decode"].shape == ref32.shape and bool(torch.isfinite(res["decode"]).all()),
+                f"{tag}: decode {tuple(res['decode'].shape)}, one process {tuple(ref32.shape)}")
+        require(box < bars[0] and score <= bars[1],
+                f"{tag}: boxes {box} px (< {bars[0]}), scores {score} (<= {bars[1]}) "
+                "against the one-process float32 decode")
+        res["decode"] = None
+    want = {k: v * requests for k, v in launches_per_request.items() if v}
+    require(res["launches"] == want, f"{tag}: launches {res['launches']}, expected {want}")
+
+
+def _model_bytes_share(cpu, n_model):
+    """The share of the parameter bytes a rank holds under the specs at
+    n_model: the replicated leaves whole, the sharded ones 1 / n_model."""
+    from yolo_dbl_tpu_torch.parallel import Mesh, model_parallel_shardings
+
+    specs = model_parallel_shardings(cpu, Mesh(0, n_model, torch.device("cpu"), n_model=n_model))
+    whole = {n: p.numel() * p.element_size() for n, p in cpu.named_parameters()}
+    return sum(b / (n_model if specs[n] else 1) for n, b in whole.items()) / sum(whole.values())
+
+
+def phase_tp(card, tmp, setup):
+    """Tensor parallelism of YOLO-DBL-s (nc=3, 640) over Gloo ranks on this
+    one card (NCCL refuses two ranks on one card): (a) a 1x2 mesh (2
+    processes) and (b) a 2x2 mesh (4 processes) train 3 steps at global
+    batch 8, float32 with TF32 off, against the one-process Trainer on the
+    same weights and batches at the dp phase's bars (`check_dp_float32`);
+    (a) then serves 3 requests of 8 u8 frames in float32 and bfloat16
+    through a model `shard_variables` sharded (K1, the forward, decode,
+    NMS): its decode against the one-process float32 decode at the parity
+    bars (bfloat16: parity_bf16's). K2 forward and backward launch 3 times
+    a step on every rank, K1 once and K2 3 times a request. Printed: each
+    rank's bytes of parameters, EMA and moments against the one-process
+    bytes, the collectives a step by kind and bytes with and without the
+    column -> row pairing, step and request ms and device-busy shares."""
+    from tests.torch_ranks import card_steps, check_dp_float32, launch, tp_card_rank
+
+    t_start = time.perf_counter()
+    name, nc = DBL
+    cpu, batches, frames = setup["cpu"], setup["batches"], setup["frames"]
+    g64 = {}
+
+    def float64():
+        if not g64:
+            from yolo_dbl_tpu_torch.cfg import get_cfg
+
+            g64.update(_float64_grads(cpu, get_cfg(), batches[0])[1])
+        return g64
+
+    from yolo_dbl_tpu_torch import DetectionModel
+
+    with tf32_off():
+        model = DetectionModel(name, nc=nc, device="cuda")
+        model.load_state_dict(cpu.state_dict())
+        one = card_steps(model, batches, profile=True)
+        del model
+        torch.cuda.empty_cache()
+        runs = {}
+        for mesh_name, world, serve in (("1x2", 2, True), ("2x2", 4, False)):
+            runs[mesh_name] = launch(tp_card_rank, world, name, nc, setup["state_path"], batches,
+                                     frames, IMGSZ, TP_REQUESTS, serve, setup["serve_path"],
+                                     devices="cuda:0", backend="gloo", timeout=900, workdir=tmp,
+                                     n_model=2)
+    checks = {k: check_dp_float32(one, [r["train"] for r in ranks], float64, n_model=2)
+              for k, ranks in runs.items()}
+    share = _model_bytes_share(cpu, 2)
+    per_step = {k: v * TP_STEPS for k, v in PER_STEP[DBL, torch.float32].items() if v}
+    launches, serving, memory, collectives, timing = {}, {}, {}, {}, {}
+    for mesh_name, ranks in runs.items():
+        for i, r in enumerate(ranks):
+            tag = f"tp_{mesh_name}_rank{i}"
+            t = r["train"]
+            launches[f"{mesh_name}_train_rank{i}"] = t["launches"]
+            require(t["launches"] == per_step,
+                    f"{tag}: train launches {t['launches']}, expected {per_step} in {TP_STEPS} steps")
+            memory[tag] = {"local_bytes": t["local_bytes"], "whole_bytes": t["whole_bytes"],
+                           "share": t["local_bytes"] / t["whole_bytes"]}
+            require(abs(t["local_bytes"] / t["whole_bytes"] - share) < 1e-6,
+                    f"{tag}: holds {t['local_bytes'] / t['whole_bytes']} of the bytes, the specs "
+                    f"give {share}")
+            timing[tag] = {"step_ms": t["step_ms"], "median_ms": statistics.median(t["step_ms"][1:]),
+                           "allreduce_ms": t["allreduce_ms"], "device_ms": t["device_ms"],
+                           "profiled_step_ms": t["profiled_step_ms"],
+                           "device_busy_share": t["device_busy_share"]}
+            if i == 0:
+                collectives[mesh_name] = {
+                    "paired_per_step": {k: [v[0] / TP_STEPS, v[1] / TP_STEPS]
+                                        for k, v in t["collectives"].items()},
+                    "unpaired_per_step": r["unpaired"], "pairs": len(t["pairs"]),
+                    "sharded_leaves": t["sharded"]}
+            for dt in ("float32", "bfloat16"):
+                if dt not in r:
+                    continue
+                dtype = getattr(torch, dt)
+                res = r[dt]
+                _serve_checks(f"{tag} {dt}", res, setup, dtype, TP_REQUESTS, PER_REQUEST[DBL, dtype])
+                if res.get("box_max_abs_px") is not None and dtype == BF16:
+                    res["one_process_bf16_vs_f32"] = _boxes_scores(setup["refs"][BF16],
+                                                                   setup["refs"][torch.float32])
+                launches[f"{mesh_name}_serve_{dt}_rank{i}"] = res["launches"]
+                serving[f"{tag}_{dt}"] = {k: v for k, v in res.items() if k not in ("decode", "launches")}
+    emit({"phase": "tp", "model": name[:-5], "nc": nc, "imgsz": IMGSZ, "global_batch": TP_B,
+          "steps": TP_STEPS, "requests": TP_REQUESTS, "backend": "gloo", "tf32": False,
+          "meshes": {k: len(v) for k, v in runs.items()},
+          "float32": {k: v[0] for k, v in checks.items()}, "bytes_share_of_specs": share,
+          "memory": memory, "collectives": collectives, "serve": serving,
+          "timing": {"one_process": {"step_ms": one["step_ms"],
+                                     "median_ms": statistics.median(one["step_ms"][1:]),
+                                     "device_ms": one["device_ms"],
+                                     "device_busy_share": one["device_busy_share"]}, **timing},
+          "launches": launches, "wall_s": time.perf_counter() - t_start, "card": card})
+    for k, (_, failures) in checks.items():
+        require(not failures, f"tp {k} against the one-process step: {failures}")
+    return launches
+
+
+def phase_sp(card, tmp, setup):
+    """Spatial parallelism of YOLO-DBL-s (nc=3, 640, float32, TF32 off) over
+    Gloo at world 2 on this one card (a 1x2 mesh, 320 image rows a rank):
+    3 requests of 8 u8 frames through `spatial(model, mesh)` (K1 on the
+    whole frames, the forward on row shards with halos, DySample and the
+    hypergraph on gathered maps: K2 3 times a request on every rank); its
+    decode against the one-process float32 decode at the parity bars. Prints
+    the halo and gather bytes a request, request ms and device-busy share."""
+    from tests.torch_ranks import launch, sp_card_rank
+
+    t_start = time.perf_counter()
+    name, nc = DBL
+    ranks = launch(sp_card_rank, 2, name, nc, setup["serve_path"], setup["frames"], IMGSZ,
+                   TP_REQUESTS, devices="cuda:0", backend="gloo", timeout=600, workdir=tmp,
+                   n_model=2)
+    launches = {}
+    for i, res in enumerate(ranks):
+        _serve_checks(f"sp rank{i}", res, setup, torch.float32, TP_REQUESTS,
+                      PER_REQUEST[DBL, torch.float32])
+        launches[f"serve_rank{i}"] = res.pop("launches")
+        res.pop("decode")
+    emit({"phase": "sp", "model": name[:-5], "nc": nc, "imgsz": IMGSZ, "batch": B,
+          "requests": TP_REQUESTS, "backend": "gloo", "world": 2, "mesh": "1x2", "tf32": False,
+          "ranks": ranks, "launches": launches, "wall_s": time.perf_counter() - t_start,
+          "card": card})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -2088,6 +2306,13 @@ def main():
     family = phase_family(card)
     facade.update(phase_facade_dbl2(card))
     dp = phase_dp(card)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        setup = _parallel_models(tmp)
+        tp = phase_tp(card, tmp, setup)
+        sp = phase_sp(card, tmp, setup)
+        del setup
     # launches: per the path's run (5 requests; 10 train steps) on the path each row serves
     f32, bf16 = torch.float32, BF16
     home = {"letterbox_normalize": serve[DBL, f32], "sample_bilinear": serve[DBL, f32],
@@ -2112,7 +2337,11 @@ def main():
                                        **{f"family_{cfg[9:-5]}": runs.get(name, 0)
                                           for cfg, runs in family.items()},
                                        **{f"dp_{path}": runs.get(name, 0)
-                                          for path, runs in dp.items()})
+                                          for path, runs in dp.items()},
+                                       **{f"tp_{path}": runs.get(name, 0)
+                                          for path, runs in tp.items()},
+                                       **{f"sp_{path}": runs.get(name, 0)
+                                          for path, runs in sp.items()})
     # how often torch.profiler's trace had to be taken again, or gave way
     # to CUDA-event time (each row's `time_sources` says which it holds)
     emit({"phase": "timing", **TRACES})

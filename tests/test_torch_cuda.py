@@ -847,6 +847,58 @@ def test_dp_gloo_two_ranks_on_one_card_match_one_process(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_tp_and_sp_gloo_two_ranks_on_one_card_match_one_process(cuda, tmp_path):
+    """chip_smoke.py's tp and sp phases at 128 px: YOLO-DBL-s (nc=3) over a
+    Gloo 1x2 mesh of two processes on this card. TP: 2 steps of
+    Trainer(mesh=...) at global batch 4 against the one-process Trainer on
+    the same weights and batches (TF32 off), at the dp phase's bars; each
+    rank holds the specs' share of the parameter bytes; K2's forward and
+    backward 3 launches a step on each rank. SP: 2 requests of 4 u8 frames
+    through `spatial(model, mesh)`: the decode within 0.05 px and 1e-3 of
+    the one-process decode, K1 once and K2 3 times a request on each rank."""
+    from chip_smoke import _float64_grads, _model_bytes_share, train_batches
+    from tests.torch_ranks import card_steps, check_dp_float32, dp_card_rank, launch, sp_card_rank
+    from yolo_dbl_tpu_torch import DetectionModel
+    from yolo_dbl_tpu_torch.cfg import get_cfg
+
+    name, steps, imgsz = "yolov13s_DBL.yaml", 2, 128
+    cpu = DetectionModel(name, nc=3, device="cpu", generator=torch.Generator().manual_seed(0))
+    for mod in cpu.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+    batches = train_batches(np.random.default_rng(5), steps, b=4, imgsz=imgsz)
+    state_path = str(tmp_path / "state.pt")
+    torch.save(cpu.state_dict(), state_path)
+    gpu = DetectionModel(name, nc=3, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    frames = np.random.default_rng(6).integers(0, 256, (4, 96, 160, 3), dtype=np.uint8)
+    try:
+        one = card_steps(gpu, batches)
+        gpu.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            ref = gpu.eval().predict(TP.letterbox_normalize(torch.from_numpy(frames).to(cuda),
+                                                            (imgsz, imgsz))).float().cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    del gpu
+    ranks = launch(dp_card_rank, 2, name, 3, ["float32"], state_path, batches, devices="cuda:0",
+                   backend="gloo", timeout=600, workdir=tmp_path, n_model=2)
+    ranks = [r["float32"] for r in ranks]
+    readings, failures = check_dp_float32(
+        one, ranks, lambda: _float64_grads(cpu, get_cfg(), batches[0])[1], n_model=2)
+    assert not failures, (failures, readings)
+    want = {"sample_bilinear": 3 * steps, "sample_bilinear_backward": 3 * steps}
+    assert one["launches"] == want and all(r["launches"] == want for r in ranks)
+    share = _model_bytes_share(cpu, 2)
+    assert all(abs(r["local_bytes"] / r["whole_bytes"] - share) < 1e-9 for r in ranks)
+    sp = launch(sp_card_rank, 2, name, 3, state_path, frames, imgsz, 2, devices="cuda:0",
+                backend="gloo", timeout=600, workdir=tmp_path, n_model=2)
+    assert float((sp[0]["decode"][:, :4] - ref[:, :4]).abs().max()) < 0.05
+    assert float((sp[0]["decode"][:, 4:] - ref[:, 4:]).abs().max()) <= 1e-3
+    assert all(r["launches"] == {"letterbox_normalize": 2, "sample_bilinear": 6} for r in sp)
+
+
+@pytest.mark.cuda
 def test_kernel_launches_leave_the_current_device(cuda):
     """Each launcher sets the CUDA device of its tensors; the wrappers run it
     inside torch.cuda.device, so a launch on another card's tensors leaves

@@ -143,8 +143,8 @@ def test_mesh_of_one_process_and_its_errors():
     mesh = make_mesh(devices="cpu")
     assert (mesh.rank, mesh.world, mesh.device, mesh.group) == (0, 1, CPU, None)
     assert mesh.shape == {"data": 1, "model": 1} and mesh.is_main
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        make_mesh(n_data=1, n_model=2, devices="cpu")
+    with pytest.raises(ValueError, match="n_model=2, but the process group has 1 ranks"):
+        make_mesh(n_data=1, n_model=2, devices="cpu")  # one process makes no 1x2 mesh
     with pytest.raises(ValueError, match="n_data=2"):
         make_mesh(n_data=2, devices="cpu")
     with pytest.raises(RuntimeError, match="NCCL needs a CUDA card"):

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 
-def _rank_main(fn, rank, world, init_method, backend, devices, args, out_path):
+def _rank_main(fn, rank, world, init_method, backend, devices, args, out_path, n_model=1):
     import torch.distributed as dist
 
     from yolo_dbl_tpu_torch.parallel import distributed_init, make_mesh
@@ -29,7 +29,7 @@ def _rank_main(fn, rank, world, init_method, backend, devices, args, out_path):
     torch.set_num_threads(1)
     try:
         distributed_init(init_method, world, rank, backend)
-        result = {"ok": fn(make_mesh(devices=devices, backend=backend), *args)}
+        result = {"ok": fn(make_mesh(n_model=n_model, devices=devices, backend=backend), *args)}
     except BaseException:  # noqa: BLE001 - the parent raises it with the traceback
         result = {"error": traceback.format_exc()}
     torch.save(result, out_path)
@@ -37,17 +37,18 @@ def _rank_main(fn, rank, world, init_method, backend, devices, args, out_path):
         dist.destroy_process_group()
 
 
-def launch(fn, world, *args, devices="cpu", backend="gloo", timeout=600.0, workdir=None):
+def launch(fn, world, *args, devices="cpu", backend="gloo", timeout=600.0, workdir=None,
+           n_model=1):
     """[fn(mesh, *args) of rank 0, ..., of rank world-1], each in a process of
-    its own; raises with the child's traceback if a rank fails, and kills
-    every rank after `timeout` seconds."""
+    its own on a mesh of world / n_model x n_model; raises with the child's
+    traceback if a rank fails, and kills every rank after `timeout` seconds."""
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         tmp = Path(tmp)
         outs = [tmp / f"rank{r}.pt" for r in range(world)]
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, world, f"file://{tmp / 'store'}", backend, devices,
-                                   args, str(outs[r])))
+                                   args, str(outs[r]), n_model))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -233,7 +234,7 @@ def record_max_choices(model):
     return choices, remove
 
 
-def card_steps(model, batches, mesh=None, profile=False):
+def card_steps(model, batches, mesh=None, profile=False, pair=True):
     """`Trainer` steps of `model` over the global `batches` on the card, one
     process (`mesh` None) or one rank of a mesh; TF32 off. Returns the loss
     items of each step, the first step's gradient as the optimizer took it
@@ -242,7 +243,13 @@ def card_steps(model, batches, mesh=None, profile=False):
     the steps, a checksum of every parameter, the kernels' launch counts,
     each step's ms on the host clock and each step's ms in the gradients'
     all-reduce (CUDA events), and with `profile` the device-busy share of
-    one more step and its operations of most host time."""
+    one more step and its operations of most host time. Under a mesh with
+    a 'model' axis (the Trainer shards the model; `pair` as `Trainer.pair`)
+    the gradients and the checksum are of whole leaves (gathered), and the
+    results add this rank's bytes of parameters, EMA and moments against
+    the whole ones, the pairs, and the collectives of the steps by kind
+    ({"<op>:<axis>": [calls, bytes]})."""
+
     from yolo_dbl_tpu_torch import kernels
     from yolo_dbl_tpu_torch.engine.trainer import Trainer
 
@@ -250,7 +257,11 @@ def card_steps(model, batches, mesh=None, profile=False):
     for m in model.modules():
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
-    trainer = Trainer(model, {"batch": len(batches[0]["img"])}, mesh=mesh).setup(steps_per_epoch=100)
+    whole_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    trainer = Trainer(model, {"batch": len(batches[0]["img"])}, mesh=mesh)
+    trainer.pair = pair
+    trainer.setup(steps_per_epoch=100)
+    tp = trainer.tp
     first, reduce_ms = [], []
     step = trainer.optimizer.step
 
@@ -275,6 +286,8 @@ def card_steps(model, batches, mesh=None, profile=False):
         trainer.all_reduce_grads = timed
     torch.cuda.synchronize()
     kernels.reset_launches()
+    if mesh is not None:
+        mesh.collectives.clear()
     losses, step_ms = [], []
     choices, remove = record_max_choices(model)
     for b in batches:
@@ -285,12 +298,25 @@ def card_steps(model, batches, mesh=None, profile=False):
         losses.append(metrics)
         remove()
     launches = {k: v for k, v in kernels.launches.items() if v}
+    steps_collectives = {k: list(v) for k, v in (mesh.collectives if mesh else {}).items()}
     names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    if tp is not None:  # whole leaves: a collective on every rank
+        first = [tp.gather_leaf(n, g) for n, g in zip(names, first)]
+        params = [tp.gather_leaf(n, p) for n, p in zip(names, params)]
     out = dict(losses=losses, grads=dict(zip(names, first)),
                stats={k: v.detach().cpu() for k, v in model.state_dict().items()
                       if k.endswith(("_mean", "_var"))},
-               checksum=checksum(p for _, p in model.named_parameters()), launches=launches,
-               step_ms=step_ms, allreduce_ms=reduce_ms, max_choices=choices)
+               checksum=checksum(params), launches=launches,
+               step_ms=step_ms, allreduce_ms=reduce_ms, max_choices=choices,
+               collectives=steps_collectives)
+    if tp is not None:
+        opt = trainer.optimizer.state_dict()
+        moments = [t for k in ("trace", "mu", "nu", "acc") for t in (opt.get(k) or [])]
+        per_copy = 2 + len(moments) // len(names)
+        out.update(local_bytes=sum(t.numel() * t.element_size()
+                                   for t in [*trainer._params, *trainer.ema, *moments]),
+                   whole_bytes=per_copy * whole_bytes, pairs=tp.pairs, sharded=len(tp.dims))
     if profile:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as trace
@@ -342,7 +368,8 @@ def max_choice_flips(one, ranks):
     return {k: v for k, v in flips.items() if v}
 
 
-def check_dp_float32(one, ranks, float64=None, loss_rel=1e-4, grad_bar=1e-3, stats_bar=1e-4):
+def check_dp_float32(one, ranks, float64=None, loss_rel=1e-4, grad_bar=1e-3, stats_bar=1e-4,
+                     n_model=1):
     """The dp phase's float32 bars, a rank run (`ranks`: card_steps of each
     rank) against the one-process run `one` on the same weights and global
     batches: loss items of every step within `loss_rel`; the first step's
@@ -355,10 +382,12 @@ def check_dp_float32(one, ranks, float64=None, loss_rel=1e-4, grad_bar=1e-3, sta
     excused only inside a module whose max went to another element in the
     two runs (`max_choice_flips`: a float32 near-tie resolved the other way
     sends that position's gradient elsewhere, a jump no float64 reference
-    can split); the readings list those leaves and the flips. Returns the
-    readings and the failures ({} when all hold)."""
+    can split); the readings list those leaves and the flips. With a
+    'model' axis of `n_model` ranks, every n_model-th rank holds a data
+    coordinate's rows. Returns the readings and the failures ({} when all
+    hold)."""
     g1, gd = one["grads"], ranks[0]["grads"]
-    flips = max_choice_flips(one, ranks)
+    flips = max_choice_flips(one, ranks[::n_model])
     loss_err = max(abs(d[k] - o[k]) / max(abs(o[k]), 1e-30)
                    for r in ranks for d, o in zip(r["losses"], one["losses"]) for k in o)
     rel = {n: float((gd[n] - g1[n]).abs().max() / max(float(g1[n].abs().max()), 1e-30))
@@ -428,3 +457,245 @@ def check_dp_bf16(f32, one16, dp16, fed, n_fed):
 def all_reduce_rank(mesh):
     """One all-reduce of a one on this rank's device: the world size."""
     return float(mesh.all_reduce(torch.ones(1, device=mesh.device)))
+
+
+# ------------------------------------------------ tensor and spatial parallelism
+
+
+def _model_from(mesh, cfg, nc, weights, dtype="float32"):
+    """DetectionModel `cfg` on this rank's device with `weights` (JAX
+    variables as nested numpy dicts, or a state_dict) and dropout off."""
+    from yolo_dbl_tpu_torch import DetectionModel
+    from yolo_dbl_tpu_torch.utils.convert import load_jax_variables
+
+    model = DetectionModel(cfg, nc=nc, device=mesh.device, dtype=getattr(torch, dtype))
+    if "params" in weights:
+        load_jax_variables(model, weights)
+    else:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in weights.items()})
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def tp_predict_rank(mesh, cfg, nc, weights, x, pairs=(True,), dtype="float32"):
+    """`DetectionModel.predict` of `shard_variables(model, mesh, pair=...)`
+    on the NHWC images `x` (this rank's data rows), for each setting in
+    `pairs`: {pair: the prediction, the pairs, this rank's parameter bytes
+    and the collectives of the predict}."""
+    from yolo_dbl_tpu_torch.parallel import local_rows, shard_variables
+
+    out = {}
+    for pair in pairs:
+        model = _model_from(mesh, cfg, nc, weights, dtype)
+        shard_variables(model, mesh, pair=pair)
+        mesh.collectives.clear()
+        pred = model.predict(torch.as_tensor(x[local_rows(mesh, len(x))]).to(mesh.device))
+        out[pair] = dict(pred=_numpy(pred), pairs=model.tp.pairs,
+                         param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+                         collectives={k: list(v) for k, v in mesh.collectives.items()})
+    return out
+
+
+def sp_predict_rank(mesh, cfg, nc, weights, x, dtype="float32"):
+    """`DetectionModel.predict` under `spatial(model, mesh)` on the NHWC
+    images `x` (this rank's data rows; the context takes the model
+    coordinate's image rows): the prediction and the halo and gather bytes."""
+    from yolo_dbl_tpu_torch.parallel import local_rows
+    from yolo_dbl_tpu_torch.parallel.spatial import spatial
+
+    model = _model_from(mesh, cfg, nc, weights, dtype)
+    with spatial(model, mesh) as sp:
+        pred = model.predict(torch.as_tensor(x[local_rows(mesh, len(x))]).to(mesh.device))
+    return dict(pred=_numpy(pred), halo_bytes=sp.halo_bytes, gather_bytes=sp.gather_bytes)
+
+
+def tp_trainer_rank(mesh, cfg, nc, weights, overrides, spe, batches, ckpt=None, ckpt_after=1,
+                    restore=None):
+    """`Trainer(mesh=...)` steps over the global `batches` on a mesh with a
+    'model' axis from `weights` (dropout off), or from the checkpoint
+    `restore` after `setup`. Returns the losses, rank 0's whole parameters
+    (gathered, `state_dict()`) before and after each step, its final whole
+    state, this rank's bytes of parameters, EMA and moments, the specs'
+    count of them, and a checksum of this rank's replicated leaves
+    (parameters, EMA, moments) and statistics; with `ckpt`, rank 0 writes
+    the state after `ckpt_after` steps there (utils/checkpoint.py)."""
+    from yolo_dbl_tpu_torch.engine.trainer import Trainer
+    from yolo_dbl_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model = _model_from(mesh, cfg, nc, weights)
+    whole = {n: p.numel() * p.element_size() for n, p in model.named_parameters()}
+    trainer = Trainer(model, overrides, mesh=mesh).setup(spe)
+    if restore is not None:
+        trainer.restore(restore)
+    tp = trainer.tp
+    keep = mesh.rank == 0
+
+    def params():
+        state = trainer.state_dict()
+        return {n: _numpy(p) for n, p in state["params"].items()} if keep else None
+
+    trace = [params()]
+    losses = []
+    for i, b in enumerate(batches):
+        losses.append({k: float(v) for k, v in trainer.step(b).items()})
+        trace.append(params())
+        if ckpt is not None and i + 1 == ckpt_after:
+            state = trainer.state_dict()  # every rank gathers; rank 0 writes
+            if keep:
+                save_checkpoint(ckpt, state, epoch=0)
+    state = trainer.state_dict()
+    names = [n for n, _ in model.named_parameters()]
+    opt = trainer.optimizer.state_dict()
+    moments = [t for k in ("trace", "mu", "nu", "acc") for t in (opt.get(k) or [])]
+    per_copy = 1 + 1 + len(moments) // len(names)  # parameters, EMA, each moment
+    local = sum(t.numel() * t.element_size()
+                for t in [*trainer._params, *trainer.ema, *moments])
+    want = per_copy * sum(b // (mesh.n_model if n in tp.dims else 1) for n, b in whole.items())
+    replicated = [i for i, n in enumerate(names) if n not in tp.dims]
+    sums = checksum([*(trainer._params[i] for i in replicated), *(trainer.ema[i] for i in replicated),
+                     *(m for k in ("trace", "mu", "nu") for j, m in enumerate(opt.get(k) or [])
+                       if j in replicated),
+                     *state["batch_stats"].values()])
+    return dict(losses=losses, params=trace, checksum=sums, local_bytes=local, spec_bytes=want,
+                whole_bytes=per_copy * sum(whole.values()), sharded=len(tp.dims),
+                pairs=tp.pairs, steps=trainer.steps, training=model.training,
+                batch_stats={k: _numpy(v) for k, v in state["batch_stats"].items()} if keep else None,
+                ema={n: _numpy(e) for n, e in state["ema_params"].items()} if keep else None,
+                opt={k: [_numpy(t) for t in v] for k, v in state["opt_state"].items()
+                     if isinstance(v, list)} if keep else None)
+
+
+def mesh_rank(mesh):
+    """This rank's view of a two-axis mesh: coordinates, the sums of a one
+    over each axis and the world, its model row's ranks gathered, its rows
+    of 8 global rows, and the sample ids of its first `MultiHostLoader`
+    batch (global batch 8 of 16 samples)."""
+    from yolo_dbl_tpu_torch.parallel import MultiHostLoader, local_rows
+
+    one = lambda: torch.ones(1, device=mesh.device)  # noqa: E731
+    ds = [{"y": np.int32(i)} for i in range(16)]
+    first = next(iter(MultiHostLoader(ds, global_batch=8, mesh=mesh, seed=0)))
+    rank = torch.tensor([float(mesh.rank)], device=mesh.device)
+    world = one()
+    torch.distributed.all_reduce(world)
+    return dict(coords=mesh.coords, shape=mesh.shape, sum_data=float(mesh.all_reduce(one())),
+                sum_model=float(mesh.all_reduce(one(), axis="model")), sum_world=float(world),
+                gather_model=[int(v) for v in mesh.all_gather(rank, axis="model")],
+                rows=list(range(8))[local_rows(mesh, 8)], loader=first["y"].tolist())
+
+
+# ------------------------------------------------ the card: the tp and sp phases
+
+
+def _busy(fn):
+    """(wall ms, device ms, device-busy share) of one call of fn on the card
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and not e.key.startswith("ProfilerStep")) / 1e3
+    return wall, device, device / wall
+
+
+def _serve(model, frames, imgsz, requests, out_dtype, mesh, sp=None):
+    """Requests of the u8 `frames` through DetectionPredictor (K1, the
+    forward, the decode, NMS) on the card: each request's ms, the kernels'
+    launches and the collectives a request, the device-busy share of one
+    more request, the boxes kept per image and the decode of the K1 batch
+    (float32, on the CPU)."""
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+
+    pred = DetectionPredictor(model, conf=0.25, iou=0.45, max_det=300, imgsz=imgsz)
+    pred(frames)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    mesh.collectives.clear()
+    halo0 = (sp.halo_bytes, sp.gather_bytes) if sp is not None else (0, 0)
+    ms, kept = [], None
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        out = pred(frames)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        kept = [len(o) for o in out]
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    per_request = {k: [v[0] / requests, v[1] / requests]
+                   for k, v in mesh.collectives.items()}
+    res = dict(request_ms=ms, launches=launches, collectives_per_request=per_request, kept=kept)
+    if sp is not None:
+        res.update(halo_bytes_per_request=(sp.halo_bytes - halo0[0]) / requests,
+                   gather_bytes_per_request=(sp.gather_bytes - halo0[1]) / requests)
+    wall, device, share = _busy(lambda: pred(frames))
+    res.update(profiled_request_ms=wall, device_ms=device, device_busy_share=share)
+    u8 = torch.from_numpy(frames).to(model.device)
+    res["decode"] = model.predict(letterbox_normalize(u8, (imgsz, imgsz),
+                                                      out_dtype=out_dtype)).float().cpu()
+    return res
+
+
+def tp_card_rank(mesh, cfg, nc, state_path, batches, frames, imgsz, requests, serve=True,
+                 serve_path=None):
+    """The tp phase on this rank of a mesh with a 'model' axis: `card_steps`
+    of the Trainer (which shards the model; float32, TF32 off, a profiled
+    step) from the weights in `state_path`, the collectives of one more
+    step with the pairing off, and with `serve` requests of the u8 `frames`
+    through a model (weights in `serve_path`, else `state_path`) sharded by
+    `shard_variables`, in float32 and bfloat16 (`_serve`); the gradients
+    and decodes on rank 0 only."""
+    from yolo_dbl_tpu_torch import DetectionModel
+    from yolo_dbl_tpu_torch.parallel import shard_variables
+
+    def fresh(dtype=torch.float32, path=state_path):
+        model = DetectionModel(cfg, nc=nc, device=mesh.device, dtype=dtype)
+        model.load_state_dict(torch.load(path, map_location=mesh.device, weights_only=True))
+        return model
+
+    out = {"train": card_steps(fresh(), batches, mesh, profile=True)}
+    torch.cuda.empty_cache()
+    out["unpaired"] = card_steps(fresh(), batches[:1], mesh, pair=False)["collectives"]
+    torch.cuda.empty_cache()
+    if serve:
+        for dtype in (torch.float32, torch.bfloat16):
+            with torch.no_grad():
+                model = shard_variables(fresh(dtype, serve_path or state_path).eval(), mesh)
+            res = _serve(model, frames, imgsz, requests, dtype, mesh)
+            res["pairs"] = len(model.tp.pairs)
+            out[str(dtype).split(".")[-1]] = res
+            del model
+            torch.cuda.empty_cache()
+    if mesh.rank:
+        out["train"]["grads"] = None
+        for k in ("float32", "bfloat16"):
+            if k in out:
+                out[k]["decode"] = None
+    return out
+
+
+def sp_card_rank(mesh, cfg, nc, state_path, frames, imgsz, requests):
+    """The sp phase on this rank: requests of the u8 `frames` through a
+    float32 model inside `spatial(model, mesh)` (`_serve`, with the halo and
+    gather bytes a request); the decode on rank 0 only."""
+    from yolo_dbl_tpu_torch import DetectionModel
+    from yolo_dbl_tpu_torch.parallel.spatial import spatial
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    model = DetectionModel(cfg, nc=nc, device=mesh.device)
+    model.load_state_dict(torch.load(state_path, map_location=mesh.device, weights_only=True))
+    with spatial(model, mesh) as sp:
+        res = _serve(model, frames, imgsz, requests, torch.float32, mesh, sp)
+    if mesh.rank:
+        res["decode"] = None
+    return res

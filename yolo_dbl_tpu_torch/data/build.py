@@ -66,9 +66,10 @@ class DataLoader:
     letterboxed pixels, classes, ``ratio_pad``, ``orig_shape``).
 
     With a ``mesh`` (parallel/mesh.py) ``batch_size`` is the global batch and
-    each batch holds this rank's rows of it (rank r of N: rows r B/N to
-    (r + 1) B/N), bit for bit those rows of the one-process loader's batch,
-    so the ranks' batches joined in rank order are the global batch. With
+    each batch holds the rows of this rank's data coordinate (d of N: rows
+    d B/N to (d + 1) B/N), bit for bit those rows of the one-process
+    loader's batch, so the data ranks' batches joined in order are the
+    global batch. With
     ``workers > 1`` a rank spawns every row's generator of the batch and
     draws only its own rows. The sequential stream (``workers <= 1``) draws
     the rows one after another from one generator, so there a rank makes the
@@ -81,9 +82,9 @@ class DataLoader:
                  prefetch: int = 2, workers: int = 0, mesh=None):
         if getattr(dataset, "task", "detect") != "detect":
             raise NotImplementedError(f"only detect batches are ported, got task {dataset.task!r}")
-        if mesh is not None and batch_size % mesh.world:
+        if mesh is not None and batch_size % mesh.n_data:
             raise ValueError(f"a global batch of {batch_size} does not split over "
-                             f"{mesh.world} ranks")
+                             f"{mesh.n_data} ranks")
         self.mesh = mesh
         self.dataset = dataset
         self.batch_size = batch_size

@@ -16,10 +16,13 @@ epoch, `results.csv`, `best.ckpt` (deploy), `last.ckpt` and
 state and the epoch from `last.ckpt`. The JAX facade chunks its steps into
 `lax.scan` dispatches, which is numerically a loop of steps; the port steps
 one batch at a time. `train(data, mesh=make_mesh())` in every process of a
-`torchrun` launch trains data-parallel (engine/trainer.py): `batch` is the
-global batch, each rank loads its rows, rank 0 alone validates, writes the
-run directory and runs the callbacks, and every rank returns the same
-history. Only detection models are ported; `track`, `export`
+`torchrun` launch trains data-parallel, and with `make_mesh(n_data,
+n_model)` tensor-parallel as well (engine/trainer.py): `batch` is the
+global batch, each rank loads its data coordinate's rows, rank 0 alone
+(with a 'model' axis, the model ranks of data coordinate 0 together)
+validates, rank 0 alone writes the run directory, whose checkpoints hold
+whole leaves in the one-process layout, and runs the callbacks, and every
+rank returns the same history. Only detection models are ported; `track`, `export`
 and `benchmark` wait for the trackers and the exporter (ROADMAP Queue 1
 item 6).
 """
@@ -92,13 +95,17 @@ class YOLO:
     def train(self, data: Union[str, Path], mesh=None, **overrides) -> Dict:
         """Train on a YOLO-format dataset; returns {history, best_fitness,
         run_dir}. With a `mesh` (parallel/mesh.py), this process is one rank
-        of a data-parallel run (module note); the model moves to the rank's
-        device."""
+        of a parallel run (module note); the model moves to the rank's
+        device, and with a 'model' axis the trainer shards it (the facade
+        then holds the tensor-parallel EMA model)."""
         from ..data.build import DataLoader
         from ..data.dataset import YOLODataset
         from ..utils import set_verbosity
 
         main = mesh is None or mesh.is_main
+        # the ranks that validate: rank 0 alone, or under tensor parallelism
+        # the model ranks of data coordinate 0, whose sharded forward is one
+        validates = main or (mesh.n_model > 1 and mesh.coords["data"] == 0)
         callbacks = self.callbacks if main else Callbacks()  # rank 0 runs the callbacks
         if mesh is not None and self.model.device != mesh.device:
             self.model.to(mesh.device)
@@ -143,7 +150,7 @@ class YOLO:
         trainer = Trainer(self.model, overrides=dict(overrides), mesh=mesh)
         trainer.setup(steps_per_epoch=max(len(train_loader), 1), seed=cfg.seed)
         self.trainer = trainer
-        validator = DetectionValidator(trainer.ema_model()) if main else None
+        validator = DetectionValidator(trainer.ema_model()) if validates else None
 
         run_dir = None
         if resume:
@@ -192,7 +199,7 @@ class YOLO:
             avg = {k: v / max(count, 1) for k, v in running.items()}
 
             val_metrics = None
-            if main:
+            if validates:
                 trainer.ema_model()  # the EMA weights with the live BatchNorm statistics
                 val_metrics = validator(val_loader)
                 avg.update(epoch=epoch, seconds=time.time() - t0,

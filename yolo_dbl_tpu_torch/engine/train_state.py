@@ -131,6 +131,14 @@ class Optimizer:
         self.accumulate = max(int(accumulate), 1)
         self.mini_step = 0
         self.acc = zeros() if self.accumulate > 1 else None
+        self.mesh, self.sharded = None, None
+
+    def model_parallel(self, mesh, sharded: Sequence[bool]):
+        """The parameters are this rank's shards where `sharded` holds: the
+        finite check and the clip's global norm then count those leaves
+        whole, by a sum over the mesh's 'model' axis."""
+        self.mesh = mesh
+        self.sharded = torch.tensor(list(sharded), device=self.params[0].device)
 
     def _buffers(self) -> Dict[str, List[torch.Tensor]]:
         return {k: getattr(self, k) for k in ("trace", "mu", "nu", "acc")
@@ -174,20 +182,34 @@ class Optimizer:
         # optax.apply_if_finite: a non-finite gradient leaves params and state
         # as they were, unless more than MAX_CONSECUTIVE_NONFINITE in a row.
         # Reading `finite` is the step's one host sync.
-        finite = bool(torch.isfinite(torch.stack(torch._foreach_norm(grads, math.inf))).all())
+        finite, norm = self._finite_and_norm(grads)
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         if not (finite or self.notfinite_count > MAX_CONSECUTIVE_NONFINITE):
             return
-        updates = self._updates(self._clip(grads))
+        updates = self._updates(self._clip(grads, norm))
         lr = self.schedule(self.count)
         self.count += 1
         # frozen parameters get a zero update
         torch._foreach_add_([self.params[i] for i in self.train_idx],
                             [updates[i] for i in self.train_idx], alpha=-lr)
 
-    def _clip(self, grads):
+    def _finite_and_norm(self, grads):
+        """(whether every gradient is finite, their global L2 norm); with
+        sharded leaves, one all-reduce over 'model' of their squares' sum
+        and their non-finite count."""
+        inf = torch.stack(torch._foreach_norm(grads, math.inf))
+        l2 = torch.stack(torch._foreach_norm(grads))
+        if self.mesh is None:
+            return bool(torch.isfinite(inf).all()), torch.linalg.vector_norm(l2)
+        sh = self.sharded
+        sq = l2 * l2
+        shared = torch.stack([sq[sh].sum(), (~torch.isfinite(inf[sh])).sum().to(sq.dtype)])
+        self.mesh.all_reduce(shared, axis="model")
+        finite = bool(torch.isfinite(inf[~sh]).all()) and float(shared[1]) == 0
+        return finite, torch.sqrt(shared[0] + sq[~sh].sum())
+
+    def _clip(self, grads, norm):
         # clip_by_global_norm: t unchanged below the bound, else (t / norm) * bound
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         below = norm < MAX_GRAD_NORM
         div = torch.where(below, torch.ones_like(norm), norm)
         mul = torch.where(below, torch.ones_like(norm), torch.full_like(norm, MAX_GRAD_NORM))

@@ -9,23 +9,32 @@ A bfloat16 model runs its forward and backward in bfloat16; the loss, the
 TAL assigner, the float32 parameters, their gradients, the optimizer and
 the EMA stay float32, as in JAX.
 
-Data parallel (the mesh branches, :183-217): with a `mesh`
-(parallel/mesh.py) each rank is a process holding its rows of the global
-batch, and a step computes the one-device step on the global batch, as
-JAX's single SPMD program does: BatchNorm takes its statistics over every
-rank's rows (nn/common.py `cross_rank`), the loss normalizer and batch size
-are global (losses/detection.py), each rank differentiates its share of the
-global loss, and the gradients are summed over the ranks in buckets (one
-all-reduce a bucket) before the clip, the optimizer and the EMA. Not DDP's
-mean of per-rank losses: that is another function of the batch. `setup`
-broadcasts rank 0's weights, so every rank starts from one draw, and the
-all-reduces give every rank the same bits, so the parameters stay equal.
+The mesh branches (:183-217, 224-239): with a `mesh` (parallel/mesh.py)
+each rank is a process holding the rows of its data coordinate, and a step
+computes the one-device step on the global batch, as JAX's single SPMD
+program does: BatchNorm takes its statistics over the 'data' axis's rows
+(nn/common.py `cross_rank`), the loss normalizer and batch size are global
+(losses/detection.py), each rank differentiates its share of the global
+loss, and the gradients are summed over 'data' in buckets (one all-reduce a
+bucket) before the clip, the optimizer and the EMA. Not DDP's mean of
+per-rank losses: that is another function of the batch. `setup` broadcasts
+rank 0's weights, so every rank starts from one draw, and the all-reduces
+give every rank of an axis the same bits. With `n_model > 1` `setup` then
+shards the model by parallel/shardings.py's specs (parallel/tensor.py,
+JAX's `model_parallel_shardings` placement of the TrainState): each rank
+keeps its shard of every sharded kernel, and the optimizer's moments and
+the EMA are made from the shards; the replicated leaves' gradients are
+completed over 'model' before the sum over 'data', the clip's global norm
+counts each sharded leaf whole (a sum over 'model'), and the sliced
+BatchNorms' running statistics are gathered after each step.
+`state_dict()` gathers whole leaves in the one-process layout and
+`load_state_dict` (and `restore`) shards them again.
 
 Not ported, each for a reason of the TPU runtime: `make_train_scan` (:111)
 runs K steps in one dispatch to amortize the TPU runtime's per-call cost,
 which eager PyTorch does not pay in that form; buffer donation (:170-181)
-works around an XLA runtime fault. The 'model' axis waits with
-parallel/shardings.py (ROADMAP Queue 1 item 4).
+works around an XLA runtime fault. Pipeline parallelism waits with
+parallel/pipeline.py (ROADMAP Queue 1 item 6.5).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from ..losses.detection import detection_loss
 from ..nn.common import cross_rank
 from ..nn.tasks import DetectionModel
 from ..parallel.mesh import Mesh, shard_batch
+from ..parallel.tensor import shard_model
 from .train_state import build_optimizer, ema_update
 
 # bytes of gradient a bucket of the cross-rank sum holds (DDP's default)
@@ -128,11 +138,13 @@ class Trainer:
     swapped. Dropout draws from torch's generator, which no checkpoint
     carries.
 
-    With a `mesh` the trainer is one rank of a data-parallel run (see the
-    module note): the model must live on the mesh's device, `cfg.batch` is
-    the global batch, `step` takes the global batch (or, with
-    `local=True`, this rank's rows of it) and returns the global metrics,
-    and `state_dict()` is the same on every rank.
+    With a `mesh` the trainer is one rank of a parallel run (see the module
+    note): the model must live on the mesh's device and be whole (`setup`
+    shards it when the mesh has a 'model' axis), `cfg.batch` is the global
+    batch, `step` takes the global batch (or, with `local=True`, this
+    rank's rows of it) and returns the global metrics, and `state_dict()`
+    is the same on every rank. `ema_model()` of a sharded model runs
+    tensor-parallel on the EMA shards.
     """
 
     def __init__(self, model: DetectionModel, overrides: Optional[Dict] = None,
@@ -149,14 +161,30 @@ class Trainer:
         self.steps = 0
         self._params = None
         self._ema_model = None
+        # under tensor parallelism, pass a column-parallel conv's slice straight
+        # to its one row-parallel consumer (parallel/tensor.py); off gathers it
+        self.pair = True
+
+    @property
+    def tp(self):
+        """The model's tensor-parallel record (parallel/tensor.py), or None."""
+        tp = getattr(self.model, "tp", None)
+        return tp if tp is not None and tp.mesh.n_model > 1 else None
 
     def setup(self, steps_per_epoch: int, seed: Optional[int] = None) -> "Trainer":
+        if getattr(self.model, "tp", None) is not None:
+            raise ValueError("the Trainer shards the model itself: pass it whole")
         if seed is not None:
             self.model.reset_weights(seed)
         if self.mesh is not None:
             broadcast_coalesced(self.mesh, list(self.model.state_dict().values()))
+            if self.mesh.n_model > 1:
+                shard_model(self.model, self.mesh, pair=self.pair)
         self.optimizer, self.lr_schedule = build_optimizer(self.model, self.model.nc, self.cfg,
                                                            steps_per_epoch)
+        if self.tp is not None:
+            self.optimizer.model_parallel(self.mesh, [n in self.tp.dims for n, _ in
+                                                      self.model.named_parameters()])
         self._params = [p for _, p in self.model.named_parameters()]
         self.ema = [p.detach().clone() for p in self._params]
         self.ema_updates, self.steps = 0.0, 0
@@ -165,22 +193,37 @@ class Trainer:
 
     def state_dict(self) -> Dict:
         """{step, ema_updates, params, ema_params, batch_stats, opt_state}:
-        tensors by parameter or buffer name, by reference."""
+        tensors by parameter or buffer name, by reference; under tensor
+        parallelism whole leaves gathered over 'model' (a collective: every
+        rank calls it), the one-process layout."""
         names = [n for n, _ in self.model.named_parameters()]
         params = dict(zip(names, self._params))
+        buffers = {k: v for k, v in self.model.state_dict().items() if k not in params}
+        opt = self.optimizer.state_dict()
+        ema = dict(zip(names, self.ema))
+        tp = self.tp
+        if tp is not None:
+            params = {n: tp.gather_leaf(n, t) for n, t in params.items()}
+            ema = {n: tp.gather_leaf(n, t) for n, t in ema.items()}
+            opt = {k: [tp.gather_leaf(n, t) for n, t in zip(names, v)] if isinstance(v, list) else v
+                   for k, v in opt.items()}
         return {"step": self.steps, "ema_updates": self.ema_updates, "params": params,
-                "ema_params": dict(zip(names, self.ema)),
-                "batch_stats": {k: v for k, v in self.model.state_dict().items() if k not in params},
-                "opt_state": self.optimizer.state_dict()}
+                "ema_params": ema, "batch_stats": buffers, "opt_state": opt}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict):
-        """Copy a `state_dict()` (of a run of the same model and config) in place."""
-        self.model.load_state_dict({**state["params"], **state["batch_stats"]}, strict=True)
+        """Copy a `state_dict()` (of a run of the same model and config) in
+        place; whole leaves are sharded again under tensor parallelism."""
         names = [n for n, _ in self.model.named_parameters()]
-        torch._foreach_copy_(self.ema, [state["ema_params"][n].to(e.device)
+        tp = self.tp
+        part = (lambda n, t: tp.shard_leaf(n, t)) if tp is not None else (lambda n, t: t)  # noqa: E731
+        params = {n: part(n, state["params"][n]) for n in names}
+        self.model.load_state_dict({**params, **state["batch_stats"]}, strict=True)
+        torch._foreach_copy_(self.ema, [part(n, state["ema_params"][n]).to(e.device)
                                         for n, e in zip(names, self.ema)])
-        self.optimizer.load_state_dict(state["opt_state"])
+        self.optimizer.load_state_dict(
+            {k: [part(n, t) for n, t in zip(names, v)] if isinstance(v, list) else v
+             for k, v in state["opt_state"].items()})
         self.steps, self.ema_updates = int(state["step"]), float(state["ema_updates"])
 
     def restore(self, path) -> Dict:
@@ -212,7 +255,10 @@ class Trainer:
         return {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
 
     def all_reduce_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """The sums over the ranks of every rank's gradient of its share."""
+        """The sums over the 'data' axis of every rank's gradient of its
+        share, the replicated leaves first completed over 'model'."""
+        if self.tp is not None:
+            self.tp.reduce_replicated([n for n, _ in self.model.named_parameters()], grads)
         return all_reduce_coalesced(self.mesh, grads)
 
     def step(self, batch: Dict, local: bool = False) -> Dict[str, torch.Tensor]:
@@ -232,6 +278,8 @@ class Trainer:
         self.steps += 1
         self.ema_updates += 1.0
         ema_update(self.ema, self._params, self.ema_updates)
+        if self.tp is not None:
+            self.tp.sync_statistics()
         names = ["loss", *(f"{k}_loss" for k in items._fields)]
         return dict(zip(names, values.unbind()))
 

@@ -60,9 +60,10 @@ def detection_loss(feats: Sequence[torch.Tensor], batch, strides: Tuple[int, ...
 
     Under a `mesh` (parallel/mesh.py) `feats` and `batch` hold this rank's
     rows of the global batch: the normalizer `target_scores_sum` is summed
-    over the ranks before its clamp, the total is scaled by the global batch,
-    and the total and items are this rank's shares of JAX's global values
-    (they sum to them over the ranks). The assigner works per image."""
+    over the 'data' axis before its clamp, the total is scaled by the global
+    batch, and the total and items are this rank's shares of JAX's global
+    values (they sum to them over the data axis; the model ranks of one data
+    coordinate hold the same share). The assigner works per image."""
     b = feats[0].shape[0]
     imgsz_h = feats[0].shape[1] * strides[0]
     imgsz_w = feats[0].shape[2] * strides[0]
@@ -95,7 +96,7 @@ def detection_loss(feats: Sequence[torch.Tensor], batch, strides: Tuple[int, ...
 
     target_scores_sum = target_scores.sum()
     if mesh is not None:
-        mesh.all_reduce(target_scores_sum)
+        mesh.all_reduce(target_scores_sum, axis="data")
     target_scores_sum = torch.clamp(target_scores_sum, min=1.0)
 
     # classification BCE over all anchors
@@ -113,5 +114,5 @@ def detection_loss(feats: Sequence[torch.Tensor], batch, strides: Tuple[int, ...
     loss_dfl = (dfl * weight).sum() / target_scores_sum
 
     items = LossItems(box=loss_box * box_gain, cls=loss_cls * cls_gain, dfl=loss_dfl * dfl_gain)
-    total = (items.box + items.cls + items.dfl) * (b * (1 if mesh is None else mesh.world))
+    total = (items.box + items.cls + items.dfl) * (b * (1 if mesh is None else mesh.n_data))
     return total, items

@@ -8,10 +8,13 @@ maps onto a `state_dict` key by key (utils/convert.py).
   PyTorch's 1e-5; momentum 0.03 is the torch form of flax's 0.97. In
   training it updates the running variance with the biased batch variance,
   as flax does (`BatchNorm` below).
-- Under a data-parallel mesh (`cross_rank`, entered by the trainer for a
-  step) BatchNorm takes its statistics over every rank's rows, as flax's
-  does over JAX's global batch (`CrossRankBatchNorm`); without one the
-  fused path below is unchanged.
+- Under a mesh (`cross_rank`, entered by the trainer for a step)
+  BatchNorm takes its statistics over the rows of the 'data' axis, as
+  flax's does over JAX's global batch (`CrossRankBatchNorm`); without one
+  the fused path below is unchanged. Under tensor parallelism
+  (parallel/tensor.py) a BatchNorm after a column-parallel conv normalizes
+  its channel slice (`BatchNorm.channels`) and `finish` gathers the
+  module's output.
 - The TPU-only concat fold (`Conv.call_parts`) and the fused s2d stem are
   not ported: plain concat + conv is the semantics they reproduce.
 - Compute precision is flax's module `dtype` policy (common.py:13-14):
@@ -39,6 +42,14 @@ BN_MOMENTUM = 0.03
 BN_EPS = 1e-3
 
 
+def finish(conv: nn.Conv2d, y):
+    """The output of a module that owns `conv`, its BatchNorm and activation:
+    `y`, or, where parallel/tensor.py ran them on a channel slice, the slice
+    gathered (or passed on to its row-parallel consumer)."""
+    shard = getattr(conv, "shard", None)
+    return shard.finish(y) if shard is not None and shard.defer else y
+
+
 def autopad(k, p=None, d=1):
     """'Same'-shape padding for torch-style symmetric padding (common.py:33)."""
     if d > 1:
@@ -49,13 +60,22 @@ def autopad(k, p=None, d=1):
 
 
 def conv2d(conv: nn.Conv2d, x):
-    """`conv(x)` in `x`'s type: kernel and bias cast to it at the call."""
+    """`conv(x)` in `x`'s type: kernel and bias cast to it at the call. A
+    conv that parallel/tensor.py sharded, or that parallel/spatial.py runs
+    on row shards, computes through its `shard`."""
+    shard = getattr(conv, "shard", None)
+    if shard is not None:
+        return shard.conv(conv, x)
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     return conv._conv_forward(x, conv.weight.to(x.dtype), bias)
 
 
 def linear(dense: nn.Linear, x):
-    """`dense(x)` in `x`'s type, as a flax Dense with that dtype."""
+    """`dense(x)` in `x`'s type, as a flax Dense with that dtype (through its
+    `shard` where parallel/tensor.py sharded it)."""
+    shard = getattr(dense, "shard", None)
+    if shard is not None:
+        return shard.linear(dense, x)
     return nn.functional.linear(x, dense.weight.to(x.dtype), dense.bias.to(x.dtype))
 
 
@@ -76,20 +96,25 @@ class BatchNorm(nn.BatchNorm2d):
     as flax's BatchNorm with a bfloat16 `dtype` does.
     """
 
-    mesh = None  # a parallel.Mesh inside `cross_rank`: statistics over every rank's rows
+    mesh = None  # a parallel.Mesh inside `cross_rank`: statistics over the data axis's rows
+    # the channel slice this layer normalizes where it follows a column-parallel
+    # conv (parallel/tensor.py): its parameters and statistics by that slice
+    channels = None
 
     def forward(self, x):
+        w, b, mean, var = self.weight, self.bias, self.running_mean, self.running_var
+        if self.channels is not None:
+            sl = self.channels
+            w, b, mean, var = w[sl], b[sl], mean[sl], var[sl]
         if not self.training:
-            return super().forward(x)
+            return nn.functional.batch_norm(x, mean, var, w, b, False, 0.0, self.eps)
         if self.mesh is not None:
-            return CrossRankBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
-                                            self.running_var, self.momentum, self.eps, self.mesh)
-        r1 = self.running_var.clone()
-        out = nn.functional.batch_norm(x, self.running_mean, r1, self.weight, self.bias, True,
-                                       self.momentum, self.eps)
+            return CrossRankBatchNorm.apply(x, w, b, mean, var, self.momentum, self.eps, self.mesh)
+        r1 = var.clone()
+        out = nn.functional.batch_norm(x, mean, r1, w, b, True, self.momentum, self.eps)
         with torch.no_grad():
             n = x.numel() // x.shape[1]
-            self.running_var.mul_((1.0 - self.momentum) / n).add_(r1, alpha=1.0 - 1.0 / n)
+            var.mul_((1.0 - self.momentum) / n).add_(r1, alpha=1.0 - 1.0 / n)
         return out
 
 
@@ -113,7 +138,7 @@ class CrossRankBatchNorm(torch.autograd.Function):
         shape = (1, c) + (1,) * (x.dim() - 2)
         xf = x.to(acc)
         stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims), xf.new_full((1,), x.numel() // c)])
-        mesh.all_reduce(stats)
+        mesh.all_reduce(stats, axis="data")
         n = stats[-1]
         mean = stats[:c] / n
         var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
@@ -136,7 +161,7 @@ class CrossRankBatchNorm(torch.autograd.Function):
         dyf = dy.to(mean.dtype)
         local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
         dbias, dweight = local[:c].clone(), local[c:].clone()
-        glob = ctx.mesh.all_reduce(local) / n
+        glob = ctx.mesh.all_reduce(local, axis="data") / n
         dx = (dyf - glob[:c].view(shape) - xhat * glob[c:].view(shape)) \
             * (invstd * weight.to(mean.dtype)).view(shape)
         return (dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(weight.dtype),
@@ -187,7 +212,7 @@ class Conv(nn.Module):
         self.act = _act(act)
 
     def forward(self, x):
-        return self.act(self.bn(conv2d(self.conv, x)))
+        return finish(self.conv, self.act(self.bn(conv2d(self.conv, x))))
 
 
 class DWConv(nn.Module):
@@ -201,7 +226,7 @@ class DWConv(nn.Module):
         self.act = _act(act)
 
     def forward(self, x):
-        return self.act(self.bn(conv2d(self.conv, x)))
+        return finish(self.conv, self.act(self.bn(conv2d(self.conv, x))))
 
 
 class DSConv(nn.Module):
@@ -215,7 +240,7 @@ class DSConv(nn.Module):
         self.bn = batch_norm(c2)
 
     def forward(self, x):
-        return nn.functional.silu(self.bn(conv2d(self.pw, conv2d(self.dw, x))))
+        return finish(self.pw, nn.functional.silu(self.bn(conv2d(self.pw, conv2d(self.dw, x)))))
 
 
 class Conv2d(nn.Module):

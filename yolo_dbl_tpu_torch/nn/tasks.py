@@ -399,7 +399,10 @@ class DetectionModel(nn.Module):
 
     @torch.inference_mode()
     def predict(self, x):
-        """NHWC images → decoded (B, 4+nc, A) predictions (tasks.py:837)."""
+        """NHWC images → decoded (B, 4+nc, A) predictions (tasks.py:837). A
+        model that parallel/shardings.py `shard_variables` sharded, or one
+        run inside parallel/spatial.py `spatial`, returns the replicated
+        result on every model rank; the decode runs on whole maps."""
         return self.decode_outputs(self.forward(x))
 
     def decode_outputs(self, feats):

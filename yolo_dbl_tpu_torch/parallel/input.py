@@ -5,7 +5,8 @@ batch, and `jax.make_array_from_process_local_data` joins the shards into
 one global array. Here a rank is a process and keeps its shard: the
 collectives of the step (parallel/mesh.py) stand where the joined array
 stood. The sample order, the padding and the shard bounds are JAX's, so
-rank r of N holds what JAX's host r of N holds.
+the ranks of data coordinate d of N hold what JAX's host d of N holds; the
+model ranks of one data coordinate load the same rows.
 """
 
 from __future__ import annotations
@@ -61,10 +62,10 @@ def host_shard_indices(n_samples: int, seed: int = 0, epoch: int = 0, shuffle: b
 
 def make_global_batch(batch: Dict[str, np.ndarray], mesh: Mesh,
                       data_axis: str = "data") -> Dict[str, torch.Tensor]:
-    """This rank's LOCAL shard (global batch / world rows) as tensors on its
+    """This rank's LOCAL shard (global batch / n_data rows) as tensors on its
     device: the rank's part of JAX's global batch-sharded arrays."""
     if data_axis != "data":
-        raise ValueError(f"the mesh has one axis, 'data'; got {data_axis!r}")
+        raise ValueError(f"batches shard over the mesh's 'data' axis; got {data_axis!r}")
     return {k: torch.as_tensor(np.asarray(v)).to(mesh.device, non_blocking=True)
             for k, v in batch.items()}
 
@@ -75,17 +76,18 @@ class MultiHostLoader:
     Args:
         dataset: indexable yielding dicts of numpy arrays (fixed shapes).
         global_batch: total batch size across all ranks.
-        mesh: the ('data',) mesh; each rank gets its rows, on its device.
+        mesh: the mesh; each rank gets the rows of its data coordinate, on
+            its device.
     """
 
     def __init__(self, dataset, global_batch: int, mesh: Mesh, *, seed: int = 0,
                  shuffle: bool = True, collate=None, data_axis: str = "data"):
-        if global_batch % mesh.world:
+        if global_batch % mesh.n_data:
             raise ValueError(f"a global batch of {global_batch} does not split over "
-                             f"{mesh.world} ranks")
+                             f"{mesh.n_data} ranks")
         self.dataset = dataset
         self.global_batch = global_batch
-        self.local_batch = global_batch // mesh.world
+        self.local_batch = global_batch // mesh.n_data
         self.mesh = mesh
         self.seed = seed
         self.shuffle = shuffle
@@ -100,7 +102,7 @@ class MultiHostLoader:
 
     def _indices(self) -> np.ndarray:
         return host_shard_indices(len(self.dataset), self.seed, self.epoch, self.shuffle,
-                                  self.mesh.rank, self.mesh.world)
+                                  self.mesh.coords["data"], self.mesh.n_data)
 
     def __len__(self):
         return len(self._indices()) // self.local_batch
