@@ -84,9 +84,10 @@ parameters, bfloat16 compute), beside each float32 phase:
               of imgsz, scores 0.05); card bfloat16 against CPU bfloat16 printed
               beside the CPU's own bfloat16-against-float32 spread;
  18. train_parity_bf16, train_parity_v13_bf16 - one train-mode backward at 256
-              px of bfloat16 models on the CPU and the card: loss items and
-              the leaves K2 or K3 feed against the CPU's float64, within 4x the
-              CPU bfloat16's own distance from it.
+              px of bfloat16 models on the CPU and the card: the leaves K2 or
+              K3 feed against the CPU's float64, within 4x the CPU
+              bfloat16's own distance from it; the loss items likewise, as
+              medians over three batches (one batch's is noise).
 The engine slice (DetectionValidator over 4 batches of 16 seeded 640x640
 images with 1-3 filled rectangles each, conf 0.001, iou 0.7, max_det 300, the
 COCO 12 stats; random weights, so the mAP is no quality claim):
@@ -138,8 +139,24 @@ The rest of the v13/DBL family:
  26. facade_dbl2 - YOLO-DBL2-l through YOLO on the shapes set: train 1
               epoch (2 steps at batch 16, 640), val, predict 8 frames from
               memory; gate as facade's.
+The stock detect families (v3, v5, v6, v8, 11, v12):
+ 27. main_v12, profile_v12, train_v12, train_profile_v12, parity_v12,
+              train_parity_v12 and their _bf16 phases - YOLOv12-s
+              (yolov12s.yaml, nc=80, 640; C3k2, A2C2f) as the YOLOv13-s
+              phases: K1 once and K3 8 times a request (A2C2f rows 6 and 8,
+              YOLOv13-s's two sites), each K3 kernel 8 times a step;
+ 28. main_v11, profile_v11, train_v11, train_profile_v11, parity_v11 -
+              yolo11-s (nc=80, 640; C3k2, C2PSA) in float32: K1 once a
+              request, no hand kernel in a step (C2PSA's attention is plain
+              PyTorch, as in JAX);
+ 29. zoo      - the other 15 configs of the families (scale n where the YAML
+              has scales; the YOLOv3 family has none) at nc=80 and 320: card
+              decode against the CPU's on 2 frames (TF32 off; 0.05 px, 1e-3),
+              K1 once a forward (yolov3_edit3's A2C2f rows: K3 16 times a
+              forward, each K3 kernel 16 times a step), and one train step
+              at batch 4 with finite losses; seconds a config.
 Data parallel (parallel/, Trainer(mesh=...); rank bodies in tests/torch_ranks.py):
- 27. dp       - YOLO-DBL-s (nc=3, 640, global batch 16, 3 steps, TF32 off)
+ 30. dp       - YOLO-DBL-s (nc=3, 640, global batch 16, 3 steps, TF32 off)
               through Trainer(mesh=...) against the one-process Trainer on
               the same weights and batches: NCCL at world 1 in this process,
               and Gloo at world 2 in two processes on this one card (8 rows
@@ -153,7 +170,7 @@ Data parallel (parallel/, Trainer(mesh=...); rank bodies in tests/torch_ranks.py
               launches a step on every rank; per rank step ms, all-reduce ms
               and device-busy share.
 The mesh's 'model' axis (parallel/shardings.py, tensor.py, spatial.py):
- 28. tp       - YOLO-DBL-s (nc=3, 640, float32, TF32 off) tensor-parallel
+ 31. tp       - YOLO-DBL-s (nc=3, 640, float32, TF32 off) tensor-parallel
               over Gloo on this one card: a 1x2 mesh (2 processes) and a 2x2
               mesh (4) train 3 steps at global batch 8 through
               Trainer(mesh=...) against the one-process Trainer, at dp's
@@ -167,7 +184,7 @@ The mesh's 'model' axis (parallel/shardings.py, tensor.py, spatial.py):
               with the column -> row pairing and without it (one more step);
               K2 forward and backward 3 launches a step, K1 once and K2 3
               times a request, on every rank;
- 29. sp       - YOLO-DBL-s (nc=3, 640, float32) spatial-parallel over Gloo
+ 32. sp       - YOLO-DBL-s (nc=3, 640, float32) spatial-parallel over Gloo
               1x2 on this card: 3 requests of 8 u8 frames through
               `spatial(model, mesh)` (320 image rows a rank, halo
               exchanges, DySample and the hypergraph on gathered maps),
@@ -216,9 +233,12 @@ GROUPS = 4
 # row 22 is row 13's shape): 256 and 128 channels a group
 DBL2_SITES = {"dbl2_row18": (20, 20, 1024), "dbl2_row13": (40, 40, 512)}
 DBL, V13, DBL2 = ("yolov13s_DBL.yaml", NC), ("yolov13s.yaml", 80), ("yolov13l_DBL2.yaml", NC)
-SUFFIX = {DBL: "", V13: "_v13", DBL2: "_dbl2"}
+# the stock detect families' full-width paths, at the configs' own nc
+V12, V11 = ("yolov12s.yaml", 80), ("yolo11s.yaml", 80)
+SUFFIX = {DBL: "", V13: "_v13", DBL2: "_dbl2", V12: "_v12", V11: "_v11"}
 # YOLOv13-s A2C2f sites at 640: (areas, N, heads) per image; each site runs
 # 4 AAttn (2 repeats x 2 ABlocks), hd 32. Row 6: 40x40 tokens in 4 areas.
+# YOLOv12-s's rows 6 and 8 are the same two sites.
 K3_SITES = {"row6": (4, 400, 4), "row8": (1, 400, 8)}
 K3_CALLS_PER_SITE = 4
 HD = 32
@@ -238,12 +258,17 @@ def _launches(counts, dtype):
 PER_REQUEST = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
     (DBL, {"letterbox_normalize": 1, "sample_bilinear": 3}),
     (DBL2, {"letterbox_normalize": 1, "sample_bilinear": 3}),
-    (V13, {"letterbox_normalize": 1, "area_attention": 8}))}
+    (V13, {"letterbox_normalize": 1, "area_attention": 8}),
+    (V12, {"letterbox_normalize": 1, "area_attention": 8}),
+    (V11, {"letterbox_normalize": 1}))}
 PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
     (DBL, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
     (DBL2, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
     (V13, {"area_attention": 8, "area_attention_backward_dq": 8,
-           "area_attention_backward_dkv": 8}))}
+           "area_attention_backward_dkv": 8}),
+    (V12, {"area_attention": 8, "area_attention_backward_dq": 8,
+           "area_attention_backward_dkv": 8}),
+    (V11, {}))}
 
 
 def emit(obj):
@@ -956,6 +981,7 @@ def phase_main(cfg, gpu_model, rng, card):
     from yolo_dbl_tpu_torch import kernels
     from yolo_dbl_tpu_torch.engine.predictor import DetectionPredictor
 
+    t_start = time.perf_counter()
     pred = DetectionPredictor(gpu_model, conf=0.25, iou=0.45, max_det=300, imgsz=IMGSZ)
     requests = [rng.integers(0, 256, (B, *SRC_HW, 3), dtype=np.uint8)
                 for _ in range(WARMUP + REQUESTS)]
@@ -982,7 +1008,8 @@ def phase_main(cfg, gpu_model, rng, card):
           "batch": B, "frames": list(SRC_HW), "requests": REQUESTS,
           "latency_ms": [t * 1e3 for t in lat], "median_ms": med * 1e3, "img_per_s": B / med,
           "boxes_per_image": n_boxes, "launches": launches,
-          "tf32_conv": torch.backends.cudnn.allow_tf32, "card": card})
+          "tf32_conv": torch.backends.cudnn.allow_tf32,
+          "seconds": time.perf_counter() - t_start, "card": card})
     return launches, requests[WARMUP][:2], pred, med
 
 
@@ -1061,6 +1088,7 @@ def phase_train(cfg, card, dtype=torch.float32):
     from yolo_dbl_tpu_torch import DetectionModel, kernels
     from yolo_dbl_tpu_torch.engine.trainer import Trainer
 
+    t_start = time.perf_counter()
     name, nc = cfg
     model = DetectionModel(name, nc=nc, device="cuda", generator=torch.Generator().manual_seed(0),
                            dtype=dtype)
@@ -1108,13 +1136,15 @@ def phase_train(cfg, card, dtype=torch.float32):
           "device_ms_per_step": p["device_ms"],
           "device_ops_per_step": p["device_ops"], "unprofiled_median_ms": med,
           "device_busy_share": p["device_ms"] / med, "by_part_ms": p["by_part_ms"],
-          "top_kernels_ms": p["top_kernels_ms"]})
+          "top_kernels_ms": p["top_kernels_ms"],
+          "seconds_train_and_profile": time.perf_counter() - t_start})
     return launches
 
 
 def phase_parity(cfg, cpu_model, gpu_model, frames):
     from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
 
+    t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     u8 = torch.from_numpy(frames)
@@ -1127,15 +1157,17 @@ def phase_parity(cfg, cpu_model, gpu_model, frames):
     box_err = float((pred_g[:, :4] - pred_c[:, :4]).abs().max())
     score_err = float((pred_g[:, 4:] - pred_c[:, 4:]).abs().max())
     emit({"phase": _phase("parity", cfg), "frames": 2, "box_max_abs_px": box_err,
-          "score_max_abs": score_err, "max_score": float(pred_c[:, 4:].max())})
+          "score_max_abs": score_err, "max_score": float(pred_c[:, 4:].max()),
+          "seconds": time.perf_counter() - t_start})
     require(box_err < 0.05 and score_err <= 1e-3,
             f"card vs CPU: boxes {box_err} px (< 0.05), scores {score_err} (<= 1e-3)")
 
 
-def _float64_grads(cpu_model, cfg, batch):
+def _float64_grads(cpu_model, cfg, batch, grads=True):
     """({loss item: value}, {name: gradient}) of the train-mode loss of a
     float64 copy of the CPU model (the plain sampler and attention take
-    float64): train_loss's steps, with the images normalized to float64."""
+    float64): train_loss's steps, with the images normalized to float64.
+    `grads=False`: the loss items alone (and None)."""
     import copy
 
     from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
@@ -1145,17 +1177,19 @@ def _float64_grads(cpu_model, cfg, batch):
     batch = {k: torch.as_tensor(v) for k, v in batch.items()}
     batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
     names, params = zip(*model.named_parameters())
-    loss, items = detection_loss(model(device_normalize(batch["img"], torch.float64)), batch,
-                                 model.strides, model.nc, box_gain=cfg.box, cls_gain=cfg.cls,
-                                 dfl_gain=cfg.dfl)
+    with torch.set_grad_enabled(grads):
+        loss, items = detection_loss(model(device_normalize(batch["img"], torch.float64)), batch,
+                                     model.strides, model.nc, box_gain=cfg.box, cls_gain=cfg.cls,
+                                     dfl_gain=cfg.dfl)
     values = dict(loss=float(loss.detach()),
                   **{k: float(v.detach()) for k, v in items._asdict().items()})
-    return values, dict(zip(names, torch.autograd.grad(loss, params)))
+    return values, dict(zip(names, torch.autograd.grad(loss, params))) if grads else None
 
 
 # leaves named in train_parity, whose gradient comes only through a kernel's
 # backward: the DySample offset convs (K2), the AAttn qkv convs (K3, and pe)
-KERNEL_FED_LEAVES = {DBL: (".offset.conv.", 6), V13: (".attn.qkv.conv.", 8)}
+KERNEL_FED_LEAVES = {DBL: (".offset.conv.", 6), V13: (".attn.qkv.conv.", 8),
+                     V12: (".attn.qkv.conv.", 8)}
 
 
 def phase_train_parity(cfg, cpu_model, gpu_model):
@@ -1166,6 +1200,7 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     from yolo_dbl_tpu_torch.cfg import get_cfg
     from yolo_dbl_tpu_torch.engine.trainer import train_loss
 
+    t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_cfg = get_cfg()
@@ -1218,7 +1253,8 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
           "leaves_past_1e-3_of_leaf_max": sum(e["card_err"] > 1e-3 * e["leaf_max"] + 1e-10 * g_max
                                               for e in leaves.values()),
           "worst_leaves_vs_float64": [dict(name=n, **e) for n, e in worst[:5]],
-          "bn_stats_rel": stats_err, "launches": launches})
+          "bn_stats_rel": stats_err, "launches": launches,
+          "seconds": time.perf_counter() - t_start})
     require(max(loss_rel.values()) <= 1e-4, f"loss items card vs CPU: {loss_rel}")
     require(len([n for n in checked if fed in n]) == n_fed and max(grad_rel.values()) <= 1e-3,
             f"gradients card vs CPU (of each leaf's max |g|): {grad_rel}")
@@ -1239,6 +1275,7 @@ def phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames):
     bfloat16 beside the CPU's own bfloat16-against-float32 spread."""
     from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
 
+    t_start = time.perf_counter()
     u8 = torch.from_numpy(frames)
     pred32 = cpu32.predict(letterbox_normalize(u8, (IMGSZ, IMGSZ)))
     pred_c16 = cpu16.predict(letterbox_normalize(u8, (IMGSZ, IMGSZ), out_dtype=BF16))
@@ -1257,21 +1294,41 @@ def phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames):
           "card_bf16_vs_cpu_bf16": {"box_px": card_vs_cpu16[0], "score": card_vs_cpu16[1]},
           "cpu_bf16_vs_cpu_f32": {"box_px": cpu16_vs_f32[0], "score": cpu16_vs_f32[1]},
           "bars": {"box_px": box_bar, "score": score_bar},
-          "max_score": float(pred32[:, 4:].max())})
+          "max_score": float(pred32[:, 4:].max()), "seconds": time.perf_counter() - t_start})
     require(card_vs_f32[0] < box_bar and card_vs_f32[1] < score_bar,
             f"card bf16 vs CPU f32: boxes {card_vs_f32[0]} px (< {box_bar}), scores "
             f"{card_vs_f32[1]} (< {score_bar})")
 
 
+# the batches (seeds) whose bfloat16 loss items train_parity_bf16 reads: a
+# loss item's bfloat16 distance from float64 on one batch is noise (at
+# nc=80 the class loss sums ~1M terms), on the card and on the CPU alike,
+# and with the plain attention in place of K3 too
+# (tools/exp_bf16_loss_layers.py), so the bar holds the medians over three
+BF16_LOSS_SEEDS = (2, 3, 4)
+
+
+def _loss_items(model, train_cfg, batch):
+    """The train-mode loss items of `batch`, without a backward."""
+    from yolo_dbl_tpu_torch.engine.trainer import train_loss
+
+    with torch.no_grad():
+        loss, items = train_loss(model, train_cfg, {k: torch.as_tensor(v).to(model.device)
+                                                    for k, v in batch.items()})
+    return dict(loss=float(loss), **{k: float(v) for k, v in items._asdict().items()})
+
+
 def phase_train_parity_bf16(cfg, cpu32, cpu16, gpu16):
     """One train-mode loss and backward of bfloat16 models on the CPU (plain
-    versions) and on the card (kernels): loss items and the leaves a
-    kernel's backward feeds against the CPU's float64, within 4x the CPU
-    bfloat16's own distance from it."""
+    versions) and on the card (kernels): the leaves a kernel's backward
+    feeds against the CPU's float64, within 4x the CPU bfloat16's own
+    distance from it; the loss items likewise, the medians of the
+    distances over the BF16_LOSS_SEEDS batches."""
     from yolo_dbl_tpu_torch import kernels
     from yolo_dbl_tpu_torch.cfg import get_cfg
     from yolo_dbl_tpu_torch.engine.trainer import train_loss
 
+    t_start = time.perf_counter()
     train_cfg = get_cfg()
     batch = train_batches(np.random.default_rng(2), 1, b=2, imgsz=256, nc=cfg[1])[0]
     results = []
@@ -1292,8 +1349,17 @@ def phase_train_parity_bf16(cfg, cpu32, cpu16, gpu16):
     (lc, gc, _), (lg, gg, launches) = results
     require(launches == PER_STEP[cfg, BF16], f"launches in one bf16 card step: {launches}")
     l64, g64 = _float64_grads(cpu32, train_cfg, batch)
-    loss_d = {k: dict(card=abs(lg[k] - l64[k]), cpu_bf16=abs(lc[k] - l64[k]), float64=l64[k])
-              for k in l64}
+    runs = [(lg, lc, l64)]
+    for seed in BF16_LOSS_SEEDS[1:]:
+        more = train_batches(np.random.default_rng(seed), 1, b=2, imgsz=256, nc=cfg[1])[0]
+        runs.append((_loss_items(gpu16, train_cfg, more), _loss_items(cpu16, train_cfg, more),
+                     _float64_grads(cpu32, train_cfg, more, grads=False)[0]))
+    loss_d = {k: dict(card=[abs(g[k] - r[k]) for g, _, r in runs],
+                      cpu_bf16=[abs(c[k] - r[k]) for _, c, r in runs],
+                      float64=[r[k] for _, _, r in runs]) for k in l64}
+    for e in loss_d.values():
+        e["median_card"], e["median_cpu_bf16"] = (statistics.median(e["card"]),
+                                                  statistics.median(e["cpu_bf16"]))
     fed, n_fed = KERNEL_FED_LEAVES[cfg]
     g_max = max(float(g.abs().max()) for g in g64.values())
     leaves = {n: dict(card=float((gg[n].double() - g64[n]).abs().max()),
@@ -1301,13 +1367,15 @@ def phase_train_parity_bf16(cfg, cpu32, cpu16, gpu16):
                       leaf_max=float(g64[n].abs().max()))
               for n in g64 if fed in n}
     emit({"phase": _phase("train_parity", cfg, BF16), "batch": 2, "imgsz": 256,
-          "loss_distance_from_float64": loss_d, "kernel_fed_leaves": leaves,
-          "model_max_abs_grad": g_max, "launches": launches})
+          "loss_seeds": BF16_LOSS_SEEDS, "loss_distance_from_float64": loss_d,
+          "kernel_fed_leaves": leaves,
+          "model_max_abs_grad": g_max, "launches": launches,
+          "seconds": time.perf_counter() - t_start})
     require(len(leaves) == n_fed and all(
         e["card"] <= 4 * e["cpu_bf16"] + 1e-10 * g_max for e in leaves.values()),
         f"kernel-fed leaves, card bf16 vs CPU float64 past 4x the CPU bf16's distance: {leaves}")
-    require(all(e["card"] <= 4 * e["cpu_bf16"] for e in loss_d.values()),
-            f"loss items, card bf16 vs CPU float64: {loss_d}")
+    require(all(e["median_card"] <= 4 * e["median_cpu_bf16"] for e in loss_d.values()),
+            f"loss items, card bf16 vs CPU float64 (medians over the seeds): {loss_d}")
 
 # validation: 4 batches of 16 seeded 640x640 images, each with 1-3 filled
 # rectangles of a class colour on a noise background
@@ -1809,55 +1877,127 @@ def _sla_check(cpu_model, gpu_model, gen):
     return out
 
 
+def _config_decode(name, cpu, gpu, frames, imgsz, per_forward):
+    """({params, box_max_abs_px, score_max_abs, max_score, forward_launches},
+    launches) of one config's decode of `frames` letterboxed to `imgsz` on
+    the card against the CPU's (TF32 off; boxes 0.05 px, scores 1e-3), whose
+    launches must be `per_forward`'s."""
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+
+    size = (imgsz, imgsz)
+    kernels.reset_launches()
+    with tf32_off():
+        pred_c = cpu.predict(letterbox_normalize(frames, size))
+        pred_g = gpu.predict(letterbox_normalize(frames.cuda(), size)).cpu()
+    fwd = dict(kernels.launches)
+    anchors = sum((imgsz // st) ** 2 for st in gpu.strides)
+    require(pred_g.shape == pred_c.shape == (2, 4 + cpu.nc, anchors)
+            and bool(torch.isfinite(pred_g).all()), f"{name}: predictions {pred_g.shape}")
+    box, score = _boxes_scores(pred_g, pred_c)
+    row = {"params": sum(p.numel() for p in gpu.parameters()), "box_max_abs_px": box,
+           "score_max_abs": score, "max_score": float(pred_c[:, 4:].max()),
+           "forward_launches": fwd}
+    require(box < 0.05 and score <= 1e-3 and fwd == _launches(per_forward, torch.float32),
+            f"{name} card vs CPU: {row}")
+    return row, fwd
+
+
+def _config_step(name, gpu, rng, imgsz, batch_size, per_step):
+    """({step_ms, losses, step_launches}, launches) of one Trainer.step of
+    `gpu` on a seeded batch (TF32 convolutions on, as in the timed phases):
+    finite losses, and `per_step`'s launches."""
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.engine.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    trainer = Trainer(gpu, {"batch": batch_size}).setup(steps_per_epoch=100)
+    batch = train_batches(rng, 1, b=batch_size, imgsz=imgsz, nc=gpu.nc)[0]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = {k: float(v) for k, v in trainer.step(batch).items()}
+    torch.cuda.synchronize()
+    row = {"step_ms": (time.perf_counter() - t0) * 1e3, "losses": losses,
+           "step_launches": dict(kernels.launches)}
+    require(all(np.isfinite(v) for v in losses.values())
+            and row["step_launches"] == _launches(per_step, torch.float32),
+            f"{name} train step: {row}")
+    return row, row["step_launches"]
+
+
 def phase_family(card):
     """The other six configs of the family at scale s and 320: the card's
     decode against the CPU's on 2 frames (TF32 off; boxes 0.05 px, scores
     1e-3), launches of a forward, and one train step at batch 4 each."""
-    from yolo_dbl_tpu_torch import kernels
-    from yolo_dbl_tpu_torch.engine.trainer import Trainer
-    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
-
     t_start = time.perf_counter()
     rng, gen = np.random.default_rng(8), torch.Generator().manual_seed(8)
     frames = torch.from_numpy(rng.integers(0, 256, (2, *SRC_HW, 3), dtype=np.uint8))
-    size = (FAMILY_IMGSZ, FAMILY_IMGSZ)
     out, launches = {}, {}
     for name, (per_forward, per_step) in FAMILY.items():
         cpu, gpu = build_models((name, NC))
-        n_params = sum(p.numel() for p in gpu.parameters())
-        row = {"params": n_params}
-        kernels.reset_launches()
-        with tf32_off():
-            pred_c = cpu.predict(letterbox_normalize(frames, size))
-            pred_g = gpu.predict(letterbox_normalize(frames.cuda(), size)).cpu()
-        fwd = dict(kernels.launches)
-        anchors = sum((FAMILY_IMGSZ // st) ** 2 for st in gpu.strides)
-        require(pred_g.shape == pred_c.shape == (2, 4 + NC, anchors)
-                and bool(torch.isfinite(pred_g).all()), f"{name}: predictions {pred_g.shape}")
-        box, score = _boxes_scores(pred_g, pred_c)
-        row.update(box_max_abs_px=box, score_max_abs=score, forward_launches=fwd)
-        require(box < 0.05 and score <= 1e-3 and fwd == _launches(per_forward, torch.float32),
-                f"{name} card vs CPU: {row}")
+        row, fwd = _config_decode(name, cpu, gpu, frames, FAMILY_IMGSZ, per_forward)
         if any(m.__class__.__name__ == "SLA" for m in cpu.modules()):
             row["sla"] = _sla_check(cpu, gpu, gen)
-        torch.backends.cudnn.allow_tf32 = True
-        trainer = Trainer(gpu, {"batch": FAMILY_TRAIN_B}).setup(steps_per_epoch=100)
-        batch = train_batches(rng, 1, b=FAMILY_TRAIN_B, imgsz=FAMILY_IMGSZ)[0]
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        losses = {k: float(v) for k, v in trainer.step(batch).items()}
-        torch.cuda.synchronize()
-        row.update(step_ms=(time.perf_counter() - t0) * 1e3, losses=losses,
-                   step_launches=dict(kernels.launches))
-        require(all(np.isfinite(v) for v in losses.values())
-                and row["step_launches"] == _launches(per_step, torch.float32),
-                f"{name} train step: {row}")
-        launches[name] = {k: fwd[k] + row["step_launches"][k] for k in fwd}
+        step_row, step = _config_step(name, gpu, rng, FAMILY_IMGSZ, FAMILY_TRAIN_B, per_step)
+        row.update(step_row)
+        launches[name] = {k: fwd[k] + step[k] for k in fwd}
         out[name[:-5]] = row
-        del cpu, gpu, trainer
+        del cpu, gpu
     emit({"phase": "family", "imgsz": FAMILY_IMGSZ, "nc": NC, "frames": 2,
           "train_batch": FAMILY_TRAIN_B, "configs": out, "tf32_parity": False,
           "seconds": time.perf_counter() - t_start, "card": card})
+    return launches
+
+
+# the stock detect families' other 15 configs (scale n where the YAML has
+# scales), at nc=80 and 320: {name: the kernels a forward launches and a
+# train step launches}. yolov3_edit3's two A2C2f rows (no scales: 4 repeats,
+# 8 and 16 heads) take K3 16 times; the others K1 alone.
+ZOO_IMGSZ, ZOO_TRAIN_B = 320, 4
+ZOO = {name: ({"letterbox_normalize": 1}, {}) for name in (
+    "yolov3.yaml", "yolov3_edit1.yaml", "yolov3_edit2.yaml", "yolov3n_edit5.yaml",
+    "yolov3-tiny.yaml", "yolov3-spp.yaml", "yolov5n.yaml", "yolov5n-p6.yaml", "yolov6n.yaml",
+    "yolov8n-p2.yaml", "yolov8n-p6.yaml", "yolov8n-ghost.yaml", "yolov8n-ghost-p2.yaml",
+    "yolov8n-ghost-p6.yaml")}
+ZOO["yolov3_edit3.yaml"] = ({"letterbox_normalize": 1, "area_attention": 16},
+                            {"area_attention": 16, "area_attention_backward_dq": 16,
+                             "area_attention_backward_dkv": 16})
+
+
+def phase_zoo(card):
+    """The stock detect families' other configs at 320: the card's decode
+    against the CPU's on 2 frames (TF32 off; boxes 0.05 px, scores 1e-3),
+    launches of a forward and of one train step at batch 4 each, with
+    finite losses. Detect class biases 0, as in `family`. The card's model
+    is a copy of the CPU's: the YOLOv3 family's 48-114 M weights are drawn
+    once."""
+    import copy
+
+    from yolo_dbl_tpu_torch import DetectionModel
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(9)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, *SRC_HW, 3), dtype=np.uint8))
+    out, launches = {}, {}
+    for name, (per_forward, per_step) in ZOO.items():
+        t0 = time.perf_counter()
+        cpu = DetectionModel(name, nc=80, device="cpu", generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for lvl in range(len(cpu.strides)):  # scores near 0.5, not the prior's ~1e-4
+                getattr(cpu.detect, f"cv3_{lvl}_2").conv.bias.zero_()
+        gpu = copy.deepcopy(cpu).to("cuda").to(memory_format=torch.channels_last)
+        row, fwd = _config_decode(name, cpu, gpu, frames, ZOO_IMGSZ, per_forward)
+        row.update(strides=list(gpu.strides),
+                   activation=cpu.yaml.get("activation", "nn.SiLU() (default)"))
+        step_row, step = _config_step(name, gpu, rng, ZOO_IMGSZ, ZOO_TRAIN_B, per_step)
+        row.update(step_row, seconds=time.perf_counter() - t0)
+        launches[name] = {k: fwd[k] + step[k] for k in fwd}
+        out[name[:-5]] = row
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    emit({"phase": "zoo", "imgsz": ZOO_IMGSZ, "nc": 80, "frames": 2, "train_batch": ZOO_TRAIN_B,
+          "configs": out, "tf32_parity": False, "seconds": time.perf_counter() - t_start,
+          "card": card})
     return launches
 
 
@@ -2280,22 +2420,22 @@ def main():
         rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
-    for cfg in (DBL, V13, DBL2):
-        for dtype in (torch.float32, BF16):
+    for cfg in (DBL, V13, DBL2, V12, V11):
+        for dtype in (torch.float32,) if cfg == V11 else (torch.float32, BF16):
             cpu_model, gpu_model = build_models(cfg, dtype)
             serve[cfg, dtype], frames, predictor, median_ms = phase_main(cfg, gpu_model, rng, card)
             phase_profile(cfg, predictor, rng, median_ms * 1e3)
             train[cfg, dtype] = phase_train(cfg, card, dtype)
             models[cfg, dtype] = (cpu_model, gpu_model, frames)
-    for cfg in (DBL, V13, DBL2):
+    for cfg in (DBL, V13, DBL2, V12, V11):
         phase_parity(cfg, *models[cfg, torch.float32])
-    for cfg in (DBL, V13, DBL2):
+    for cfg in (DBL, V13, DBL2, V12):
         cpu32, _, frames = models[cfg, torch.float32]
         cpu16, gpu16, _ = models[cfg, BF16]
         phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames)
-    for cfg in (DBL, V13):
+    for cfg in (DBL, V13, V12):
         phase_train_parity(cfg, *models[cfg, torch.float32][:2])
-    for cfg in (DBL, V13):
+    for cfg in (DBL, V13, V12):
         phase_train_parity_bf16(cfg, models[cfg, torch.float32][0], *models[cfg, BF16][:2])
     del models
     cpu32, f32_metrics, val = phase_val(card)
@@ -2304,6 +2444,7 @@ def main():
     facade = phase_facade(card)
     converge = phase_converge(card)
     family = phase_family(card)
+    zoo = phase_zoo(card)
     facade.update(phase_facade_dbl2(card))
     dp = phase_dp(card)
     import tempfile
@@ -2328,14 +2469,16 @@ def main():
         name = row["name"]
         row["launches"] = home[name][name]
         require(row["launches"] > 0, f"{name} was not launched on its path")
-        row["launches_by_path"] = {_phase(path, cfg, dt): runs[cfg, dt][name]
+        row["launches_by_path"] = {_phase(path, cfg, dt): counts[name]
                                    for path, runs in (("serve", serve), ("train", train))
-                                   for cfg in (DBL, V13, DBL2) for dt in (f32, bf16)}
+                                   for (cfg, dt), counts in runs.items()}
         row["launches_by_path"].update(val=val[name], val_bf16=val_bf16[name],
                                        converge=converge[name],
                                        **{path: runs[name] for path, runs in facade.items()},
                                        **{f"family_{cfg[9:-5]}": runs.get(name, 0)
                                           for cfg, runs in family.items()},
+                                       **{f"zoo_{cfg[:-5]}": runs[name]
+                                          for cfg, runs in zoo.items()},
                                        **{f"dp_{path}": runs.get(name, 0)
                                           for path, runs in dp.items()},
                                        **{f"tp_{path}": runs.get(name, 0)

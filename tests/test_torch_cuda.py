@@ -920,3 +920,83 @@ def test_kernel_launches_leave_the_current_device(cuda):
     qkv.requires_grad_()
     TA.area_attention(*qkv.split(32, -1)).sum().backward()
     assert torch.cuda.current_device() == 0
+
+
+def _perturbed(module, seed):
+    """`module` in eval mode with seeded non-trivial BatchNorm statistics and
+    affine parameters (its convs keep PyTorch's seeded init)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.2, generator=gen)
+    return module.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["ConvTranspose2d", "C2PSA"])
+def test_conv_transpose_and_c2psa_on_card_match_cpu(cuda, dtype, kind):
+    """yolov6's transposed conv (k 2, s 2, 256 -> 256 at n's width 64) and
+    yolo11-s's C2PSA (256 channels, 2 heads of 64, 20x20 tokens) on the card
+    in `dtype` against the CPU's float32 at the same weights, TF32 off:
+    float32 within 1e-4 of the output's largest; bfloat16 computes in
+    bfloat16 (the weights cast at the call) within 3e-2 of it (a few
+    bfloat16 steps through 4-6 layers and a softmax)."""
+    import copy
+
+    from yolo_dbl_tpu_torch.nn.common import ConvTranspose2d
+    from yolo_dbl_tpu_torch.nn.v9v10 import C2PSA
+
+    torch.manual_seed(0)
+    if kind == "ConvTranspose2d":
+        cpu, shape = ConvTranspose2d(64, 64, 2, 2, 0), (2, 64, 20, 20)
+    else:
+        cpu, shape = _perturbed(C2PSA(256, 256, 1), 1), (2, 256, 20, 20)
+    gpu = copy.deepcopy(cpu).to(cuda).to(memory_format=torch.channels_last)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(2))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.reset_launches()
+    with torch.no_grad():
+        want = cpu(x)
+        got = gpu(x.to(cuda, dtype).contiguous(memory_format=torch.channels_last))
+    assert got.dtype == dtype and got.shape == want.shape
+    assert kernels.launches == dict.fromkeys(kernels.launches, 0)
+    err = float((got.float().cpu() - want).abs().max() / want.abs().max())
+    assert err <= (1e-4 if dtype == torch.float32 else 3e-2), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_yolov12n_runs_k3_eight_times_a_forward_and_a_step(cuda, dtype):
+    """YOLOv12-n at 128 px on the card: A2C2f rows 6 and 8 hold 4 ABlocks
+    each (heads of 32), so a forward launches the K3 forward 8 times and a
+    train step each of K3's three kernels 8 times, in `dtype`'s kernels."""
+    from yolo_dbl_tpu_torch import DetectionModel
+    from yolo_dbl_tpu_torch.engine.trainer import Trainer
+
+    model = DetectionModel("yolov12n.yaml", nc=80, device=cuda, dtype=dtype)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    rng = np.random.default_rng(3)
+    kernels.reset_launches()
+    with torch.no_grad():
+        pred = model.predict(torch.rand((2, 128, 128, 3), device=cuda))
+    assert pred.shape == (2, 84, 16 * 16 + 8 * 8 + 4 * 4) and bool(torch.isfinite(pred).all())
+    assert kernels.launches == {**dict.fromkeys(kernels.launches, 0), "area_attention" + suffix: 8}
+    trainer = Trainer(model, {"batch": 2, "imgsz": 128}).setup(10)
+    batch = dict(img=rng.integers(0, 256, (2, 128, 128, 3), dtype=np.uint8),
+                 gt_boxes=np.tile(np.array([[0.5, 0.5, 0.3, 0.2]], np.float32), (2, 4, 1)),
+                 gt_cls=rng.integers(0, 80, (2, 4)).astype(np.int32),
+                 gt_mask=np.ones((2, 4), np.float32))
+    kernels.reset_launches()
+    metrics = trainer.step(batch)
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert kernels.launches == {**dict.fromkeys(kernels.launches, 0),
+                                **{k + suffix: 8 for k in ("area_attention",
+                                                           "area_attention_backward_dq",
+                                                           "area_attention_backward_dkv")}}

@@ -1,7 +1,7 @@
-"""YOLO-DBL and YOLOv13 building blocks (NCHW inside, PyTorch).
+"""YOLO building blocks (NCHW inside, PyTorch).
 
-Port of the YOLOv13/DBL-family and YOLOv8 subset of yolo_dbl_tpu/nn/blocks.py,
-in dependency order.
+Port of the YOLOv13/DBL-family and stock detect-family (v3, v5, v6, v8,
+11, v12) subset of yolo_dbl_tpu/nn/blocks.py, in dependency order.
 Attribute names are the flax scope names (`cv1`, `m_0`, `edge_generator`,
 ...), so JAX variables load key by key (utils/convert.py). Each class cites
 the JAX class it mirrors.
@@ -72,16 +72,16 @@ def _add_chain(module: nn.Module, blocks):
     return len(blocks)
 
 
-class C2f(nn.Module):
-    """cv1 split in two, n 3x3 Bottlenecks (e=1.0) chained on the last part,
-    cv2 over every part (blocks.py:72; JAX's `call_parts` is this concat)."""
+class _CSPSplit(nn.Module):
+    """cv1 split in two, `blocks` chained on the last part, cv2 over every
+    part: the shape of C2f, C3k2 and DSC3k2 (JAX's `call_parts` is this concat)."""
 
-    def __init__(self, c1, c2, n=1, shortcut=False, g=1, e=0.5):
+    def __init__(self, c1, c2, c, blocks):
         super().__init__()
-        self.c = c = int(c2 * e)
+        self.c = c
         self.cv1 = Conv(c1, 2 * c, 1, 1)
-        self.n = _add_chain(self, [Bottleneck(c, c, shortcut, g, (3, 3), 1.0) for _ in range(n)])
-        self.cv2 = Conv((2 + n) * c, c2, 1)
+        self.n = _add_chain(self, blocks)
+        self.cv2 = Conv((2 + self.n) * c, c2, 1)
 
     def forward(self, x):
         y = self.cv1(x)
@@ -89,6 +89,61 @@ class C2f(nn.Module):
         for i in range(self.n):
             ys.append(getattr(self, f"m_{i}")(ys[-1]))
         return self.cv2(torch.cat(ys, 1))
+
+
+class C2f(_CSPSplit):
+    """n 3x3 Bottlenecks (e=1.0) on the split (blocks.py:72)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=False, g=1, e=0.5):
+        c = int(c2 * e)
+        super().__init__(c1, c2, c, [Bottleneck(c, c, shortcut, g, (3, 3), 1.0) for _ in range(n)])
+
+
+class C1(nn.Module):
+    """cv1, then n 3x3 Convs chained, plus cv1's output (blocks.py:223)."""
+
+    def __init__(self, c1, c2, n=1):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.n = _add_chain(self, [Conv(c2, c2, 3) for _ in range(n)])
+
+    def forward(self, x):
+        y = z = self.cv1(x)
+        for i in range(self.n):
+            z = getattr(self, f"m_{i}")(z)
+        return z + y
+
+
+class C2(nn.Module):
+    """cv1 split in two, n 3x3 Bottlenecks (e=1.0) on the first part, cv2
+    over both (blocks.py:239)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        self.n = _add_chain(self, [Bottleneck(c, c, shortcut, g, (3, 3), 1.0) for _ in range(n)])
+        self.cv2 = Conv(2 * c, c2, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        a = y[:, :self.c]
+        for i in range(self.n):
+            a = getattr(self, f"m_{i}")(a)
+        return self.cv2(torch.cat([a, y[:, self.c:]], 1))
+
+
+class LightConv(nn.Module):
+    """1x1 Conv without activation, then a k x k depthwise Conv with ReLU
+    (blocks.py:259)."""
+
+    def __init__(self, c1, c2, k=1):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 1, act=False)
+        self.conv2 = DWConv(c2, c2, k, act=nn.ReLU())
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
 
 
 class SPPF(nn.Module):
@@ -108,15 +163,32 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat(ys, 1))
 
 
-class C3k(nn.Module):
-    """C3 over Bottlenecks with a k x k kernel (blocks.py:94)."""
+class SPP(nn.Module):
+    """Spatial pyramid pooling: cv1 halves the channels, parallel k x k max
+    pools (stride 1, padding k // 2) for each k, cv2 over the maps
+    (blocks.py:385)."""
 
-    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, k=3):
+    def __init__(self, c1, c2, k=(5, 9, 13)):
         super().__init__()
-        c_ = int(c2 * e)
+        self.k = tuple(k)
+        self.cv1 = Conv(c1, c1 // 2, 1, 1)
+        self.cv2 = Conv(c1 // 2 * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        ys = [y] + [_nchw(max_pool(_nhwc(y), k, 1, k // 2)) for k in self.k]
+        return self.cv2(torch.cat(ys, 1))
+
+
+class _CSP3(nn.Module):
+    """CSP with 3 convs: `blocks` chained after cv1, cv3 over their output
+    and cv2's; the shape of C3, C3k, C3Ghost and DSC3k."""
+
+    def __init__(self, c1, c2, c_, blocks):
+        super().__init__()
         self.cv1 = Conv(c1, c_, 1, 1)
         self.cv2 = Conv(c1, c_, 1, 1)
-        self.n = _add_chain(self, [Bottleneck(c_, c_, shortcut, g, (k, k), 1.0) for _ in range(n)])
+        self.n = _add_chain(self, blocks)
         self.cv3 = Conv(2 * c_, c2, 1)
 
     def forward(self, x):
@@ -124,6 +196,37 @@ class C3k(nn.Module):
         for i in range(self.n):
             a = getattr(self, f"m_{i}")(a)
         return self.cv3(torch.cat([a, self.cv2(x)], 1))
+
+
+class C3(_CSP3):
+    """CSP bottleneck with 3 convs (blocks.py:52): n Bottlenecks with
+    kernels (1, 3) and e=1.0."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        c_ = int(c2 * e)
+        super().__init__(c1, c2, c_, [Bottleneck(c_, c_, shortcut, g, (1, 3), 1.0)
+                                      for _ in range(n)])
+
+
+class C3k(_CSP3):
+    """C3 over Bottlenecks with a k x k kernel (blocks.py:94)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, k=3):
+        c_ = int(c2 * e)
+        super().__init__(c1, c2, c_, [Bottleneck(c_, c_, shortcut, g, (k, k), 1.0)
+                                      for _ in range(n)])
+
+
+class C3k2(_CSPSplit):
+    """C2f over C3k blocks (`c3k`) or 3x3 Bottlenecks with e=0.5 (blocks.py:117)."""
+
+    def __init__(self, c1, c2, n=1, c3k=False, e=0.5, g=1, shortcut=True):
+        c = int(c2 * e)
+        if c3k:
+            blocks = [C3k(c, c, 2, shortcut, g) for _ in range(n)]
+        else:
+            blocks = [Bottleneck(c, c, shortcut, g, (3, 3), 0.5) for _ in range(n)]
+        super().__init__(c1, c2, c, blocks)
 
 
 class GhostConv(nn.Module):
@@ -164,63 +267,34 @@ class GhostBottleneck(nn.Module):
         return y + (self.sc_pw(self.sc_dw(x)) if self.s == 2 else x)
 
 
-class C3Ghost(nn.Module):
+class C3Ghost(_CSP3):
     """C3 over GhostBottlenecks (blocks.py:203). `shortcut` and `g` are
     taken and unused, as in JAX: every GhostBottleneck adds its input."""
 
     def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
-        super().__init__()
         c_ = int(c2 * e)
-        self.cv1 = Conv(c1, c_, 1, 1)
-        self.cv2 = Conv(c1, c_, 1, 1)
-        self.n = _add_chain(self, [GhostBottleneck(c_, c_) for _ in range(n)])
-        self.cv3 = Conv(2 * c_, c2, 1)
-
-    def forward(self, x):
-        a = self.cv1(x)
-        for i in range(self.n):
-            a = getattr(self, f"m_{i}")(a)
-        return self.cv3(torch.cat([a, self.cv2(x)], 1))
+        super().__init__(c1, c2, c_, [GhostBottleneck(c_, c_) for _ in range(n)])
 
 
-class DSC3k(nn.Module):
+class DSC3k(_CSP3):
     """C3 over DSBottlenecks (blocks.py:511)."""
 
     def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, k1=3, k2=5, d2=1):
-        super().__init__()
         c_ = int(c2 * e)
-        self.cv1 = Conv(c1, c_, 1, 1)
-        self.cv2 = Conv(c1, c_, 1, 1)
-        self.n = _add_chain(self, [DSBottleneck(c_, c_, shortcut, 1.0, k1, k2, d2) for _ in range(n)])
-        self.cv3 = Conv(2 * c_, c2, 1)
-
-    def forward(self, x):
-        a = self.cv1(x)
-        for i in range(self.n):
-            a = getattr(self, f"m_{i}")(a)
-        return self.cv3(torch.cat([a, self.cv2(x)], 1))
+        super().__init__(c1, c2, c_, [DSBottleneck(c_, c_, shortcut, 1.0, k1, k2, d2)
+                                      for _ in range(n)])
 
 
-class DSC3k2(nn.Module):
+class DSC3k2(_CSPSplit):
     """C2f over DSC3k / DSBottleneck blocks (blocks.py:536)."""
 
     def __init__(self, c1, c2, n=1, dsc3k=False, e=0.5, g=1, shortcut=True, k1=3, k2=7, d2=1):
-        super().__init__()
-        self.c = c = int(c2 * e)
-        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        c = int(c2 * e)
         if dsc3k:
             blocks = [DSC3k(c, c, 2, shortcut, g, 1.0, k1, k2, d2) for _ in range(n)]
         else:
             blocks = [DSBottleneck(c, c, shortcut, 1.0, k1, k2, d2) for _ in range(n)]
-        self.n = _add_chain(self, blocks)
-        self.cv2 = Conv((2 + n) * c, c2, 1)
-
-    def forward(self, x):
-        y = self.cv1(x)
-        ys = [y[:, :self.c], y[:, self.c:]]
-        for i in range(self.n):
-            ys.append(getattr(self, f"m_{i}")(ys[-1]))
-        return self.cv2(torch.cat(ys, 1))
+        super().__init__(c1, c2, c, blocks)
 
 
 class LSKblock(nn.Module):

@@ -17,6 +17,11 @@ maps onto a `state_dict` key by key (utils/convert.py).
   module's output.
 - The TPU-only concat fold (`Conv.call_parts`) and the fused s2d stem are
   not ported: plain concat + conv is the semantics they reproduce.
+- The activation of a Conv or DWConv built with `act=True` is SiLU, or
+  the model YAML's `activation:` (`resolve_act`, common.py:44-83). JAX
+  scopes that override to its model's trace; the port fixes it when the
+  model is built, inside `default_act(name)`. DSConv keeps a hard SiLU,
+  as in JAX.
 - Compute precision is flax's module `dtype` policy (common.py:13-14):
   parameters and BatchNorm statistics stay float32 and are cast to the
   compute type at the call, so autograd brings each gradient back to its
@@ -32,8 +37,9 @@ maps onto a `state_dict` key by key (utils/convert.py).
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
-from typing import Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -193,16 +199,54 @@ def flax_batch_norm(c: int) -> BatchNorm:
     return BatchNorm(c, eps=1e-5, momentum=0.01)
 
 
+# the activations a model YAML's `activation:` may name (common.py:49-60);
+# flax's `nn.gelu` is the tanh form
+_ACT_NAMES = {
+    "nn.SiLU()": nn.SiLU,
+    "nn.ReLU()": nn.ReLU,
+    "nn.ReLU6()": nn.ReLU6,
+    "nn.LeakyReLU()": lambda: nn.LeakyReLU(0.01),
+    "nn.LeakyReLU(0.1)": lambda: nn.LeakyReLU(0.1),
+    "nn.GELU()": lambda: nn.GELU(approximate="tanh"),
+    "nn.Hardswish()": nn.Hardswish,
+    "nn.Mish()": nn.Mish,
+    "nn.Identity()": nn.Identity,
+}
+_DEFAULT_ACT: contextvars.ContextVar = contextvars.ContextVar("default_act", default=nn.SiLU)
+
+
+def resolve_act(name: str) -> Callable[[], nn.Module]:
+    """The module factory of a YAML activation string (common.py:63)."""
+    if name not in _ACT_NAMES:
+        raise ValueError(f"unsupported activation '{name}'; known: {sorted(_ACT_NAMES)}")
+    return _ACT_NAMES[name]
+
+
+@contextlib.contextmanager
+def default_act(name: Optional[str]):
+    """Inside the block, a Conv or DWConv built with `act=True` takes the
+    activation `name` (a YAML string); None keeps the one in force."""
+    if not name:
+        yield
+        return
+    token = _DEFAULT_ACT.set(resolve_act(name))
+    try:
+        yield
+    finally:
+        _DEFAULT_ACT.reset(token)
+
+
 def _act(act) -> nn.Module:
     if act is True:
-        return nn.SiLU()
+        return _DEFAULT_ACT.get()()
     if isinstance(act, nn.Module):
         return act
     return nn.Identity()
 
 
 class Conv(nn.Module):
-    """Conv2d + BatchNorm + SiLU (common.py:118)."""
+    """Conv2d + BatchNorm + SiLU, or the activation `default_act` names
+    (common.py:118)."""
 
     def __init__(self, c1: int, c2: int, k: Union[int, Sequence[int]] = 1, s: int = 1,
                  p: Optional[int] = None, g: int = 1, d: int = 1, act=True):
@@ -213,6 +257,22 @@ class Conv(nn.Module):
 
     def forward(self, x):
         return finish(self.conv, self.act(self.bn(conv2d(self.conv, x))))
+
+
+class ConvTranspose2d(nn.Module):
+    """Biased transposed conv with no BN or activation, torch's
+    nn.ConvTranspose2d (common.py:220): out = (in - 1) * s - 2p + k, which
+    JAX crops from flax's VALID output. Its `conv.weight` is (in, out, kh,
+    kw), the flax kernel flipped in space (utils/convert.py)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__()
+        self.conv = nn.ConvTranspose2d(c1, c2, k, s, p, bias=True)
+
+    def forward(self, x):
+        conv = self.conv
+        return nn.functional.conv_transpose2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                                              conv.stride, conv.padding)
 
 
 class DWConv(nn.Module):

@@ -1,10 +1,10 @@
 """YAML → model compiler and the detection model (port of yolo_dbl_tpu/nn/tasks.py).
 
-Only the branches the YOLOv13/DBL family (`cfg/models/v13/`) and YOLOv8
-rows use are ported; any other module name raises NotImplementedError. The
-model YAMLs are the port's own verbatim copies under cfg/, read by path with
-the port's small YAML reader (utils/yaml_subset.py), so the port needs no
-YAML package.
+Only the branches that the YOLOv13/DBL family (`cfg/models/v13/`) and the
+stock detect families' rows (v3, v5, v6, v8, 11, v12) use are ported; any
+other module name raises NotImplementedError. The model YAMLs are the
+port's own verbatim copies under cfg/, read by path with the port's small
+YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
 """
 
 from __future__ import annotations
@@ -19,14 +19,15 @@ from typing import Any, Dict, List, Union
 import torch
 from torch import nn
 
-from ..ops.resample import nearest_upsample
+from ..ops.resample import max_pool, nearest_upsample
 from ..utils.device import resolve_device
 from ..utils.yaml_subset import load_yaml
 from . import blocks as B
 from .attention import SLA
-from .common import Conv, DSConv, DWConv
+from .common import Conv, ConvTranspose2d, DSConv, DWConv, default_act
 from .heads import Detect, decode_detections
 from .upsample import carafe as U
+from .v9v10 import C2PSA
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
 
@@ -83,17 +84,25 @@ class ModelSpec:
     scale: str
 
 
-# the v13/DBL-family and YOLOv8 subset of the JAX module families (tasks.py:102-138)
-_C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "C2f", "DSC3k2",
-              "DSC3k", "SPPF", "A2C2f", "GhostConv", "GhostBottleneck", "C3Ghost"}
-_REPEAT_INSERT = {"C2f", "DSC3k2", "DSC3k", "A2C2f", "C3Ghost"}
-_LEGACY_FALSE = {"DSC3k2", "A2C2f"}
+# the v13/DBL-family and stock detect-family subset of the JAX module
+# families (tasks.py:102-138)
+_C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "C2f", "C3", "C3k",
+              "C3k2", "DSC3k2", "DSC3k", "SPPF", "A2C2f", "GhostConv", "GhostBottleneck",
+              "C3Ghost", "C1", "C2", "SPP", "C2PSA"}
+_REPEAT_INSERT = {"C2f", "C3", "C3k2", "DSC3k2", "DSC3k", "A2C2f", "C3Ghost", "C1", "C2", "C2PSA"}
+_LEGACY_FALSE = {"C3k2", "DSC3k2", "A2C2f"}
+# parameter-free torch layers, run in DetectionModel.forward (tasks.py:277-278, :743-753)
+TORCH_ROWS = {"nn.MaxPool2d", "nn.ZeroPad2d", "nn.Identity"}
 _C1_ONLY = {"DySample", "LSKblock", "SLA", "DLU", "CARAFE", "CARAFEPack"}
 # rows whose args pass through unchanged and whose width is their input's
 # (the final `else` of tasks.py:141's branches)
 _ARGS_AS_GIVEN = {"CARAFE_XiaLiPKU", "CARAFE_simplified"}
 # modules built as Module(*resolved args)
-_FROM_ARGS = {"GhostConv": B.GhostConv, "GhostBottleneck": B.GhostBottleneck,
+_FROM_ARGS = {"Conv": Conv, "DWConv": DWConv, "DSConv": DSConv, "ConvTranspose2d": ConvTranspose2d,
+              "DSBottleneck": B.DSBottleneck, "C2f": B.C2f, "C3": B.C3, "C3k": B.C3k,
+              "C3k2": B.C3k2, "C1": B.C1, "C2": B.C2, "SPPF": B.SPPF, "SPP": B.SPP,
+              "DSC3k2": B.DSC3k2, "DSC3k": B.DSC3k, "A2C2f": B.A2C2f, "HyperACE": B.HyperACE,
+              "C2PSA": C2PSA, "GhostConv": B.GhostConv, "GhostBottleneck": B.GhostBottleneck,
               "C3Ghost": B.C3Ghost, "DySample": B.DySample, "SLA": SLA, "DLU": U.DLU,
               "CARAFE": U.CARAFE, "CARAFEPack": U.CARAFEPack,
               "CARAFE_XiaLiPKU": U.CARAFE_XiaLiPKU, "CARAFE_simplified": U.CARAFE_simplified}
@@ -105,10 +114,9 @@ def _not_ported(m: str):
 
 def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
     """Resolve a model YAML dict into a ModelSpec (tasks.py:141), v13/DBL
-    family and YOLOv8 rows only. Detect keeps `legacy=True` (the v8 class
-    branch) unless a DSC3k2, A2C2f or HyperACE(2) row comes before it."""
-    if d.get("activation"):
-        raise _not_ported(f"activation {d['activation']}")
+    family and stock detect-family rows only. Detect keeps `legacy=True`
+    (the v8 class branch) unless a C3k2, DSC3k2, A2C2f or HyperACE(2) row
+    comes before it."""
     nc = d.get("nc", 80)
     scales = d.get("scales")
     depth, width = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0)
@@ -176,6 +184,14 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
         elif m in ("nn.Upsample", "Upsample"):
             m = "Upsample"
             c2 = chs[f]
+        elif m in ("nn.ConvTranspose2d", "ConvTranspose2d"):
+            m = "ConvTranspose2d"
+            c1, c2 = chs[f], args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            args = [c1, c2, *args[1:]]
+        elif m in TORCH_ROWS:
+            c2 = chs[f]
         elif m == "Detect":
             args.append([chs[x] for x in f])
             args.append(legacy)
@@ -198,45 +214,25 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
     `c_in`: the widths of the row's inputs (HyperACE2's fuse conv takes
     their sum, which flax reads from the inputs)."""
     m, a = spec.name, spec.args
-    if m == "Conv":
-        return Conv(*a)
-    if m == "DWConv":
-        return DWConv(*a)
-    if m == "DSConv":
-        return DSConv(*a)
+    if m in _FROM_ARGS:
+        return _FROM_ARGS[m](*a)
     if m == "Bottleneck":
         kw = dict(zip(["shortcut", "g", "k", "e"], a[2:]))
         if "k" in kw:
             kw["k"] = tuple(kw["k"])
         return B.Bottleneck(a[0], a[1], **kw)
-    if m == "DSBottleneck":
-        return B.DSBottleneck(*a)
-    if m == "C2f":
-        return B.C2f(*a)
-    if m == "SPPF":
-        return B.SPPF(*a)
-    if m == "DSC3k2":
-        return B.DSC3k2(*a)
-    if m == "DSC3k":
-        return B.DSC3k(*a)
-    if m == "A2C2f":
-        return B.A2C2f(*a)
-    if m == "HyperACE":
-        return B.HyperACE(*a)
     if m == "HyperACE2":
         return B.HyperACE2(*a, c_cat=sum(c_in))
     if m == "DownsampleConv":
         return B.DownsampleConv(a[0], channel_adjust=True)
     if m == "FullPAD_Tunnel":
         return B.FullPAD_Tunnel()
-    if m in _FROM_ARGS:
-        return _FROM_ARGS[m](*a)
     if m == "LSKblock":
         return B.LSKblock(a[0])
     if m == "Detect":
         nc, ch, legacy = a
         return Detect(nc=nc, ch=tuple(ch), legacy=legacy)
-    if m in ("Concat", "Upsample"):
+    if m in ("Concat", "Upsample") or m in TORCH_ROWS:
         return None
     raise _not_ported(m)
 
@@ -291,7 +287,8 @@ class DetectionModel(nn.Module):
         self.nc = self.spec.nc
         self.names = {i: f"{i}" for i in range(self.nc)}
         self.reg_max = 16
-        with torch.device("meta"):
+        # a YAML `activation:` is the Conv default of this build only (tasks.py:634-638)
+        with torch.device("meta"), default_act(d.get("activation")):
             widths = []  # each row's output width
             for layer in self.spec.layers:
                 src = [layer.f] if isinstance(layer.f, int) else layer.f
@@ -323,8 +320,13 @@ class DetectionModel(nn.Module):
                 mod.weight.zero_()
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, (nn.Conv2d, nn.Linear)):
-                std = math.sqrt(1.0 / mod.weight[0].numel()) / _TRUNC_STD
+            elif isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+                # flax's fan-in is a kernel's in-channels times its window:
+                # weight[0] for (out, in, kh, kw) and (out, in), but the
+                # transposed conv's weight is (in, out, kh, kw)
+                fan_in = (mod.weight.shape[0] * mod.weight[0, 0].numel()
+                          if isinstance(mod, nn.ConvTranspose2d) else mod.weight[0].numel())
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
@@ -390,6 +392,17 @@ class DetectionModel(nn.Module):
             elif layer.name == "Upsample":
                 scale = int(layer.args[1]) if len(layer.args) > 1 else 2
                 out = nearest_upsample(inp.permute(0, 2, 3, 1), scale).permute(0, 3, 1, 2)
+            elif layer.name == "nn.MaxPool2d":
+                a = layer.args
+                k = int(a[0]) if a else 2
+                st = int(a[1]) if len(a) > 1 else k
+                pd = int(a[2]) if len(a) > 2 else 0
+                out = max_pool(inp.permute(0, 2, 3, 1), k, st, pd).permute(0, 3, 1, 2)
+            elif layer.name == "nn.ZeroPad2d":
+                left, right, top, bottom = layer.args[0]
+                out = nn.functional.pad(inp, (left, right, top, bottom))
+            elif layer.name == "nn.Identity":
+                out = inp
             else:
                 out = inp
                 for name in _layer_names(layer):

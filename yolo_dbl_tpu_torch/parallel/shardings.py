@@ -30,7 +30,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from ..utils.convert import jax_param_paths
+from ..utils.convert import jax_param_paths, transposed_convs
 from .mesh import Mesh, data_sharding  # noqa: F401 (the JAX module's export)
 from .spatial import spatial_sharding  # noqa: F401 (the JAX module's export)
 
@@ -134,6 +134,11 @@ def model_parallel_shardings(model_or_state, mesh: Mesh, min_size: int = 1 << 14
     specs of the same structure)."""
     n_model = model_axis_size(mesh)
     if isinstance(model_or_state, torch.nn.Module):
+        if n_model > 1 and transposed_convs(model_or_state):
+            # its weight is (in, out, kh, kw): the rule below would shard the wrong axis
+            raise NotImplementedError(
+                f"ConvTranspose2d ({', '.join(sorted(transposed_convs(model_or_state)))}) has no "
+                "tensor-parallel form yet (ROADMAP Queue 1 item 7)")
         leaves = _model_leaves(model_or_state)
     else:
         leaves = [(path, _canonical_id(path), "/".join(path), tuple(arr.shape))

@@ -23,7 +23,10 @@ runs on them:
   decode and the NMS run replicated on whole maps.
 
 The rows a rank holds must divide by the model's largest stride at every
-level; a size that does not divide raises (nothing is padded).
+level; a size that does not divide raises (nothing is padded). A model
+with a layer that has no row-sharded form yet raises: SLA, the CARAFE
+family, SPP, ConvTranspose2d, V10Attention and the nn.MaxPool2d and
+nn.ZeroPad2d rows.
 """
 
 from __future__ import annotations
@@ -185,14 +188,19 @@ def spatial(model, mesh: Mesh):
     `Spatial` state, whose counters read the halo and gather bytes. The
     model's output is the whole map's, on every model rank."""
     from ..nn.attention import SLA
-    from ..nn.blocks import SPPF, AAttn, AdaHGComputation, DySample
+    from ..nn.blocks import SPP, SPPF, AAttn, AdaHGComputation, DySample
+    from ..nn.common import ConvTranspose2d
     from ..nn.heads import Detect
     from ..nn.upsample import carafe
+    from ..nn.v9v10 import V10Attention
 
     if getattr(model, "tp", None) is not None:
         raise ValueError("spatial parallelism runs a whole (unsharded) model")
     local_only = (SLA, carafe.CARAFE, carafe.CARAFEPack, carafe.CARAFE_XiaLiPKU,
-                  carafe.CARAFE_simplified, carafe.DLU)
+                  carafe.CARAFE_simplified, carafe.DLU, SPP, ConvTranspose2d, V10Attention)
+    rows = sorted({layer.name for layer in model.spec.layers} & {"nn.MaxPool2d", "nn.ZeroPad2d"})
+    if rows:
+        raise NotImplementedError(f"the {', '.join(rows)} rows have no spatial-parallel form yet")
     sp = Spatial(mesh)
     stride = max(model.strides)
     hooks = []

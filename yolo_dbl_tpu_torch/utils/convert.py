@@ -4,6 +4,12 @@ Module and attribute names of the port are the flax scope names, so a leaf
 `params/m9/m_0/cv1/conv/kernel` becomes `m9.m_0.cv1.conv.weight`. The rules:
 
 - conv kernel HWIO → OIHW (depthwise (kh, kw, 1, C) → (C, 1, kh, kw));
+- a transposed conv's kernel (kh, kw, in, out) → (in, out, kh, kw), flipped
+  in space: flax's `nn.ConvTranspose` (transpose_kernel=False) correlates
+  the dilated input with the kernel as it stands, torch's ConvTranspose2d
+  with the kernel flipped. Only the owning module tells this rule from the
+  conv's (the shapes agree when in == out), so the callers that hold the
+  module pass the names of its transposed convs (`transposed_convs`);
 - Dense kernel (I, O) → (O, I);
 - BatchNorm params scale/bias → weight/bias, batch_stats mean/var →
   running_mean/running_var;
@@ -31,7 +37,7 @@ rules written against JAX paths (the optimizer's decay and freeze masks).
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Dict, FrozenSet
 
 import numpy as np
 import torch
@@ -50,9 +56,18 @@ def _flatten(tree, prefix=()):
             yield prefix + (str(k),), v
 
 
-def _torch_leaf(collection: str, path, arr: np.ndarray):
+def transposed_convs(module: torch.nn.Module) -> FrozenSet[str]:
+    """The names of `module`'s nn.ConvTranspose2d layers, whose kernels take
+    the transposed rule."""
+    return frozenset(name for name, m in module.named_modules()
+                     if isinstance(m, torch.nn.ConvTranspose2d))
+
+
+def _torch_leaf(collection: str, path, arr: np.ndarray, transposed: FrozenSet[str]):
     *scopes, leaf = path
     if collection == "params":
+        if leaf == "kernel" and arr.ndim == 4 and ".".join(scopes) in transposed:
+            return scopes, "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if leaf == "kernel" and arr.ndim == 4:
             return scopes, "weight", arr.transpose(3, 2, 0, 1)
         if leaf == "kernel" and arr.ndim == 2:
@@ -67,13 +82,15 @@ def _torch_leaf(collection: str, path, arr: np.ndarray):
     raise KeyError(f"no rule for JAX leaf {collection}/{'/'.join(path)} {arr.shape}")
 
 
-def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(variables,
+                        transposed: FrozenSet[str] = frozenset()) -> Dict[str, torch.Tensor]:
     """Map every leaf of a JAX variables tree to its state_dict entry, in
-    float32 (float64 leaves stay float64)."""
+    float32 (float64 leaves stay float64). `transposed`: the module names
+    whose kernel is a transposed conv's (`transposed_convs`)."""
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         for path, value in _flatten(tree):
-            scopes, name, arr = _torch_leaf(collection, path, np.asarray(value))
+            scopes, name, arr = _torch_leaf(collection, path, np.asarray(value), transposed)
             key = ".".join([*scopes, name])
             if key in out:
                 raise KeyError(f"two JAX leaves map to {key}")
@@ -84,7 +101,7 @@ def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
 
 def load_jax_variables(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Load JAX variables into `module`; raises on any key unmapped either way."""
-    sd = state_dict_from_jax(variables)
+    sd = state_dict_from_jax(variables, transposed_convs(module))
     own = module.state_dict()
     torch_only = {k for k in own if k.endswith(TORCH_ONLY_SUFFIX)}
     missing = sorted(set(own) - set(sd) - torch_only)
@@ -106,7 +123,7 @@ def params_from_jax(module: torch.nn.Module, tree) -> Dict[str, torch.Tensor]:
     """Map a params-shaped JAX tree leaf by leaf to {parameter name: tensor}
     in the port's layouts; raises unless it covers exactly the parameters of
     `module`."""
-    out = state_dict_from_jax({"params": tree})
+    out = state_dict_from_jax({"params": tree}, transposed_convs(module))
     own = dict(module.named_parameters())
     if set(out) != set(own):
         raise KeyError(f"params bridge mismatch: {sorted(set(own) - set(out))[:8]} without a JAX "
@@ -124,7 +141,8 @@ def jax_param_paths(module: torch.nn.Module) -> Dict[str, str]:
     for mod_name, mod in module.named_modules():
         for name, _ in mod.named_parameters(recurse=False):
             leaf = name
-            if name == "weight" and isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+            if name == "weight" and isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                                                     torch.nn.Linear)):
                 leaf = "kernel"
             elif name == "weight" and isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
                 leaf = "scale"
