@@ -114,7 +114,13 @@ The engine slice, part 2 (the facade; needs cv2, through tests/fixtures.py):
               with classes=[1] and agnostic_nms=True; request ms, launches,
               loader lane, checkpoint bytes and wall seconds; gate: 2 frames
               through the same checkpoint on the CPU (TF32 off, conf 0.001):
-              equal kept counts, boxes < 0.05 px, scores <= 1e-3; and
+              the decode NMS is handed within 0.05 px and 1e-3 at every
+              anchor, the card's NMS on it equal to the CPU's NMS on it, and
+              each frame's kept counts equal with boxes < 0.05 px, scores
+              <= 1e-3 and equal classes, or parted at an NMS decision that
+              the two decodes take on either side of its threshold (a
+              float32 near-tie: a score at conf, two candidates' order, an
+              IoU at iou), which the gate names with both values; and
               `python -m yolo_dbl_tpu_torch detect predict` in a process of
               its own prints the same counts;
  23. converge - the convergence run of record through the facade: yolov8n
@@ -189,6 +195,31 @@ The mesh's 'model' axis (parallel/shardings.py, tensor.py, spatial.py):
               `spatial(model, mesh)` (320 image rows a rank, halo
               exchanges, DySample and the hypergraph on gathered maps),
               held as tp's serving; halo and gather bytes a request.
+The v10, v9 and v7 families (nc=80, 640, seeded random weights; the paths
+run after main_v11 and train_v11, their parities after the others):
+ 33. main_v10, profile_v10, train_v10, train_profile_v10, parity_v10,
+              train_parity_v10 and their _bf16 phases - YOLOv10-s
+              (yolov10s.yaml, 8,128,256 parameters; SCDown, C2fCIB, PSA and
+              the NMS-free v10Detect) as the YOLOv12-s phases: K1 once a
+              request, no hand kernel in a step; the predictor decodes the
+              one2one branch and runs NMS, as JAX's does; the class biases
+              of both branches are 0; train_v10 also holds the trainer's
+              loss to e2e_detect_loss's one2many term plus its one2one term
+              (TAL top-10 and top-1); parity_v10 also runs v10_postprocess
+              (the NMS-free top-300) on the card against the CPU;
+              train_parity's named leaves are PSA's qkv conv (the plain
+              attention's backward) and both branches' first-level outputs;
+ 34. main_v9, profile_v9, train_v9, train_profile_v9, parity_v9 - YOLOv9-s
+              (yolov9s.yaml; ELAN1, AConv, RepNCSPELAN4, SPPELAN) in
+              float32: K1 once a request, no hand kernel in a step;
+ 35. main_v7, profile_v7, parity_v7 - YOLOv7 (yolov7.yaml, 37,622,682
+              parameters; MP, SPPCSPC, RepConv, IDetect) serving in float32
+              through decode_v7 (scores in [0, 1]): K1 once a request. It
+              does not train: the JAX package has no IDetect loss;
+ 36. zoo_v9v10 - the v9 and v10 families' other 10 configs (yolov9t, m, c,
+              e; yolov10.yaml at n, yolov10n, m, b, l, x) as zoo: card decode
+              against the CPU's at 320 on 2 frames, K1 once a forward, one
+              train step at batch 4 with finite losses.
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -235,7 +266,11 @@ DBL2_SITES = {"dbl2_row18": (20, 20, 1024), "dbl2_row13": (40, 40, 512)}
 DBL, V13, DBL2 = ("yolov13s_DBL.yaml", NC), ("yolov13s.yaml", 80), ("yolov13l_DBL2.yaml", NC)
 # the stock detect families' full-width paths, at the configs' own nc
 V12, V11 = ("yolov12s.yaml", 80), ("yolo11s.yaml", 80)
-SUFFIX = {DBL: "", V13: "_v13", DBL2: "_dbl2", V12: "_v12", V11: "_v11"}
+# the v10, v9 and v7 families' full-width paths: YOLOv10-s (v10Detect and its
+# e2e loss), YOLOv9-s, YOLOv7 (IDetect: serving only, JAX has no loss for it)
+V10, V9, V7 = ("yolov10s.yaml", 80), ("yolov9s.yaml", 80), ("yolov7.yaml", 80)
+SUFFIX = {DBL: "", V13: "_v13", DBL2: "_dbl2", V12: "_v12", V11: "_v11", V10: "_v10", V9: "_v9",
+          V7: "_v7"}
 # YOLOv13-s A2C2f sites at 640: (areas, N, heads) per image; each site runs
 # 4 AAttn (2 repeats x 2 ABlocks), hd 32. Row 6: 40x40 tokens in 4 areas.
 # YOLOv12-s's rows 6 and 8 are the same two sites.
@@ -260,7 +295,8 @@ PER_REQUEST = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for c
     (DBL2, {"letterbox_normalize": 1, "sample_bilinear": 3}),
     (V13, {"letterbox_normalize": 1, "area_attention": 8}),
     (V12, {"letterbox_normalize": 1, "area_attention": 8}),
-    (V11, {"letterbox_normalize": 1}))}
+    (V11, {"letterbox_normalize": 1}), (V10, {"letterbox_normalize": 1}),
+    (V9, {"letterbox_normalize": 1}), (V7, {"letterbox_normalize": 1}))}
 PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
     (DBL, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
     (DBL2, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
@@ -268,7 +304,7 @@ PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg,
            "area_attention_backward_dkv": 8}),
     (V12, {"area_attention": 8, "area_attention_backward_dq": 8,
            "area_attention_backward_dkv": 8}),
-    (V11, {}))}
+    (V11, {}), (V10, {}), (V9, {}))}
 
 
 def emit(obj):
@@ -953,7 +989,8 @@ def build_models(cfg, dtype=torch.float32, zero_class_bias=True):
     smoke settings, and its copy on the card (the same weights in both
     types: parameters are float32). `zero_class_bias=False` keeps the Detect
     class biases of the model's own init (the stride-aware prior), whose
-    spread of scores keeps NMS away from near-ties at a low threshold."""
+    spread of scores keeps NMS away from near-ties at a low threshold.
+    YOLOv7's IDetect has no class bias to zero: its scores are σ(obj)σ(cls)."""
     from yolo_dbl_tpu_torch import DetectionModel
     from yolo_dbl_tpu_torch.nn.blocks import FullPAD_Tunnel
 
@@ -964,8 +1001,8 @@ def build_models(cfg, dtype=torch.float32, zero_class_bias=True):
         for mod in cpu.modules():
             if isinstance(mod, FullPAD_Tunnel):
                 mod.gate.fill_(0.5)  # gates start at 0, which would hide the tunnel inputs
-        for lvl in range(len(cpu.strides) if zero_class_bias else 0):
-            getattr(cpu.detect, f"cv3_{lvl}_2").conv.bias.zero_()  # give NMS real candidates
+    if zero_class_bias:
+        cpu.zero_class_biases()  # give NMS real candidates (both v10Detect branches)
     gpu = DetectionModel(name, nc=nc, device="cuda", dtype=dtype)
     gpu.load_state_dict(cpu.state_dict())
     return cpu, gpu
@@ -989,6 +1026,7 @@ def phase_main(cfg, gpu_model, rng, card):
         pred(frames)
     torch.cuda.synchronize()
     kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     lat, n_boxes = [], []
     for frames in requests[WARMUP:]:
         t0 = time.perf_counter()
@@ -1008,6 +1046,7 @@ def phase_main(cfg, gpu_model, rng, card):
           "batch": B, "frames": list(SRC_HW), "requests": REQUESTS,
           "latency_ms": [t * 1e3 for t in lat], "median_ms": med * 1e3, "img_per_s": B / med,
           "boxes_per_image": n_boxes, "launches": launches,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "tf32_conv": torch.backends.cudnn.allow_tf32,
           "seconds": time.perf_counter() - t_start, "card": card})
     return launches, requests[WARMUP][:2], pred, med
@@ -1059,9 +1098,11 @@ def _parts(events, calls):
 
 def phase_profile(cfg, pred, rng, median_ms, requests=2):
     """Device time of one request by kernel and by part of the path."""
+    t_start = time.perf_counter()
     frames = [rng.integers(0, 256, (B, *SRC_HW, 3), dtype=np.uint8) for _ in range(requests)]
     p = by_part(lambda i: pred(frames[i]), requests)
     emit({"phase": _phase("profile", cfg, pred.model.dtype), "requests": requests,
+          "seconds": time.perf_counter() - t_start,
           "device_ms_per_request": p["device_ms"],
           "device_ops_per_request": p["device_ops"], "unprofiled_median_ms": median_ms,
           "device_busy_share": p["device_ms"] / median_ms, "by_part_ms": p["by_part_ms"],
@@ -1080,6 +1121,36 @@ def train_batches(rng, n, b=TRAIN_B, imgsz=IMGSZ, m=TRAIN_M, nc=NC):
                         gt_boxes=np.concatenate([xy, wh], -1).astype(np.float32),
                         gt_cls=rng.integers(0, nc, (b, m)).astype(np.int32),
                         gt_mask=(np.arange(m)[None] < real[:, None]).astype(np.float32)))
+    return out
+
+
+def e2e_terms(model, train_cfg, batch):
+    """{loss, one2many, one2one, items} of v10Detect's train-mode loss of
+    `batch` on the model's device, without a backward: the trainer's loss
+    (`task_loss`) must equal the sum of e2e_detect_loss's two terms (each
+    its items' sum times the batch), and its items must be one2many's."""
+    from yolo_dbl_tpu_torch.engine.trainer import task_loss
+    from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
+    from yolo_dbl_tpu_torch.losses.extra import e2e_detect_loss
+
+    b = {k: torch.as_tensor(v).to(model.device) for k, v in batch.items()}
+    was_training = model.training
+    model.train()
+    with torch.no_grad():
+        feats = model(device_normalize(b["img"], model.dtype))
+        loss, items = task_loss(model, train_cfg, feats, b)
+        _, terms = e2e_detect_loss(feats, b, model.strides, model.nc, box_gain=train_cfg.box,
+                                   cls_gain=train_cfg.cls, dfl_gain=train_cfg.dfl)
+    model.train(was_training)
+    n = b["img"].shape[0]
+    out = {"loss": float(loss), **{k: float(sum(v)) * n for k, v in terms.items()},
+           "items": {k: float(v) for k, v in items._asdict().items()},
+           "one2one_items": {k: float(v) for k, v in terms["one2one"]._asdict().items()}}
+    out["loss_minus_terms"] = out["loss"] - out["one2many"] - out["one2one"]
+    require(np.isfinite(out["loss"]) and abs(out["loss_minus_terms"]) <= 1e-5 * abs(out["loss"])
+            and all(abs(float(a) - float(b)) <= 1e-6 * abs(float(b))
+                    for a, b in zip(items, terms["one2many"])),
+            f"e2e loss: the trainer's loss is not one2many's term plus one2one's: {out}")
     return out
 
 
@@ -1122,6 +1193,8 @@ def phase_train(cfg, card, dtype=torch.float32):
     require(launches == want, f"launches in {TRAIN_STEPS} steps: {launches}, expected {want}")
     require(all(t.dtype == torch.float32 for t in params + trainer.ema),
             "parameters and EMA must stay float32")
+    extra = ({"e2e": e2e_terms(model, trainer.cfg, batches[-1])}
+             if model.head_name == "v10Detect" else {})
     med = statistics.median(step_ms)
     emit({"phase": _phase("train", cfg, dtype), "model": name[:-5], "nc": nc,
           "dtype": str(dtype).split(".")[-1], "imgsz": IMGSZ,
@@ -1129,7 +1202,7 @@ def phase_train(cfg, card, dtype=torch.float32):
           "step_ms": step_ms, "median_ms": med, "img_per_s": TRAIN_B / (med / 1e3),
           "losses": losses, "max_memory_allocated_bytes": peak, "launches": launches,
           "params_changed": moved, "ema_changed": ema_moved, "n_params": len(params),
-          "tf32_conv": torch.backends.cudnn.allow_tf32, "card": card})
+          "tf32_conv": torch.backends.cudnn.allow_tf32, **extra, "card": card})
     last = batches[-1]
     p = by_part(lambda i: (trainer.step(last), torch.cuda.synchronize()), 1)
     emit({"phase": _phase("train_profile", cfg, dtype), "steps": 1,
@@ -1141,6 +1214,46 @@ def phase_train(cfg, card, dtype=torch.float32):
     return launches
 
 
+def n_anchors(model, imgsz):
+    """The decode's A at a square `imgsz`: a cell a level, IDetect's na each."""
+    na = model.detect.na if model.head_name == "IDetect" else 1
+    return na * sum((imgsz // s) ** 2 for s in model.strides)
+
+
+def v10_postprocess_check(pred_c, pred_card, nc, max_det=300):
+    """v10_postprocess (the NMS-free top-k) on the card against the CPU: on
+    the CPU's decode moved to the card, equal rows (the same input, a
+    stable sort on both); on each device's own decode, the sorted top-k
+    scores within 1e-3, and each card row whose score clears the CPU's k-th
+    by twice the decodes' largest score difference e matching a CPU row of
+    its class within 0.05 px. Such a pair scores above the k-th on the CPU
+    too, so it is in the CPU's top-k (its anchor's best score is above the
+    k-th, which is at least the first pass's threshold); a row within 2e of
+    the k-th may trade places across it."""
+    from yolo_dbl_tpu_torch.nn.heads import v10_postprocess
+
+    want = v10_postprocess(pred_c, max_det, nc)
+    same_input = v10_postprocess(pred_c.to(pred_card.device), max_det, nc).cpu()
+    got = v10_postprocess(pred_card, max_det, nc).cpu()
+    row_err = max_abs(same_input, want)
+    score_err = max_abs(got[..., 4], want[..., 4])
+    band = 2 * max_abs(pred_card[:, 4:].cpu(), pred_c[:, 4:])
+    box_err, checked = 0.0, 0
+    for g, w in zip(got, want):
+        floor = float(w[-1, 4]) + band
+        for row in g[g[:, 4] > floor]:
+            same = w[w[:, 5] == row[5]]
+            box_err = max(box_err, float((same[:, :4] - row[:4]).abs().amax(-1).min())
+                          if len(same) else float("inf"))
+            checked += 1
+    out = {"k": int(want.shape[1]), "same_input_max_abs": row_err, "score_max_abs": score_err,
+           "band": band, "rows_checked": checked, "box_max_abs_px": box_err,
+           "top_score": float(want[..., 4].max()), "kth_score": float(want[:, -1, 4].min())}
+    require(row_err <= 1e-6 and score_err <= 1e-3 and box_err < 0.05 and checked > 0,
+            f"v10_postprocess card vs CPU: {out}")
+    return out
+
+
 def phase_parity(cfg, cpu_model, gpu_model, frames):
     from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
 
@@ -1149,16 +1262,24 @@ def phase_parity(cfg, cpu_model, gpu_model, frames):
     torch.backends.cuda.matmul.allow_tf32 = False
     u8 = torch.from_numpy(frames)
     pred_c = cpu_model.predict(letterbox_normalize(u8, (IMGSZ, IMGSZ)))
-    pred_g = gpu_model.predict(letterbox_normalize(u8.cuda(), (IMGSZ, IMGSZ))).cpu()
-    anchors = sum((IMGSZ // s) ** 2 for s in gpu_model.strides)
+    pred_card = gpu_model.predict(letterbox_normalize(u8.cuda(), (IMGSZ, IMGSZ)))
+    pred_g = pred_card.cpu()
+    anchors = n_anchors(gpu_model, IMGSZ)
     require(pred_g.shape == pred_c.shape == (2, 4 + cfg[1], anchors)
             and torch.isfinite(pred_g).all(),
             f"predictions: card {tuple(pred_g.shape)}, CPU {tuple(pred_c.shape)}")
     box_err = float((pred_g[:, :4] - pred_c[:, :4]).abs().max())
     score_err = float((pred_g[:, 4:] - pred_c[:, 4:]).abs().max())
+    extra = {}
+    if gpu_model.head_name == "v10Detect":
+        extra["v10_postprocess"] = v10_postprocess_check(pred_c, pred_card, cfg[1])
+    if gpu_model.head_name == "IDetect":  # decode_v7: σ(obj)σ(cls)
+        extra["score_range"] = [float(pred_g[:, 4:].min()), float(pred_g[:, 4:].max())]
+        require(0.0 <= extra["score_range"][0] and extra["score_range"][1] <= 1.0,
+                f"decode_v7 scores outside [0, 1]: {extra['score_range']}")
     emit({"phase": _phase("parity", cfg), "frames": 2, "box_max_abs_px": box_err,
           "score_max_abs": score_err, "max_score": float(pred_c[:, 4:].max()),
-          "seconds": time.perf_counter() - t_start})
+          "head": gpu_model.head_name, **extra, "seconds": time.perf_counter() - t_start})
     require(box_err < 0.05 and score_err <= 1e-3,
             f"card vs CPU: boxes {box_err} px (< 0.05), scores {score_err} (<= 1e-3)")
 
@@ -1170,26 +1291,27 @@ def _float64_grads(cpu_model, cfg, batch, grads=True):
     `grads=False`: the loss items alone (and None)."""
     import copy
 
+    from yolo_dbl_tpu_torch.engine.trainer import task_loss
     from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
-    from yolo_dbl_tpu_torch.losses.detection import detection_loss
 
     model = copy.deepcopy(cpu_model).double().train()
     batch = {k: torch.as_tensor(v) for k, v in batch.items()}
     batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
     names, params = zip(*model.named_parameters())
     with torch.set_grad_enabled(grads):
-        loss, items = detection_loss(model(device_normalize(batch["img"], torch.float64)), batch,
-                                     model.strides, model.nc, box_gain=cfg.box, cls_gain=cfg.cls,
-                                     dfl_gain=cfg.dfl)
+        loss, items = task_loss(model, cfg, model(device_normalize(batch["img"], torch.float64)),
+                                batch)
     values = dict(loss=float(loss.detach()),
                   **{k: float(v.detach()) for k, v in items._asdict().items()})
     return values, dict(zip(names, torch.autograd.grad(loss, params))) if grads else None
 
 
 # leaves named in train_parity, whose gradient comes only through a kernel's
-# backward: the DySample offset convs (K2), the AAttn qkv convs (K3, and pe)
+# backward: the DySample offset convs (K2), the AAttn qkv convs (K3, and pe);
+# YOLOv10-s has no hand kernel in a step: its PSA's qkv conv, whose gradient
+# comes through the plain attention's two products and softmax
 KERNEL_FED_LEAVES = {DBL: (".offset.conv.", 6), V13: (".attn.qkv.conv.", 8),
-                     V12: (".attn.qkv.conv.", 8)}
+                     V12: (".attn.qkv.conv.", 8), V10: (".attn.qkv.conv.", 1)}
 
 
 def phase_train_parity(cfg, cpu_model, gpu_model):
@@ -1224,10 +1346,12 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     (lc, gc, sc, _), (lg, gg, sg, launches) = results["cpu"], results["cuda"]
     require(launches == PER_STEP[cfg, torch.float32], f"launches in one card step: {launches}")
     loss_rel = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc}
-    detect = f"m{len(gpu_model.spec.layers) - 1}"
+    detect = f"m{len(gpu_model.spec.layers) - 1}."
     fed, n_fed = KERNEL_FED_LEAVES[cfg]
+    # the first level's box and class output convs (of both v10Detect branches)
     checked = [n for n in gc if fed in n or n.startswith("m0.")
-               or n.startswith(f"{detect}.cv2_0_2.") or n.startswith(f"{detect}.cv3_0_2.")]
+               or (n.startswith(detect) and any(f".{cv}_0_2." in "." + n[len(detect):]
+                                                for cv in ("cv2", "cv3")))]
     grad_rel = {n: float((gg[n] - gc[n]).abs().max() / gc[n].abs().max()) for n in checked}
     # Every leaf against the float64 gradient (g64) of the same weights and
     # batch on the CPU: the card within 1e-3 of the leaf's largest |g64|, or,
@@ -1306,6 +1430,13 @@ def phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames):
 # and with the plain attention in place of K3 too
 # (tools/exp_bf16_loss_layers.py), so the bar holds the medians over three
 BF16_LOSS_SEEDS = (2, 3, 4)
+# YOLOv10-s's e2e total adds the one2one term, whose TAL top-1 normalizer is
+# the noisiest: over seeds 2-16 its bf16 loss sat 4.3-9,029 from float64 on
+# the card and 18-11,509 on the CPU (medians 1,186 and 731; layer by layer
+# one distance, v10Detect 0.359 and 0.370 of its largest), where seeds 2-4
+# alone gave medians 1,602 and 165 (tools/exp_bf16_loss_layers.py v10
+# --seeds 15), so its medians take fifteen batches
+BF16_LOSS_SEEDS_BY_MODEL = {V10: tuple(range(2, 17))}
 
 
 def _loss_items(model, train_cfg, batch):
@@ -1323,7 +1454,8 @@ def phase_train_parity_bf16(cfg, cpu32, cpu16, gpu16):
     versions) and on the card (kernels): the leaves a kernel's backward
     feeds against the CPU's float64, within 4x the CPU bfloat16's own
     distance from it; the loss items likewise, the medians of the
-    distances over the BF16_LOSS_SEEDS batches."""
+    distances over the BF16_LOSS_SEEDS batches (the model's own in
+    BF16_LOSS_SEEDS_BY_MODEL)."""
     from yolo_dbl_tpu_torch import kernels
     from yolo_dbl_tpu_torch.cfg import get_cfg
     from yolo_dbl_tpu_torch.engine.trainer import train_loss
@@ -1350,7 +1482,8 @@ def phase_train_parity_bf16(cfg, cpu32, cpu16, gpu16):
     require(launches == PER_STEP[cfg, BF16], f"launches in one bf16 card step: {launches}")
     l64, g64 = _float64_grads(cpu32, train_cfg, batch)
     runs = [(lg, lc, l64)]
-    for seed in BF16_LOSS_SEEDS[1:]:
+    seeds = BF16_LOSS_SEEDS_BY_MODEL.get(cfg, BF16_LOSS_SEEDS)
+    for seed in seeds[1:]:
         more = train_batches(np.random.default_rng(seed), 1, b=2, imgsz=256, nc=cfg[1])[0]
         runs.append((_loss_items(gpu16, train_cfg, more), _loss_items(cpu16, train_cfg, more),
                      _float64_grads(cpu32, train_cfg, more, grads=False)[0]))
@@ -1367,7 +1500,7 @@ def phase_train_parity_bf16(cfg, cpu32, cpu16, gpu16):
                       leaf_max=float(g64[n].abs().max()))
               for n in g64 if fed in n}
     emit({"phase": _phase("train_parity", cfg, BF16), "batch": 2, "imgsz": 256,
-          "loss_seeds": BF16_LOSS_SEEDS, "loss_distance_from_float64": loss_d,
+          "loss_seeds": seeds, "loss_distance_from_float64": loss_d,
           "kernel_fed_leaves": leaves,
           "model_max_abs_grad": g_max, "launches": launches,
           "seconds": time.perf_counter() - t_start})
@@ -1627,22 +1760,126 @@ def _counts(results):
     return [len(r) for r in results]
 
 
-def _facade_gate(best, frames):
+def _predict_recorded(yolo, frames, conf, iou):
+    """`yolo.predict(frames)` at `conf` and `iou`, and the decode each
+    chunk handed NMS, one (4+nc, A) float32 tensor an image on the host, in
+    the order of the predictor's chunks: the frames' own order for two
+    frames of one size or of two."""
+    raw, decode = [], yolo.model.predict
+
+    def recorded(img):
+        out = decode(img)
+        raw.extend(out.float().cpu())
+        return out
+
+    yolo.model.predict = recorded
+    try:
+        return yolo.predict(frames, conf=conf, iou=iou), raw
+    finally:
+        del yolo.model.predict
+
+
+def _nms_decisions(pred, conf, pre_nms_topk=1024):
+    """What ops/nms.py decides from on one image's decode (4+nc, A) on the
+    host, class-aware and multi-label: the flat (anchor, class) scores,
+    whose comparison with `conf` picks the candidates; the flat indices of
+    the top `pre_nms_topk` of those, in order; and each flat entry's box
+    with its class offset, whose IoUs decide the suppression."""
+    from yolo_dbl_tpu_torch.ops.boxes import xywh2xyxy
+    from yolo_dbl_tpu_torch.ops.nms import MAX_WH, _topk
+
+    nc = pred.shape[0] - 4
+    flat = pred[4:].T.reshape(-1)
+    vals, idx = _topk(torch.where(flat > conf, flat, -torch.inf), min(pre_nms_topk, flat.numel()))
+    cls = torch.arange(nc, dtype=torch.float32).repeat(pred.shape[1])
+    boxes = xywh2xyxy(pred[:4].T).repeat_interleave(nc, 0) + cls[:, None] * MAX_WH
+    return flat, idx[vals > -torch.inf], boxes
+
+
+def _nms_partings(card, cpu, conf, iou):
+    """The decisions of NMS that part the card's decode of an image from
+    the CPU's, by kind, each with its count and its first case's values on
+    both devices: scores on the other side of `conf`; the top candidates
+    (the pre-NMS cut); the order of two candidates of both (a near-tie of
+    their scores); an IoU of two candidates of both on the other side of
+    `iou`. Empty when NMS decides alike on both: then it keeps the same
+    rows."""
+    from yolo_dbl_tpu_torch.ops.boxes import box_iou
+
+    (fa, ia, ba), (fb, ib, bb) = (_nms_decisions(p, conf) for p in (card, cpu))
+    out = {}
+    over = ((fa > conf) != (fb > conf)).nonzero()[:, 0]
+    if len(over):
+        j = int(over[0])
+        out["score > conf"] = {"count": len(over), "conf": conf, "card": float(fa[j]),
+                               "cpu": float(fb[j])}
+    moved = set(ia.tolist()) ^ set(ib.tolist())
+    if moved:
+        out["top candidates"] = {"count": len(moved)}
+    rank_card = {f: r for r, f in enumerate(ia.tolist())}
+    both = [f for f in ib.tolist() if f in rank_card]  # in the CPU's order
+    swaps = [i for i in range(len(both) - 1) if rank_card[both[i]] > rank_card[both[i + 1]]]
+    if swaps:
+        f, g = both[swaps[0]], both[swaps[0] + 1]
+        out["candidate order"] = {"count": len(swaps), "card": [float(fa[f]), float(fa[g])],
+                                  "cpu": [float(fb[f]), float(fb[g])]}
+    idx = torch.tensor(both, dtype=torch.long)
+    ua, ub = (box_iou(x[idx], x[idx]).tril(-1) for x in (ba, bb))
+    part = ((ua > iou) != (ub > iou)).nonzero()
+    if len(part):
+        i, j = part[0].tolist()
+        out["iou > iou_thres"] = {"count": len(part), "iou_thres": iou, "card": float(ua[i, j]),
+                                  "cpu": float(ub[i, j])}
+    return out
+
+
+def _facade_gate(best, frames, conf=0.001, iou=0.45):
     """The best checkpoint on the card and on the CPU (TF32 off) over 2
-    frames of the two sizes at conf 0.001: equal kept counts, boxes within
-    0.05 px, scores within 1e-3, equal classes."""
+    frames at conf 0.001: the decode handed NMS within 0.05 px of the canvas
+    and 1e-3 at every anchor; the card's NMS on its decode equal to the
+    CPU's NMS on that decode; and in each frame equal kept counts with boxes
+    within 0.05 px, scores within 1e-3 and equal classes, or kept rows
+    that part at decisions `_nms_partings` names on the two decodes. NMS is
+    discrete: a score or an IoU within float32 rounding of its threshold
+    may fall on either side of it on the two devices; the decode's bars
+    bound how far."""
     from yolo_dbl_tpu_torch.engine.model import YOLO
+    from yolo_dbl_tpu_torch.ops.nms import non_max_suppression
 
     with tf32_off():
-        got = YOLO(best).predict(frames, conf=0.001)
-        want = YOLO(best, device="cpu").predict(frames, conf=0.001)
-    box = max(float(np.abs(g.boxes.xyxy - w.boxes.xyxy).max(initial=0)) for g, w in zip(got, want))
-    score = max(float(np.abs(g.boxes.conf - w.boxes.conf).max(initial=0)) for g, w in zip(got, want))
-    cls_equal = all(np.array_equal(g.boxes.cls, w.boxes.cls) for g, w in zip(got, want))
-    gate = {"frames": 2, "conf": 0.001, "kept_card": _counts(got), "kept_cpu": _counts(want),
-            "box_max_abs_px": box, "score_max_abs": score, "classes_equal": cls_equal, "tf32": False}
-    require(_counts(got) == _counts(want) and sum(_counts(want)) > 0 and box < 0.05
-            and score <= 1e-3 and cls_equal, f"facade card vs CPU: {gate}")
+        got, raw_got = _predict_recorded(YOLO(best), frames, conf, iou)
+        want, raw_want = _predict_recorded(YOLO(best, device="cpu"), frames, conf, iou)
+    require(len(raw_got) == len(raw_want) == len(frames),
+            f"decodes recorded: {len(raw_got)} card, {len(raw_want)} CPU, {len(frames)} frames")
+    decode_box = max(float((g[:4] - w[:4]).abs().max()) for g, w in zip(raw_got, raw_want))
+    decode_score = max(float((g[4:] - w[4:]).abs().max()) for g, w in zip(raw_got, raw_want))
+    nms_equal = True
+    for g in raw_got:
+        (dc, nc), (dh, nh) = (non_max_suppression(g[None].to(dev), conf_thres=conf, iou_thres=iou)
+                              for dev in ("cuda", "cpu"))
+        nms_equal &= torch.equal(nc.cpu(), nh) and torch.equal(dc.cpu(), dh)
+    box = score = 0.0
+    cls_equal, partings, parted = True, [], []
+    for i, (g, w, rg, rw) in enumerate(zip(got, want, raw_got, raw_want)):
+        alike = len(g) == len(w)
+        if alike:
+            fb = float(np.abs(g.boxes.xyxy - w.boxes.xyxy).max(initial=0))
+            fs = float(np.abs(g.boxes.conf - w.boxes.conf).max(initial=0))
+            fc = bool(np.array_equal(g.boxes.cls, w.boxes.cls))
+            alike = fb < 0.05 and fs <= 1e-3 and fc
+        if alike:
+            box, score, cls_equal = max(box, fb), max(score, fs), cls_equal and fc
+        else:
+            parted.append(i)
+        partings.append({} if alike else _nms_partings(rg, rw, conf, iou))
+    gate = {"frames": len(frames), "conf": conf, "iou": iou, "kept_card": _counts(got),
+            "kept_cpu": _counts(want), "decode_box_max_abs_px": decode_box,
+            "decode_score_max_abs": decode_score, "nms_card_equals_cpu": nms_equal,
+            "box_max_abs_px": box, "score_max_abs": score, "classes_equal": cls_equal,
+            "frames_parted": parted, "partings": partings, "tf32": False}
+    require(decode_box < 0.05 and decode_score <= 1e-3 and nms_equal and sum(_counts(want)) > 0
+            and box < 0.05 and score <= 1e-3 and cls_equal
+            and all(partings[i] for i in parted), f"facade card vs CPU: {gate}")
     return gate
 
 
@@ -1962,15 +2199,20 @@ ZOO = {name: ({"letterbox_normalize": 1}, {}) for name in (
 ZOO["yolov3_edit3.yaml"] = ({"letterbox_normalize": 1, "area_attention": 16},
                             {"area_attention": 16, "area_attention_backward_dq": 16,
                              "area_attention_backward_dkv": 16})
+# the v9 and v10 families' other 10 configs (yolov10.yaml at its first scale,
+# n), at nc=80 and 320: K1 alone (no DySample, no area attention)
+ZOO_V9V10 = {name: ({"letterbox_normalize": 1}, {}) for name in (
+    "yolov9t.yaml", "yolov9m.yaml", "yolov9c.yaml", "yolov9e.yaml", "yolov10.yaml",
+    "yolov10n.yaml", "yolov10m.yaml", "yolov10b.yaml", "yolov10l.yaml", "yolov10x.yaml")}
 
 
-def phase_zoo(card):
-    """The stock detect families' other configs at 320: the card's decode
-    against the CPU's on 2 frames (TF32 off; boxes 0.05 px, scores 1e-3),
-    launches of a forward and of one train step at batch 4 each, with
-    finite losses. Detect class biases 0, as in `family`. The card's model
-    is a copy of the CPU's: the YOLOv3 family's 48-114 M weights are drawn
-    once."""
+def phase_zoo(card, zoo=ZOO, phase="zoo"):
+    """A family's other configs at 320: the card's decode against the CPU's
+    on 2 frames (TF32 off; boxes 0.05 px, scores 1e-3), launches of a
+    forward and of one train step at batch 4 each, with finite losses.
+    Detect class biases 0 (both v10Detect branches), as in `family`. The
+    card's model is a copy of the CPU's: the YOLOv3 family's 48-114 M
+    weights are drawn once."""
     import copy
 
     from yolo_dbl_tpu_torch import DetectionModel
@@ -1979,12 +2221,10 @@ def phase_zoo(card):
     rng = np.random.default_rng(9)
     frames = torch.from_numpy(rng.integers(0, 256, (2, *SRC_HW, 3), dtype=np.uint8))
     out, launches = {}, {}
-    for name, (per_forward, per_step) in ZOO.items():
+    for name, (per_forward, per_step) in zoo.items():
         t0 = time.perf_counter()
         cpu = DetectionModel(name, nc=80, device="cpu", generator=torch.Generator().manual_seed(0))
-        with torch.no_grad():
-            for lvl in range(len(cpu.strides)):  # scores near 0.5, not the prior's ~1e-4
-                getattr(cpu.detect, f"cv3_{lvl}_2").conv.bias.zero_()
+        cpu.zero_class_biases()  # scores near 0.5, not the prior's ~1e-4
         gpu = copy.deepcopy(cpu).to("cuda").to(memory_format=torch.channels_last)
         row, fwd = _config_decode(name, cpu, gpu, frames, ZOO_IMGSZ, per_forward)
         row.update(strides=list(gpu.strides),
@@ -1995,7 +2235,7 @@ def phase_zoo(card):
         out[name[:-5]] = row
         del cpu, gpu
         torch.cuda.empty_cache()
-    emit({"phase": "zoo", "imgsz": ZOO_IMGSZ, "nc": 80, "frames": 2, "train_batch": ZOO_TRAIN_B,
+    emit({"phase": phase, "imgsz": ZOO_IMGSZ, "nc": 80, "frames": 2, "train_batch": ZOO_TRAIN_B,
           "configs": out, "tf32_parity": False, "seconds": time.perf_counter() - t_start,
           "card": card})
     return launches
@@ -2420,22 +2660,23 @@ def main():
         rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
-    for cfg in (DBL, V13, DBL2, V12, V11):
-        for dtype in (torch.float32,) if cfg == V11 else (torch.float32, BF16):
+    for cfg in (DBL, V13, DBL2, V12, V11, V10, V9, V7):
+        for dtype in (torch.float32,) if cfg in (V11, V9, V7) else (torch.float32, BF16):
             cpu_model, gpu_model = build_models(cfg, dtype)
             serve[cfg, dtype], frames, predictor, median_ms = phase_main(cfg, gpu_model, rng, card)
             phase_profile(cfg, predictor, rng, median_ms * 1e3)
-            train[cfg, dtype] = phase_train(cfg, card, dtype)
+            if cfg != V7:  # IDetect does not train (no loss in the JAX package)
+                train[cfg, dtype] = phase_train(cfg, card, dtype)
             models[cfg, dtype] = (cpu_model, gpu_model, frames)
-    for cfg in (DBL, V13, DBL2, V12, V11):
+    for cfg in (DBL, V13, DBL2, V12, V11, V10, V9, V7):
         phase_parity(cfg, *models[cfg, torch.float32])
-    for cfg in (DBL, V13, DBL2, V12):
+    for cfg in (DBL, V13, DBL2, V12, V10):
         cpu32, _, frames = models[cfg, torch.float32]
         cpu16, gpu16, _ = models[cfg, BF16]
         phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames)
-    for cfg in (DBL, V13, V12):
+    for cfg in (DBL, V13, V12, V10):
         phase_train_parity(cfg, *models[cfg, torch.float32][:2])
-    for cfg in (DBL, V13, V12):
+    for cfg in (DBL, V13, V12, V10):
         phase_train_parity_bf16(cfg, models[cfg, torch.float32][0], *models[cfg, BF16][:2])
     del models
     cpu32, f32_metrics, val = phase_val(card)
@@ -2445,6 +2686,9 @@ def main():
     converge = phase_converge(card)
     family = phase_family(card)
     zoo = phase_zoo(card)
+    t_zoo = time.perf_counter()
+    zoo.update(phase_zoo(card, ZOO_V9V10, "zoo_v9v10"))
+    print(f"chip_smoke: zoo_v9v10 took {time.perf_counter() - t_zoo:.1f} s", file=sys.stderr)
     facade.update(phase_facade_dbl2(card))
     dp = phase_dp(card)
     import tempfile

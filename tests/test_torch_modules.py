@@ -30,7 +30,8 @@ ATOL = RTOL = 1e-4
 
 def random_variables(shapes, rng, gate=0.5):
     """numpy values for a JAX variables shape tree: lecun-scaled kernels and
-    non-trivial BatchNorm statistics, biases, FullPAD gates and A2C2f gammas."""
+    non-trivial BatchNorm statistics, biases, FullPAD gates, A2C2f gammas
+    and IDetect's implicit leaves."""
 
     def draw(path, leaf):
         name = str(path[-1].key)
@@ -50,6 +51,8 @@ def random_variables(shapes, rng, gate=0.5):
             return rng.normal(0.0, 0.3, shape)
         if name == "gamma":
             return rng.uniform(0.5, 1.5, shape)
+        if name[:2] in ("ia", "im") and name[2:].isdigit():  # IDetect's implicit leaves
+            return rng.normal(1.0 if name[1] == "m" else 0.0, 0.2, shape)
         raise KeyError(name)
 
     return jax.tree_util.tree_map_with_path(lambda p, l: draw(p, l).astype(np.float32), shapes)

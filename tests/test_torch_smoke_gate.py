@@ -1,0 +1,112 @@
+"""chip_smoke.py's facade gate on the CPU: `_nms_partings` names the NMS
+decisions that part two decodes of an image (a score on either side of
+conf, two candidates' order, an IoU on either side of iou), and names none
+where NMS decides alike on both decodes, which then keep the same rows."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import _nms_decisions, _nms_partings
+from yolo_dbl_tpu_torch.ops.boxes import box_iou, xywh2xyxy
+from yolo_dbl_tpu_torch.ops.nms import non_max_suppression
+
+CONF, IOU = 0.001, 0.45
+
+
+def _decode(seed, nc=3, a=400):
+    """A seeded (4+nc, A) decode on a 320 px canvas: boxes of 8-80 px,
+    scores spread over [0, 0.05) with many above CONF."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 320, (2, a))
+    wh = rng.uniform(8, 80, (2, a))
+    scores = rng.uniform(0, 0.05, (nc, a))
+    return torch.from_numpy(np.concatenate([xy, wh, scores]).astype(np.float32))
+
+
+def _next(x, toward):
+    return torch.nextafter(torch.tensor(x, dtype=torch.float32),
+                           torch.tensor(toward, dtype=torch.float32))
+
+
+def _kept(pred):
+    dets, n = non_max_suppression(pred[None], conf_thres=CONF, iou_thres=IOU)
+    return dets[0, : int(n[0])]
+
+
+def _pair_at_iou():
+    """Two boxes of one class (scores 0.9, 0.8) whose float32 IoU in
+    ops/boxes.py lies on either side of IOU for two adjacent float32 shifts:
+    (decode above, decode at or below)."""
+    def decode(dx):
+        pred = torch.zeros((5, 2), dtype=torch.float32)
+        pred[:, 0] = torch.tensor([100.0, 100.0, 20.0, 20.0, 0.9])
+        pred[:, 1] = torch.stack([100.0 + dx, torch.tensor(100.0), torch.tensor(20.0),
+                                  torch.tensor(20.0), torch.tensor(0.8)])
+        return pred
+
+    def iou(dx):
+        b = xywh2xyxy(decode(dx)[:4].T)
+        return float(box_iou(b, b)[1, 0])
+
+    lo, hi = torch.tensor(0.0), torch.tensor(20.0)  # iou(lo) > IOU >= iou(hi)
+    while _next(float(lo), float(hi)) < hi:
+        mid = (lo + hi) / 2
+        if mid in (lo, hi):
+            mid = _next(float(lo), float(hi))
+        lo, hi = (mid, hi) if iou(mid) > IOU else (lo, mid)
+    return decode(lo), decode(hi)
+
+
+def test_equal_decodes_part_nowhere():
+    pred = _decode(0)
+    assert _nms_partings(pred, pred.clone(), CONF, IOU) == {}
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_same_decisions_keep_the_same_rows(seed):
+    """Boxes a float32 rounding apart and the same scores: where no IoU
+    crosses IOU, NMS keeps the same (anchor, class) rows, with boxes as
+    close as the decodes'."""
+    card = _decode(seed)
+    noise = np.random.default_rng(100 + seed).normal(0, 1e-6, (4, card.shape[1]))
+    cpu = card.clone()
+    cpu[:4] *= 1 + torch.from_numpy(noise.astype(np.float32))
+    assert _nms_partings(card, cpu, CONF, IOU) == {}
+    a, b = _kept(card), _kept(cpu)
+    assert len(a) == len(b) > 0
+    assert torch.equal(a[:, 4:], b[:, 4:])
+    assert float((a[:, :4] - b[:, :4]).abs().max()) < 1e-3
+
+
+def test_a_score_at_conf_is_named():
+    card = _decode(1)
+    cpu = card.clone()
+    card[4, 7] = torch.tensor(CONF, dtype=torch.float32)
+    cpu[4, 7] = _next(CONF, 1.0)
+    parting = _nms_partings(card, cpu, CONF, IOU)["score > conf"]
+    assert parting["count"] == 1
+    assert parting["card"] == float(card[4, 7]) < parting["cpu"] == float(cpu[4, 7])
+
+
+def test_two_candidates_order_is_named():
+    card = _decode(2)
+    s = 0.04
+    card[4, 3], card[4, 9] = s, _next(s, 1.0)
+    cpu = card.clone()
+    cpu[4, 3], cpu[4, 9] = card[4, 9], card[4, 3]
+    parting = _nms_partings(card, cpu, CONF, IOU)
+    assert list(parting) == ["candidate order"]
+    assert parting["candidate order"]["card"] == parting["candidate order"]["cpu"][::-1]
+
+
+def test_an_iou_at_iou_thres_is_named_and_parts_the_kept_rows():
+    above, below = _pair_at_iou()
+    assert len(_kept(above)) == 1 and len(_kept(below)) == 2
+    parting = _nms_partings(above, below, CONF, IOU)
+    assert list(parting) == ["iou > iou_thres"]
+    assert parting["iou > iou_thres"]["cpu"] <= IOU < parting["iou > iou_thres"]["card"]
+    flat, idx, boxes = _nms_decisions(above, CONF)
+    assert idx.tolist() == [0, 1] and boxes.shape == (2, 4)

@@ -42,7 +42,7 @@ from ..utils.callbacks import Callbacks
 from ..utils.checkpoint import load_deploy, peek_checkpoint_meta, save_checkpoint, save_deploy
 from ..utils.checks import check_imgsz
 from .predictor import DetectionPredictor
-from .trainer import Trainer
+from .trainer import Trainer, check_trainable
 from .validator import DetectionValidator
 
 NOT_PORTED = "not ported yet: it waits for the trackers and the exporter (ROADMAP Queue 1 item 6)"
@@ -102,6 +102,7 @@ class YOLO:
         from ..data.dataset import YOLODataset
         from ..utils import set_verbosity
 
+        check_trainable(self.model)  # before any loader is built
         main = mesh is None or mesh.is_main
         # the ranks that validate: rank 0 alone, or under tensor parallelism
         # the model ranks of data coordinate 0, whose sharded forward is one

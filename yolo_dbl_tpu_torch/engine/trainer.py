@@ -2,8 +2,11 @@
 yolo_dbl_tpu/engine/trainer.py).
 
 The train step is the JAX `make_train_step` (:62): uint8 batch → /255 →
-train-mode forward (BatchNorm on batch statistics) → `detection_loss` →
+train-mode forward (BatchNorm on batch statistics) → the head's loss
+(`task_loss`: `detection_loss`, or v10Detect's `e2e_detect_loss`) →
 gradients → optimizer → EMA, with the metrics loss/box_loss/cls_loss/dfl_loss.
+An IDetect model (YOLOv7) does not train: the JAX package has no loss for
+it, so `Trainer` and `train_loss` raise NotImplementedError.
 On the card the DySample samplers run the K2 kernels forward and backward.
 A bfloat16 model runs its forward and backward in bfloat16; the loss, the
 TAL assigner, the float32 parameters, their gradients, the optimizer and
@@ -48,6 +51,7 @@ import torch
 from ..cfg import get_cfg
 from ..kernels.preprocess import device_normalize
 from ..losses.detection import detection_loss
+from ..losses.extra import e2e_detect_loss
 from ..nn.common import cross_rank
 from ..nn.tasks import DetectionModel
 from ..parallel.mesh import Mesh, shard_batch
@@ -56,6 +60,28 @@ from .train_state import build_optimizer, ema_update
 
 # bytes of gradient a bucket of the cross-rank sum holds (DDP's default)
 BUCKET_BYTES = 25 * 2**20
+
+
+def check_trainable(model: DetectionModel):
+    """Raise for a head the JAX package cannot train: IDetect (YOLOv7), whose
+    5-D maps JAX's `_task_loss` (:28) hands to `detection_loss`, which
+    expects anchor-free maps. The port invents no loss for it."""
+    if model.head_name == "IDetect":
+        raise NotImplementedError("IDetect (YOLOv7) does not train: the JAX package has no "
+                                  "IDetect loss; it serves and validates only")
+
+
+def task_loss(model: DetectionModel, cfg, outputs, batch, mesh: Optional[Mesh] = None):
+    """(loss, LossItems) of the model's raw outputs by its head (:28
+    `_task_loss`): `e2e_detect_loss` for v10Detect's dict, whose loss is
+    the sum of its two terms and whose items are one2many's; else
+    `detection_loss`."""
+    check_trainable(model)
+    gains = dict(box_gain=cfg.box, cls_gain=cfg.cls, dfl_gain=cfg.dfl, mesh=mesh)
+    if isinstance(outputs, dict):
+        total, items = e2e_detect_loss(outputs, batch, model.strides, model.nc, **gains)
+        return total, items["one2many"]
+    return detection_loss(outputs, batch, model.strides, model.nc, **gains)
 
 
 def train_loss(model: DetectionModel, cfg, batch: Dict[str, torch.Tensor],
@@ -69,8 +95,7 @@ def train_loss(model: DetectionModel, cfg, batch: Dict[str, torch.Tensor],
     try:
         with cross_rank(model, mesh):
             feats = model(device_normalize(batch["img"], model.dtype))
-        return detection_loss(feats, batch, model.strides, model.nc, box_gain=cfg.box,
-                              cls_gain=cfg.cls, dfl_gain=cfg.dfl, mesh=mesh)
+        return task_loss(model, cfg, feats, batch, mesh)
     finally:
         model.train(was_training)
 
@@ -151,6 +176,7 @@ class Trainer:
                  mesh: Optional[Mesh] = None):
         if mesh is not None and model.device != mesh.device:
             raise ValueError(f"the model lives on {model.device}, this rank's device is {mesh.device}")
+        check_trainable(model)
         self.model = model
         self.mesh = mesh
         self.cfg = get_cfg(overrides=overrides or {})

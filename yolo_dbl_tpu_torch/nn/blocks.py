@@ -24,7 +24,7 @@ from torch.nn import functional as F
 from ..kernels.attention import area_attention
 from ..ops.resample import (avg_pool2, grid_sample_bilinear, max_pool, nearest_upsample,
                             pixel_shuffle)
-from .common import Conv, Conv2d, DSConv, DWConv, linear
+from .common import Conv, Conv2d, DSConv, DWConv, conv2d, linear
 
 
 def _nhwc(x):
@@ -178,6 +178,67 @@ class SPP(nn.Module):
         y = self.cv1(x)
         ys = [y] + [_nchw(max_pool(_nhwc(y), k, 1, k // 2)) for k in self.k]
         return self.cv2(torch.cat(ys, 1))
+
+
+
+class SPPCSPC(nn.Module):
+    """YOLOv7's CSP spatial pyramid pooling (blocks.py:465): cv1, cv3, cv4,
+    then parallel k x k max pools (stride 1, padding k // 2) for each k,
+    cv5 over the maps and cv6; the shortcut cv2; cv7 over both."""
+
+    def __init__(self, c1, c2, e=0.5, k=(5, 9, 13)):
+        super().__init__()
+        c_ = int(2 * c2 * e)
+        self.k = tuple(k)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(c_, c_, 3, 1)
+        self.cv4 = Conv(c_, c_, 1, 1)
+        self.cv5 = Conv(c_ * (len(self.k) + 1), c_, 1, 1)
+        self.cv6 = Conv(c_, c_, 3, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv7 = Conv(2 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        x1 = self.cv4(self.cv3(self.cv1(x)))
+        ys = [x1] + [_nchw(max_pool(_nhwc(x1), k, 1, k // 2)) for k in self.k]
+        y1 = self.cv6(self.cv5(torch.cat(ys, 1)))
+        return self.cv7(torch.cat([y1, self.cv2(x)], 1))
+
+
+class CBLinear(nn.Module):
+    """YOLOv9-E's cross-branch linear (blocks.py:425): one biased conv named
+    `conv`, its output split into a tuple of `c2s` channel groups."""
+
+    def __init__(self, c1, c2s, k=1, s=1, g=1):
+        super().__init__()
+        self.c2s = tuple(c2s)
+        self.conv = nn.Conv2d(c1, sum(self.c2s), k, s, k // 2, groups=g, bias=True)
+
+    def forward(self, x):
+        return conv2d(self.conv, x).split(self.c2s, 1)
+
+
+def _nearest_index(n_in: int, n_out: int, device):
+    """jax.image.resize's nearest source rows: floor((i + 0.5) * n_in / n_out)
+    in float32."""
+    i = torch.arange(n_out, dtype=torch.float32, device=device)
+    return torch.floor((i + 0.5) * n_in / n_out).long()
+
+
+def cb_fuse(xs, idx):
+    """YOLOv9-E's cross-branch fuse (blocks.py:446): branch idx[i] of each
+    CBLinear tuple, resized nearest to the last input's size as
+    jax.image.resize does, summed with the last input (NCHW)."""
+    h, w = xs[-1].shape[-2:]
+    out = xs[-1]
+    parts = []
+    for i, x in enumerate(xs[:-1]):
+        t = x[idx[i]]
+        if t.shape[-2:] != (h, w):
+            t = t.index_select(2, _nearest_index(t.shape[2], h, t.device))
+            t = t.index_select(3, _nearest_index(t.shape[3], w, t.device))
+        parts.append(t)
+    return sum(parts) + out
 
 
 class _CSP3(nn.Module):

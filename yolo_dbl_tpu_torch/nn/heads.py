@@ -1,8 +1,11 @@
-"""Detection head and DFL decode (port of yolo_dbl_tpu/nn/heads.py).
+"""Detection heads and their decodes (port of yolo_dbl_tpu/nn/heads.py).
 
-`Detect` returns raw per-level NCHW maps; `decode_detections` takes the
-JAX layout (per-level NHWC maps) and returns (B, 4+nc, A), channel-first,
-as the JAX package does.
+`Detect` returns raw per-level NCHW maps, `V10Detect` a dict of two such
+lists (its one2many and one2one branches), `IDetect` (YOLOv7) raw NCHW maps
+of na * (5 + nc) channels; `decode_detections` and `decode_v7` take the JAX
+layout (per-level NHWC maps, IDetect's as (B, H, W, na, 5 + nc)) and return
+(B, 4+nc, A), channel-first, as the JAX package does. `v10_postprocess` is
+the NMS-free top-k selection of a decoded one2one output.
 """
 
 from __future__ import annotations
@@ -11,7 +14,8 @@ import torch
 from torch import nn
 
 from ..ops.anchors import dist2bbox, make_anchors
-from .common import Conv, Conv2d, DWConv
+from ..ops.boxes import xywh2xyxy
+from .common import Conv, Conv2d, DWConv, conv2d
 
 
 class Detect(nn.Module):
@@ -77,3 +81,92 @@ def decode_detections(feats, strides, nc, reg_max=16):
     dist = dfl_expectation(box_logits, reg_max)
     dbox = dist2bbox(dist, anchors[None].to(dist.dtype)) * stride_t[None].to(dist.dtype)
     return torch.cat([dbox, torch.sigmoid(cls_logits)], dim=-1).transpose(-1, -2)
+
+
+class V10Detect(nn.Module):
+    """YOLOv10's NMS-free head (heads.py:60): two Detect(legacy=False)
+    branches, `one2many` (trained with TAL top-10) and `one2one` (top-1, the
+    one deployed). one2one reads detached features, as JAX's stop_gradient:
+    its loss does not reach the trunk. Returns {"one2many": [...],
+    "one2one": [...]} of raw NCHW maps."""
+
+    def __init__(self, nc=80, ch=()):
+        super().__init__()
+        self.nc, self.nl = nc, len(ch)
+        self.one2many = Detect(nc, ch, legacy=False)
+        self.one2one = Detect(nc, ch, legacy=False)
+
+    def forward(self, xs):
+        return {"one2many": self.one2many(xs), "one2one": self.one2one([x.detach() for x in xs])}
+
+
+def _top_k(x, k):
+    """(values, indices) of the k largest along the last dim, the lower
+    index first among equal values, as lax.top_k orders them (torch.topk
+    promises no order on ties)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def v10_postprocess(pred, max_det=300, nc=80):
+    """NMS-free top-k selection (heads.py:83): a decoded one2one (B, 4+nc, A)
+    → (B, max_det, 6) of xyxy box, score, class. The max_det anchors of
+    highest best score, then the max_det (anchor, class) pairs of highest
+    score among them."""
+    pred = pred.transpose(-1, -2)
+    boxes, scores = pred[..., :4], pred[..., 4:]
+    k = min(max_det, scores.shape[1])
+    _, idx = _top_k(scores.amax(-1), k)
+    sel_boxes = boxes.gather(1, idx[..., None].expand(-1, -1, 4))
+    sel_scores = scores.gather(1, idx[..., None].expand(-1, -1, scores.shape[-1]))
+    top, idx2 = _top_k(sel_scores.reshape(pred.shape[0], -1), k)
+    anchor_idx = idx2 // scores.shape[-1]
+    cls_idx = (idx2 % scores.shape[-1]).to(pred.dtype)
+    final_boxes = sel_boxes.gather(1, anchor_idx[..., None].expand(-1, -1, 4))
+    return torch.cat([xywh2xyxy(final_boxes), top[..., None], cls_idx[..., None]], -1)
+
+
+class IDetect(nn.Module):
+    """YOLOv7's anchor-based head with implicit knowledge (heads.py:243):
+    per level, `m{i}`(x + `ia{i}`) * `im{i}`, a bare biased 1 x 1 conv to
+    na * (5 + nc) channels. `ia{i}` (1, C, 1, 1) starts N(0, .02) and
+    `im{i}` (1, na * (5 + nc), 1, 1) 1 + N(0, .02) (utils/convert.py maps
+    JAX's (1, 1, 1, C)). Both are float32 parameters: a bfloat16 input is
+    promoted by the add and the product, as in JAX, so the conv computes in
+    the input's type and the maps come out float32. Returns raw NCHW maps."""
+
+    def __init__(self, nc, anchors, ch):
+        super().__init__()
+        self.nc, self.nl = nc, len(ch)
+        self.anchors = tuple(tuple(a) for a in anchors)
+        self.na = len(self.anchors[0]) // 2
+        no = self.na * (nc + 5)
+        for i, c in enumerate(ch):
+            self.register_parameter(f"ia{i}", nn.Parameter(torch.zeros(1, c, 1, 1)))
+            self.register_parameter(f"im{i}", nn.Parameter(torch.ones(1, no, 1, 1)))
+            self.add_module(f"m{i}", nn.Conv2d(c, no, 1, bias=True))
+
+    def forward(self, xs):
+        return [conv2d(getattr(self, f"m{i}"), (x + getattr(self, f"ia{i}")).to(x.dtype))
+                * getattr(self, f"im{i}") for i, x in enumerate(xs)]
+
+
+def decode_v7(feats, strides, anchors, nc):
+    """IDetect maps (B, H, W, na, 5 + nc) → (B, 4+nc, A) in float32
+    (heads.py:270): xy = (2σ - 0.5 + grid) * stride, wh = (2σ)² * anchor,
+    score = σ(obj) * σ(cls)."""
+    b = feats[0].shape[0]
+    rows = []
+    for x, s, anc in zip(feats, strides, anchors):
+        _, h, w, na, _ = x.shape
+        sig = torch.sigmoid(x.float())
+        gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=x.device),
+                                torch.arange(w, dtype=torch.float32, device=x.device),
+                                indexing="ij")
+        grid = torch.stack([gx, gy], -1)[None, :, :, None, :]
+        awh = torch.tensor(anc, dtype=torch.float32, device=x.device).reshape(na, 2)
+        xy = (sig[..., :2] * 2.0 - 0.5 + grid) * s
+        wh = (sig[..., 2:4] * 2.0) ** 2 * awh
+        score = sig[..., 5:] * sig[..., 4:5]
+        rows.append(torch.cat([xy, wh, score], -1).reshape(b, -1, 4 + nc))
+    return torch.cat(rows, 1).transpose(-1, -2)

@@ -1,10 +1,10 @@
 """YAML → model compiler and the detection model (port of yolo_dbl_tpu/nn/tasks.py).
 
 Only the branches that the YOLOv13/DBL family (`cfg/models/v13/`) and the
-stock detect families' rows (v3, v5, v6, v8, 11, v12) use are ported; any
-other module name raises NotImplementedError. The model YAMLs are the
-port's own verbatim copies under cfg/, read by path with the port's small
-YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
+detect families' rows (v3, v5, v6, v7, v8, v9, v10, 11, v12) use are
+ported; any other module name raises NotImplementedError. The model YAMLs
+are the port's own verbatim copies under cfg/, read by path with the port's
+small YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
 """
 
 from __future__ import annotations
@@ -23,11 +23,11 @@ from ..ops.resample import max_pool, nearest_upsample
 from ..utils.device import resolve_device
 from ..utils.yaml_subset import load_yaml
 from . import blocks as B
+from . import v9v10 as V
 from .attention import SLA
 from .common import Conv, ConvTranspose2d, DSConv, DWConv, default_act
-from .heads import Detect, decode_detections
+from .heads import Detect, IDetect, V10Detect, decode_detections, decode_v7
 from .upsample import carafe as U
-from .v9v10 import C2PSA
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
 
@@ -84,15 +84,19 @@ class ModelSpec:
     scale: str
 
 
-# the v13/DBL-family and stock detect-family subset of the JAX module
-# families (tasks.py:102-138)
+# the v13/DBL-family and detect-family subset of the JAX module families
+# (tasks.py:102-138)
 _C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "C2f", "C3", "C3k",
               "C3k2", "DSC3k2", "DSC3k", "SPPF", "A2C2f", "GhostConv", "GhostBottleneck",
-              "C3Ghost", "C1", "C2", "SPP", "C2PSA"}
-_REPEAT_INSERT = {"C2f", "C3", "C3k2", "DSC3k2", "DSC3k", "A2C2f", "C3Ghost", "C1", "C2", "C2PSA"}
+              "C3Ghost", "C1", "C2", "SPP", "C2PSA", "RepConv", "RepCSP", "RepNCSPELAN4",
+              "ELAN1", "ADown", "AConv", "SPPELAN", "SCDown", "C2fCIB", "PSA"}
+_REPEAT_INSERT = {"C2f", "C3", "C3k2", "DSC3k2", "DSC3k", "A2C2f", "C3Ghost", "C1", "C2", "C2PSA",
+                  "C2fCIB", "RepCSP"}
 _LEGACY_FALSE = {"C3k2", "DSC3k2", "A2C2f"}
-# parameter-free torch layers, run in DetectionModel.forward (tasks.py:277-278, :743-753)
-TORCH_ROWS = {"nn.MaxPool2d", "nn.ZeroPad2d", "nn.Identity"}
+# parameter-free layers, run in DetectionModel.forward (tasks.py:275-278,
+# :743-759): YOLOv7's MP (k x k max pool, stride k) and SP (stride 1, pad
+# k // 2), YOLOv9-E's Silence (the identity)
+TORCH_ROWS = {"nn.MaxPool2d", "nn.ZeroPad2d", "nn.Identity", "Silence", "MP", "SP"}
 _C1_ONLY = {"DySample", "LSKblock", "SLA", "DLU", "CARAFE", "CARAFEPack"}
 # rows whose args pass through unchanged and whose width is their input's
 # (the final `else` of tasks.py:141's branches)
@@ -102,10 +106,16 @@ _FROM_ARGS = {"Conv": Conv, "DWConv": DWConv, "DSConv": DSConv, "ConvTranspose2d
               "DSBottleneck": B.DSBottleneck, "C2f": B.C2f, "C3": B.C3, "C3k": B.C3k,
               "C3k2": B.C3k2, "C1": B.C1, "C2": B.C2, "SPPF": B.SPPF, "SPP": B.SPP,
               "DSC3k2": B.DSC3k2, "DSC3k": B.DSC3k, "A2C2f": B.A2C2f, "HyperACE": B.HyperACE,
-              "C2PSA": C2PSA, "GhostConv": B.GhostConv, "GhostBottleneck": B.GhostBottleneck,
+              "C2PSA": V.C2PSA, "GhostConv": B.GhostConv, "GhostBottleneck": B.GhostBottleneck,
               "C3Ghost": B.C3Ghost, "DySample": B.DySample, "SLA": SLA, "DLU": U.DLU,
               "CARAFE": U.CARAFE, "CARAFEPack": U.CARAFEPack,
-              "CARAFE_XiaLiPKU": U.CARAFE_XiaLiPKU, "CARAFE_simplified": U.CARAFE_simplified}
+              "CARAFE_XiaLiPKU": U.CARAFE_XiaLiPKU, "CARAFE_simplified": U.CARAFE_simplified,
+              "RepConv": V.RepConv, "RepCSP": V.RepCSP, "RepNCSPELAN4": V.RepNCSPELAN4,
+              "ELAN1": V.ELAN1, "ADown": V.ADown, "AConv": V.AConv, "SPPELAN": V.SPPELAN,
+              "SCDown": V.SCDown, "C2fCIB": V.C2fCIB, "PSA": V.PSA, "SPPCSPC": B.SPPCSPC,
+              "CBLinear": B.CBLinear}
+# rows whose JAX builder reads only their first args (tasks.py:469-471): how many
+_ARGS_READ = {"ELAN1": 4, "ADown": 2, "AConv": 2}
 
 
 def _not_ported(m: str):
@@ -114,9 +124,9 @@ def _not_ported(m: str):
 
 def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
     """Resolve a model YAML dict into a ModelSpec (tasks.py:141), v13/DBL
-    family and stock detect-family rows only. Detect keeps `legacy=True`
-    (the v8 class branch) unless a C3k2, DSC3k2, A2C2f or HyperACE(2) row
-    comes before it."""
+    family and detect-family rows only. Detect keeps `legacy=True` (the v8
+    class branch) unless a C3k2, DSC3k2, A2C2f or HyperACE(2) row comes
+    before it; v10Detect's branches are always `legacy=False`."""
     nc = d.get("nc", 80)
     scales = d.get("scales")
     depth, width = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0)
@@ -181,6 +191,19 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
             args = [c1, *args[1:]]
         elif m == "Concat":
             c2 = sum(chs[x] for x in f)
+        elif m in ("v10Detect", "IDetect"):
+            args.append([chs[x] for x in f])
+            c2 = 0
+        elif m == "SPPCSPC":
+            c1, c2 = chs[f], args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            args = [c1, c2, *args[1:]]
+        elif m == "CBLinear":
+            c1, c2 = chs[f], args[0]  # the unscaled list of branch widths (tasks.py:279)
+            args = [c1, c2, *args[1:]]
+        elif m == "CBFuse":
+            c2 = chs[f[-1]]
         elif m in ("nn.Upsample", "Upsample"):
             m = "Upsample"
             c2 = chs[f]
@@ -215,7 +238,7 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
     their sum, which flax reads from the inputs)."""
     m, a = spec.name, spec.args
     if m in _FROM_ARGS:
-        return _FROM_ARGS[m](*a)
+        return _FROM_ARGS[m](*a[:_ARGS_READ.get(m, len(a))])
     if m == "Bottleneck":
         kw = dict(zip(["shortcut", "g", "k", "e"], a[2:]))
         if "k" in kw:
@@ -232,7 +255,11 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
     if m == "Detect":
         nc, ch, legacy = a
         return Detect(nc=nc, ch=tuple(ch), legacy=legacy)
-    if m in ("Concat", "Upsample") or m in TORCH_ROWS:
+    if m == "v10Detect":
+        return V10Detect(nc=a[0], ch=tuple(a[-1]))
+    if m == "IDetect":
+        return IDetect(nc=a[0], anchors=a[1], ch=tuple(a[2]))
+    if m in ("Concat", "Upsample", "CBFuse") or m in TORCH_ROWS:
         return None
     raise _not_ported(m)
 
@@ -269,7 +296,11 @@ class DetectionModel(nn.Module):
 
     `forward` takes NHWC images and returns the raw per-level Detect maps in
     NHWC and in `dtype`, as the JAX module's apply does; `predict` decodes
-    them to (B, 4+nc, A) in `dtype`.
+    them to (B, 4+nc, A) in `dtype`. The head is the last row
+    (`head_name`): a v10Detect model returns {"one2many": maps, "one2one":
+    maps} and decodes one2one; an IDetect model (YOLOv7) returns per-level
+    (B, H, W, na, 5 + nc) maps in float32 and decodes them with `decode_v7`
+    (its A counts na anchors a cell).
     """
 
     def __init__(self, cfg="yolov13s_DBL.yaml", ch=3, nc=None, device=None,
@@ -287,6 +318,7 @@ class DetectionModel(nn.Module):
         self.nc = self.spec.nc
         self.names = {i: f"{i}" for i in range(self.nc)}
         self.reg_max = 16
+        self.head_name = self.spec.layers[-1].name
         # a YAML `activation:` is the Conv default of this build only (tasks.py:634-638)
         with torch.device("meta"), default_act(d.get("activation")):
             widths = []  # each row's output width
@@ -308,6 +340,8 @@ class DetectionModel(nn.Module):
 
     def _probe_strides(self, ch, probe=256):
         feats = self.forward(torch.zeros((1, probe, probe, ch)))
+        if isinstance(feats, dict):  # v10Detect (tasks.py:802)
+            feats = feats["one2one"]
         return tuple(int(probe // f.shape[1]) for f in feats)
 
     @torch.no_grad()
@@ -340,6 +374,10 @@ class DetectionModel(nn.Module):
                 mod.gamma.fill_(0.01)
             elif isinstance(mod, B.DySample):
                 mod.init_pos = mod._init_pos()
+            elif isinstance(mod, IDetect):
+                for i in range(mod.nl):
+                    getattr(mod, f"ia{i}").normal_(0.0, 0.02, generator=generator)
+                    getattr(mod, f"im{i}").normal_(1.0, 0.02, generator=generator)
         self._bias_init()
 
     def reset_weights(self, seed: int):
@@ -354,15 +392,38 @@ class DetectionModel(nn.Module):
 
     @torch.no_grad()
     def _bias_init(self):
-        """Stride-aware Detect bias prior (tasks.py:814)."""
+        """Stride-aware Detect bias prior (tasks.py:814), on a plain Detect
+        head only: JAX's rule matches `m{head}/cv2_{lvl}_2/conv/bias`, which
+        no v10Detect leaf (`m{head}/one2many/cv2_...`) and no IDetect leaf
+        matches, so those heads keep zero biases (ROADMAP Queue 3)."""
+        if self.head_name != "Detect":
+            return
         det = self.detect
         for lvl, s in enumerate(self.strides):
             getattr(det, f"cv2_{lvl}_2").conv.bias.fill_(1.0)
             getattr(det, f"cv3_{lvl}_2").conv.bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
 
     @property
-    def detect(self) -> Detect:
+    def detect(self) -> nn.Module:
+        """The head module: Detect, V10Detect or IDetect."""
         return getattr(self, f"m{self.spec.layers[-1].i}")
+
+    @property
+    def detect_branches(self) -> List[Detect]:
+        """The head's Detect modules: the head itself, v10Detect's one2many
+        and one2one, none for IDetect."""
+        det = self.detect
+        if isinstance(det, V10Detect):
+            return [det.one2many, det.one2one]
+        return [det] if isinstance(det, Detect) else []
+
+    @torch.no_grad()
+    def zero_class_biases(self):
+        """Zero the class biases of every Detect branch (scores near 0.5
+        for random weights, so NMS has candidates)."""
+        for det in self.detect_branches:
+            for lvl in range(det.nl):
+                getattr(det, f"cv3_{lvl}_2").conv.bias.zero_()
 
     @property
     def device(self) -> torch.device:
@@ -401,13 +462,25 @@ class DetectionModel(nn.Module):
             elif layer.name == "nn.ZeroPad2d":
                 left, right, top, bottom = layer.args[0]
                 out = nn.functional.pad(inp, (left, right, top, bottom))
-            elif layer.name == "nn.Identity":
+            elif layer.name in ("nn.Identity", "Silence"):
                 out = inp
+            elif layer.name == "MP":
+                k = int(layer.args[0]) if layer.args else 2
+                out = max_pool(inp.permute(0, 2, 3, 1), k, k, 0).permute(0, 3, 1, 2)
+            elif layer.name == "SP":
+                k = int(layer.args[0]) if layer.args else 3
+                out = max_pool(inp.permute(0, 2, 3, 1), k, 1, k // 2).permute(0, 3, 1, 2)
+            elif layer.name == "CBFuse":
+                out = B.cb_fuse(inp, layer.args[0])
             else:
                 out = inp
                 for name in _layer_names(layer):
                     out = getattr(self, name)(out)
             y.append(out if layer.i in save else None)
+        if isinstance(out, dict):
+            return {k: [o.permute(0, 2, 3, 1) for o in v] for k, v in out.items()}
+        if self.head_name == "IDetect":
+            return [o.permute(0, 2, 3, 1).unflatten(-1, (self.detect.na, -1)) for o in out]
         return [o.permute(0, 2, 3, 1) for o in out]
 
     @torch.inference_mode()
@@ -419,4 +492,10 @@ class DetectionModel(nn.Module):
         return self.decode_outputs(self.forward(x))
 
     def decode_outputs(self, feats):
+        """Raw forward outputs → (B, 4+nc, A) (tasks.py:843): v10Detect's
+        one2one branch, or IDetect's maps through `decode_v7`."""
+        if isinstance(feats, dict):
+            feats = feats["one2one"]
+        if self.head_name == "IDetect":
+            return decode_v7(feats, self.strides, self.detect.anchors, self.nc)
         return decode_detections(feats, self.strides, self.nc, self.reg_max)

@@ -134,6 +134,12 @@ def model_parallel_shardings(model_or_state, mesh: Mesh, min_size: int = 1 << 14
     specs of the same structure)."""
     n_model = model_axis_size(mesh)
     if isinstance(model_or_state, torch.nn.Module):
+        from ..nn.heads import IDetect
+
+        if n_model > 1 and any(isinstance(m, IDetect) for m in model_or_state.modules()):
+            # its ia/im leaves are (1, C, 1, 1) here, (1, 1, 1, C) in JAX: no rule reads them
+            raise NotImplementedError("IDetect's implicit leaves have no tensor-parallel rule yet "
+                                      "(ROADMAP Queue 1 item 7)")
         if n_model > 1 and transposed_convs(model_or_state):
             # its weight is (in, out, kh, kw): the rule below would shard the wrong axis
             raise NotImplementedError(

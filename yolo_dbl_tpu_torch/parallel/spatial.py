@@ -24,9 +24,11 @@ runs on them:
 
 The rows a rank holds must divide by the model's largest stride at every
 level; a size that does not divide raises (nothing is padded). A model
-with a layer that has no row-sharded form yet raises: SLA, the CARAFE
-family, SPP, ConvTranspose2d, V10Attention and the nn.MaxPool2d and
-nn.ZeroPad2d rows.
+with a layer that has no row-sharded form yet raises (ROADMAP Queue 1 item
+7): SLA, the CARAFE family, SPP, ConvTranspose2d, V10Attention, the pools
+of AConv, ADown (JAX's right and bottom padded mean), SPPELAN and SPPCSPC,
+the heads V10Detect (its dict of two branches) and IDetect, and the
+nn.MaxPool2d, nn.ZeroPad2d, MP, SP and CBFuse (nearest resize) rows.
 """
 
 from __future__ import annotations
@@ -188,19 +190,26 @@ def spatial(model, mesh: Mesh):
     `Spatial` state, whose counters read the halo and gather bytes. The
     model's output is the whole map's, on every model rank."""
     from ..nn.attention import SLA
-    from ..nn.blocks import SPP, SPPF, AAttn, AdaHGComputation, DySample
+    from ..nn.blocks import SPP, SPPCSPC, SPPF, AAttn, AdaHGComputation, DySample
     from ..nn.common import ConvTranspose2d
-    from ..nn.heads import Detect
+    from ..nn.heads import Detect, IDetect, V10Detect
     from ..nn.upsample import carafe
-    from ..nn.v9v10 import V10Attention
+    from ..nn.v9v10 import SPPELAN, ADown, AConv, V10Attention
 
     if getattr(model, "tp", None) is not None:
         raise ValueError("spatial parallelism runs a whole (unsharded) model")
     local_only = (SLA, carafe.CARAFE, carafe.CARAFEPack, carafe.CARAFE_XiaLiPKU,
-                  carafe.CARAFE_simplified, carafe.DLU, SPP, ConvTranspose2d, V10Attention)
-    rows = sorted({layer.name for layer in model.spec.layers} & {"nn.MaxPool2d", "nn.ZeroPad2d"})
+                  carafe.CARAFE_simplified, carafe.DLU, SPP, ConvTranspose2d, V10Attention,
+                  AConv, ADown, SPPELAN, SPPCSPC, V10Detect, IDetect)
+    rows = sorted({layer.name for layer in model.spec.layers}
+                  & {"nn.MaxPool2d", "nn.ZeroPad2d", "MP", "SP", "CBFuse"})
     if rows:
-        raise NotImplementedError(f"the {', '.join(rows)} rows have no spatial-parallel form yet")
+        raise NotImplementedError(f"the {', '.join(rows)} rows have no spatial-parallel form yet "
+                                  "(ROADMAP Queue 1 item 7)")
+    refused = next((mod for mod in model.modules() if isinstance(mod, local_only)), None)
+    if refused is not None:  # before any hook is registered
+        raise NotImplementedError(f"{type(refused).__name__} has no spatial-parallel form yet "
+                                  "(ROADMAP Queue 1 item 7)")
     sp = Spatial(mesh)
     stride = max(model.strides)
     hooks = []
@@ -215,8 +224,6 @@ def spatial(model, mesh: Mesh):
     hooks.append(next(model.children()).register_forward_pre_hook(enter))
     convs = []
     for mod in model.modules():
-        if isinstance(mod, local_only):
-            raise NotImplementedError(f"{type(mod).__name__} has no spatial-parallel form yet")
         if isinstance(mod, (AdaHGComputation, AAttn, DySample)):
             hooks += _gathered(sp, mod)
         elif isinstance(mod, SPPF):

@@ -14,7 +14,10 @@ Module and attribute names of the port are the flax scope names, so a leaf
 - BatchNorm params scale/bias → weight/bias, batch_stats mean/var →
   running_mean/running_var;
 - `prototype_base`, the FullPAD `gate` and the A2C2f `gamma` are copied as
-  they are.
+  they are;
+- YOLOv7 IDetect's implicit leaves `ia{i}` and `im{i}`, (1, 1, 1, C) in
+  NHWC, → (1, C, 1, 1); its per-level bare conv `m{i}` is a conv like any
+  other (`m105/m0/kernel` → `m105.m0.weight`).
 
 Any leaf without a rule, and any key missing on either side, raises. The
 v13 family's other leaves take the same rules: a flax BatchNorm called
@@ -36,6 +39,7 @@ rules written against JAX paths (the optimizer's decay and freeze masks).
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Dict, FrozenSet
 
@@ -46,6 +50,8 @@ import torch
 TORCH_ONLY_SUFFIX = "num_batches_tracked"
 # parameters whose name and layout are the same on both sides
 COPIED_LEAVES = ("prototype_base", "gate", "gamma")
+# IDetect's implicit-knowledge leaves: (1, 1, 1, C) in JAX, (1, C, 1, 1) here
+IMPLICIT_LEAF = re.compile(r"i[am]\d+")
 
 
 def _flatten(tree, prefix=()):
@@ -74,6 +80,8 @@ def _torch_leaf(collection: str, path, arr: np.ndarray, transposed: FrozenSet[st
             return scopes, "weight", arr.T
         if leaf == "scale":
             return scopes, "weight", arr
+        if IMPLICIT_LEAF.fullmatch(leaf) and arr.ndim == 4:
+            return scopes, leaf, arr.transpose(0, 3, 1, 2)
         if leaf in ("bias",) + COPIED_LEAVES:
             return scopes, leaf, arr
     elif collection == "batch_stats":
@@ -146,7 +154,7 @@ def jax_param_paths(module: torch.nn.Module) -> Dict[str, str]:
                 leaf = "kernel"
             elif name == "weight" and isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
                 leaf = "scale"
-            elif name not in ("bias",) + COPIED_LEAVES:
+            elif name not in ("bias",) + COPIED_LEAVES and not IMPLICIT_LEAF.fullmatch(name):
                 raise KeyError(f"no JAX rule for parameter {mod_name}.{name}")
             key = f"{mod_name}.{name}" if mod_name else name
             paths[key] = "/".join([*mod_name.split("."), leaf] if mod_name else [leaf])
