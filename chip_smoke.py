@@ -220,6 +220,44 @@ run after main_v11 and train_v11, their parities after the others):
               e; yolov10.yaml at n, yolov10n, m, b, l, x) as zoo: card decode
               against the CPU's at 320 on 2 frames, K1 once a forward, one
               train step at batch 4 with finite losses.
+The segment, pose and classify heads (seeded random weights; the Segment
+head's own BatchNorms calibrated on a probe, `calibrate_mask_head`, so its
+mask probabilities are no float32 tie at 0.5; TF32 off in the parity phases):
+ 37. main_seg, profile_seg, train_seg, train_profile_seg and their _bf16
+              phases - YOLO11-s-seg (yolo11s-seg.yaml, nc=80, 10,113,232
+              parameters) as main and train: requests of 8 uint8 512x768
+              frames through SegmentationPredictor (K1, forward, decode, NMS
+              with anchor indices, up to 300 masks an image made at the
+              frame's size on the card and copied to the host; the masks'
+              ms and their copy's apart, `mask_parts`), steps of 16 at 640
+              through segmentation_loss (gt_masks at 160 drawn from the
+              boxes; the mask term's ms apart, `task_term`) with peak memory;
+              main_pose, profile_pose, train_pose, train_profile_pose -
+              YOLO11-s-pose (nc=1, 17 keypoints) in float32; main_cls,
+              profile_cls - YOLO11-s-cls (nc=1000) serving at 224 (K1
+              letterboxes 512x768 to 224^2, also held to its plain version
+              in `k1`); K1 once a request on each;
+ 38. parity_seg, parity_pose, parity_cls - card against CPU on 2 frames in
+              the facade gate's form (the decode at every anchor, the card's
+              NMS equal to the CPU's on one decode, each frame's rows alike
+              or parted at named decisions), the coefficients, prototypes or
+              keypoint maps within 1e-4 of their largest, and on the rows
+              kept alike the mask probabilities (1e-3) and frame masks
+              (IoU >= 0.99) or the keypoints (0.05 px, visibility 1e-3); the
+              classifier's probabilities and logits within 1e-4, top-1
+              equal; parity_seg_bf16 at parity_bf16's bars, with the kept
+              rows' mask probabilities held as the scores;
+              train_parity_seg, train_parity_pose - as train_parity (loss
+              items with mask, kpt, kobj; Proto's leaves named);
+ 39. zoo_tasks - yolov8n-seg, yolov9c-seg, yolov9e-seg, yolov8n-pose and
+              yolov8n-cls at 320: card decode and every task output against
+              the CPU on 2 frames, K1 once a forward, one train step at
+              batch 4 (not the classifier: it does not train);
+ 40. facade_tasks - yolo11n-seg and yolo11n-pose (nc=2) through YOLO on a
+              task shapes set at 320: train 1 epoch (2 steps), val (box and
+              mask or pose mAP), predict 8 frames from memory; gate: the
+              facade gate at 320, with the masks or keypoints of the rows
+              both devices keep (a class and a box within 0.05 px).
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -269,8 +307,12 @@ V12, V11 = ("yolov12s.yaml", 80), ("yolo11s.yaml", 80)
 # the v10, v9 and v7 families' full-width paths: YOLOv10-s (v10Detect and its
 # e2e loss), YOLOv9-s, YOLOv7 (IDetect: serving only, JAX has no loss for it)
 V10, V9, V7 = ("yolov10s.yaml", 80), ("yolov9s.yaml", 80), ("yolov7.yaml", 80)
+# the task heads' full-width paths: yolo11-s with Segment (nc=80) and Pose
+# (nc=1, 17 keypoints of 3), and the classifier (nc=1000) at its 224
+SEG, POSE, CLS = ("yolo11s-seg.yaml", 80), ("yolo11s-pose.yaml", 1), ("yolo11s-cls.yaml", 1000)
+CLS_IMGSZ = 224
 SUFFIX = {DBL: "", V13: "_v13", DBL2: "_dbl2", V12: "_v12", V11: "_v11", V10: "_v10", V9: "_v9",
-          V7: "_v7"}
+          V7: "_v7", SEG: "_seg", POSE: "_pose", CLS: "_cls"}
 # YOLOv13-s A2C2f sites at 640: (areas, N, heads) per image; each site runs
 # 4 AAttn (2 repeats x 2 ABlocks), hd 32. Row 6: 40x40 tokens in 4 areas.
 # YOLOv12-s's rows 6 and 8 are the same two sites.
@@ -296,7 +338,9 @@ PER_REQUEST = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for c
     (V13, {"letterbox_normalize": 1, "area_attention": 8}),
     (V12, {"letterbox_normalize": 1, "area_attention": 8}),
     (V11, {"letterbox_normalize": 1}), (V10, {"letterbox_normalize": 1}),
-    (V9, {"letterbox_normalize": 1}), (V7, {"letterbox_normalize": 1}))}
+    (V9, {"letterbox_normalize": 1}), (V7, {"letterbox_normalize": 1}),
+    (SEG, {"letterbox_normalize": 1}), (POSE, {"letterbox_normalize": 1}),
+    (CLS, {"letterbox_normalize": 1}))}
 PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
     (DBL, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
     (DBL2, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
@@ -304,7 +348,7 @@ PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg,
            "area_attention_backward_dkv": 8}),
     (V12, {"area_attention": 8, "area_attention_backward_dq": 8,
            "area_attention_backward_dkv": 8}),
-    (V11, {}), (V10, {}), (V9, {}))}
+    (V11, {}), (V10, {}), (V9, {}), (SEG, {}), (POSE, {}))}
 
 
 def emit(obj):
@@ -348,6 +392,16 @@ def _trace(fn, calls):
 
 # traces timings took, those it took again, and the times it gave from CUDA events
 TRACES = {"traces": 0, "retaken": 0, "cuda_event_times": 0}
+SECONDS = {}  # wall seconds of each part of main, printed in the "timing" line
+
+
+@contextlib.contextmanager
+def took(name):
+    """Time a part of main: its wall seconds go to SECONDS and to stderr."""
+    t0 = time.perf_counter()
+    yield
+    SECONDS[name] = time.perf_counter() - t0
+    print(f"chip_smoke: {name} took {SECONDS[name]:.1f} s", file=sys.stderr, flush=True)
 
 
 def timings(fn, iters, warmup=3, only=None):
@@ -491,6 +545,18 @@ def copies_for(n_bytes):
 K1_ODD = (2, (251, 333), (257, 330))
 
 
+def k1_source_bytes(b, hw, new_h):
+    """The uint8 source bytes K1 must read for `b` frames of `hw` resized to
+    `new_h` rows: each distinct source row the row taps touch, whole. At a
+    gain below 1/2 the taps skip rows (224^2 from 512 rows: 298 of them);
+    within a row the column taps skip pixels too, but their pairs lie about
+    10 bytes apart, so every 32-byte sector the card reads holds one."""
+    from yolo_dbl_tpu_torch.kernels.preprocess import _taps
+
+    y0, y1, _ = _taps(new_h, hw[0], "cpu")
+    return b * len(set(y0.tolist()) | set(y1.tolist())) * hw[1] * 3
+
+
 def phase_k1(gen):
     from yolo_dbl_tpu_torch.kernels.preprocess import (letterbox_geometry, letterbox_normalize,
                                                        letterbox_normalize_plain)
@@ -532,10 +598,20 @@ def phase_k1(gen):
         frames[i % n], (IMGSZ, IMGSZ), out_dtype=torch.bfloat16), 10)
     library_ms, library_call_ms, s3 = timings(lambda i: library(frames[i % n]), 20)
     library_ms_bf16, _, s3_bf16 = timings(lambda i: library(frames[i % n]).to(torch.bfloat16), 20)
-    n_in, n_out = B * SRC_HW[0] * SRC_HW[1] * 3, B * IMGSZ * IMGSZ * 3
+    n_in, n_out = k1_source_bytes(B, SRC_HW, new_h), B * IMGSZ * IMGSZ * 3
     # per output value: 2 row blends + 1 column blend (3 ops each) and the /255
     bound_ms, bound_by = bound(n_in + n_out * 4, B * new_h * new_w * 3 * 10)
     bound_ms_bf16, bound_by_bf16 = bound(n_in + n_out * 2, B * new_h * new_w * 3 * 10)
+    # the classifier's canvas: 512x768 -> 224^2 (float32)
+    c224 = (CLS_IMGSZ, CLS_IMGSZ)
+    err_224 = float((letterbox_normalize(frames[0], c224)
+                     - letterbox_normalize_plain(frames[0], c224)).abs().max())
+    require(err_224 <= TOL, f"letterbox kernel vs plain at 224: max |d| {err_224} > {TOL}")
+    ms_224, call_ms_224, s_224 = timings(lambda i: letterbox_normalize(frames[i % n], c224), 50)
+    plain_ms_224, _, _ = timings(lambda i: letterbox_normalize_plain(frames[i % n], c224), 10)
+    _, h224, w224, _, _ = letterbox_geometry(*SRC_HW, *c224, scaleup=False)
+    bound_224, bound_by_224 = bound(k1_source_bytes(B, SRC_HW, h224) + B * CLS_IMGSZ ** 2 * 3 * 4,
+                                    B * h224 * w224 * 3 * 10)
     common = dict(route="cuda", source="yolo_dbl_tpu_torch/csrc/preprocess.cu",
                   replaces="yolo_dbl_tpu/kernels/preprocess.py:144")
     row = dict(name="letterbox_normalize", max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -549,6 +625,9 @@ def phase_k1(gen):
           "max_abs_err_f32": err, "max_abs_err_bf16": err_bf16, "library_vs_kernel": lib_err,
           "odd_geometry": {"batch": ob, "frame": list(o_in), "canvas": list(o_out),
                            "max_abs_err": odd_err},
+          "canvas_224": {"max_abs_err": err_224, "ms": ms_224, "call_ms": call_ms_224,
+                         "plain_ms": plain_ms_224, "bound_ms": bound_224,
+                         "bound_by": bound_by_224, "time_source": s_224},
           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
           "ms_bf16": ms_bf16, "bound_ms_bf16": bound_ms_bf16, "plain_ms_bf16": plain_ms_bf16,
           "library_ms_bf16": library_ms_bf16,
@@ -990,22 +1069,56 @@ def build_models(cfg, dtype=torch.float32, zero_class_bias=True):
     types: parameters are float32). `zero_class_bias=False` keeps the Detect
     class biases of the model's own init (the stride-aware prior), whose
     spread of scores keeps NMS away from near-ties at a low threshold.
-    YOLOv7's IDetect has no class bias to zero: its scores are σ(obj)σ(cls)."""
-    from yolo_dbl_tpu_torch import DetectionModel
+    YOLOv7's IDetect has no class bias to zero: its scores are σ(obj)σ(cls);
+    a classifier (a "-cls" name: ClassificationModel) has no Detect."""
+    from yolo_dbl_tpu_torch import ClassificationModel, DetectionModel
     from yolo_dbl_tpu_torch.nn.blocks import FullPAD_Tunnel
 
     name, nc = cfg
-    cpu = DetectionModel(name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0),
-                         dtype=dtype)
+    model_cls = ClassificationModel if "-cls" in name else DetectionModel
+    cpu = model_cls(name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0),
+                    dtype=dtype)
     with torch.no_grad():
         for mod in cpu.modules():
             if isinstance(mod, FullPAD_Tunnel):
                 mod.gate.fill_(0.5)  # gates start at 0, which would hide the tunnel inputs
     if zero_class_bias:
         cpu.zero_class_biases()  # give NMS real candidates (both v10Detect branches)
-    gpu = DetectionModel(name, nc=nc, device="cuda", dtype=dtype)
+    if cpu.head_name == "Segment":
+        calibrate_mask_head(cpu)
+    gpu = model_cls(name, nc=nc, device="cuda", dtype=dtype)
     gpu.load_state_dict(cpu.state_dict())
     return cpu, gpu
+
+
+def calibrate_mask_head(model, imgsz=256, seed=3):
+    """Set the running statistics of a Segment head's own BatchNorms (Proto
+    and the coefficient branches, not its Detect) to those of one forward of
+    2 seeded random images with those BatchNorms alone in train mode (the
+    rest in eval mode, as serving runs it). At the seeded init the activations
+    shrink layer by layer: the coefficients and prototypes come out near
+    1e-4, their products near 1e-7, and every mask probability rounds to 0.5
+    in float32, where the > 0.5 threshold is a tie; calibrated, they are of
+    order 0.1-1 and the mask probabilities spread over about 0.1-0.9 (yolo11s-seg at
+    320 on the CPU). The forward runs in
+    float32 whatever the model's compute type, so a bfloat16 model gets its
+    float32 twin's statistics."""
+    layers = [m for name, m in model.detect.named_modules()
+              if isinstance(m, torch.nn.BatchNorm2d) and not name.startswith("detect.")]
+    saved = [m.momentum for m in layers], model._dtype
+    x = torch.rand((2, imgsz, imgsz, 3), generator=torch.Generator().manual_seed(seed))
+    model.eval()  # the trunk and the Detect keep their statistics and feed eval activations
+    for m in layers:
+        m.train()
+    model._dtype = torch.float32
+    with torch.no_grad():
+        for m in layers:
+            m.momentum = 1.0
+        model(x.to(model.device))
+    for m, momentum in zip(layers, saved[0]):
+        m.momentum = momentum
+    model._dtype = saved[1]
+    model.eval()
 
 
 def _phase(base, cfg, dtype=torch.float32):
@@ -1014,12 +1127,44 @@ def _phase(base, cfg, dtype=torch.float32):
     return base + SUFFIX[cfg] + ("_bf16" if dtype == BF16 else "")
 
 
+def _predictor(model, **kw):
+    """The model's task predictor (engine/predictor.py TASK_PREDICTORS) at
+    the smoke's serving settings: conf 0.25, iou 0.45, max_det 300, at 640
+    (a classifier at 224)."""
+    from yolo_dbl_tpu_torch.engine import predictor as P
+
+    cls = {"Segment": P.SegmentationPredictor, "Pose": P.PosePredictor,
+           "Classify": P.ClassificationPredictor}.get(model.head_name, P.DetectionPredictor)
+    imgsz = CLS_IMGSZ if model.head_name == "Classify" else IMGSZ
+    return cls(model, **{**dict(conf=0.25, iou=0.45, max_det=300, imgsz=imgsz), **kw})
+
+
+def _request_counts(model, out):
+    """Each image's kept rows of a device-lane request (a classifier: 1),
+    after checking the outputs' form: (n, 6) finite rows; with them (n, H, W)
+    bool masks (Segment) or (n, 17, 3) finite keypoints (Pose); a
+    classifier's (B, nc) probabilities summing to 1."""
+    if model.head_name == "Classify":
+        require(out.shape == (B, model.nc) and np.isfinite(out).all()
+                and np.abs(out.sum(-1) - 1).max() < 1e-4, f"probabilities {out.shape}")
+        return [1] * B
+    rows = [o[0] for o in out] if model.head_name in ("Segment", "Pose") else out
+    require(len(out) == B and all(o.shape[1] == 6 and np.isfinite(o).all() for o in rows),
+            "predictor output: expected 8 finite (n, 6) arrays")
+    if model.head_name == "Segment":
+        require(all(m.dtype == bool and m.shape == (len(r), *SRC_HW) for r, m in out),
+                "masks: expected (n, H, W) bool arrays")
+    if model.head_name == "Pose":
+        require(all(k.shape == (len(r), 17, 3) and np.isfinite(k).all() for r, k in out),
+                "keypoints: expected finite (n, 17, 3) arrays")
+    return [len(r) for r in rows]
+
+
 def phase_main(cfg, gpu_model, rng, card):
     from yolo_dbl_tpu_torch import kernels
-    from yolo_dbl_tpu_torch.engine.predictor import DetectionPredictor
 
     t_start = time.perf_counter()
-    pred = DetectionPredictor(gpu_model, conf=0.25, iou=0.45, max_det=300, imgsz=IMGSZ)
+    pred = _predictor(gpu_model)
     requests = [rng.integers(0, 256, (B, *SRC_HW, 3), dtype=np.uint8)
                 for _ in range(WARMUP + REQUESTS)]
     for frames in requests[:WARMUP]:
@@ -1032,17 +1177,17 @@ def phase_main(cfg, gpu_model, rng, card):
         t0 = time.perf_counter()
         out = pred(frames)
         lat.append(time.perf_counter() - t0)
-        require(len(out) == B and all(o.shape[1] == 6 and np.isfinite(o).all() for o in out),
-                "predictor output: expected 8 finite (n, 6) arrays")
-        n_boxes.append([len(o) for o in out])
+        n_boxes.append(_request_counts(gpu_model, out))
     launches = dict(kernels.launches)
     dtype = gpu_model.dtype
     want = {k: v * REQUESTS for k, v in PER_REQUEST[cfg, dtype].items()}
     require(launches == want, f"launches in {REQUESTS} requests: {launches}, expected {want}")
     require(sum(map(sum, n_boxes)) > 0, "no detections: NMS saw no candidates")
     med = statistics.median(lat)
+    extra = {"mask_parts": _mask_parts(pred, requests[WARMUP])} if gpu_model.head_name == "Segment" \
+        else {}
     emit({"phase": _phase("main", cfg, dtype), "model": cfg[0][:-5], "nc": cfg[1],
-          "dtype": str(dtype).split(".")[-1], "imgsz": IMGSZ,
+          "dtype": str(dtype).split(".")[-1], "imgsz": pred.imgsz, **extra,
           "batch": B, "frames": list(SRC_HW), "requests": REQUESTS,
           "latency_ms": [t * 1e3 for t in lat], "median_ms": med * 1e3, "img_per_s": B / med,
           "boxes_per_image": n_boxes, "launches": launches,
@@ -1053,7 +1198,8 @@ def phase_main(cfg, gpu_model, rng, card):
 
 
 # substrings of device event names → the part of a path they belong to (first match)
-_CATEGORIES = (("letterbox", "k1 letterbox"), ("sample_bilinear_backward", "k2 sampler backward"),
+_CATEGORIES = (("letterbox", "k1 letterbox"), ("upsample_bilinear", "mask resize"),
+               ("sample_bilinear_backward", "k2 sampler backward"),
                ("sample_bilinear", "k2 sampler"), ("attention_bwd", "k3 attention backward"),
                ("attention_fwd", "k3 attention"), ("memcpy", "memcpy"), ("memset", "memset"),
                ("bn_fw", "batchnorm"), ("bn_bw", "batchnorm"), ("batch_norm", "batchnorm"),
@@ -1109,19 +1255,41 @@ def phase_profile(cfg, pred, rng, median_ms, requests=2):
           "top_kernels_ms": p["top_kernels_ms"]})
 
 
-def train_batches(rng, n, b=TRAIN_B, imgsz=IMGSZ, m=TRAIN_M, nc=NC):
+def train_batches(rng, n, b=TRAIN_B, imgsz=IMGSZ, m=TRAIN_M, nc=NC, task="detect"):
     """Seeded synthetic batches of the loss's batch contract: uint8 images,
-    1-8 real boxes per image (normalized xywh, classes 0..nc-1) padded to m."""
+    1-8 real boxes per image (normalized xywh, classes 0..nc-1) padded to m;
+    for `task` "segment" also each box's rectangle as its mask at a quarter
+    of imgsz (`gt_masks`), for "pose" 17 keypoints inside each box, a fifth
+    of them invisible (`gt_kpts`, xy in [0, 1])."""
     out = []
     for _ in range(n):
         real = rng.integers(1, 9, b)
         xy = rng.uniform(0.15, 0.85, (b, m, 2))
         wh = rng.uniform(0.04, 0.3, (b, m, 2))
-        out.append(dict(img=rng.integers(0, 256, (b, imgsz, imgsz, 3), dtype=np.uint8),
-                        gt_boxes=np.concatenate([xy, wh], -1).astype(np.float32),
-                        gt_cls=rng.integers(0, nc, (b, m)).astype(np.int32),
-                        gt_mask=(np.arange(m)[None] < real[:, None]).astype(np.float32)))
+        batch = dict(img=rng.integers(0, 256, (b, imgsz, imgsz, 3), dtype=np.uint8),
+                     gt_boxes=np.concatenate([xy, wh], -1).astype(np.float32),
+                     gt_cls=rng.integers(0, nc, (b, m)).astype(np.int32),
+                     gt_mask=(np.arange(m)[None] < real[:, None]).astype(np.float32))
+        if task == "segment":
+            hm = imgsz // 4
+            lo = np.floor((xy - wh / 2) * hm).astype(int).clip(0, hm)
+            hi = np.ceil((xy + wh / 2) * hm).astype(int).clip(0, hm)
+            cells = np.arange(hm)
+            inside = [(cells >= lo[..., k, None]) & (cells < hi[..., k, None]) for k in (0, 1)]
+            batch["gt_masks"] = (inside[1][..., :, None] & inside[0][..., None, :]
+                                 & batch["gt_mask"][..., None, None].astype(bool)).astype(np.float32)
+        elif task == "pose":
+            k = xy[:, :, None] + (rng.random((b, m, 17, 2)) - 0.5) * wh[:, :, None]
+            vis = np.where(rng.random((b, m, 17, 1)) < 0.2, 0.0, 2.0)
+            batch["gt_kpts"] = (np.concatenate([k, vis], -1)
+                                * batch["gt_mask"][..., None, None]).astype(np.float32)
+        out.append(batch)
     return out
+
+
+def _task(model):
+    """The loss's batch task of a model: segment, pose or detect."""
+    return {"Segment": "segment", "Pose": "pose"}.get(model.head_name, "detect")
 
 
 def e2e_terms(model, train_cfg, batch):
@@ -1164,7 +1332,8 @@ def phase_train(cfg, card, dtype=torch.float32):
     model = DetectionModel(name, nc=nc, device="cuda", generator=torch.Generator().manual_seed(0),
                            dtype=dtype)
     trainer = Trainer(model, {"batch": TRAIN_B}).setup(steps_per_epoch=100)
-    batches = train_batches(np.random.default_rng(1), TRAIN_WARMUP + TRAIN_STEPS + 1, nc=nc)
+    batches = train_batches(np.random.default_rng(1), TRAIN_WARMUP + TRAIN_STEPS + 1, nc=nc,
+                            task=_task(model))
     params = [p for _, p in model.named_parameters()]
     losses, step_ms = [], []
     for i, batch in enumerate(batches[:TRAIN_WARMUP + TRAIN_STEPS]):
@@ -1195,6 +1364,8 @@ def phase_train(cfg, card, dtype=torch.float32):
             "parameters and EMA must stay float32")
     extra = ({"e2e": e2e_terms(model, trainer.cfg, batches[-1])}
              if model.head_name == "v10Detect" else {})
+    if model.head_name in ("Segment", "Pose"):
+        extra["task_term"] = _task_term_ms(model, trainer.cfg, batches[-1])
     med = statistics.median(step_ms)
     emit({"phase": _phase("train", cfg, dtype), "model": name[:-5], "nc": nc,
           "dtype": str(dtype).split(".")[-1], "imgsz": IMGSZ,
@@ -1284,26 +1455,49 @@ def phase_parity(cfg, cpu_model, gpu_model, frames):
             f"card vs CPU: boxes {box_err} px (< 0.05), scores {score_err} (<= 1e-3)")
 
 
-def _float64_grads(cpu_model, cfg, batch, grads=True):
-    """({loss item: value}, {name: gradient}) of the train-mode loss of a
-    float64 copy of the CPU model (the plain sampler and attention take
-    float64): train_loss's steps, with the images normalized to float64.
+@contextlib.contextmanager
+def plain_kernels():
+    """The models' kernel call sites (the sampler in ops/resample.py, the
+    area attention in nn/blocks.py) bound to the plain versions, which take
+    float64 on any device: a float64 reference on the card. The kernels'
+    launch counts do not move."""
+    from yolo_dbl_tpu_torch.kernels import attention, sampling
+    from yolo_dbl_tpu_torch.nn import blocks
+    from yolo_dbl_tpu_torch.ops import resample
+
+    saved = resample.sample_bilinear, blocks.area_attention
+    resample.sample_bilinear = sampling.sample_bilinear_plain
+    blocks.area_attention = attention.area_attention_plain
+    try:
+        yield
+    finally:
+        resample.sample_bilinear, blocks.area_attention = saved
+
+
+def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
+    """({loss item: value}, {name: gradient on the CPU}) of the train-mode
+    loss of a float64 copy of the CPU model on `device` (the plain sampler
+    and attention take float64; on the card through `plain_kernels`):
+    train_loss's steps, with the images normalized to float64.
     `grads=False`: the loss items alone (and None)."""
     import copy
 
     from yolo_dbl_tpu_torch.engine.trainer import task_loss
     from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
 
-    model = copy.deepcopy(cpu_model).double().train()
-    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    model = copy.deepcopy(cpu_model).double().train().to(device)
+    batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
     batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
     names, params = zip(*model.named_parameters())
-    with torch.set_grad_enabled(grads):
+    with (plain_kernels() if model.device.type == "cuda" else contextlib.nullcontext()), \
+            torch.set_grad_enabled(grads):
         loss, items = task_loss(model, cfg, model(device_normalize(batch["img"], torch.float64)),
                                 batch)
     values = dict(loss=float(loss.detach()),
                   **{k: float(v.detach()) for k, v in items._asdict().items()})
-    return values, dict(zip(names, torch.autograd.grad(loss, params))) if grads else None
+    if not grads:
+        return values, None
+    return values, {n: g.cpu() for n, g in zip(names, torch.autograd.grad(loss, params))}
 
 
 # leaves named in train_parity, whose gradient comes only through a kernel's
@@ -1311,7 +1505,8 @@ def _float64_grads(cpu_model, cfg, batch, grads=True):
 # YOLOv10-s has no hand kernel in a step: its PSA's qkv conv, whose gradient
 # comes through the plain attention's two products and softmax
 KERNEL_FED_LEAVES = {DBL: (".offset.conv.", 6), V13: (".attn.qkv.conv.", 8),
-                     V12: (".attn.qkv.conv.", 8), V10: (".attn.qkv.conv.", 1)}
+                     V12: (".attn.qkv.conv.", 8), V10: (".attn.qkv.conv.", 1),
+                     SEG: (".proto.", 11), POSE: (".cv4_0_2.", 2)}
 
 
 def phase_train_parity(cfg, cpu_model, gpu_model):
@@ -1326,7 +1521,8 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_cfg = get_cfg()
-    batch = train_batches(np.random.default_rng(2), 1, b=2, imgsz=256, nc=cfg[1])[0]
+    batch = train_batches(np.random.default_rng(2), 1, b=2, imgsz=256, nc=cfg[1],
+                          task=_task(cpu_model))[0]
     results = {}
     for model in (cpu_model, gpu_model):
         for mod in model.modules():
@@ -1393,17 +1589,46 @@ def _boxes_scores(a, b):
     return float((a[:, :4] - b[:, :4]).abs().max()), float((a[:, 4:] - b[:, 4:]).abs().max())
 
 
+def _forward_decode(model, x):
+    """(raw outputs, decode) of one inference forward: `predict`'s decode
+    with the outputs a task head adds."""
+    with torch.inference_mode():
+        outs = model(x)
+        return outs, model.decode_outputs(outs)
+
+
+def _to_cpu(outs):
+    return torch.utils._pytree.tree_map(lambda t: t.cpu(), outs)
+
+
+def _kept_masks(outs, dets, idx, imgsz=IMGSZ):
+    """Mask probabilities (prototype resolution) of kept rows: each image's
+    coefficients at the kept anchors with its prototypes, cut to the boxes."""
+    from yolo_dbl_tpu_torch.nn.heads import decode_masks, flatten_levels, gather_anchors
+
+    kept = gather_anchors(flatten_levels(outs[1]), idx.to(outs[2].device))
+    return [decode_masks(kept[i].float(), outs[2][i].float(), dets[i, :, :4].to(kept.device),
+                         (imgsz, imgsz)) for i in range(len(dets))]
+
+
 def phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames):
     """The card's bfloat16 decode against the CPU's float32 one at the same
     weights and frames, within check_amp's bars; card bfloat16 against CPU
-    bfloat16 beside the CPU's own bfloat16-against-float32 spread."""
+    bfloat16 beside the CPU's own bfloat16-against-float32 spread. A Segment
+    model's mask probabilities are held as its scores: on the rows the CPU's
+    float32 NMS keeps (conf 0.25), each model's coefficients at those anchors
+    with its own prototypes, cut to the CPU float32 boxes."""
     from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dbl_tpu_torch.ops.nms import non_max_suppression
 
     t_start = time.perf_counter()
     u8 = torch.from_numpy(frames)
-    pred32 = cpu32.predict(letterbox_normalize(u8, (IMGSZ, IMGSZ)))
-    pred_c16 = cpu16.predict(letterbox_normalize(u8, (IMGSZ, IMGSZ), out_dtype=BF16))
-    pred_g16 = gpu16.predict(letterbox_normalize(u8.cuda(), (IMGSZ, IMGSZ), out_dtype=BF16)).cpu()
+    outs32, pred32 = _forward_decode(cpu32, letterbox_normalize(u8, (IMGSZ, IMGSZ)))
+    outs_c16, pred_c16 = _forward_decode(cpu16, letterbox_normalize(u8, (IMGSZ, IMGSZ),
+                                                                    out_dtype=BF16))
+    outs_g16, pred_g16 = _forward_decode(gpu16, letterbox_normalize(u8.cuda(), (IMGSZ, IMGSZ),
+                                                                    out_dtype=BF16))
+    outs_g16, pred_g16 = _to_cpu(outs_g16), pred_g16.cpu()
     anchors = sum((IMGSZ // s) ** 2 for s in gpu16.strides)
     require(pred_g16.dtype == pred_c16.dtype == BF16
             and pred_g16.shape == pred32.shape == (2, 4 + cfg[1], anchors)
@@ -1413,15 +1638,27 @@ def phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames):
     card_vs_cpu16 = _boxes_scores(pred_g16, pred_c16)
     cpu16_vs_f32 = _boxes_scores(pred_c16, pred32)
     box_bar, score_bar = 0.02 * IMGSZ, 0.05
+    extra = {}
+    if gpu16.head_name == "Segment":
+        dets, num, idx = non_max_suppression(pred32, conf_thres=0.25, iou_thres=0.45,
+                                             nc=cfg[1], return_idx=True)
+        m32, mc16, mg16 = (_kept_masks(o, dets, idx) for o in (outs32, outs_c16, outs_g16))
+        spread = [max(float((a[i][:k] - b[i][:k]).abs().max()) if k else 0.0
+                      for i, k in enumerate(num.tolist())) for a, b in ((mg16, m32), (mc16, m32))]
+        extra["mask_probability_max_abs"] = {"rows": int(num.sum()), "card_bf16_vs_cpu_f32":
+                                             spread[0], "cpu_bf16_vs_cpu_f32": spread[1]}
     emit({"phase": _phase("parity", cfg, BF16), "frames": 2,
           "card_bf16_vs_cpu_f32": {"box_px": card_vs_f32[0], "score": card_vs_f32[1]},
           "card_bf16_vs_cpu_bf16": {"box_px": card_vs_cpu16[0], "score": card_vs_cpu16[1]},
           "cpu_bf16_vs_cpu_f32": {"box_px": cpu16_vs_f32[0], "score": cpu16_vs_f32[1]},
-          "bars": {"box_px": box_bar, "score": score_bar},
+          "bars": {"box_px": box_bar, "score": score_bar}, **extra,
           "max_score": float(pred32[:, 4:].max()), "seconds": time.perf_counter() - t_start})
     require(card_vs_f32[0] < box_bar and card_vs_f32[1] < score_bar,
             f"card bf16 vs CPU f32: boxes {card_vs_f32[0]} px (< {box_bar}), scores "
             f"{card_vs_f32[1]} (< {score_bar})")
+    if extra:
+        require(extra["mask_probability_max_abs"]["rows"] > 0 and spread[0] < score_bar,
+                f"card bf16 vs CPU f32 mask probabilities: {extra}")
 
 
 # the batches (seeds) whose bfloat16 loss items train_parity_bf16 reads: a
@@ -1760,23 +1997,24 @@ def _counts(results):
     return [len(r) for r in results]
 
 
-def _predict_recorded(yolo, frames, conf, iou):
-    """`yolo.predict(frames)` at `conf` and `iou`, and the decode each
-    chunk handed NMS, one (4+nc, A) float32 tensor an image on the host, in
-    the order of the predictor's chunks: the frames' own order for two
-    frames of one size or of two."""
-    raw, decode = [], yolo.model.predict
+def _predict_recorded(yolo, frames, conf, iou, imgsz=IMGSZ):
+    """`yolo.predict(frames)` at `conf`, `iou` and `imgsz`, and the decode
+    each chunk handed NMS, one (4+nc, A) float32 tensor an image on the
+    host, in the order of the predictor's chunks: the frames' own order for
+    two frames of one size or of two. Every predictor decodes through the
+    model's `decode_outputs` (the detect one inside `predict`)."""
+    raw, decode = [], yolo.model.decode_outputs
 
-    def recorded(img):
-        out = decode(img)
+    def recorded(feats):
+        out = decode(feats)
         raw.extend(out.float().cpu())
         return out
 
-    yolo.model.predict = recorded
+    yolo.model.decode_outputs = recorded
     try:
-        return yolo.predict(frames, conf=conf, iou=iou), raw
+        return yolo.predict(frames, conf=conf, iou=iou, imgsz=imgsz), raw
     finally:
-        del yolo.model.predict
+        del yolo.model.decode_outputs
 
 
 def _nms_decisions(pred, conf, pre_nms_topk=1024):
@@ -1833,7 +2071,7 @@ def _nms_partings(card, cpu, conf, iou):
     return out
 
 
-def _facade_gate(best, frames, conf=0.001, iou=0.45):
+def _facade_gate(best, frames, conf=0.001, iou=0.45, imgsz=IMGSZ):
     """The best checkpoint on the card and on the CPU (TF32 off) over 2
     frames at conf 0.001: the decode handed NMS within 0.05 px of the canvas
     and 1e-3 at every anchor; the card's NMS on its decode equal to the
@@ -1847,8 +2085,8 @@ def _facade_gate(best, frames, conf=0.001, iou=0.45):
     from yolo_dbl_tpu_torch.ops.nms import non_max_suppression
 
     with tf32_off():
-        got, raw_got = _predict_recorded(YOLO(best), frames, conf, iou)
-        want, raw_want = _predict_recorded(YOLO(best, device="cpu"), frames, conf, iou)
+        got, raw_got = _predict_recorded(YOLO(best), frames, conf, iou, imgsz)
+        want, raw_want = _predict_recorded(YOLO(best, device="cpu"), frames, conf, iou, imgsz)
     require(len(raw_got) == len(raw_want) == len(frames),
             f"decodes recorded: {len(raw_got)} card, {len(raw_want)} CPU, {len(frames)} frames")
     decode_box = max(float((g[:4] - w[:4]).abs().max()) for g, w in zip(raw_got, raw_want))
@@ -1858,29 +2096,77 @@ def _facade_gate(best, frames, conf=0.001, iou=0.45):
         (dc, nc), (dh, nh) = (non_max_suppression(g[None].to(dev), conf_thres=conf, iou_thres=iou)
                               for dev in ("cuda", "cpu"))
         nms_equal &= torch.equal(nc.cpu(), nh) and torch.equal(dc.cpu(), dh)
+    def rows(r):
+        return np.concatenate([r.boxes.xyxy, r.boxes.conf[:, None], r.boxes.cls[:, None]], 1)
+
+    frames_gate, named = _frames_alike([rows(r) for r in got], [rows(r) for r in want],
+                                       raw_got, raw_want, conf, iou)
+    gate = {"frames": len(frames), "conf": conf, "iou": iou, "kept_card": _counts(got),
+            "kept_cpu": _counts(want), "decode_box_max_abs_px": decode_box,
+            "decode_score_max_abs": decode_score, "nms_card_equals_cpu": nms_equal,
+            **frames_gate, "tf32": False}
+    task = got[0].masks is not None or got[0].keypoints is not None
+    if task:
+        gate["rows_kept_alike"] = _facade_task_rows(best, frames, conf, iou, imgsz)
+    require(decode_box < 0.05 and decode_score <= 1e-3 and nms_equal and sum(_counts(want)) > 0
+            and frames_gate["box_max_abs_px"] < 0.05 and frames_gate["score_max_abs"] <= 1e-3
+            and frames_gate["classes_equal"] and named
+            and (not task or _task_rows_ok(gate["rows_kept_alike"])), f"facade card vs CPU: {gate}")
+    return gate
+
+
+def _frames_alike(card_rows, cpu_rows, card_decodes, cpu_decodes, conf, iou):
+    """Each frame's kept rows on the card against the CPU's, each an (n, 6)
+    array [x1, y1, x2, y2, conf, cls]: alike (equal counts, boxes within
+    0.05 px, scores within 1e-3, equal classes), or parted, with the
+    decisions `_nms_partings` names on the frame's two decodes ({} for an
+    alike frame). Returns ({box_max_abs_px, score_max_abs, classes_equal}
+    over the alike frames, frames_parted, partings) and whether every
+    parted frame's partings are named."""
     box = score = 0.0
-    cls_equal, partings, parted = True, [], []
-    for i, (g, w, rg, rw) in enumerate(zip(got, want, raw_got, raw_want)):
+    cls_equal, parted, partings = True, [], []
+    for i, (g, w) in enumerate(zip(card_rows, cpu_rows)):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
         alike = len(g) == len(w)
         if alike:
-            fb = float(np.abs(g.boxes.xyxy - w.boxes.xyxy).max(initial=0))
-            fs = float(np.abs(g.boxes.conf - w.boxes.conf).max(initial=0))
-            fc = bool(np.array_equal(g.boxes.cls, w.boxes.cls))
+            fb = float(np.abs(g[:, :4] - w[:, :4]).max(initial=0))
+            fs = float(np.abs(g[:, 4] - w[:, 4]).max(initial=0))
+            fc = bool(np.array_equal(g[:, 5], w[:, 5]))
             alike = fb < 0.05 and fs <= 1e-3 and fc
         if alike:
             box, score, cls_equal = max(box, fb), max(score, fs), cls_equal and fc
         else:
             parted.append(i)
-        partings.append({} if alike else _nms_partings(rg, rw, conf, iou))
-    gate = {"frames": len(frames), "conf": conf, "iou": iou, "kept_card": _counts(got),
-            "kept_cpu": _counts(want), "decode_box_max_abs_px": decode_box,
-            "decode_score_max_abs": decode_score, "nms_card_equals_cpu": nms_equal,
-            "box_max_abs_px": box, "score_max_abs": score, "classes_equal": cls_equal,
-            "frames_parted": parted, "partings": partings, "tf32": False}
-    require(decode_box < 0.05 and decode_score <= 1e-3 and nms_equal and sum(_counts(want)) > 0
-            and box < 0.05 and score <= 1e-3 and cls_equal
-            and all(partings[i] for i in parted), f"facade card vs CPU: {gate}")
-    return gate
+        partings.append({} if alike else _nms_partings(card_decodes[i], cpu_decodes[i], conf, iou))
+    out = {"box_max_abs_px": box, "score_max_abs": score, "classes_equal": cls_equal,
+           "frames_parted": parted, "partings": partings}
+    return out, all(partings[i] for i in parted)
+
+
+def _mask_iou(a, b):
+    """Pooled IoU of two stacks of bool masks (1 where both are empty)."""
+    union = int((a | b).sum())
+    return int((a & b).sum()) / union if union else 1.0
+
+
+def _facade_task_rows(best, frames, conf, iou, imgsz):
+    """`_task_rows` of the best checkpoint's outputs of the same frames (one
+    size) on the card and on the CPU (TF32 off), each NMS'd at `conf` and
+    `iou` with its anchor indices: the masks or keypoints of the rows both
+    keep. (The facade's `Results` carry no anchor index, and boxes clipped
+    to the frame coincide too often to pair the rows by box.)"""
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dbl_tpu_torch.ops.nms import non_max_suppression
+
+    card, cpu = YOLO(best).model, YOLO(best, device="cpu").model
+    u8, size = torch.from_numpy(np.stack(frames)), (imgsz, imgsz)
+    with tf32_off():
+        oc, pc = _forward_decode(cpu, letterbox_normalize(u8, size))
+        og, pg = _forward_decode(card, letterbox_normalize(u8.cuda(), size))
+    kept = [_to_cpu(non_max_suppression(p, conf_thres=conf, iou_thres=iou, nc=cpu.nc,
+                                        return_idx=True)) for p in (pg, pc)]
+    return _task_rows(cpu, _to_cpu(og), oc, *kept, imgsz, frames[0].shape[:2])
 
 
 def phase_facade(card):
@@ -2149,7 +2435,7 @@ def _config_step(name, gpu, rng, imgsz, batch_size, per_step):
 
     torch.backends.cudnn.allow_tf32 = True
     trainer = Trainer(gpu, {"batch": batch_size}).setup(steps_per_epoch=100)
-    batch = train_batches(rng, 1, b=batch_size, imgsz=imgsz, nc=gpu.nc)[0]
+    batch = train_batches(rng, 1, b=batch_size, imgsz=imgsz, nc=gpu.nc, task=_task(gpu))[0]
     kernels.reset_launches()
     t0 = time.perf_counter()
     losses = {k: float(v) for k, v in trainer.step(batch).items()}
@@ -2241,6 +2527,350 @@ def phase_zoo(card, zoo=ZOO, phase="zoo"):
     return launches
 
 
+def _mask_parts(pred, frames):
+    """CUDA-event ms of one Segment request's masks: `frame_masks` of every
+    kept row (prototype resolution, two bilinear resizes, > 0.5) and the
+    copy of the bool masks to the host, apart from the rest of the request
+    (K1, forward, decode, NMS, the gathers)."""
+    from yolo_dbl_tpu_torch.engine.predictor import frame_masks
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_geometry
+
+    _, _, _, top, left = letterbox_geometry(*SRC_HW, IMGSZ, IMGSZ, scaleup=False)
+    with torch.inference_mode():
+        dets, num, kept, protos = pred.infer(torch.from_numpy(frames).cuda())
+        counts = num.tolist()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        masks = [frame_masks(kept[i, :k], protos[i], dets[i, :k, :4], IMGSZ, (left, top), SRC_HW)
+                 for i, k in enumerate(counts)]
+        ev[1].record()
+        host = [m.cpu() for m in masks]
+        ev[2].record()
+        torch.cuda.synchronize()
+    return {"rows": sum(counts), "masks_ms": ev[0].elapsed_time(ev[1]),
+            "masks_to_host_ms": ev[1].elapsed_time(ev[2]),
+            "mask_bytes": sum(m.numel() for m in host)}
+
+
+def _task_term_ms(model, train_cfg, batch, reps=5):
+    """CUDA-event ms (median of `reps`) of the forward and backward of the
+    model's task loss and of `detection_loss` alone, on one batch's
+    train-mode outputs: their difference is what the mask term (Segment)
+    or the keypoint terms (Pose) and their second TAL cost a step."""
+    from yolo_dbl_tpu_torch.engine.trainer import task_loss
+    from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
+    from yolo_dbl_tpu_torch.losses.detection import detection_loss
+
+    b = {k: torch.as_tensor(v).to(model.device) for k, v in batch.items()}
+    was_training = model.training
+    model.train()
+    with torch.no_grad():
+        outs = model(device_normalize(b["img"], model.dtype))
+    model.train(was_training)
+    outs = torch.utils._pytree.tree_map(lambda t: t.detach().requires_grad_(), outs)
+    leaves = torch.utils._pytree.tree_leaves(outs)
+    gains = dict(box_gain=train_cfg.box, cls_gain=train_cfg.cls, dfl_gain=train_cfg.dfl)
+
+    def timed(fn):
+        ms = []
+        for i in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss = fn()
+            torch.autograd.grad(loss, [t for t in leaves if t.requires_grad], allow_unused=True)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms += [ev[0].elapsed_time(ev[1])] if i else []
+        return statistics.median(ms)
+
+    task_ms = timed(lambda: task_loss(model, train_cfg, outs, b)[0])
+    det_ms = timed(lambda: detection_loss(outs[0], b, model.strides, model.nc, **gains)[0])
+    return {"task_loss_ms": task_ms, "detection_loss_ms": det_ms,
+            "task_term_ms": task_ms - det_ms}
+
+
+def _match_rows(idx_a, dets_a, k_a, idx_b, dets_b, k_b):
+    """Pairs (i, j) of an image's kept rows with the same anchor and class."""
+    where = {(int(idx_b[j]), int(dets_b[j, 5])): j for j in range(k_b)}
+    return [(i, where[key]) for i in range(k_a)
+            if (key := (int(idx_a[i]), int(dets_a[i, 5]))) in where]
+
+
+def _task_rows(model, og, oc, card, cpu, imgsz, hw):
+    """A Segment or Pose model's outputs of the same frames on the card
+    (moved to the host) and on the CPU, and each device's NMS of its own
+    decode (dets, counts, anchor indices): on the rows both keep with one
+    anchor and class, the mask probabilities (each side's coefficients and
+    prototypes, cut to the CPU row's box on both: a box edge a float32
+    rounding from a pixel edge moves that pixel in or out of the crop,
+    which the IoU holds) and the frame-size masks' pooled IoU (the least
+    over the frames), or the keypoints and their visibility."""
+    from yolo_dbl_tpu_torch.engine.predictor import frame_masks
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_geometry
+    from yolo_dbl_tpu_torch.nn.heads import (decode_keypoints, decode_masks, flatten_levels,
+                                             gather_anchors)
+
+    (dg, ng, ig), (dc, nc_, ic) = card, cpu
+    seg = model.head_name == "Segment"
+    if seg:
+        cg, cc = (gather_anchors(flatten_levels(o[1]), i) for o, i in ((og, ig), (oc, ic)))
+        _, _, _, top, left = letterbox_geometry(*hw, imgsz, imgsz, scaleup=False)
+    else:
+        kg, kc = (gather_anchors(decode_keypoints(o[0], o[1], model.strides,
+                                                  model.detect.kpt_shape), i)
+                  for o, i in ((og, ig), (oc, ic)))
+    rows, prob_err, kpt_err, vis_err, ious = 0, 0.0, 0.0, 0.0, []
+    for i in range(len(dg)):
+        pairs = _match_rows(ig[i], dg[i], int(ng[i]), ic[i], dc[i], int(nc_[i]))
+        if not pairs:
+            continue
+        a, b = (torch.tensor(x) for x in zip(*pairs))
+        rows += len(pairs)
+        if seg:
+            pm = [decode_masks(k[i][r].float(), o[2][i].float(), dc[i, b, :4], (imgsz, imgsz))
+                  for k, o, r in ((cg, og, a), (cc, oc, b))]
+            prob_err = max(prob_err, float((pm[0] - pm[1]).abs().max()))
+            fm = [frame_masks(k[i][r], o[2][i], d[i, r, :4], imgsz, (left, top), hw)
+                  for k, o, d, r in ((cg, og, dg, a), (cc, oc, dc, b))]
+            ious.append(_mask_iou(*fm))
+        else:
+            d = (kg[i][a] - kc[i][b]).abs()
+            kpt_err = max(kpt_err, float(d[..., :2].max()))
+            vis_err = max(vis_err, float(d[..., 2].max()))
+    out = {"rows": rows}
+    out.update({"mask_probability_max_abs": prob_err, "mask_iou_min": min(ious, default=0.0)}
+               if seg else {"keypoint_max_abs_px": kpt_err, "visibility_max_abs": vis_err})
+    return out
+
+
+def _task_rows_ok(out):
+    """`_task_rows`'s bars: some rows; mask probabilities 1e-3 and IoU >=
+    0.99, or keypoints 0.05 px and visibility 1e-3."""
+    if "mask_iou_min" in out:
+        return out["rows"] > 0 and out["mask_probability_max_abs"] <= 1e-3 \
+            and out["mask_iou_min"] >= 0.99
+    return out["rows"] > 0 and out["keypoint_max_abs_px"] < 0.05 \
+        and out["visibility_max_abs"] <= 1e-3
+
+
+def phase_parity_task(cfg, cpu_model, gpu_model, frames):
+    """A task model's card against CPU on 2 frames (TF32 off). Classify: the
+    probabilities at 224 within 1e-4 (the logits within 1e-4 of their
+    largest: at the seeded init the probabilities sit near 1/nc) and the
+    same top-1 unless the CPU's top two are within 1e-4. Segment and Pose,
+    in the facade gate's form:
+    the decode at every anchor (0.05 px, 1e-3), the card's NMS on its decode
+    equal to the CPU's NMS on it (rows, counts, anchor indices), and each
+    frame's kept rows alike (counts, 0.05 px, 1e-3, classes) or parted at
+    decisions `_nms_partings` names; the side outputs within 1e-4 of their
+    largest (coefficients and prototypes, or keypoint maps); on the rows
+    kept alike (the same anchor and class on both), the mask probabilities
+    within 1e-3 (each side's coefficients and prototypes, cut to the CPU
+    row's box on both: a box edge a float32 rounding from a pixel edge moves
+    that pixel in or out of the crop, which the IoU bar holds) and the
+    frame-size masks at pooled IoU >= 0.99, or the keypoints within 0.05 px
+    and their visibility within 1e-3."""
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dbl_tpu_torch.ops.nms import non_max_suppression
+
+    t_start = time.perf_counter()
+    u8 = torch.from_numpy(frames)
+    head = gpu_model.head_name
+    with tf32_off():
+        if head == "Classify":
+            size = (CLS_IMGSZ, CLS_IMGSZ)
+            with torch.inference_mode():
+                logits_c = cpu_model(letterbox_normalize(u8, size))
+                logits_g = gpu_model(letterbox_normalize(u8.cuda(), size)).cpu()
+            want, got = logits_c.softmax(-1), logits_g.softmax(-1)
+            err = float((got - want).abs().max())
+            logit_rel = float((logits_g - logits_c).abs().max() / logits_c.abs().max())
+            top2 = want.topk(2, -1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+            top1_equal = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+            emit({"phase": _phase("parity", cfg), "frames": 2, "imgsz": CLS_IMGSZ,
+                  "prob_max_abs": err, "logit_max_abs_of_largest": logit_rel,
+                  "top1_card": got.argmax(-1).tolist(),
+                  "top1_cpu": want.argmax(-1).tolist(), "top1_clear": clear.tolist(),
+                  "max_prob": float(want.max()), "seconds": time.perf_counter() - t_start})
+            require(got.shape == (2, cfg[1]) and err <= 1e-4 and logit_rel <= 1e-4 and top1_equal,
+                    f"classify card vs CPU: prob {err} (<= 1e-4), logits {logit_rel} of their "
+                    f"largest (<= 1e-4), top-1 equal {top1_equal}")
+            return
+        oc, pred_c = _forward_decode(cpu_model, letterbox_normalize(u8, (IMGSZ, IMGSZ)))
+        og, pred_card = _forward_decode(gpu_model, letterbox_normalize(u8.cuda(), (IMGSZ, IMGSZ)))
+        og_c, pred_g = _to_cpu(og), pred_card.cpu()
+        nms = functools.partial(non_max_suppression, conf_thres=0.25, iou_thres=0.45, max_det=300,
+                                nc=cfg[1], return_idx=True)
+        (dg, ng, ig), (dh, nh, ih), (dc, nc_, ic) = (
+            _to_cpu(nms(p)) for p in (pred_card, pred_g, pred_c))
+        if head == "Segment":
+            side = {f"coefficients_{i}": (g, c) for i, (g, c) in enumerate(zip(og_c[1], oc[1]))}
+            side["prototypes"] = (og_c[2], oc[2])
+        else:
+            side = {f"keypoints_{i}": (g, c) for i, (g, c) in enumerate(zip(og_c[1], oc[1]))}
+        rows = _task_rows(gpu_model, og_c, oc, (dg, ng, ig), (dc, nc_, ic), IMGSZ, SRC_HW)
+    box_err, score_err = _boxes_scores(pred_g, pred_c)
+    side_rel = {k: float((g - c).abs().max() / c.abs().max()) for k, (g, c) in side.items()}
+    nms_equal = torch.equal(dg, dh) and torch.equal(ng, nh) and torch.equal(ig, ih)
+    frames_gate, named = _frames_alike([d[:int(k)] for d, k in zip(dg, ng)],
+                                       [d[:int(k)] for d, k in zip(dc, nc_)],
+                                       pred_g, pred_c, 0.25, 0.45)
+    out = {"phase": _phase("parity", cfg), "frames": 2, "head": head, "box_max_abs_px": box_err,
+           "score_max_abs": score_err, "side_max_abs_of_largest": side_rel,
+           "nms_card_equals_cpu": nms_equal, "kept_card": ng.tolist(), "kept_cpu": nc_.tolist(),
+           "kept_rows": frames_gate, "rows_kept_alike": rows,
+           "seconds": time.perf_counter() - t_start}
+    emit(out)
+    require(box_err < 0.05 and score_err <= 1e-3 and nms_equal
+            and max(side_rel.values()) <= 1e-4 and named,
+            f"{head} card vs CPU: {out}")
+    require(_task_rows_ok(rows), f"{head} outputs card vs CPU: {out}")
+
+
+# the task heads' other configs, at 320 (as zoo_v9v10): the configs' own nc
+ZOO_TASKS = {"yolov8n-seg.yaml": 80, "yolov9c-seg.yaml": 80, "yolov9e-seg.yaml": 80,
+             "yolov8n-pose.yaml": 1, "yolov8n-cls.yaml": 1000}
+
+
+def phase_zoo_tasks(card):
+    """The task heads' other configs at 320: on 2 frames, the card's decode
+    against the CPU's (TF32 off; 0.05 px, 1e-3) and every task output
+    (coefficients, prototypes, keypoint maps) within 1e-4 of its largest, or
+    a classifier's probabilities within 1e-4; K1 once a forward; one train
+    step at batch 4 with finite losses (not the classifier: it does not
+    train)."""
+    import copy
+
+    from yolo_dbl_tpu_torch import ClassificationModel, DetectionModel, kernels
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(10)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, *SRC_HW, 3), dtype=np.uint8))
+    size = (ZOO_IMGSZ, ZOO_IMGSZ)
+    out, launches = {}, {}
+    for name, nc in ZOO_TASKS.items():
+        t0 = time.perf_counter()
+        cls = "-cls" in name
+        cpu = (ClassificationModel if cls else DetectionModel)(
+            name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0))
+        cpu.zero_class_biases()
+        gpu = copy.deepcopy(cpu).to("cuda").to(memory_format=torch.channels_last)
+        kernels.reset_launches()
+        with tf32_off():
+            if cls:
+                want = cpu.predict(letterbox_normalize(frames, size))
+                got = gpu.predict(letterbox_normalize(frames.cuda(), size)).cpu()
+                row = {"prob_max_abs": float((got - want).abs().max())}
+                ok = row["prob_max_abs"] <= 1e-4
+            else:
+                oc, pc = _forward_decode(cpu, letterbox_normalize(frames, size))
+                og, pg = _forward_decode(gpu, letterbox_normalize(frames.cuda(), size))
+                og = _to_cpu(og)
+                box, score = _boxes_scores(pg.cpu(), pc)
+                maps = [(g, c) for g, c in zip(torch.utils._pytree.tree_leaves(og[1:]),
+                                               torch.utils._pytree.tree_leaves(oc[1:]))]
+                side = max(float((g - c).abs().max() / c.abs().max()) for g, c in maps)
+                row = {"box_max_abs_px": box, "score_max_abs": score,
+                       "task_output_max_abs_of_largest": side, "task_maps": len(maps)}
+                ok = box < 0.05 and score <= 1e-3 and side <= 1e-4
+        fwd = dict(kernels.launches)
+        row.update(params=sum(p.numel() for p in gpu.parameters()), head=gpu.head_name,
+                   forward_launches=fwd)
+        require(ok and fwd == _launches({"letterbox_normalize": 1}, torch.float32),
+                f"{name} card vs CPU: {row}")
+        step = dict(NO_LAUNCH)
+        if not cls:
+            step_row, step = _config_step(name, gpu, rng, ZOO_IMGSZ, ZOO_TRAIN_B, {})
+            row.update(step_row)
+        row["seconds"] = time.perf_counter() - t0
+        launches[name] = {k: fwd[k] + step[k] for k in fwd}
+        out[name[:-5]] = row
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    emit({"phase": "zoo_tasks", "imgsz": ZOO_IMGSZ, "frames": 2, "train_batch": ZOO_TRAIN_B,
+          "configs": out, "tf32_parity": False, "seconds": time.perf_counter() - t_start,
+          "card": card})
+    return launches
+
+
+# the facade's task cells: a task shapes set at 320 (8 train, 4 val), batch 4
+FACADE_TASKS = (("segment", "yolo11n-seg.yaml"), ("pose", "yolo11n-pose.yaml"))
+FT_IMGSZ, FT_TRAIN, FT_VAL, FT_B = 320, 8, 4, 4
+
+
+def phase_facade_tasks(card):
+    """yolo11n-seg and yolo11n-pose (nc=2) through YOLO on the card: train 1
+    epoch (2 steps of 4 at 320), validate (box and mask or pose mAP), predict
+    8 uint8 512x768 frames from memory; gate: `_facade_gate` at 320 over 2
+    frames, with the masks or keypoints of the rows both devices keep."""
+    import tempfile
+
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+
+    from tests.fixtures import make_task_dataset
+
+    t_start = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True  # as in the timed float32 phases
+    frames = list(np.random.default_rng(11).integers(0, 256, (B, *SRC_HW, 3), dtype=np.uint8))
+    cells, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for task, name in FACADE_TASKS:
+            wall = {}
+            data = make_task_dataset(tmp / task, task=task, n_train=FT_TRAIN, n_val=FT_VAL,
+                                     imgsz=FT_IMGSZ)
+            y = YOLO(name, nc=2)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = y.train(data, epochs=1, batch=FT_B, imgsz=FT_IMGSZ, project=str(tmp / "runs"),
+                          name=task, workers=0, plots=False, verbose=False)
+            torch.cuda.synchronize()
+            wall["train_epoch"] = time.perf_counter() - t0
+            key = "mask" if task == "segment" else "pose"
+            launches[f"facade_{task}_train"] = dict(kernels.launches)
+            require(y.trainer.steps == FT_TRAIN // FT_B
+                    and all(np.isfinite(v) for h in out["history"] for v in h.values())
+                    and launches[f"facade_{task}_train"] == NO_LAUNCH,
+                    f"{task} train: {out['history']}, {launches[f'facade_{task}_train']}")
+            best = Path(out["run_dir"]) / "best.ckpt"
+            yb = YOLO(best)
+            t0 = time.perf_counter()
+            metrics = yb.val(data, imgsz=FT_IMGSZ, batch=FT_B)
+            wall["val"] = time.perf_counter() - t0
+            require(metrics["images"] == FT_VAL and f"{key}_mAP50-95" in metrics,
+                    f"{task} val: {metrics}")
+            yb.predict(frames, imgsz=FT_IMGSZ)  # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            request_ms = []
+            for _ in range(FACADE_REQUESTS):
+                t0 = time.perf_counter()
+                res = yb.predict(frames, imgsz=FT_IMGSZ)
+                request_ms.append((time.perf_counter() - t0) * 1e3)
+            launches[f"facade_{task}_predict"] = dict(kernels.launches)
+            extra = [r.masks if task == "segment" else r.keypoints for r in res]
+            require(launches[f"facade_{task}_predict"] == _launches(
+                {"letterbox_normalize": FACADE_REQUESTS}, torch.float32) and len(res) == B
+                and all(len(e) == len(r) for e, r in zip(extra, res)),
+                f"{task} predict: {launches[f'facade_{task}_predict']}")
+            gate = _facade_gate(best, frames[:2], imgsz=FT_IMGSZ)
+            cells[task] = {"model": name[:-5], "train": {"steps": y.trainer.steps,
+                                                         "history": out["history"]},
+                           "val": {k: metrics[k] for k in (*METRIC_KEYS, f"{key}_mAP50",
+                                                           f"{key}_mAP50-95", "images")},
+                           "predict": {"request_ms": request_ms,
+                                       "median_request_ms": statistics.median(request_ms),
+                                       "boxes_per_image": _counts(res)},
+                           "gate": gate, "wall_s": wall}
+    emit({"phase": "facade_tasks", "nc": 2, "imgsz": FT_IMGSZ, "frames": B, "cells": cells,
+          "launches": launches, "seconds": time.perf_counter() - t_start,
+          "tf32_conv": torch.backends.cudnn.allow_tf32, "note": NOT_A_QUALITY_CLAIM, "card": card})
+    return launches
+
+
 def phase_facade_dbl2(card):
     """YOLO-DBL2-l (nc=3, 640, float32) through the facade on the card:
     train 1 epoch (2 steps of 16), validate, predict 8 frames from memory;
@@ -2315,6 +2945,27 @@ def phase_facade_dbl2(card):
 DP_B, DP_STEPS = 16, 3
 
 
+def _float64_reference(cpu, batch):
+    """(get, memo): `get()` gives `_float64_grads`' gradients of `batch`,
+    computed on the card on the first call only (the dp and tp checks ask
+    for them only for a leaf that misses the float32 bar: on the CPU a
+    batch of 16 at 640 in float64 takes minutes); memo["seconds"] is what
+    they took."""
+    memo = {}
+
+    def get():
+        if "grads" not in memo:
+            from yolo_dbl_tpu_torch.cfg import get_cfg
+
+            t0 = time.perf_counter()
+            memo["grads"] = _float64_grads(cpu, get_cfg(), batch, device="cuda")[1]
+            torch.cuda.empty_cache()
+            memo["seconds"] = time.perf_counter() - t0
+        return memo["grads"]
+
+    return get, memo
+
+
 def phase_dp(card):
     """Data-parallel training of YOLO-DBL-s (nc=3, 640, global batch 16, 3
     steps) through `Trainer(mesh=...)` against the one-process Trainer on the
@@ -2337,8 +2988,6 @@ def phase_dp(card):
     from yolo_dbl_tpu_torch import DetectionModel
     from yolo_dbl_tpu_torch.parallel import distributed_init, make_mesh
 
-    from yolo_dbl_tpu_torch.cfg import get_cfg
-
     from tests.torch_ranks import (all_reduce_rank, card_steps, check_dp_bf16, check_dp_float32,
                                    dp_card_rank, launch)
 
@@ -2352,12 +3001,7 @@ def phase_dp(card):
     fed, n_fed = KERNEL_FED_LEAVES[DBL]
     per_step = {dt: {k: v * DP_STEPS for k, v in PER_STEP[DBL, dt].items() if v}
                 for dt in (torch.float32, BF16)}
-    g64 = {}
-
-    def float64():  # computed once, and only for a leaf that misses the float32 bar
-        if not g64:
-            g64.update(_float64_grads(cpu, get_cfg(), batches[0])[1])
-        return g64
+    float64, f64 = _float64_reference(cpu, batches[0])
 
     def on_card(dtype):
         model = DetectionModel(name, nc=nc, device="cuda", dtype=dtype)
@@ -2410,7 +3054,8 @@ def phase_dp(card):
           "float32": {k: v[0] for k, v in f32.items()}, "bfloat16": bf16[0],
           "bf16_param_checksums_equal": len(sums16) == 1, "launches": launches,
           "timing": {k: timing(r) for k, r in runs.items() if "device_ms" in r},
-          "wall_s": time.perf_counter() - t_start, "card": card})
+          "float64_seconds": f64.get("seconds"), "wall_s": time.perf_counter() - t_start,
+          "card": card})
     for k, (_, failures) in f32.items():
         require(not failures, f"dp {k} against the one-process step: {failures}")
     require(not bf16[1], f"dp bf16 against the one-process bf16 step: {bf16[1]}")
@@ -2510,19 +3155,13 @@ def phase_tp(card, tmp, setup):
     rank's bytes of parameters, EMA and moments against the one-process
     bytes, the collectives a step by kind and bytes with and without the
     column -> row pairing, step and request ms and device-busy shares."""
-    from tests.torch_ranks import card_steps, check_dp_float32, launch, tp_card_rank
+    from tests.torch_ranks import (card_steps, check_dp_float32, launch, tp_card_rank,
+                                   tp_sp_card_rank)
 
     t_start = time.perf_counter()
     name, nc = DBL
     cpu, batches, frames = setup["cpu"], setup["batches"], setup["frames"]
-    g64 = {}
-
-    def float64():
-        if not g64:
-            from yolo_dbl_tpu_torch.cfg import get_cfg
-
-            g64.update(_float64_grads(cpu, get_cfg(), batches[0])[1])
-        return g64
+    float64, f64 = _float64_reference(cpu, batches[0])
 
     from yolo_dbl_tpu_torch import DetectionModel
 
@@ -2532,12 +3171,14 @@ def phase_tp(card, tmp, setup):
         one = card_steps(model, batches, profile=True)
         del model
         torch.cuda.empty_cache()
-        runs = {}
-        for mesh_name, world, serve in (("1x2", 2, True), ("2x2", 4, False)):
-            runs[mesh_name] = launch(tp_card_rank, world, name, nc, setup["state_path"], batches,
-                                     frames, IMGSZ, TP_REQUESTS, serve, setup["serve_path"],
-                                     devices="cuda:0", backend="gloo", timeout=900, workdir=tmp,
-                                     n_model=2)
+        tp_args = (name, nc, setup["state_path"], batches, frames, IMGSZ, TP_REQUESTS)
+        kw = dict(devices="cuda:0", backend="gloo", timeout=900, workdir=tmp, n_model=2)
+        # the 1x2 processes then run the sp phase's requests (`phase_sp` checks them)
+        both = launch(tp_sp_card_rank, 2, (*tp_args, True, setup["serve_path"]),
+                      (name, nc, setup["serve_path"], frames, IMGSZ, TP_REQUESTS), **kw)
+        setup["sp_ranks"] = [r["sp"] for r in both]
+        runs = {"1x2": [r["tp"] for r in both],
+                "2x2": launch(tp_card_rank, 4, *tp_args, False, setup["serve_path"], **kw)}
     checks = {k: check_dp_float32(one, [r["train"] for r in ranks], float64, n_model=2)
               for k, ranks in runs.items()}
     share = _model_bytes_share(cpu, 2)
@@ -2585,27 +3226,26 @@ def phase_tp(card, tmp, setup):
                                      "median_ms": statistics.median(one["step_ms"][1:]),
                                      "device_ms": one["device_ms"],
                                      "device_busy_share": one["device_busy_share"]}, **timing},
-          "launches": launches, "wall_s": time.perf_counter() - t_start, "card": card})
+          "launches": launches, "float64_seconds": f64.get("seconds"),
+          "wall_s": time.perf_counter() - t_start, "card": card})
     for k, (_, failures) in checks.items():
         require(not failures, f"tp {k} against the one-process step: {failures}")
     return launches
 
 
-def phase_sp(card, tmp, setup):
+def phase_sp(card, setup):
     """Spatial parallelism of YOLO-DBL-s (nc=3, 640, float32, TF32 off) over
     Gloo at world 2 on this one card (a 1x2 mesh, 320 image rows a rank):
     3 requests of 8 u8 frames through `spatial(model, mesh)` (K1 on the
     whole frames, the forward on row shards with halos, DySample and the
     hypergraph on gathered maps: K2 3 times a request on every rank); its
     decode against the one-process float32 decode at the parity bars. Prints
-    the halo and gather bytes a request, request ms and device-busy share."""
-    from tests.torch_ranks import launch, sp_card_rank
-
+    the halo and gather bytes a request, request ms and device-busy share.
+    The requests ran in `phase_tp`'s 1x2 processes, after tp's (`sp_ranks`
+    of `setup`): this phase checks them."""
     t_start = time.perf_counter()
     name, nc = DBL
-    ranks = launch(sp_card_rank, 2, name, nc, setup["serve_path"], setup["frames"], IMGSZ,
-                   TP_REQUESTS, devices="cuda:0", backend="gloo", timeout=600, workdir=tmp,
-                   n_model=2)
+    ranks = setup["sp_ranks"]
     launches = {}
     for i, res in enumerate(ranks):
         _serve_checks(f"sp rank{i}", res, setup, torch.float32, TP_REQUESTS,
@@ -2649,54 +3289,79 @@ def main():
 
     gen = torch.Generator().manual_seed(0)
     rows = []
-    for dtype, k1_row in zip((torch.float32, BF16), phase_k1(gen)):
-        k2_row = phase_k2(gen, dtype)
-        k2_backward_row, k2_train_err = phase_k2_backward(gen, dtype)
-        k3_row = phase_k3(gen, dtype)
-        k3_dkv_row, k3_dq_row, k3_train_err = phase_k3_backward(gen, dtype)
-        for row, train_err in ((k2_row, k2_train_err), (k3_row, k3_train_err)):
-            row["max_abs_err_by_path"] = {"serve": row["max_abs_err"], "train": train_err}
-            row["max_abs_err"] = max(row["max_abs_err"], train_err)
-        rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
+    with took("kernels"):
+        for dtype, k1_row in zip((torch.float32, BF16), phase_k1(gen)):
+            k2_row = phase_k2(gen, dtype)
+            k2_backward_row, k2_train_err = phase_k2_backward(gen, dtype)
+            k3_row = phase_k3(gen, dtype)
+            k3_dkv_row, k3_dq_row, k3_train_err = phase_k3_backward(gen, dtype)
+            for row, train_err in ((k2_row, k2_train_err), (k3_row, k3_train_err)):
+                row["max_abs_err_by_path"] = {"serve": row["max_abs_err"], "train": train_err}
+                row["max_abs_err"] = max(row["max_abs_err"], train_err)
+            rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
-    for cfg in (DBL, V13, DBL2, V12, V11, V10, V9, V7):
-        for dtype in (torch.float32,) if cfg in (V11, V9, V7) else (torch.float32, BF16):
-            cpu_model, gpu_model = build_models(cfg, dtype)
-            serve[cfg, dtype], frames, predictor, median_ms = phase_main(cfg, gpu_model, rng, card)
-            phase_profile(cfg, predictor, rng, median_ms * 1e3)
-            if cfg != V7:  # IDetect does not train (no loss in the JAX package)
-                train[cfg, dtype] = phase_train(cfg, card, dtype)
-            models[cfg, dtype] = (cpu_model, gpu_model, frames)
-    for cfg in (DBL, V13, DBL2, V12, V11, V10, V9, V7):
-        phase_parity(cfg, *models[cfg, torch.float32])
-    for cfg in (DBL, V13, DBL2, V12, V10):
-        cpu32, _, frames = models[cfg, torch.float32]
-        cpu16, gpu16, _ = models[cfg, BF16]
-        phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames)
-    for cfg in (DBL, V13, V12, V10):
-        phase_train_parity(cfg, *models[cfg, torch.float32][:2])
-    for cfg in (DBL, V13, V12, V10):
-        phase_train_parity_bf16(cfg, models[cfg, torch.float32][0], *models[cfg, BF16][:2])
+    paths = (DBL, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS)
+    for cfg in paths:
+        for dtype in (torch.float32,) if cfg in (V11, V9, V7, POSE, CLS) else (torch.float32, BF16):
+            with took(_phase("path", cfg, dtype)):
+                cpu_model, gpu_model = build_models(cfg, dtype)
+                serve[cfg, dtype], frames, predictor, median_ms = phase_main(cfg, gpu_model, rng,
+                                                                             card)
+                phase_profile(cfg, predictor, rng, median_ms * 1e3)
+                if cfg not in (V7, CLS):  # IDetect and Classify do not train (no JAX loss for them)
+                    train[cfg, dtype] = phase_train(cfg, card, dtype)
+                models[cfg, dtype] = (cpu_model, gpu_model, frames)
+    with took("parity"):
+        for cfg in paths:
+            if cfg in (SEG, POSE, CLS):
+                phase_parity_task(cfg, *models[cfg, torch.float32])
+            else:
+                phase_parity(cfg, *models[cfg, torch.float32])
+    with took("parity_bf16"):
+        for cfg in (DBL, V13, DBL2, V12, V10, SEG):
+            cpu32, _, frames = models[cfg, torch.float32]
+            cpu16, gpu16, _ = models[cfg, BF16]
+            phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames)
+    with took("train_parity"):
+        for cfg in (DBL, V13, V12, V10, SEG, POSE):
+            phase_train_parity(cfg, *models[cfg, torch.float32][:2])
+    with took("train_parity_bf16"):
+        for cfg in (DBL, V13, V12, V10):
+            phase_train_parity_bf16(cfg, models[cfg, torch.float32][0], *models[cfg, BF16][:2])
     del models
-    cpu32, f32_metrics, val = phase_val(card)
-    _, _, val_bf16 = phase_val(card, BF16, cpu32, f32_metrics)
-    phase_v8(card)
-    facade = phase_facade(card)
-    converge = phase_converge(card)
-    family = phase_family(card)
-    zoo = phase_zoo(card)
-    t_zoo = time.perf_counter()
-    zoo.update(phase_zoo(card, ZOO_V9V10, "zoo_v9v10"))
-    print(f"chip_smoke: zoo_v9v10 took {time.perf_counter() - t_zoo:.1f} s", file=sys.stderr)
-    facade.update(phase_facade_dbl2(card))
-    dp = phase_dp(card)
+    with took("val"):
+        cpu32, f32_metrics, val = phase_val(card)
+        _, _, val_bf16 = phase_val(card, BF16, cpu32, f32_metrics)
+    with took("v8"):
+        phase_v8(card)
+    with took("facade"):
+        facade = phase_facade(card)
+    with took("converge"):
+        converge = phase_converge(card)
+    with took("family"):
+        family = phase_family(card)
+    with took("zoo"):
+        zoo = phase_zoo(card)
+    with took("zoo_v9v10"):
+        zoo.update(phase_zoo(card, ZOO_V9V10, "zoo_v9v10"))
+    with took("zoo_tasks"):
+        zoo.update(phase_zoo_tasks(card))
+    with took("facade_dbl2"):
+        facade.update(phase_facade_dbl2(card))
+    with took("facade_tasks"):
+        facade.update(phase_facade_tasks(card))
+    with took("dp"):
+        dp = phase_dp(card)
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        setup = _parallel_models(tmp)
-        tp = phase_tp(card, tmp, setup)
-        sp = phase_sp(card, tmp, setup)
+        with took("parallel_models"):
+            setup = _parallel_models(tmp)
+        with took("tp"):
+            tp = phase_tp(card, tmp, setup)
+        with took("sp"):
+            sp = phase_sp(card, setup)
         del setup
     # launches: per the path's run (5 requests; 10 train steps) on the path each row serves
     f32, bf16 = torch.float32, BF16
@@ -2731,7 +3396,7 @@ def main():
                                           for path, runs in sp.items()})
     # how often torch.profiler's trace had to be taken again, or gave way
     # to CUDA-event time (each row's `time_sources` says which it holds)
-    emit({"phase": "timing", **TRACES})
+    emit({"phase": "timing", **TRACES, "seconds": SECONDS})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -198,6 +198,10 @@ def test_segment_transforms_match_jax(tmp_path, mode):
 
 
 def test_port_loader_takes_detect_datasets_only(tmp_path):
-    root = make_task_dataset(tmp_path / "seg", task="segment", n_train=2, imgsz=64)
-    with pytest.raises(NotImplementedError, match="segment"):
-        DataLoader(YOLODataset(root, task="segment"), batch_size=2, imgsz=IMGSZ)
+    """Detect, segment and pose datasets load (tests/test_torch_tasks.py
+    holds their batches to JAX's); obb and classify are refused."""
+    root = make_task_dataset(tmp_path / "obb", task="obb", n_train=2, imgsz=64)
+    with pytest.raises(NotImplementedError, match="obb"):
+        DataLoader(YOLODataset(root, task="obb"), batch_size=2, imgsz=IMGSZ)
+    with pytest.raises(NotImplementedError, match="classify"):
+        DataLoader(YOLODataset(root, task="obb"), batch_size=2, imgsz=IMGSZ, task="classify")

@@ -1,7 +1,10 @@
 """chip_smoke.py's facade gate on the CPU: `_nms_partings` names the NMS
 decisions that part two decodes of an image (a score on either side of
 conf, two candidates' order, an IoU on either side of iou), and names none
-where NMS decides alike on both decodes, which then keep the same rows."""
+where NMS decides alike on both decodes, which then keep the same rows;
+`_frames_alike` holds each frame's kept rows alike or parted at named
+decisions; `k1_source_bytes` counts the source rows K1's taps touch; `plain_kernels`
+binds the models' kernel call sites to the plain versions and back."""
 
 from __future__ import annotations
 
@@ -9,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _nms_decisions, _nms_partings
+from chip_smoke import (_frames_alike, _nms_decisions, _nms_partings, k1_source_bytes,
+                        plain_kernels)
+from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_geometry
 from yolo_dbl_tpu_torch.ops.boxes import box_iou, xywh2xyxy
 from yolo_dbl_tpu_torch.ops.nms import non_max_suppression
 
@@ -110,3 +115,49 @@ def test_an_iou_at_iou_thres_is_named_and_parts_the_kept_rows():
     assert parting["iou > iou_thres"]["cpu"] <= IOU < parting["iou > iou_thres"]["card"]
     flat, idx, boxes = _nms_decisions(above, CONF)
     assert idx.tolist() == [0, 1] and boxes.shape == (2, 4)
+
+
+def test_frames_alike_holds_rows_and_names_partings():
+    """One frame whose rows differ by a float32 rounding is alike; one whose
+    decodes part at an IoU on iou_thres is parted, with that decision named;
+    a frame that parts where the decodes do not is parted and unnamed."""
+    same = _decode(3)
+    rows = _kept(same)
+    near = rows.clone()
+    near[:, :4] = near[:, :4] * (1 + 1e-7)
+    above, below = _pair_at_iou()
+    gate, named = _frames_alike([rows, _kept(above)], [near, _kept(below)],
+                                [same, above], [same, below], CONF, IOU)
+    assert gate["frames_parted"] == [1] and named
+    assert gate["partings"][0] == {} and list(gate["partings"][1]) == ["iou > iou_thres"]
+    assert 0 < gate["box_max_abs_px"] < 1e-3 and gate["score_max_abs"] == 0
+    assert gate["classes_equal"]
+    gate, named = _frames_alike([rows[1:]], [rows], [same], [same], CONF, IOU)
+    assert gate["frames_parted"] == [0] and not named
+
+
+@pytest.mark.parametrize("canvas, new_h, rows", [(640, 427, 512), (224, 149, 298)])
+def test_k1_source_bytes_counts_the_tapped_rows(canvas, new_h, rows):
+    """512x768 frames: at 640 every source row is tapped; at 224 each of the
+    149 output rows taps two rows of its own (298 of 512)."""
+    assert letterbox_geometry(512, 768, canvas, canvas, scaleup=False)[1] == new_h
+    assert k1_source_bytes(8, (512, 768), new_h) == 8 * rows * 768 * 3
+
+
+def test_plain_kernels_binds_the_plain_versions_and_restores():
+    """Inside, a float64 sample through ops/resample.py is the plain
+    version's; after, the call sites are the kernel wrappers again."""
+    from yolo_dbl_tpu_torch.kernels import attention, sampling
+    from yolo_dbl_tpu_torch.nn import blocks
+    from yolo_dbl_tpu_torch.ops import resample
+
+    wrappers = resample.sample_bilinear, blocks.area_attention
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((1, 4, 5, 8)))
+    gy, gx = (torch.from_numpy(rng.uniform(-1, 5, (1, 6, 2))) for _ in range(2))
+    with plain_kernels():
+        assert resample.sample_bilinear is sampling.sample_bilinear_plain
+        assert blocks.area_attention is attention.area_attention_plain
+        got = resample.sample_bilinear_pixel(x, gy, gx, groups=2)
+    assert (resample.sample_bilinear, blocks.area_attention) == wrappers
+    assert torch.equal(got, resample.sample_bilinear_pixel(x, gy, gx, groups=2))

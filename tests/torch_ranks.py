@@ -684,6 +684,16 @@ def tp_card_rank(mesh, cfg, nc, state_path, batches, frames, imgsz, requests, se
     return out
 
 
+def tp_sp_card_rank(mesh, tp_args, sp_args):
+    """`tp_card_rank(mesh, *tp_args)` then `sp_card_rank(mesh, *sp_args)` in
+    one set of processes on one mesh (each process takes seconds to start
+    and reach the card): {"tp": ..., "sp": ...}."""
+    out = {"tp": tp_card_rank(mesh, *tp_args)}
+    torch.cuda.empty_cache()
+    out["sp"] = sp_card_rank(mesh, *sp_args)
+    return out
+
+
 def sp_card_rank(mesh, cfg, nc, state_path, frames, imgsz, requests):
     """The sp phase on this rank: requests of the u8 `frames` through a
     float32 model inside `spatial(model, mesh)` (`_serve`, with the halo and

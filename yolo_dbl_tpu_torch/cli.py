@@ -1,9 +1,11 @@
 """Command line: `python -m yolo_dbl_tpu_torch [task] <mode> key=value ...`
 (port of yolo_dbl_tpu/cli.py; console script `yolo-dbl-torch`).
 
-Modes: train, val, predict, tune, checks (torch and its CUDA devices) and
-settings. track, export, benchmark and solutions are not ported yet and exit
-non-zero. `device=cpu` runs on the CPU; without it the model runs on the card.
+Tasks: detect, segment, pose, classify (the task comes from the model's
+head; the word is accepted and obb exits non-zero). Modes: train, val,
+predict, tune, checks (torch and its CUDA devices) and settings. track,
+export, benchmark and solutions are not ported yet and exit non-zero.
+`device=cpu` runs on the CPU; without it the model runs on the card.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ HELP = """yolo_dbl_tpu_torch CLI: the PyTorch/CUDA port of yolo_dbl_tpu
 
 usage: python -m yolo_dbl_tpu_torch [task] [mode] [key=value ...]
 
-tasks: detect (the default and, for now, the only one)
+tasks: detect (the default), segment, pose, classify (predict only); not ported yet: obb
 modes: train, val, predict, tune; not ported yet: track, export, benchmark
 
 examples:
@@ -46,6 +48,8 @@ examples:
   python -m yolo_dbl_tpu_torch detect predict model=best.ckpt source=images/
   python -m yolo_dbl_tpu_torch detect predict model=best.ckpt source=images/ device=cpu
   python -m yolo_dbl_tpu_torch detect tune model=yolov8n.yaml data=path/to/dataset iterations=10
+  python -m yolo_dbl_tpu_torch segment train data=path/to/dataset model=yolo11n-seg.yaml
+  python -m yolo_dbl_tpu_torch classify predict model=yolo11n-cls.yaml source=images/
   python -m yolo_dbl_tpu_torch checks
   python -m yolo_dbl_tpu_torch settings [key=value ...]
 """
@@ -81,8 +85,8 @@ def entrypoint(argv=None):
     if not argv:
         raise SystemExit("missing mode; " + HELP)
     mode = argv.pop(0)
-    if task != "detect":
-        raise SystemExit(f"task '{task}' is not ported yet: ROADMAP Queue 1 item 6 (other heads)")
+    if task == "obb":
+        raise SystemExit("task 'obb' is not ported yet: ROADMAP Queue 1 item 6.2 (the OBB head)")
     if mode in NOT_PORTED:
         raise SystemExit(f"mode '{mode}' is not ported yet: {NOT_PORTED[mode]}")
     kv = parse_kv(argv)

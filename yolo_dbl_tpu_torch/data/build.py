@@ -9,9 +9,11 @@ seeded run gives the JAX package's batches bit for bit. Validation batches
 take the native lane (:169-241) where the native loader built: decode,
 letterbox and collate of the whole batch in its C++ worker pool, with the
 Python transform's semantics; `YOLO_DBL_NATIVE_LOADER=0` turns it off, and
-without g++, libjpeg or libpng the loader runs the Python lane. The task
-batches (`format_batch_task`: masks, keypoints, rotated boxes) come with
-their heads.
+without g++, libjpeg or libpng the loader runs the Python lane.
+`format_batch_task` (:49) adds the segment and pose targets: masks
+rasterized at a quarter of the input with cv2.fillPoly, and normalized
+keypoints. Rotated boxes (obb) wait for their head (ROADMAP Queue 1 item
+6.2).
 """
 
 from __future__ import annotations
@@ -52,8 +54,48 @@ def format_batch(images, labels_list, imgsz: int, max_gt: int) -> Dict[str, np.n
     return {"img": img, "gt_boxes": gt_boxes, "gt_cls": gt_cls, "gt_mask": gt_mask}
 
 
+def format_batch_task(images, labels_list, imgsz: int, max_gt: int, task: str = "detect",
+                      mask_ratio: int = 4, kpt_shape=(17, 3)) -> Dict[str, np.ndarray]:
+    """`format_batch` plus the task's padded targets (:49): for segment
+    `gt_masks` (B, max_gt, imgsz / mask_ratio, imgsz / mask_ratio) float32,
+    each polygon (letterboxed pixels) divided by mask_ratio, truncated to
+    int32 and filled with cv2.fillPoly; for pose `gt_kpts` (B, max_gt, K,
+    nd) with x and y divided by imgsz."""
+    if task not in ("detect", "segment", "pose"):
+        raise NotImplementedError(f"task {task!r} batches are not ported: obb waits for its head "
+                                  "(ROADMAP Queue 1 item 6.2)")
+    batch = format_batch(images, labels_list, imgsz, max_gt)
+    b = len(images)
+    if task == "segment":
+        import cv2
+
+        hm = wm = imgsz // mask_ratio
+        gt_masks = np.zeros((b, max_gt, hm, wm), np.float32)
+        for i, lab in enumerate(labels_list):
+            for j, poly in enumerate(lab.get("segments", [])[:max_gt]):
+                m = np.zeros((hm, wm), np.uint8)
+                pts = (np.asarray(poly, np.float32) / mask_ratio).astype(np.int32)
+                cv2.fillPoly(m, [pts], 1)
+                gt_masks[i, j] = m
+        batch["gt_masks"] = gt_masks
+    elif task == "pose":
+        k, nd = kpt_shape
+        gt_kpts = np.zeros((b, max_gt, k, nd), np.float32)
+        for i, lab in enumerate(labels_list):
+            kp = lab.get("keypoints")
+            if kp is not None and len(kp):
+                n = min(len(kp), max_gt)
+                kk = kp[:n].astype(np.float32).copy()
+                kk[..., 0] /= imgsz
+                kk[..., 1] /= imgsz
+                gt_kpts[i, :n] = kk[:, :k]
+        batch["gt_kpts"] = gt_kpts
+    return batch
+
+
 class DataLoader:
-    """Epoch iterator over a detect dataset with a background prefetch thread.
+    """Epoch iterator over a detect, segment or pose dataset with a
+    background prefetch thread.
 
     Decode and augmentation run on a host thread while the card runs the
     previous step. With ``workers > 1`` the per-sample work also fans out
@@ -63,7 +105,11 @@ class DataLoader:
     than the sequential one, as in JAX. Batches are dicts of numpy arrays:
     ``img`` (B, S, S, 3) uint8, ``gt_boxes``, ``gt_cls``, ``gt_mask``,
     ``indices``, and, without augmentation, ``labels`` (per-image boxes in
-    letterboxed pixels, classes, ``ratio_pad``, ``orig_shape``).
+    letterboxed pixels, classes, ``ratio_pad``, ``orig_shape``); segment
+    batches add ``gt_masks`` and pose batches ``gt_kpts``
+    (`format_batch_task`). ``task`` defaults to the dataset's. Pose
+    augmentation flips no image left to right (the JAX loader's rule without
+    a dataset ``flip_idx``); segment and pose batches take the Python lane.
 
     With a ``mesh`` (parallel/mesh.py) ``batch_size`` is the global batch and
     each batch holds the rows of this rank's data coordinate (d of N: rows
@@ -79,9 +125,15 @@ class DataLoader:
     def __init__(self, dataset: YOLODataset, batch_size: int = 16, imgsz: int = 640,
                  augment: bool = True, hyp: Optional[dict] = None, max_gt: int = 64,
                  shuffle: Optional[bool] = None, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 2, workers: int = 0, mesh=None):
-        if getattr(dataset, "task", "detect") != "detect":
-            raise NotImplementedError(f"only detect batches are ported, got task {dataset.task!r}")
+                 prefetch: int = 2, task: Optional[str] = None, workers: int = 0, mesh=None):
+        self.task = task or getattr(dataset, "task", "detect")
+        if self.task == "classify":
+            raise NotImplementedError("classify batches: the JAX package has no classify loader")
+        if self.task not in ("detect", "segment", "pose"):
+            raise NotImplementedError(f"task {self.task!r} batches are not ported: obb waits for "
+                                      "its head (ROADMAP Queue 1 item 6.2)")
+        if self.task == "pose" and augment and not (hyp or {}).get("flip_idx"):
+            hyp = dict(hyp or {}, flip_idx=None, fliplr=0.0)  # (:116-122)
         if mesh is not None and batch_size % mesh.n_data:
             raise ValueError(f"a global batch of {batch_size} does not split over "
                              f"{mesh.n_data} ranks")
@@ -135,7 +187,8 @@ class DataLoader:
         into the (B, S, S, 3) uint8 batch. The semantics are ValTransforms':
         gain min(S/h0, S/w0) with scale-up, centered 114 padding, boxes in
         letterboxed pixels. Returns None for the Python lane."""
-        if self.augment or os.environ.get("YOLO_DBL_NATIVE_LOADER", "1") == "0":
+        if (self.augment or self.task != "detect"
+                or os.environ.get("YOLO_DBL_NATIVE_LOADER", "1") == "0"):
             return None
         ds = self.dataset
         if getattr(ds, "_cache", None) is not None or not hasattr(ds, "im_files"):
@@ -228,7 +281,10 @@ class DataLoader:
                     images.append(img)
                     labels.append(lab)
                 images, labels = images[mine], labels[mine]
-            batch = format_batch(images, labels, self.imgsz, self.max_gt)
+            if self.task != "detect":
+                batch = format_batch_task(images, labels, self.imgsz, self.max_gt, self.task)
+            else:
+                batch = format_batch(images, labels, self.imgsz, self.max_gt)
             batch["indices"] = np.asarray(idxs[mine])
             if not self.augment:
                 batch["labels"] = labels  # eval metadata (ratio_pad, orig_shape)

@@ -1,9 +1,13 @@
 """The user-facing `YOLO` facade (port of yolo_dbl_tpu/engine/model.py).
 
-One object holding a detection model with `train`, `val`, `predict`
-(`__call__`) and `tune`. `YOLO('yolov13s_DBL.yaml', nc=3)` builds the
-model from its YAML with seeded weights; `YOLO('runs/train/best.ckpt')`
-loads a deploy checkpoint (utils/checkpoint.py). The model lives on
+One object holding a model with `train`, `val`, `predict` (`__call__`) and
+`tune`. `YOLO('yolov13s_DBL.yaml', nc=3)` builds the model from its YAML
+with seeded weights (a name with "cls" in it a `ClassificationModel`, as
+JAX's :48-55); `YOLO('runs/train/best.ckpt')` loads a deploy checkpoint
+(utils/checkpoint.py). The task (`task`: detect, segment, pose, classify)
+follows the head and picks the datasets, loaders, validator and predictor.
+A classify model serves only: the JAX package has no classify loss, loader
+or validator, so `train` and `val` raise. The model lives on
 `device` (None means the card, through utils/device.py; tests pass "cpu")
 and computes in `dtype` (float32, or bfloat16 with float32 parameters).
 
@@ -22,9 +26,8 @@ global batch, each rank loads its data coordinate's rows, rank 0 alone
 (with a 'model' axis, the model ranks of data coordinate 0 together)
 validates, rank 0 alone writes the run directory, whose checkpoints hold
 whole leaves in the one-process layout, and runs the callbacks, and every
-rank returns the same history. Only detection models are ported; `track`, `export`
-and `benchmark` wait for the trackers and the exporter (ROADMAP Queue 1
-item 6).
+rank returns the same history. `track`, `export` and `benchmark` wait for
+the trackers and the exporter (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -37,13 +40,13 @@ import numpy as np
 import torch
 
 from ..cfg import get_cfg
-from ..nn.tasks import DetectionModel
+from ..nn.tasks import ClassificationModel, DetectionModel
 from ..utils.callbacks import Callbacks
 from ..utils.checkpoint import load_deploy, peek_checkpoint_meta, save_checkpoint, save_deploy
 from ..utils.checks import check_imgsz
-from .predictor import DetectionPredictor
+from .predictor import TASK_PREDICTORS
 from .trainer import Trainer, check_trainable
-from .validator import DetectionValidator
+from .validator import DetectionValidator, PoseValidator, SegmentationValidator
 
 NOT_PORTED = "not ported yet: it waits for the trackers and the exporter (ROADMAP Queue 1 item 6)"
 
@@ -57,11 +60,13 @@ class YOLO:
         self.ckpt_meta = None
         if model.endswith((".ckpt", ".pkl", ".bin")):
             variables, self.ckpt_meta = load_deploy(model)
-            self.model = DetectionModel(self.ckpt_meta["model_yaml"], nc=self.ckpt_meta.get("nc"),
-                                        device=device, dtype=dtype)
+            cfg = self.ckpt_meta["model_yaml"]
+            cls = ClassificationModel if cfg["head"][-1][2] == "Classify" else DetectionModel
+            self.model = cls(cfg, nc=self.ckpt_meta.get("nc"), device=device, dtype=dtype)
             self.model.load_state_dict({**variables["params"], **variables["batch_stats"]})
         else:
-            self.model = DetectionModel(model, nc=nc, device=device, dtype=dtype)
+            cls = ClassificationModel if "cls" in Path(model).stem.lower() else DetectionModel
+            self.model = cls(model, nc=nc, device=device, dtype=dtype)
         self.trainer: Optional[Trainer] = None
         self.callbacks = Callbacks()
 
@@ -91,6 +96,20 @@ class YOLO:
     def _stride(self) -> int:
         return max(self.model.strides, default=1)
 
+    def _check_task(self, what: str):
+        if self.task == "classify":
+            raise NotImplementedError(f"YOLO.{what} of a classify model: the JAX package has no "
+                                      "classify loss, loader or validator; it serves only")
+
+    def _make_validator(self, model, **kw):
+        """The task's validator (model.py:80): detect, segment or pose."""
+        task = self.task
+        if task == "segment":
+            return SegmentationValidator(model, **kw)
+        if task == "pose":
+            return PoseValidator(model, kpt_shape=self.model.yaml.get("kpt_shape"), **kw)
+        return DetectionValidator(model, **kw)
+
     # ------------------------------------------------------------------ train
     def train(self, data: Union[str, Path], mesh=None, **overrides) -> Dict:
         """Train on a YOLO-format dataset; returns {history, best_fitness,
@@ -102,7 +121,8 @@ class YOLO:
         from ..data.dataset import YOLODataset
         from ..utils import set_verbosity
 
-        check_trainable(self.model)  # before any loader is built
+        self._check_task("train")
+        check_trainable(self.model, mesh)  # before any loader is built
         main = mesh is None or mesh.is_main
         # the ranks that validate: rank 0 alone, or under tensor parallelism
         # the model ranks of data coordinate 0, whose sharded forward is one
@@ -131,11 +151,13 @@ class YOLO:
         set_verbosity(bool(cfg.verbose))
         callbacks.run("on_pretrain_routine_start", model=self, cfg=cfg)
         cfg.imgsz = check_imgsz(cfg.imgsz, stride=self._stride())
-        train_ds = YOLODataset(data, split="train", imgsz=cfg.imgsz, single_cls=cfg.single_cls,
-                               fraction=cfg.fraction, cache_images=cfg.cache)
+        task = self.task
+        train_ds = YOLODataset(data, split="train", imgsz=cfg.imgsz, task=task,
+                               single_cls=cfg.single_cls, fraction=cfg.fraction,
+                               cache_images=cfg.cache)
         try:
-            val_ds = YOLODataset(data, split="val", imgsz=cfg.imgsz, single_cls=cfg.single_cls,
-                                 cache_images=cfg.cache)
+            val_ds = YOLODataset(data, split="val", imgsz=cfg.imgsz, task=task,
+                                 single_cls=cfg.single_cls, cache_images=cfg.cache)
         except FileNotFoundError:
             val_ds = train_ds
         hyp = {k: getattr(cfg, k) for k in
@@ -144,14 +166,14 @@ class YOLO:
                 "flipud", "bgr", "erasing")}
         workers = int(cfg.workers or 0)
         train_loader = DataLoader(train_ds, batch_size=cfg.batch, imgsz=cfg.imgsz, augment=True,
-                                  hyp=hyp, seed=cfg.seed, workers=workers, mesh=mesh)
+                                  hyp=hyp, seed=cfg.seed, task=task, workers=workers, mesh=mesh)
         val_loader = DataLoader(val_ds, batch_size=cfg.batch, imgsz=cfg.imgsz, augment=False,
-                                shuffle=False, drop_last=False, workers=workers)
+                                shuffle=False, drop_last=False, task=task, workers=workers)
 
         trainer = Trainer(self.model, overrides=dict(overrides), mesh=mesh)
         trainer.setup(steps_per_epoch=max(len(train_loader), 1), seed=cfg.seed)
         self.trainer = trainer
-        validator = DetectionValidator(trainer.ema_model()) if validates else None
+        validator = self._make_validator(trainer.ema_model()) if validates else None
 
         run_dir = None
         if resume:
@@ -261,13 +283,18 @@ class YOLO:
         from ..data.build import DataLoader
         from ..data.dataset import YOLODataset
 
+        self._check_task("val")
         imgsz = check_imgsz(imgsz, stride=self._stride())
-        ds = YOLODataset(data, split=split, imgsz=imgsz)
+        ds = YOLODataset(data, split=split, imgsz=imgsz, task=self.task)
         loader = DataLoader(ds, batch_size=batch, imgsz=imgsz, augment=False, shuffle=False,
-                            drop_last=False)
-        validator = DetectionValidator(self.model, conf=conf, iou=iou, use_coco_stats=coco_stats,
-                                       save_json=bool(kw.get("save_json", False)),
-                                       save_dir=kw.get("save_dir"))
+                            drop_last=False, task=self.task)
+        if self.task == "detect":
+            validator = DetectionValidator(self.model, conf=conf, iou=iou,
+                                           use_coco_stats=coco_stats,
+                                           save_json=bool(kw.get("save_json", False)),
+                                           save_dir=kw.get("save_dir"))
+        else:
+            validator = self._make_validator(self.model, conf=conf, iou=iou)
         self.callbacks.run("on_val_start", model=self)
         metrics = validator(loader)
         self.callbacks.run("on_val_end", model=self, metrics=metrics)
@@ -276,13 +303,14 @@ class YOLO:
 
     # ---------------------------------------------------------------- predict
     def predict(self, source, conf: float = 0.25, iou: float = 0.45, imgsz: int = 640, **kw):
-        """One `Results` per image of `source` (engine/predictor.py);
-        `agnostic_nms`, `classes`, `device_preprocess` and `max_det` go to
-        the predictor."""
+        """One `Results` per image of `source` through the task's predictor
+        (engine/predictor.py `TASK_PREDICTORS`); `agnostic_nms`, `classes`,
+        `device_preprocess` and `max_det` go to the predictor."""
         imgsz = check_imgsz(imgsz, stride=self._stride())
         extra = {k: kw[k] for k in ("agnostic_nms", "classes", "device_preprocess", "max_det")
                  if k in kw}
-        predictor = DetectionPredictor(self.model, conf=conf, iou=iou, imgsz=imgsz, **extra)
+        predictor = TASK_PREDICTORS[self.task](self.model, conf=conf, iou=iou, imgsz=imgsz,
+                                               **extra)
         self.callbacks.run("on_predict_start", model=self)
         results = predictor.predict(source)
         self.callbacks.run("on_predict_end", model=self, results=results)

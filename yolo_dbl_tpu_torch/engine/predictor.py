@@ -1,6 +1,7 @@
-"""Detection predictor and its `Results` (port of the detect parts of
-yolo_dbl_tpu/engine/predictor.py: `Boxes` :27, `Results` :183, `_load_source`
-:334, `BasePredictor` :354, `DetectionPredictor` :456).
+"""Predictors and their `Results` (port of yolo_dbl_tpu/engine/predictor.py
+but its OBB parts: `Boxes` :27, `Masks` :71, `Keypoints` :101, `Probs` :117,
+`Results` :183, `_load_source` :334, `BasePredictor` :354, the detect,
+segment, pose and classify predictors :456-597).
 
 `predict(source)` (JAX's `predictor(variables, source)`) makes one `Results`
 per image of a source: a path or directory of images, a list of RGB frames,
@@ -11,10 +12,18 @@ bucket is sent to the model's device in chunks of `batch_size` as uint8, and
 the K1 kernel letterboxes and normalizes a chunk there (scaleup=False) before
 the forward. Other sources take the host lane (:412-422): `data/augment.py`
 `letterbox` on the host, /255, then the forward. `classes` zeroes the scores
-of the other classes before NMS (`_mask_classes`, :386), `agnostic_nms`
+of the other classes before NMS (`ops.nms.mask_classes`, :386), `agnostic_nms`
 suppresses across classes, and the boxes are mapped back to each source
-frame by its letterbox gain and padding. `Masks`, `Keypoints`, `Probs`,
-`OBB` and the task predictors come with their heads.
+frame by its letterbox gain and padding.
+
+`SegmentationPredictor` gathers the kept rows' mask coefficients by the
+anchor index NMS returns and makes their masks on the device: at prototype
+resolution (`decode_masks`), resized bilinearly to the letterboxed input,
+the padding cut off, resized to the frame, > 0.5 (JAX does the two resizes
+with cv2's INTER_LINEAR on the host, :489-507). `PosePredictor` gathers the
+decoded keypoints (visibility sigmoided) and un-letterboxes them;
+`ClassificationPredictor` gives each frame's class probabilities of its
+letterboxed canvas (JAX's letterbox, not a centre crop).
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ import numpy as np
 import torch
 
 from ..kernels.preprocess import letterbox_geometry, letterbox_normalize
-from ..ops.nms import non_max_suppression
+from ..nn.heads import decode_masks
+from ..ops.nms import mask_classes, non_max_suppression
 
 
 @dataclass
@@ -72,21 +82,103 @@ class Boxes:
 
 
 @dataclass
-class Results:
-    """The detections of one image, in its own pixels."""
+class Masks:
+    """Instance masks at the source frame's resolution: data (n, H, W) bool."""
 
-    boxes: Boxes
+    data: np.ndarray
+
+    @property
+    def xy(self) -> List[np.ndarray]:
+        """Each instance's largest external contour, (m, 2) float32 pixels."""
+        import cv2
+
+        out = []
+        for m in self.data.astype(np.uint8):
+            contours, _ = cv2.findContours(m, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
+            if contours:
+                c = max(contours, key=cv2.contourArea).reshape(-1, 2).astype(np.float32)
+            else:
+                c = np.zeros((0, 2), np.float32)
+            out.append(c)
+        return out
+
+    @property
+    def xyn(self) -> List[np.ndarray]:
+        h, w = self.data.shape[1:]
+        return [p / np.array([w, h], np.float32) for p in self.xy]
+
+    def __len__(self):
+        return len(self.data)
+
+
+@dataclass
+class Keypoints:
+    """Keypoints in source-frame pixels: data (n, K, 3) x, y, visibility."""
+
+    data: np.ndarray
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def conf(self):
+        return self.data[..., 2]
+
+    def __len__(self):
+        return len(self.data)
+
+
+@dataclass
+class Probs:
+    """Class probabilities of one image: data (nc,)."""
+
+    data: np.ndarray
+
+    @property
+    def top1(self) -> int:
+        return int(self.data.argmax())
+
+    @property
+    def top5(self) -> List[int]:
+        return self.data.argsort()[::-1][:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data.max())
+
+    @property
+    def top5conf(self):
+        return np.sort(self.data)[::-1][:5]
+
+
+@dataclass
+class Results:
+    """The result of one image, in its own pixels: boxes, and the masks or
+    keypoints of the same rows, or a classifier's probabilities."""
+
+    boxes: Optional[Boxes]
     orig_shape: tuple
     path: Optional[str] = None
     names: Dict[int, str] = field(default_factory=dict)
+    masks: Optional[Masks] = None
+    keypoints: Optional[Keypoints] = None
+    probs: Optional[Probs] = None
     orig_img: Optional[np.ndarray] = None
 
     def __len__(self):
-        return len(self.boxes)
+        for attr in (self.boxes, self.masks, self.keypoints):
+            if attr is not None:
+                return len(attr)
+        return 0
 
     def to_json_dicts(self) -> List[Dict]:
+        if self.probs is not None:
+            return [{"name": self.names.get(self.probs.top1, str(self.probs.top1)),
+                     "class": self.probs.top1, "confidence": self.probs.top1conf}]
         out = []
-        for row in self.boxes.data:
+        segs = self.masks.xy if self.masks is not None else []
+        for i, row in enumerate(self.boxes.data):
             rec = {
                 "name": self.names.get(int(row[-1]), str(int(row[-1]))),
                 "class": int(row[-1]),
@@ -95,12 +187,20 @@ class Results:
             }
             if self.boxes.is_track:
                 rec["track_id"] = int(row[4])
+            if i < len(segs):
+                rec["segments"] = segs[i].tolist()
+            if self.keypoints is not None and i < len(self.keypoints):
+                rec["keypoints"] = self.keypoints.data[i].tolist()
             out.append(rec)
         return out
 
     def verbose(self) -> str:
-        """A summary such as '2 0s, 1 1' (count and class name)."""
-        if len(self.boxes) == 0:
+        """A summary such as '2 0s, 1 1' (count and class name), or a
+        classifier's top 5 with their probabilities."""
+        if self.probs is not None:
+            return ", ".join(f"{self.names.get(i, i)} {self.probs.data[i]:.2f}"
+                             for i in self.probs.top5)
+        if self.boxes is None or len(self.boxes) == 0:
             return "(no detections)"
         counts: Dict[str, int] = {}
         for c in self.boxes.cls:
@@ -109,16 +209,20 @@ class Results:
         return ", ".join(f"{n} {k}{'s' if n > 1 else ''}" for k, n in counts.items())
 
     def save_txt(self, path, save_conf: bool = True):
-        """YOLO-format rows: class, normalized xywh, and conf."""
+        """YOLO-format rows: class, normalized xywh, and conf; a classifier's
+        top 5 as 'probability name'."""
         h, w = self.orig_shape
         lines = []
-        for row in self.boxes.data:
-            x1, y1, x2, y2 = row[:4]
-            xywhn = ((x1 + x2) / 2 / w, (y1 + y2) / 2 / h, (x2 - x1) / w, (y2 - y1) / h)
-            line = f"{int(row[-1])} " + " ".join(f"{v:.6f}" for v in xywhn)
-            if save_conf:
-                line += f" {row[-2]:.6f}"
-            lines.append(line)
+        if self.probs is not None:
+            lines = [f"{self.probs.data[i]:.2f} {self.names.get(i, i)}" for i in self.probs.top5]
+        else:
+            for row in self.boxes.data:
+                x1, y1, x2, y2 = row[:4]
+                xywhn = ((x1 + x2) / 2 / w, (y1 + y2) / 2 / h, (x2 - x1) / w, (y2 - y1) / h)
+                line = f"{int(row[-1])} " + " ".join(f"{v:.6f}" for v in xywhn)
+                if save_conf:
+                    line += f" {row[-2]:.6f}"
+                lines.append(line)
         Path(path).parent.mkdir(parents=True, exist_ok=True)
         Path(path).write_text("\n".join(lines) + ("\n" if lines else ""))
         return path
@@ -127,11 +231,12 @@ class Results:
         """Each detection's crop as save_dir/<class name>/<stem>_<i>.jpg."""
         import cv2
 
-        if self.orig_img is None:
+        if self.orig_img is None or self.boxes is None:
             return []
         stem = Path(file_name or self.path or "im").stem
         saved = []
         h, w = self.orig_shape
+        segs = self.masks.xy if self.masks is not None else []
         for i, row in enumerate(self.boxes.data):
             x1, y1, x2, y2 = (int(np.clip(v, 0, lim)) for v, lim in
                               zip(row[:4], (w, h, w, h)))
@@ -145,20 +250,38 @@ class Results:
             saved.append(out)
         return saved
 
-    def plot(self, img: Optional[np.ndarray] = None, color=(255, 64, 64)):
-        """The detections drawn on a copy of the image."""
+    def plot(self, img: Optional[np.ndarray] = None, color=(255, 64, 64), kpt_radius: int = 3):
+        """The result drawn on a copy of the image: masks blended in, boxes
+        and labels, keypoints of visibility > 0.25, or the top-1 class."""
         import cv2
 
         if img is None:
             img = self.orig_img
         canvas = img.copy() if img is not None else np.zeros((*self.orig_shape, 3), np.uint8)
-        for row in self.boxes.data:
-            x1, y1, x2, y2 = (int(v) for v in row[:4])
-            cv2.rectangle(canvas, (x1, y1), (x2, y2), color, 2)
-            label = f"{self.names.get(int(row[-1]), int(row[-1]))} {row[-2]:.2f}"
-            if self.boxes.is_track:
-                label = f"id:{int(row[4])} " + label
-            cv2.putText(canvas, label, (x1, max(y1 - 4, 12)), cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
+        if self.probs is not None:
+            label = f"{self.names.get(self.probs.top1, self.probs.top1)} {self.probs.top1conf:.2f}"
+            cv2.putText(canvas, label, (8, 24), cv2.FONT_HERSHEY_SIMPLEX, 0.7, color, 2)
+            return canvas
+        if self.masks is not None and len(self.masks):
+            overlay = canvas.copy()
+            for j, m in enumerate(self.masks.data):
+                cc = tuple(int(v) for v in np.array(color) * (0.5 + 0.5 * ((j % 3) / 2)))
+                overlay[m.astype(bool)] = cc
+            canvas = cv2.addWeighted(canvas, 0.6, overlay, 0.4, 0)
+        if self.boxes is not None:
+            for row in self.boxes.data:
+                x1, y1, x2, y2 = (int(v) for v in row[:4])
+                cv2.rectangle(canvas, (x1, y1), (x2, y2), color, 2)
+                label = f"{self.names.get(int(row[-1]), int(row[-1]))} {row[-2]:.2f}"
+                if self.boxes.is_track:
+                    label = f"id:{int(row[4])} " + label
+                cv2.putText(canvas, label, (x1, max(y1 - 4, 12)), cv2.FONT_HERSHEY_SIMPLEX, 0.5,
+                            color, 1)
+        if self.keypoints is not None:
+            for kp in self.keypoints.data:
+                for x, y, c in kp:
+                    if c > 0.25:
+                        cv2.circle(canvas, (int(x), int(y)), kpt_radius, color, -1)
         return canvas
 
 
@@ -201,18 +324,15 @@ class BasePredictor:
             self.classes = tuple(int(c) for c in (classes if isinstance(classes, (list, tuple)) else [classes]))
         self.device_preprocess = device_preprocess
 
-    def infer_images(self, img: torch.Tensor):  # pragma: no cover - overridden
-        raise NotImplementedError
+    kpt_shape = None
 
-    def _mask_classes(self, pred):
-        """Zero the score channels of the classes not in `classes`: they can
-        never pass conf_thres. pred: (B, 4+nc, A)."""
-        if self.classes is None:
-            return pred
-        nc = self.model.nc
-        keep = torch.zeros(nc, dtype=pred.dtype, device=pred.device)
-        keep[list(self.classes)] = 1
-        return torch.cat([pred[:, :4], pred[:, 4:4 + nc] * keep[None, :, None], pred[:, 4 + nc:]], 1)
+    @torch.inference_mode()
+    def infer_images(self, img: torch.Tensor):
+        """Letterboxed images → `DetectionModel.kept_rows` on the device: the
+        kept rows and their coefficients and prototypes, or their keypoints
+        (the detect and classify predictors override it)."""
+        return self.model.kept_rows(img, self.conf, self.iou, self.max_det, self.agnostic_nms,
+                                    self.classes, self.kpt_shape)
 
     @torch.inference_mode()
     def infer(self, frames_u8: torch.Tensor):
@@ -224,6 +344,12 @@ class BasePredictor:
                                   out_dtype=self.model.dtype)
         return self.infer_images(img)
 
+    def _to_host(self, out, geometry):
+        """The device outputs of a chunk as host arrays; `geometry` holds each
+        image's (gain, (left, top) padding, frame (h, w)) for the tasks whose
+        outputs are made at the frame's size on the device."""
+        return [t.cpu().numpy() for t in out]
+
     def _infer_frames(self, frames):
         """uint8 frames of one size through the device lane: (host outputs,
         gain, (left, top) padding)."""
@@ -234,7 +360,8 @@ class BasePredictor:
         h, w = frames.shape[1:3]
         gain, _, _, top, left = letterbox_geometry(h, w, self.imgsz, self.imgsz, scaleup=False)
         out = self.infer(frames.to(self.model.device).contiguous())
-        return [t.cpu().numpy() for t in out], gain, (float(left), float(top))
+        pad = (float(left), float(top))
+        return self._to_host(out, [(gain, pad, (h, w))] * len(frames)), gain, pad
 
     def predict(self, source, batch_size: int = 16) -> List[Results]:
         """One `Results` per image of `source` (JAX's `__call__`, :407)."""
@@ -249,8 +376,8 @@ class BasePredictor:
             chunk = images[start : start + batch_size]
             lb = [letterbox(im, (self.imgsz, self.imgsz), scaleup=False) for im in chunk]
             batch = np.stack([b[0] for b in lb]).astype(np.float32) / 255.0
-            out = [t.cpu().numpy() for t in
-                   self.infer_images(torch.from_numpy(batch).to(self.model.device))]
+            out = self._to_host(self.infer_images(torch.from_numpy(batch).to(self.model.device)),
+                                [(g, pad, im.shape[:2]) for (_, g, pad), im in zip(lb, chunk)])
             for i, im in enumerate(chunk):
                 results.append(self.build_result(out, i, im, lb[i][1], lb[i][2], paths[start + i]))
         return results
@@ -290,7 +417,7 @@ class DetectionPredictor(BasePredictor):
         """Letterboxed images on the model's device → NMS output (dets
         (B, max_det, 6), counts (B,)) in letterboxed pixels. The decode's
         type goes to NMS, as in JAX (:459-464)."""
-        pred = self._mask_classes(self.model.predict(img))
+        pred = mask_classes(self.model.predict(img), self.classes, self.model.nc)
         return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
                                    max_det=self.max_det, class_agnostic=self.agnostic_nms)
 
@@ -308,3 +435,102 @@ class DetectionPredictor(BasePredictor):
         d = self._rescale_boxes(dets[i][: int(num[i])], gain, pad, im.shape[:2])
         return Results(Boxes(d), orig_shape=im.shape[:2], path=path,
                        names=self.model.names, orig_img=im)
+
+
+def frame_masks(coeffs, protos, boxes, imgsz: int, pad, hw):
+    """(k, H, W) bool masks in the source frame of k kept rows (:489-507):
+    `decode_masks` at prototype resolution, bilinear to the letterboxed
+    imgsz canvas, the (left, top) padding cut off both sides, bilinear to
+    the frame's (h, w), > 0.5."""
+    pm = decode_masks(coeffs, protos, boxes, (imgsz, imgsz)).float()
+    if len(pm) == 0:
+        return torch.zeros((0, *hw), dtype=torch.bool, device=pm.device)
+    m = torch.nn.functional.interpolate(pm[None], size=(imgsz, imgsz), mode="bilinear",
+                                        align_corners=False)[0]
+    x0, y0 = int(round(pad[0])), int(round(pad[1]))
+    m = m[:, y0:imgsz - y0 or imgsz, x0:imgsz - x0 or imgsz]
+    return torch.nn.functional.interpolate(m[None], size=tuple(hw), mode="bilinear",
+                                           align_corners=False)[0] > 0.5
+
+
+class SegmentationPredictor(BasePredictor):
+    """Boxes and their instance masks (:473)."""
+
+    @torch.inference_mode()
+    def _to_host(self, out, geometry):
+        dets, num, kept, protos = out
+        masks = [frame_masks(kept[i, :k], protos[i], dets[i, :k, :4], self.imgsz, pad, hw)
+                 .cpu().numpy() for i, (k, (_, pad, hw)) in enumerate(zip(num.tolist(), geometry))]
+        return dets.cpu().numpy(), num.cpu().numpy(), masks
+
+    def __call__(self, frames) -> List[tuple]:
+        """The device lane alone: uint8 (B, H, W, 3) frames of one size →
+        per image ((n, 6) float64 rows in frame pixels, (n, H, W) bool masks)."""
+        (dets, counts, masks), gain, pad = self._infer_frames(frames)
+        hw = tuple(frames.shape[1:3])
+        return [(self._rescale_boxes(dets[i, : int(counts[i])], gain, pad, hw), masks[i])
+                for i in range(len(dets))]
+
+    def build_result(self, out, i, im, gain, pad, path):
+        dets, num, masks = out
+        d = self._rescale_boxes(dets[i][: int(num[i])], gain, pad, im.shape[:2])
+        return Results(Boxes(d), orig_shape=im.shape[:2], path=path, names=self.model.names,
+                       masks=Masks(masks[i]), orig_img=im)
+
+
+class PosePredictor(BasePredictor):
+    """Boxes and their keypoints (:516); `kpt_shape` defaults to the head's."""
+
+    def __init__(self, model, kpt_shape=None, **kw):
+        super().__init__(model, **kw)
+        self.kpt_shape = tuple(kpt_shape or model.detect.kpt_shape)
+
+    @staticmethod
+    def _frame_keypoints(kept, gain, pad):
+        """Letterboxed keypoints → frame pixels (n, K, 3); without a
+        visibility channel, visibility 1."""
+        kp = np.asarray(kept, np.float64).copy()
+        kp[..., 0] = (kp[..., 0] - pad[0]) / gain
+        kp[..., 1] = (kp[..., 1] - pad[1]) / gain
+        if kp.shape[-1] == 2:
+            kp = np.concatenate([kp, np.ones((*kp.shape[:-1], 1))], -1)
+        return kp
+
+    def __call__(self, frames) -> List[tuple]:
+        """The device lane alone: uint8 (B, H, W, 3) frames of one size →
+        per image ((n, 6) float64 rows, (n, K, 3) keypoints) in frame pixels."""
+        (dets, counts, kept), gain, pad = self._infer_frames(frames)
+        hw = tuple(frames.shape[1:3])
+        return [(self._rescale_boxes(dets[i, : int(counts[i])], gain, pad, hw),
+                 self._frame_keypoints(kept[i, : int(counts[i])], gain, pad))
+                for i in range(len(dets))]
+
+    def build_result(self, out, i, im, gain, pad, path):
+        dets, num, kept = out
+        k = int(num[i])
+        return Results(Boxes(self._rescale_boxes(dets[i][:k], gain, pad, im.shape[:2])),
+                       orig_shape=im.shape[:2], path=path, names=self.model.names,
+                       keypoints=Keypoints(self._frame_keypoints(kept[i][:k], gain, pad)),
+                       orig_img=im)
+
+
+class ClassificationPredictor(BasePredictor):
+    """Class probabilities (:581): the softmax of the Classify head."""
+
+    @torch.inference_mode()
+    def infer_images(self, img: torch.Tensor):
+        return (self.model.predict(img),)
+
+    def __call__(self, frames) -> np.ndarray:
+        """The device lane alone: uint8 (B, H, W, 3) frames of one size →
+        (B, nc) probabilities."""
+        (probs,), _, _ = self._infer_frames(frames)
+        return probs
+
+    def build_result(self, out, i, im, gain, pad, path):
+        return Results(None, orig_shape=im.shape[:2], path=path, names=self.model.names,
+                       probs=Probs(np.asarray(out[0][i])), orig_img=im)
+
+
+TASK_PREDICTORS = {"detect": DetectionPredictor, "segment": SegmentationPredictor,
+                   "pose": PosePredictor, "classify": ClassificationPredictor}

@@ -3,10 +3,13 @@ yolo_dbl_tpu/engine/trainer.py).
 
 The train step is the JAX `make_train_step` (:62): uint8 batch → /255 →
 train-mode forward (BatchNorm on batch statistics) → the head's loss
-(`task_loss`: `detection_loss`, or v10Detect's `e2e_detect_loss`) →
-gradients → optimizer → EMA, with the metrics loss/box_loss/cls_loss/dfl_loss.
-An IDetect model (YOLOv7) does not train: the JAX package has no loss for
-it, so `Trainer` and `train_loss` raise NotImplementedError.
+(`task_loss`: `detection_loss`, v10Detect's `e2e_detect_loss`, Segment's
+`segmentation_loss` or Pose's `pose_loss`) → gradients → optimizer → EMA,
+with the metrics loss/box_loss/cls_loss/dfl_loss (and mask_loss, or
+kpt_loss and kobj_loss). An IDetect model (YOLOv7) and a Classify model do
+not train: the JAX package has no loss dispatch for either, so `Trainer`
+and `train_loss` raise NotImplementedError. A Segment or Pose model does
+not train under a mesh either (`check_trainable`).
 On the card the DySample samplers run the K2 kernels forward and backward.
 A bfloat16 model runs its forward and backward in bfloat16; the loss, the
 TAL assigner, the float32 parameters, their gradients, the optimizer and
@@ -51,7 +54,7 @@ import torch
 from ..cfg import get_cfg
 from ..kernels.preprocess import device_normalize
 from ..losses.detection import detection_loss
-from ..losses.extra import e2e_detect_loss
+from ..losses.extra import e2e_detect_loss, pose_loss, segmentation_loss
 from ..nn.common import cross_rank
 from ..nn.tasks import DetectionModel
 from ..parallel.mesh import Mesh, shard_batch
@@ -62,22 +65,49 @@ from .train_state import build_optimizer, ema_update
 BUCKET_BYTES = 25 * 2**20
 
 
-def check_trainable(model: DetectionModel):
-    """Raise for a head the JAX package cannot train: IDetect (YOLOv7), whose
-    5-D maps JAX's `_task_loss` (:28) hands to `detection_loss`, which
-    expects anchor-free maps. The port invents no loss for it."""
+TASK_HEADS = ("Segment", "Pose")
+
+
+def check_trainable(model: DetectionModel, mesh: Optional[Mesh] = None):
+    """Raise for a head the JAX package cannot train, and for a task head
+    under a mesh. IDetect (YOLOv7): JAX's `_task_loss` (:28) hands its 5-D
+    maps to `detection_loss`, which expects anchor-free maps. Classify:
+    `_task_loss` has no branch for it (nor has the JAX package a classify
+    loader or validator). The port invents no loss for either. Segment and
+    Pose under a mesh: their mask and keypoint normalizers (`fg.sum()`,
+    `n_fg`) would be a rank's, where JAX's program takes them over the
+    global batch (ROADMAP Queue 1 item 7)."""
     if model.head_name == "IDetect":
         raise NotImplementedError("IDetect (YOLOv7) does not train: the JAX package has no "
                                   "IDetect loss; it serves and validates only")
+    if model.head_name == "Classify":
+        raise NotImplementedError("Classify does not train: the JAX package's trainer has no "
+                                  "classification loss dispatch; it serves only")
+    if mesh is not None and model.head_name in TASK_HEADS:
+        raise NotImplementedError(f"{model.head_name} does not train under a mesh yet: its loss "
+                                  "normalizers would be a rank's, not the global batch's "
+                                  "(ROADMAP Queue 1 item 7)")
 
 
 def task_loss(model: DetectionModel, cfg, outputs, batch, mesh: Optional[Mesh] = None):
-    """(loss, LossItems) of the model's raw outputs by its head (:28
-    `_task_loss`): `e2e_detect_loss` for v10Detect's dict, whose loss is
-    the sum of its two terms and whose items are one2many's; else
-    `detection_loss`."""
-    check_trainable(model)
-    gains = dict(box_gain=cfg.box, cls_gain=cfg.cls, dfl_gain=cfg.dfl, mesh=mesh)
+    """(loss, items) of the model's raw outputs by its head (:28
+    `_task_loss`): `segmentation_loss` (with `cfg.overlap_mask`) or
+    `pose_loss` (with the YAML's `kpt_shape` and `cfg.pose`, `cfg.kobj`)
+    for a Segment or Pose tuple; `e2e_detect_loss` for v10Detect's dict,
+    whose loss is the sum of its two terms and whose items are one2many's;
+    else `detection_loss`."""
+    check_trainable(model, mesh)
+    gains = dict(box_gain=cfg.box, cls_gain=cfg.cls, dfl_gain=cfg.dfl)
+    if model.head_name == "Segment":
+        det, coeffs, protos = outputs
+        return segmentation_loss(det, coeffs, protos, batch, model.strides, model.nc,
+                                 overlap_masks=bool(cfg.overlap_mask), **gains)
+    if model.head_name == "Pose":
+        det, kpts = outputs
+        return pose_loss(det, kpts, batch, model.strides, model.nc,
+                         kpt_shape=tuple(model.yaml.get("kpt_shape", (17, 3))),
+                         pose_gain=cfg.pose, kobj_gain=cfg.kobj, **gains)
+    gains["mesh"] = mesh
     if isinstance(outputs, dict):
         total, items = e2e_detect_loss(outputs, batch, model.strides, model.nc, **gains)
         return total, items["one2many"]
@@ -176,7 +206,7 @@ class Trainer:
                  mesh: Optional[Mesh] = None):
         if mesh is not None and model.device != mesh.device:
             raise ValueError(f"the model lives on {model.device}, this rank's device is {mesh.device}")
-        check_trainable(model)
+        check_trainable(model, mesh)
         self.model = model
         self.mesh = mesh
         self.cfg = get_cfg(overrides=overrides or {})

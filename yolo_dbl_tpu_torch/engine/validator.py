@@ -1,5 +1,5 @@
-"""Detection validation: inference and NMS on the model's device, metrics on
-the host (port of yolo_dbl_tpu/engine/validator.py:26-118).
+"""Validation: inference and NMS on the model's device, metrics on the host
+(port of yolo_dbl_tpu/engine/validator.py:26-250, the OBB validator aside).
 
 Each batch's uint8 images go to the model's device, where they are
 normalized to the model's type (`device_normalize`), predicted and kept by
@@ -14,6 +14,14 @@ the `gt_boxes`/`gt_cls`/`gt_mask` arrays of the loss (normalized xywh). The
 model decides the device: a model built with `device="cpu"` validates on the
 CPU through the kernels' plain versions, and no model is built on a machine
 without CUDA unless the caller asks for the CPU.
+
+`SegmentationValidator` and `PoseValidator` (:126, :181) run the same loop
+and score the box mAP and the mask or keypoint mAP (`TaskMetrics`) against
+the batch arrays (`gt_boxes`, `gt_cls`, `gt_mask`, and `gt_masks` or
+`gt_kpts`): `DetectionModel.kept_rows` keeps each row's anchor index and
+gathers the kept rows' coefficients or decoded keypoints on the device, and the masks are decoded there at prototype
+resolution (> 0.5); the mask IoU and the OKS (GT box area x 0.53) are
+computed on the host.
 """
 
 from __future__ import annotations
@@ -27,15 +35,20 @@ import numpy as np
 import torch
 
 from ..kernels.preprocess import device_normalize
+from ..nn.heads import decode_masks
 from ..nn.tasks import DetectionModel
 from ..ops.boxes import xywh2xyxy
 from ..ops.nms import non_max_suppression
-from ..utils.metrics import COCOEvaluator, DetMetrics
+from ..utils.metrics import COCOEvaluator, DetMetrics, TaskMetrics, kpt_oks_np, mask_iou_np
 
 
 class DetectionValidator:
     """mAP50, mAP50-95, precision and recall (and the COCO 12 stats with
-    `use_coco_stats`) of a DetectionModel over a loader (validator.py:26)."""
+    `use_coco_stats`) of a DetectionModel over a loader (validator.py:26).
+    The task validators below run the same loop: their `infer` also returns
+    the kept rows' task outputs, and `_affinity` scores them per image."""
+
+    task_key = ""  # TaskMetrics' name of the task mAP ("mask", "pose"); "" for boxes alone
 
     def __init__(self, model: DetectionModel, conf: float = 0.001, iou: float = 0.7,
                  max_det: int = 300, use_coco_stats: bool = False, save_json: bool = False,
@@ -56,8 +69,19 @@ class DetectionValidator:
         return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
                                    max_det=self.max_det)
 
+    def _ground_truth(self, batch, i, imgsz):
+        """Image i's GT: (mask over the batch's GT rows or None, xyxy boxes in
+        pixels, classes), from `labels` where the batch has them."""
+        labels = batch.get("labels")
+        if labels is None:
+            return _gt(batch, i, imgsz)
+        return None, np.asarray(labels[i]["boxes"]), np.asarray(labels[i]["cls"])
+
     def __call__(self, loader: Iterable[Dict], max_batches: Optional[int] = None) -> Dict:
-        metrics = DetMetrics(self.model.nc, self.model.names)
+        if self.task_key:
+            metrics = TaskMetrics(self.model.nc, self.model.names, task_key=self.task_key)
+        else:
+            metrics = DetMetrics(self.model.nc, self.model.names)
         coco = COCOEvaluator(self.model.nc) if self.use_coco_stats else None
         json_rows = [] if self.save_json else None
         speed = {"inference": 0.0, "postprocess": 0.0}
@@ -67,21 +91,18 @@ class DetectionValidator:
             if max_batches is not None and bi >= max_batches:
                 break
             t0 = time.perf_counter()
-            dets, num = self.infer(torch.as_tensor(batch["img"]).to(dev))
-            dets, num = dets.cpu().numpy(), num.cpu().numpy()
+            out = self.infer(torch.as_tensor(batch["img"]).to(dev))
+            dets, num = out[0].cpu().numpy(), out[1].cpu().numpy()
             t1 = time.perf_counter()
-            labels = batch.get("labels")
             imgsz = batch["img"].shape[1]
             for i in range(len(dets)):
-                d = dets[i][: int(num[i])]
-                if labels is not None:
-                    gt_boxes, gt_cls = np.asarray(labels[i]["boxes"]), np.asarray(labels[i]["cls"])
-                else:
-                    m = np.asarray(batch["gt_mask"][i]).astype(bool)
-                    gt_boxes = xywh2xyxy(torch.as_tensor(
-                        np.asarray(batch["gt_boxes"][i])[m] * imgsz)).numpy()
-                    gt_cls = np.asarray(batch["gt_cls"][i])[m]
+                k = int(num[i])
+                d = dets[i][:k]
+                m, gt_boxes, gt_cls = self._ground_truth(batch, i, imgsz)
                 metrics.update(d, gt_boxes, gt_cls)
+                if self.task_key:
+                    metrics.update_task(d, self._affinity(out, i, k, batch, m, gt_boxes, imgsz),
+                                        gt_cls)
                 if coco is not None:
                     coco.update(d, gt_boxes, gt_cls)
                 if json_rows is not None:
@@ -105,3 +126,60 @@ class DetectionValidator:
         out["speed_ms_per_image"] = {k: v / max(n_images, 1) * 1000 for k, v in speed.items()}
         out["images"] = n_images
         return out
+
+
+def _gt(batch, i, imgsz):
+    """Image i's GT rows of the batch arrays: (mask, xyxy boxes in pixels, classes)."""
+    m = np.asarray(batch["gt_mask"][i]).astype(bool)
+    boxes = xywh2xyxy(torch.as_tensor(np.asarray(batch["gt_boxes"][i])[m] * imgsz)).numpy()
+    return m, boxes, np.asarray(batch["gt_cls"][i])[m]
+
+
+class _TaskValidator(DetectionValidator):
+    """The task validators' device half: `DetectionModel.kept_rows` of the
+    normalized batch, and the GT of the batch arrays (as JAX, also where
+    the batch has `labels`)."""
+
+    kpt_shape = None
+
+    @torch.inference_mode()
+    def infer(self, img: torch.Tensor):
+        """NHWC images on the model's device → `kept_rows`: (dets, counts,
+        kept coefficients, prototypes) or (dets, counts, kept keypoints)."""
+        return self.model.kept_rows(device_normalize(img, self.model.dtype), self.conf,
+                                    self.iou, self.max_det, kpt_shape=self.kpt_shape)
+
+    def _ground_truth(self, batch, i, imgsz):
+        return _gt(batch, i, imgsz)
+
+
+class SegmentationValidator(_TaskValidator):
+    """Box and mask mAP (validator.py:126): the kept rows' masks at prototype
+    resolution against the batch's `gt_masks` (the same resolution)."""
+
+    task_key = "mask"
+
+    def _affinity(self, out, i, k, batch, m, gt_boxes, imgsz):
+        _, _, kept, protos = out
+        pm = decode_masks(kept[i, :k], protos[i], out[0][i, :k, :4], (imgsz, imgsz)) > 0.5
+        return mask_iou_np(np.asarray(batch["gt_masks"][i])[m].astype(bool), pm.cpu().numpy())
+
+
+class PoseValidator(_TaskValidator):
+    """Box and keypoint (OKS) mAP (validator.py:181): the kept rows'
+    keypoints in input pixels against the batch's `gt_kpts`, with the GT
+    box areas x 0.53 as OKS's scale. `kpt_shape` defaults to the head's."""
+
+    task_key = "pose"
+
+    def __init__(self, model: DetectionModel, conf: float = 0.001, iou: float = 0.7,
+                 max_det: int = 300, kpt_shape=None):
+        super().__init__(model, conf, iou, max_det)
+        self.kpt_shape = tuple(kpt_shape or model.detect.kpt_shape)
+
+    def _affinity(self, out, i, k, batch, m, gt_boxes, imgsz):
+        gk = np.asarray(batch["gt_kpts"][i])[m].astype(np.float64).copy()
+        gk[..., :2] *= imgsz
+        area = np.clip((gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1]),
+                       1e-9, None) * 0.53
+        return kpt_oks_np(gk, out[2][i, :k].float().cpu().numpy(), area)

@@ -6,6 +6,12 @@ of na * (5 + nc) channels; `decode_detections` and `decode_v7` take the JAX
 layout (per-level NHWC maps, IDetect's as (B, H, W, na, 5 + nc)) and return
 (B, 4+nc, A), channel-first, as the JAX package does. `v10_postprocess` is
 the NMS-free top-k selection of a decoded one2one output.
+
+The task heads nest a Detect as `detect` and return tuples: `Segment`
+(Detect maps, per-level mask coefficients, the prototypes of `Proto`),
+`Pose` (Detect maps, per-level raw keypoint maps); `Classify` returns
+(B, nc) logits. `decode_masks` turns kept coefficients into box-cropped mask
+probabilities at prototype resolution.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from torch import nn
 
 from ..ops.anchors import dist2bbox, make_anchors
 from ..ops.boxes import xywh2xyxy
-from .common import Conv, Conv2d, DWConv, conv2d
+from .common import Conv, Conv2d, DWConv, conv2d, linear
 
 
 class Detect(nn.Module):
@@ -170,3 +176,132 @@ def decode_v7(feats, strides, anchors, nc):
         score = sig[..., 5:] * sig[..., 4:5]
         rows.append(torch.cat([xy, wh, score], -1).reshape(b, -1, 4 + nc))
     return torch.cat(rows, 1).transpose(-1, -2)
+
+
+class Proto(nn.Module):
+    """Mask prototypes (heads.py:106): `cv1` Conv 3x3, `upsample` a biased
+    2x2 stride-2 transposed conv, `cv2` Conv 3x3, `cv3` Conv 1x1 to c2
+    prototypes. flax's raw `nn.ConvTranspose` with its default SAME padding
+    is, at k = s = 2, (in - 1) * 2 + 2 = 2 in outputs with no crop, and puts
+    kernel tap 1 - d at output offset d of each input pixel: torch's
+    ConvTranspose2d with the kernel flipped in space, the rule
+    utils/convert.py applies to every nn.ConvTranspose2d by type."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        up = self.upsample
+        y = nn.functional.conv_transpose2d(y, up.weight.to(y.dtype), up.bias.to(y.dtype), 2)
+        return self.cv3(self.cv2(y))
+
+
+def _side_branch(head: nn.Module, ch, c4: int, c_out: int):
+    """Register each level's `cv4_{i}_0`, `cv4_{i}_1` (Conv 3x3 to c4) and
+    `cv4_{i}_2` (biased 1x1 Conv2d to c_out) on `head`."""
+    for i, c1 in enumerate(ch):
+        head.add_module(f"cv4_{i}_0", Conv(c1, c4, 3))
+        head.add_module(f"cv4_{i}_1", Conv(c4, c4, 3))
+        head.add_module(f"cv4_{i}_2", Conv2d(c4, c_out, 1))
+
+
+def _run_side_branch(head: nn.Module, xs):
+    return [getattr(head, f"cv4_{i}_2")(getattr(head, f"cv4_{i}_1")(getattr(head, f"cv4_{i}_0")(x)))
+            for i, x in enumerate(xs)]
+
+
+class Segment(nn.Module):
+    """Segmentation head (heads.py:122): a nested `detect` Detect, `proto`
+    on the first level, and per level nm mask coefficients through
+    `cv4_{i}_*` (c4 = max(ch[0] // 4, nm)). Returns (Detect maps, coefficient
+    maps, prototypes), NCHW."""
+
+    def __init__(self, nc=80, nm=32, npr=256, ch=(), legacy=False):
+        super().__init__()
+        self.nc, self.nl, self.nm = nc, len(ch), nm
+        self.detect = Detect(nc, ch, legacy=legacy)
+        self.proto = Proto(ch[0], npr, nm)
+        _side_branch(self, ch, max(ch[0] // 4, nm), nm)
+
+    def forward(self, xs):
+        return self.detect(xs), _run_side_branch(self, xs), self.proto(xs[0])
+
+
+class Pose(nn.Module):
+    """Keypoint head (heads.py:147): a nested `detect` Detect and per level
+    nk = kpt_shape[0] * kpt_shape[1] raw channels through `cv4_{i}_*`
+    (c4 = max(ch[0] // 4, nk)). Returns (Detect maps, keypoint maps), NCHW."""
+
+    def __init__(self, nc=80, kpt_shape=(17, 3), ch=(), legacy=False):
+        super().__init__()
+        self.nc, self.nl, self.kpt_shape = nc, len(ch), tuple(kpt_shape)
+        nk = self.kpt_shape[0] * self.kpt_shape[1]
+        self.detect = Detect(nc, ch, legacy=legacy)
+        _side_branch(self, ch, max(ch[0] // 4, nk), nk)
+
+    def forward(self, xs):
+        return self.detect(xs), _run_side_branch(self, xs)
+
+
+class Classify(nn.Module):
+    """Classification head (heads.py:194): `conv` Conv 1x1 to 1280, the
+    global mean, then the Dense `linear` to c2 logits. JAX's dropout has rate
+    0, the identity. A list input is concatenated on channels."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv = Conv(c1, 1280, 1)
+        self.linear = nn.Linear(1280, c2)
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            x = torch.cat(x, 1)
+        return linear(self.linear, self.conv(x).mean((2, 3)))
+
+
+def decode_masks(coeffs, protos, boxes_xyxy, img_hw):
+    """sigmoid(coeffs · protos) zeroed outside each box (heads.py:211), at
+    prototype resolution: coeffs (N, nm), protos (Hm, Wm, nm), boxes xyxy
+    in input-image pixels (N, 4), img_hw the input's (H, W). A pixel is
+    inside when x1 <= col < x2 and y1 <= row < y2 in prototype pixels."""
+    hm, wm = protos.shape[:2]
+    masks = torch.sigmoid(torch.einsum("nk,hwk->nhw", coeffs, protos))
+    sx, sy = wm / img_hw[1], hm / img_hw[0]
+    x1, y1, x2, y2 = (boxes_xyxy[:, i, None, None] * s for i, s in enumerate((sx, sy, sx, sy)))
+    cols = torch.arange(wm, device=masks.device)[None, None, :]
+    rows = torch.arange(hm, device=masks.device)[None, :, None]
+    inside = (cols >= x1) & (cols < x2) & (rows >= y1) & (rows < y2)
+    return masks * inside
+
+
+def kpts_decode(anchor_points, pred_kpts):
+    """Raw keypoints (B, A, K, nd) → grid units (losses/extra.py:201): xy =
+    raw * 2 + (anchor - 0.5); the visibility channel passes through."""
+    xy = pred_kpts[..., :2] * 2.0 + (anchor_points[None, :, None, :] - 0.5)
+    return torch.cat([xy, pred_kpts[..., 2:]], -1)
+
+
+def decode_keypoints(det_maps, kpt_maps, strides, kpt_shape):
+    """A Pose head's keypoint maps → (B, A, K, nd) in input pixels, the
+    visibility channel (nd 3) sigmoided, as the JAX predictor and validator
+    decode them (engine/predictor.py:530-546)."""
+    anchors, stride_t = make_anchors([f.shape[1:3] for f in det_maps], strides,
+                                     device=det_maps[0].device)
+    nk, nd = kpt_shape
+    pk = flatten_levels(kpt_maps).reshape(det_maps[0].shape[0], -1, nk, nd)
+    dec = kpts_decode(anchors, pk)
+    xy = dec[..., :2] * stride_t[None, :, :, None]
+    if nd == 3:
+        return torch.cat([xy, torch.sigmoid(dec[..., 2:])], -1)
+    return xy
+
+
+def gather_anchors(x, anchor_idx):
+    """Rows of x (B, A, ...) at the anchors (B, K) NMS kept → (B, K, ...)."""
+    idx = anchor_idx.long().view(*anchor_idx.shape, *([1] * (x.dim() - 2)))
+    return x.gather(1, idx.expand(-1, -1, *x.shape[2:]))

@@ -1,8 +1,9 @@
 """YAML → model compiler and the detection model (port of yolo_dbl_tpu/nn/tasks.py).
 
-Only the branches that the YOLOv13/DBL family (`cfg/models/v13/`) and the
-detect families' rows (v3, v5, v6, v7, v8, v9, v10, 11, v12) use are
-ported; any other module name raises NotImplementedError. The model YAMLs
+Only the branches that the YOLOv13/DBL family (`cfg/models/v13/`), the
+detect families' rows (v3, v5, v6, v7, v8, v9, v10, 11, v12) and the
+segment, pose and classify heads use are ported; any other module name
+raises NotImplementedError. The model YAMLs
 are the port's own verbatim copies under cfg/, read by path with the port's
 small YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
 """
@@ -26,7 +27,9 @@ from . import blocks as B
 from . import v9v10 as V
 from .attention import SLA
 from .common import Conv, ConvTranspose2d, DSConv, DWConv, default_act
-from .heads import Detect, IDetect, V10Detect, decode_detections, decode_v7
+from ..ops.nms import mask_classes, non_max_suppression
+from .heads import (Classify, Detect, IDetect, Pose, Segment, V10Detect, decode_detections,
+                    decode_keypoints, decode_v7, flatten_levels, gather_anchors)
 from .upsample import carafe as U
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
@@ -215,10 +218,17 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
             args = [c1, c2, *args[1:]]
         elif m in TORCH_ROWS:
             c2 = chs[f]
-        elif m == "Detect":
+        elif m in ("Detect", "Segment", "Pose"):
+            if m == "Segment" and len(args) > 2:  # the prototypes' width
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             args.append([chs[x] for x in f])
             args.append(legacy)
             c2 = 0
+        elif m == "Classify":
+            c1, c2 = chs[f], args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            args = [c1, c2, *args[1:]]
         elif m in _ARGS_AS_GIVEN:
             c2 = chs[f] if isinstance(f, int) else chs[f[-1]]
         else:
@@ -257,6 +267,14 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
         return Detect(nc=nc, ch=tuple(ch), legacy=legacy)
     if m == "v10Detect":
         return V10Detect(nc=a[0], ch=tuple(a[-1]))
+    if m == "Segment":  # (tasks.py:591)
+        return Segment(nc=a[0], nm=a[1] if len(a) > 3 else 32, npr=a[2] if len(a) > 4 else 256,
+                       ch=tuple(a[-2]), legacy=a[-1])
+    if m == "Pose":
+        return Pose(nc=a[0], kpt_shape=tuple(a[1]) if len(a) > 3 else (17, 3), ch=tuple(a[-2]),
+                    legacy=a[-1])
+    if m == "Classify":
+        return Classify(a[0], a[1])
     if m == "IDetect":
         return IDetect(nc=a[0], anchors=a[1], ch=tuple(a[2]))
     if m in ("Concat", "Upsample", "CBFuse") or m in TORCH_ROWS:
@@ -300,7 +318,11 @@ class DetectionModel(nn.Module):
     (`head_name`): a v10Detect model returns {"one2many": maps, "one2one":
     maps} and decodes one2one; an IDetect model (YOLOv7) returns per-level
     (B, H, W, na, 5 + nc) maps in float32 and decodes them with `decode_v7`
-    (its A counts na anchors a cell).
+    (its A counts na anchors a cell). A Segment model returns (Detect maps,
+    coefficient maps, prototypes (B, Hm, Wm, nm)) and a Pose model (Detect
+    maps, keypoint maps), all NHWC, and both decode the Detect maps; neither
+    gets the bias prior (`_bias_init`). `ClassificationModel` holds a
+    Classify head.
     """
 
     def __init__(self, cfg="yolov13s_DBL.yaml", ch=3, nc=None, device=None,
@@ -342,6 +364,8 @@ class DetectionModel(nn.Module):
         feats = self.forward(torch.zeros((1, probe, probe, ch)))
         if isinstance(feats, dict):  # v10Detect (tasks.py:802)
             feats = feats["one2one"]
+        elif isinstance(feats, tuple):  # Segment, Pose (tasks.py:804)
+            feats = feats[0]
         return tuple(int(probe // f.shape[1]) for f in feats)
 
     @torch.no_grad()
@@ -394,8 +418,9 @@ class DetectionModel(nn.Module):
     def _bias_init(self):
         """Stride-aware Detect bias prior (tasks.py:814), on a plain Detect
         head only: JAX's rule matches `m{head}/cv2_{lvl}_2/conv/bias`, which
-        no v10Detect leaf (`m{head}/one2many/cv2_...`) and no IDetect leaf
-        matches, so those heads keep zero biases (ROADMAP Queue 3)."""
+        no v10Detect leaf (`m{head}/one2many/cv2_...`), no Segment or Pose
+        leaf (`m{head}/detect/cv2_...`) and no IDetect leaf matches, so those
+        heads keep zero biases (ROADMAP Queue 3)."""
         if self.head_name != "Detect":
             return
         det = self.detect
@@ -405,16 +430,19 @@ class DetectionModel(nn.Module):
 
     @property
     def detect(self) -> nn.Module:
-        """The head module: Detect, V10Detect or IDetect."""
+        """The head module: Detect, V10Detect, IDetect, Segment, Pose or Classify."""
         return getattr(self, f"m{self.spec.layers[-1].i}")
 
     @property
     def detect_branches(self) -> List[Detect]:
         """The head's Detect modules: the head itself, v10Detect's one2many
-        and one2one, none for IDetect."""
+        and one2one, a task head's nested `detect`, none for IDetect or
+        Classify."""
         det = self.detect
         if isinstance(det, V10Detect):
             return [det.one2many, det.one2one]
+        if isinstance(det, (Segment, Pose)):
+            return [det.detect]
         return [det] if isinstance(det, Detect) else []
 
     @torch.no_grad()
@@ -438,7 +466,7 @@ class DetectionModel(nn.Module):
         return self._dtype if p == torch.float32 else p
 
     def forward(self, x):
-        """NHWC images → raw per-level NHWC Detect maps (tasks.py:682 routing)."""
+        """NHWC images → the head's raw NHWC outputs (tasks.py:682 routing)."""
         y: List[Any] = []
         out = x.permute(0, 3, 1, 2).to(self.dtype)
         save = set(self.spec.save)
@@ -479,6 +507,11 @@ class DetectionModel(nn.Module):
             y.append(out if layer.i in save else None)
         if isinstance(out, dict):
             return {k: [o.permute(0, 2, 3, 1) for o in v] for k, v in out.items()}
+        if isinstance(out, tuple):  # Segment, Pose: lists of maps, and the prototypes
+            return tuple([o.permute(0, 2, 3, 1) for o in v] if isinstance(v, list)
+                         else v.permute(0, 2, 3, 1) for v in out)
+        if self.head_name == "Classify":
+            return out
         if self.head_name == "IDetect":
             return [o.permute(0, 2, 3, 1).unflatten(-1, (self.detect.na, -1)) for o in out]
         return [o.permute(0, 2, 3, 1) for o in out]
@@ -493,9 +526,50 @@ class DetectionModel(nn.Module):
 
     def decode_outputs(self, feats):
         """Raw forward outputs → (B, 4+nc, A) (tasks.py:843): v10Detect's
-        one2one branch, or IDetect's maps through `decode_v7`."""
+        one2one branch, a Segment or Pose head's Detect maps, or IDetect's
+        maps through `decode_v7`."""
         if isinstance(feats, dict):
             feats = feats["one2one"]
+        elif isinstance(feats, tuple):
+            feats = feats[0]
         if self.head_name == "IDetect":
             return decode_v7(feats, self.strides, self.detect.anchors, self.nc)
         return decode_detections(feats, self.strides, self.nc, self.reg_max)
+
+
+    @torch.inference_mode()
+    def kept_rows(self, x, conf=0.25, iou=0.45, max_det=300, class_agnostic=False, classes=None,
+                  kpt_shape=None):
+        """A Segment or Pose model's NHWC images → the rows NMS keeps and their
+        task outputs, all on the model's device: forward, decode, the
+        `classes` filter, NMS with each kept row's anchor index, and the
+        gather at those anchors (the JAX predictors' and validators' infer,
+        predictor.py:473-546, validator.py:139-224). Segment: (dets, counts,
+        kept coefficients (B, max_det, nm), prototypes (B, Hm, Wm, nm));
+        Pose: (dets, counts, kept keypoints (B, max_det, K, nd) in input
+        pixels, visibility sigmoided), `kpt_shape` defaulting to the head's."""
+        outputs = self.forward(x)
+        pred = mask_classes(self.decode_outputs(outputs), classes, self.nc)
+        dets, num, idx = non_max_suppression(pred, conf_thres=conf, iou_thres=iou,
+                                             max_det=max_det, nc=self.nc, return_idx=True,
+                                             class_agnostic=class_agnostic)
+        if self.head_name == "Segment":
+            return dets, num, gather_anchors(flatten_levels(outputs[1]), idx), outputs[2]
+        if self.head_name == "Pose":
+            kpts = decode_keypoints(outputs[0], outputs[1], self.strides,
+                                    tuple(kpt_shape or self.detect.kpt_shape))
+            return dets, num, gather_anchors(kpts, idx)
+        raise ValueError(f"kept_rows is for Segment and Pose heads, not {self.head_name}")
+
+class ClassificationModel(DetectionModel):
+    """An image classifier built from a YAML whose head is Classify
+    (tasks.py:903): `forward` returns (B, nc) logits and `predict` their
+    softmax. No strides, no bias prior."""
+
+    def _probe_strides(self, ch, probe=256):
+        return ()
+
+    @torch.inference_mode()
+    def predict(self, x):
+        """NHWC images → (B, nc) class probabilities (tasks.py:915)."""
+        return torch.softmax(self.forward(x), -1)

@@ -52,18 +52,33 @@ def _suppress(boxes, scores, iou_thres):
     return kept & alive
 
 
+def mask_classes(pred, classes, nc):
+    """Zero the score channels of the classes not in `classes` (the
+    predictor's `classes` filter, predictor.py:386): they can never pass
+    conf_thres. pred: (B, 4+nc, A), channels after 4+nc kept."""
+    if classes is None:
+        return pred
+    keep = torch.zeros(nc, dtype=pred.dtype, device=pred.device)
+    keep[list(classes)] = 1
+    return torch.cat([pred[:, :4], pred[:, 4:4 + nc] * keep[None, :, None], pred[:, 4 + nc:]], 1)
+
+
 def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45, max_det=300,
-                        pre_nms_topk=1024, multi_label=True, class_agnostic=False):
+                        pre_nms_topk=1024, nc=None, multi_label=True, class_agnostic=False,
+                        return_idx=False):
     """Batched fixed-shape NMS (nms.py:96), class-aware unless
     `class_agnostic`, which suppresses across classes (no class offset).
 
-    prediction: (B, 4+nc, A) decoded xywh + class scores (the Detect decode layout).
+    prediction: (B, 4+nc, A) decoded xywh + class scores (the Detect decode
+    layout); `nc` defaults to all channels after the box.
     Returns dets (B, max_det, 6) [x1, y1, x2, y2, conf, cls], zero-padded,
-    and counts (B,) int32.
+    and counts (B,) int32; with `return_idx` also each row's anchor index
+    (B, max_det) int32, 0 on padded rows, for gathering the task heads'
+    side channels (mask coefficients, keypoints) of the kept rows.
     """
     prediction = prediction.transpose(-1, -2)
     b, a, no = prediction.shape
-    nc = no - 4
+    nc = no - 4 if nc is None else nc
     boxes = xywh2xyxy(prediction[..., :4])
     scores_all = prediction[..., 4:4 + nc]
     ninf = torch.tensor(-torch.inf, dtype=prediction.dtype, device=prediction.device)
@@ -93,6 +108,10 @@ def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45, max_det=300
         torch.where(valid, final_scores, 0.0)[..., None],
         torch.where(valid, cls_idx.gather(1, order), 0.0)[..., None],
     ], dim=-1)
+    counts = valid.sum(-1).to(torch.int32)
     if n_out < max_det:
         dets = torch.nn.functional.pad(dets, (0, 0, 0, max_det - n_out))
-    return dets, valid.sum(-1).to(torch.int32)
+    if not return_idx:
+        return dets, counts
+    kept = torch.where(valid, anchor_idx.gather(1, order), 0).to(torch.int32)
+    return dets, counts, torch.nn.functional.pad(kept, (0, max_det - n_out))

@@ -1,11 +1,12 @@
 """Detection metrics: AP, mAP, the COCO 12 stats, the confusion matrix (numpy).
 
-A copy of the detection part of yolo_dbl_tpu/utils/metrics.py (:19-64,
-:96-190, :234-421), which is numpy only: `box_iou_np`, `match_predictions`,
-`match_from_iou`, `compute_ap` (101-point interpolation), `ap_per_class`,
-`DetMetrics` (fitness = mAP50-95), `COCOEvaluator` (the COCO 12 stats in
-numpy, in place of pycocotools) and `ConfusionMatrix`. The task metrics
-(`TaskMetrics`, `mask_iou_np`, `kpt_oks_np`) come with their heads.
+A copy of yolo_dbl_tpu/utils/metrics.py, which is numpy only:
+`box_iou_np`, `match_predictions`, `match_from_iou`, the task affinities
+`mask_iou_np` and `kpt_oks_np` (OKS with `OKS_SIGMA_NP`), `compute_ap`
+(101-point interpolation), `ap_per_class`, `DetMetrics` (fitness =
+mAP50-95), `TaskMetrics` (box and mask or pose mAP, fitness their mean),
+`COCOEvaluator` (the COCO 12 stats in numpy, in place of pycocotools) and
+`ConfusionMatrix`.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ def match_predictions(
 def match_from_iou(iou: np.ndarray, pred_cls: np.ndarray, gt_cls: np.ndarray,
                    iou_thresholds: np.ndarray) -> np.ndarray:
     """Greedy one-to-one matching from a precomputed (n_gt, n_pred) affinity
-    matrix (box IoU here; the task heads' affinities later)."""
+    matrix — shared by box IoU, mask IoU, keypoint OKS and rotated probiou."""
     n_pred, n_thr = len(pred_cls), len(iou_thresholds)
     correct = np.zeros((n_pred, n_thr), dtype=bool)
     if len(gt_cls) == 0 or n_pred == 0:
@@ -59,6 +60,36 @@ def match_from_iou(iou: np.ndarray, pred_cls: np.ndarray, gt_cls: np.ndarray,
             matches = matches[np.unique(matches[:, 0], return_index=True)[1]]
             correct[matches[:, 1], t] = True
     return correct
+
+
+def mask_iou_np(gt_masks: np.ndarray, pred_masks: np.ndarray, eps=1e-7) -> np.ndarray:
+    """(n_gt, H, W) × (n_pred, H, W) binary masks → (n_gt, n_pred) IoU
+    (reference utils/metrics.py mask_iou)."""
+    g = gt_masks.reshape(len(gt_masks), -1).astype(np.float64)
+    p = pred_masks.reshape(len(pred_masks), -1).astype(np.float64)
+    inter = g @ p.T
+    union = g.sum(1)[:, None] + p.sum(1)[None] - inter
+    return inter / (union + eps)
+
+
+def kpt_oks_np(gt_kpts: np.ndarray, pred_kpts: np.ndarray, area: np.ndarray,
+               sigmas: Optional[np.ndarray] = None, eps=1e-7) -> np.ndarray:
+    """(n_gt, K, 3) × (n_pred, K, 2|3) keypoints → (n_gt, n_pred) OKS
+    (reference utils/metrics.py kpt_iou). `area` is per-GT box area."""
+    k = gt_kpts.shape[1]
+    if sigmas is None:
+        sigmas = (OKS_SIGMA_NP if k == 17 else np.full(k, 1.0 / k))
+    d2 = ((gt_kpts[:, None, :, 0] - pred_kpts[None, :, :, 0]) ** 2
+          + (gt_kpts[:, None, :, 1] - pred_kpts[None, :, :, 1]) ** 2)  # (g, p, K)
+    vis = (gt_kpts[..., 2] > 0).astype(np.float64)  # (g, K)
+    e = d2 / (2 * sigmas[None, None]) ** 2 / (area[:, None, None] + eps) / 2
+    oks = (np.exp(-e) * vis[:, None]).sum(-1) / (vis.sum(-1, keepdims=True) + eps)
+    return oks
+
+
+OKS_SIGMA_NP = np.array(
+    [0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62,
+     1.07, 1.07, 0.87, 0.87, 0.89, 0.89]) / 10.0
 
 
 def compute_ap(recall: np.ndarray, precision: np.ndarray) -> Tuple[float, np.ndarray, np.ndarray]:
@@ -155,6 +186,41 @@ class DetMetrics:
             "fitness": map50_95,
         }
         out["per_class_ap50_95"] = {int(c): float(res["ap"][i].mean()) for i, c in enumerate(res["classes"])}
+        return out
+
+
+class TaskMetrics(DetMetrics):
+    """Two-branch metrics: box mAP plus a task affinity (mask IoU / OKS /
+    probiou) mAP (reference SegmentMetrics / PoseMetrics / OBBMetrics)."""
+
+    def __init__(self, nc: int, names=None, task_key: str = "mask"):
+        super().__init__(nc, names)
+        self.task_key = task_key
+        self.task_stats: List[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]] = []
+
+    def update_task(self, dets: np.ndarray, affinity: np.ndarray, gt_cls: np.ndarray):
+        """`affinity`: (n_gt, n_pred) precomputed task IoU/OKS matrix."""
+        dets = np.asarray(dets, dtype=np.float64)
+        tp = match_from_iou(affinity, dets[:, 5], gt_cls, self.IOU_THRESHOLDS)
+        self.task_stats.append((tp, dets[:, 4], dets[:, 5], np.asarray(gt_cls)))
+
+    def results(self) -> Dict[str, float]:
+        out = super().results()
+        box_fitness = out["fitness"]
+        if self.task_stats:
+            tp = np.concatenate([s[0] for s in self.task_stats])
+            conf = np.concatenate([s[1] for s in self.task_stats])
+            pred_cls = np.concatenate([s[2] for s in self.task_stats])
+            target_cls = np.concatenate([s[3] for s in self.task_stats])
+            res = ap_per_class(tp, conf, pred_cls, target_cls)
+            m50 = float(res["ap50"].mean()) if len(res["ap50"]) else 0.0
+            m5095 = float(res["ap"].mean()) if res["ap"].size else 0.0
+        else:
+            m50 = m5095 = 0.0
+        out[f"{self.task_key}_mAP50"] = m50
+        out[f"{self.task_key}_mAP50-95"] = m5095
+        # reference fitness averages box and task branches
+        out["fitness"] = (box_fitness + m5095) / 2
         return out
 
 
