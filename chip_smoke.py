@@ -42,14 +42,14 @@ Phases, each printing one JSON line:
   8. profile - device time of a request by kernel and by part of the path
               (torch.profiler), and the device's busy share;
   9. train  - YOLO-DBL-s (nc=3, 640, f32, batch 16, default training config)
-              taking 2 warm-up and 10 timed steps through Trainer.step on
+              taking 2 warm-up and 5 timed steps through Trainer.step on
               seeded synthetic batches; losses, step times, peak memory, launch
               counts of every kernel (K2 forward and backward 3 each per step),
               then the device time of one step by part and the device's busy
               share (train_profile);
  10. main_v13, profile_v13 - as main and profile for the stock YOLOv13-s
               (nc=80, the config's own): K1 once and K3 8 times per request;
- 11. train_v13 - as train for YOLOv13-s (nc=80, batch 16, 2 warm-up and 10
+ 11. train_v13 - as train for YOLOv13-s (nc=80, batch 16, 2 warm-up and 5
               timed steps): each K3 kernel 8 times per step (train_profile_v13);
  12. parity, parity_v13 - the same weights and 2 frames on the CPU (plain
               versions) and on the card (kernels, TF32 off): decoded boxes
@@ -59,7 +59,9 @@ Phases, each printing one JSON line:
               (TF32 off, dropout off on both): loss items within 1e-4 relative,
               the gradient of every leaf within 1e-3 of that leaf's largest
               (plus 1e-10 of the model's largest, for leaves whose exact
-              gradient is 0) against a float64 CPU gradient, and card against
+              gradient is 0) against the float64 gradient of the CPU's
+              weights (computed on the card through the plain versions,
+              `plain_kernels`), and card against
               CPU for named leaves (YOLO-DBL: the DySample offset convs, m0 and
               a Detect conv; YOLOv13: the 8 attn.qkv convs, whose gradient
               comes only through K3's backward and pe, m0 and a Detect conv);
@@ -85,9 +87,10 @@ parameters, bfloat16 compute), beside each float32 phase:
               beside the CPU's own bfloat16-against-float32 spread;
  18. train_parity_bf16, train_parity_v13_bf16 - one train-mode backward at 256
               px of bfloat16 models on the CPU and the card: the leaves K2 or
-              K3 feed against the CPU's float64, within 4x the CPU
-              bfloat16's own distance from it; the loss items likewise, as
-              medians over three batches (one batch's is noise).
+              K3 feed against the float64 reference (on the card through
+              the plain versions), within 4x the CPU bfloat16's own
+              distance from it; the loss items likewise, as medians over
+              three batches (one batch's is noise).
 The engine slice (DetectionValidator over 4 batches of 16 seeded 640x640
 images with 1-3 filled rectangles each, conf 0.001, iou 0.7, max_det 300, the
 COCO 12 stats; random weights, so the mAP is no quality claim):
@@ -101,7 +104,7 @@ COCO 12 stats; random weights, so the mAP is no quality claim):
               against the CPU's float32 within check_amp's bars;
  21. v8       - yolov8n (nc=3, f32, 3,011,417 parameters; no hand kernel):
               card decode against the CPU's on 2 images (0.05 px, 1e-3), 2
-              warm-up and 10 timed Trainer.steps at batch 16 (step ms, img/s,
+              warm-up and 5 timed Trainer.steps at batch 16 (step ms, img/s,
               peak memory), then the validator over the val batches.
 The engine slice, part 2 (the facade; needs cv2, through tests/fixtures.py):
  22. facade   - YOLO-DBL-s (nc=3, 640, f32, full width and depth) through
@@ -162,7 +165,7 @@ The stock detect families (v3, v5, v6, v8, 11, v12):
               forward, each K3 kernel 16 times a step), and one train step
               at batch 4 with finite losses; seconds a config.
 Data parallel (parallel/, Trainer(mesh=...); rank bodies in tests/torch_ranks.py):
- 30. dp       - YOLO-DBL-s (nc=3, 640, global batch 16, 3 steps, TF32 off)
+ 30. dp       - YOLO-DBL-s (nc=3, 640, global batch 16, 2 steps, TF32 off)
               through Trainer(mesh=...) against the one-process Trainer on
               the same weights and batches: NCCL at world 1 in this process,
               and Gloo at world 2 in two processes on this one card (8 rows
@@ -178,12 +181,12 @@ Data parallel (parallel/, Trainer(mesh=...); rank bodies in tests/torch_ranks.py
 The mesh's 'model' axis (parallel/shardings.py, tensor.py, spatial.py):
  31. tp       - YOLO-DBL-s (nc=3, 640, float32, TF32 off) tensor-parallel
               over Gloo on this one card: a 1x2 mesh (2 processes) and a 2x2
-              mesh (4) train 3 steps at global batch 8 through
+              mesh (4) train 2 steps at global batch 8 through
               Trainer(mesh=...) against the one-process Trainer, at dp's
               bars (replicated leaves and whole gathered parameters bit for
               bit equal on the ranks); each rank holds the specs' share of
               the parameter, EMA and moment bytes; then the 1x2 ranks serve
-              3 requests of 8 u8 frames through a `shard_variables` model in
+              2 requests of 8 u8 frames through a `shard_variables` model in
               float32 and bfloat16 (decode against the one-process float32
               one: 0.05 px and 1e-3, bf16 at parity_bf16's bars; float32
               kept counts equal); the collectives a step by kind and bytes,
@@ -191,7 +194,7 @@ The mesh's 'model' axis (parallel/shardings.py, tensor.py, spatial.py):
               K2 forward and backward 3 launches a step, K1 once and K2 3
               times a request, on every rank;
  32. sp       - YOLO-DBL-s (nc=3, 640, float32) spatial-parallel over Gloo
-              1x2 on this card: 3 requests of 8 u8 frames through
+              1x2 on this card: 2 requests of 8 u8 frames through
               `spatial(model, mesh)` (320 image rows a rank, halo
               exchanges, DySample and the hypergraph on gathered maps),
               held as tp's serving; halo and gather bytes a request.
@@ -258,6 +261,28 @@ mask probabilities are no float32 tie at 0.5; TF32 off in the parity phases):
               mask or pose mAP), predict 8 frames from memory; gate: the
               facade gate at 320, with the masks or keypoints of the rows
               both devices keep (a class and a box within 0.05 px).
+The OBB head (YOLO11-s-obb, yolo11s-obb.yaml, nc=15 as DOTAv1, seeded random
+weights, Detect class biases 0; TF32 off in the parity phases):
+ 41. main_obb, profile_obb, train_obb, train_profile_obb and their _bf16
+              phases - requests of 8 uint8 1024x1024 tiles at imgsz 1024
+              through OBBPredictor (K1 at gain 1, forward, decode_obb, the
+              rotated fast-NMS in float32), steps of 16 at 1024 through
+              obb_loss (8-64 rotated GTs a tile: the rotated TAL's
+              (16, 64, 21504) tensors) with peak memory; K1 once a request,
+              no hand kernel in a step; k1 also holds K1 against its plain
+              version at 1024^2 in both types and times it (`canvas_1024`);
+ 42. parity_obb - card against CPU on 2 tiles: the decode at every anchor
+              (xywh 0.05 px, angle 1e-4, scores 1e-3), the angle maps 1e-4
+              of their largest, the card's rotated NMS equal to the CPU's on
+              one decode, each frame's kept rows alike (angles 1e-4) or
+              parted at decisions `_nms_partings_rotated` names;
+              train_parity_obb - train_parity at 256 (loss items, every
+              leaf against the float64 reference on the card, the angle
+              branch's first output conv named);
+ 43. zoo_tasks also runs yolov8n-obb (nc=15) and the three -cls-resnet
+              configs (yolo11n-cls-resnet18, yolov8-cls-resnet50 and -101;
+              serving only); facade_tasks also runs yolov8n-obb (train,
+              val with the rbox mAP, predict; the gate with rotated rows).
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -294,7 +319,7 @@ BF16_TERMS = {"forward": 2, "dq": 3, "dkv": 3}
 TOL = 1e-5
 B, SRC_HW, IMGSZ, NC = 8, (512, 768), 640, 3
 REQUESTS, WARMUP = 5, 2
-TRAIN_B, TRAIN_M, TRAIN_WARMUP, TRAIN_STEPS = 16, 16, 2, 10
+TRAIN_B, TRAIN_M, TRAIN_WARMUP, TRAIN_STEPS = 16, 16, 2, 5
 # (H, W, C) of the DySample inputs of YOLO-DBL-s at 640 (rows 13, 18, 22); scale 2, 4 groups
 DYSAMPLE_SITES = {"row13": (40, 40, 256), "row18": (20, 20, 512), "row22": (40, 40, 256)}
 GROUPS = 4
@@ -311,8 +336,13 @@ V10, V9, V7 = ("yolov10s.yaml", 80), ("yolov9s.yaml", 80), ("yolov7.yaml", 80)
 # (nc=1, 17 keypoints of 3), and the classifier (nc=1000) at its 224
 SEG, POSE, CLS = ("yolo11s-seg.yaml", 80), ("yolo11s-pose.yaml", 1), ("yolo11s-cls.yaml", 1000)
 CLS_IMGSZ = 224
+# the OBB head's full-width path: YOLO11-s-obb at DOTAv1's 15 classes, serving
+# 1024x1024 uint8 tiles at imgsz 1024 (gain 1, no padding) and training on
+# them with up to 64 rotated GTs a tile (Ultralytics' OBB models' imgsz)
+OBB = ("yolo11s-obb.yaml", 15)
+OBB_IMGSZ, OBB_M = 1024, 64
 SUFFIX = {DBL: "", V13: "_v13", DBL2: "_dbl2", V12: "_v12", V11: "_v11", V10: "_v10", V9: "_v9",
-          V7: "_v7", SEG: "_seg", POSE: "_pose", CLS: "_cls"}
+          V7: "_v7", SEG: "_seg", POSE: "_pose", CLS: "_cls", OBB: "_obb"}
 # YOLOv13-s A2C2f sites at 640: (areas, N, heads) per image; each site runs
 # 4 AAttn (2 repeats x 2 ABlocks), hd 32. Row 6: 40x40 tokens in 4 areas.
 # YOLOv12-s's rows 6 and 8 are the same two sites.
@@ -340,7 +370,7 @@ PER_REQUEST = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for c
     (V11, {"letterbox_normalize": 1}), (V10, {"letterbox_normalize": 1}),
     (V9, {"letterbox_normalize": 1}), (V7, {"letterbox_normalize": 1}),
     (SEG, {"letterbox_normalize": 1}), (POSE, {"letterbox_normalize": 1}),
-    (CLS, {"letterbox_normalize": 1}))}
+    (CLS, {"letterbox_normalize": 1}), (OBB, {"letterbox_normalize": 1}))}
 PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
     (DBL, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
     (DBL2, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
@@ -348,7 +378,7 @@ PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg,
            "area_attention_backward_dkv": 8}),
     (V12, {"area_attention": 8, "area_attention_backward_dq": 8,
            "area_attention_backward_dkv": 8}),
-    (V11, {}), (V10, {}), (V9, {}), (SEG, {}), (POSE, {}))}
+    (V11, {}), (V10, {}), (V9, {}), (SEG, {}), (POSE, {}), (OBB, {}))}
 
 
 def emit(obj):
@@ -557,6 +587,44 @@ def k1_source_bytes(b, hw, new_h):
     return b * len(set(y0.tolist()) | set(y1.tolist())) * hw[1] * 3
 
 
+def _k1_at_1024(gen):
+    """K1 at the OBB path's shape: 8 uint8 1024x1024 tiles → 1024² (gain 1,
+    no padding), float32 and bfloat16 out, against its plain version
+    (float32 within 1e-5, bfloat16 within 4e-3) and timed beside its byte
+    bound, the plain version and the library's bilinear resize and /255."""
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize, letterbox_normalize_plain
+
+    hw = (OBB_IMGSZ, OBB_IMGSZ)
+    tiles = [torch.randint(0, 256, (B, *hw, 3), dtype=torch.uint8, generator=gen).cuda()
+             for _ in range(copies_for(B * OBB_IMGSZ ** 2 * 3))]
+    n = len(tiles)
+
+    def library(f, dt):
+        x = F.interpolate(f.permute(0, 3, 1, 2).float(), size=hw, mode="bilinear",
+                          align_corners=False, antialias=False)
+        return (x / 255.0).to(dt)  # gain 1: no padding
+
+    out = {}
+    for dt, tol in ((torch.float32, TOL), (torch.bfloat16, 4e-3)):
+        err = float((letterbox_normalize(tiles[0], hw, out_dtype=dt).float()
+                     - letterbox_normalize_plain(tiles[0], hw, out_dtype=dt).float()).abs().max())
+        require(err <= tol, f"letterbox kernel vs plain at 1024^2 ({dt}): max |d| {err}")
+        ms, call_ms, s1 = timings(lambda i: letterbox_normalize(tiles[i % n], hw, out_dtype=dt), 50)
+        plain_ms, _, s2 = timings(lambda i: letterbox_normalize_plain(tiles[i % n], hw,
+                                                                      out_dtype=dt), 10)
+        library_ms, _, s3 = timings(lambda i: library(tiles[i % n], dt), 20)
+        n_out = B * OBB_IMGSZ ** 2 * 3
+        bound_ms, bound_by = bound(k1_source_bytes(B, hw, OBB_IMGSZ) + n_out * dt.itemsize,
+                                   n_out * 10)
+        out[str(dt).split(".")[-1]] = dict(
+            shape=[B, *hw, 3], max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            time_sources=_time_sources([(s1, s2, s3)]))
+    del tiles
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_k1(gen):
     from yolo_dbl_tpu_torch.kernels.preprocess import (letterbox_geometry, letterbox_normalize,
                                                        letterbox_normalize_plain)
@@ -612,15 +680,18 @@ def phase_k1(gen):
     _, h224, w224, _, _ = letterbox_geometry(*SRC_HW, *c224, scaleup=False)
     bound_224, bound_by_224 = bound(k1_source_bytes(B, SRC_HW, h224) + B * CLS_IMGSZ ** 2 * 3 * 4,
                                     B * h224 * w224 * 3 * 10)
+    canvas_1024 = _k1_at_1024(gen)
     common = dict(route="cuda", source="yolo_dbl_tpu_torch/csrc/preprocess.cu",
                   replaces="yolo_dbl_tpu/kernels/preprocess.py:144")
     row = dict(name="letterbox_normalize", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-               time_sources=_time_sources([(s1, s2, s3)]), **common)
+               time_sources=_time_sources([(s1, s2, s3)]), canvas_1024=canvas_1024["float32"],
+               **common)
     row_bf16 = dict(name="letterbox_normalize_bf16", max_abs_err=err_bf16, ms=ms_bf16,
                     plain_ms=plain_ms_bf16, bound_ms=bound_ms_bf16, bound_by=bound_by_bf16,
                     library_ms=library_ms_bf16,
-                    time_sources=_time_sources([(s1_bf16, s2_bf16, s3_bf16)]), **common)
+                    time_sources=_time_sources([(s1_bf16, s2_bf16, s3_bf16)]),
+                    canvas_1024=canvas_1024["bfloat16"], **common)
     emit({"phase": "k1", "shape": [B, *SRC_HW, 3], "out": [B, IMGSZ, IMGSZ, 3],
           "max_abs_err_f32": err, "max_abs_err_bf16": err_bf16, "library_vs_kernel": lib_err,
           "odd_geometry": {"batch": ob, "frame": list(o_in), "canvas": list(o_out),
@@ -628,6 +699,7 @@ def phase_k1(gen):
           "canvas_224": {"max_abs_err": err_224, "ms": ms_224, "call_ms": call_ms_224,
                          "plain_ms": plain_ms_224, "bound_ms": bound_224,
                          "bound_by": bound_by_224, "time_source": s_224},
+          "canvas_1024": canvas_1024,
           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
           "ms_bf16": ms_bf16, "bound_ms_bf16": bound_ms_bf16, "plain_ms_bf16": plain_ms_bf16,
           "library_ms_bf16": library_ms_bf16,
@@ -1127,27 +1199,45 @@ def _phase(base, cfg, dtype=torch.float32):
     return base + SUFFIX[cfg] + ("_bf16" if dtype == BF16 else "")
 
 
+def imgsz_of(model):
+    """The smoke's serving and training size of a model: 640, a classifier's
+    224, an OBB model's 1024."""
+    return {"Classify": CLS_IMGSZ, "OBB": OBB_IMGSZ}.get(model.head_name, IMGSZ)
+
+
+def frames_hw(model):
+    """The (H, W) of the frames a model's requests carry: 512x768, or an OBB
+    model's 1024x1024 tiles."""
+    return (OBB_IMGSZ, OBB_IMGSZ) if model.head_name == "OBB" else SRC_HW
+
+
 def _predictor(model, **kw):
     """The model's task predictor (engine/predictor.py TASK_PREDICTORS) at
-    the smoke's serving settings: conf 0.25, iou 0.45, max_det 300, at 640
-    (a classifier at 224)."""
+    the smoke's serving settings: conf 0.25, iou 0.45, max_det 300, at
+    `imgsz_of`."""
     from yolo_dbl_tpu_torch.engine import predictor as P
 
-    cls = {"Segment": P.SegmentationPredictor, "Pose": P.PosePredictor,
+    cls = {"Segment": P.SegmentationPredictor, "Pose": P.PosePredictor, "OBB": P.OBBPredictor,
            "Classify": P.ClassificationPredictor}.get(model.head_name, P.DetectionPredictor)
-    imgsz = CLS_IMGSZ if model.head_name == "Classify" else IMGSZ
-    return cls(model, **{**dict(conf=0.25, iou=0.45, max_det=300, imgsz=imgsz), **kw})
+    return cls(model, **{**dict(conf=0.25, iou=0.45, max_det=300, imgsz=imgsz_of(model)), **kw})
 
 
 def _request_counts(model, out):
     """Each image's kept rows of a device-lane request (a classifier: 1),
     after checking the outputs' form: (n, 6) finite rows; with them (n, H, W)
-    bool masks (Segment) or (n, 17, 3) finite keypoints (Pose); a
-    classifier's (B, nc) probabilities summing to 1."""
+    bool masks (Segment) or (n, 17, 3) finite keypoints (Pose); an OBB
+    model's (n, 7) finite rows with positive sides and angles in
+    [-π/4, 3π/4]; a classifier's (B, nc) probabilities summing to 1."""
     if model.head_name == "Classify":
         require(out.shape == (B, model.nc) and np.isfinite(out).all()
                 and np.abs(out.sum(-1) - 1).max() < 1e-4, f"probabilities {out.shape}")
         return [1] * B
+    if model.head_name == "OBB":
+        require(len(out) == B and all(
+            o.shape[1] == 7 and np.isfinite(o).all() and (o[:, 2:4] > 0).all()
+            and (o[:, 4] >= -np.pi / 4).all() and (o[:, 4] <= 3 * np.pi / 4).all() for o in out),
+                "predictor output: expected 8 finite (n, 7) rotated rows")
+        return [len(o) for o in out]
     rows = [o[0] for o in out] if model.head_name in ("Segment", "Pose") else out
     require(len(out) == B and all(o.shape[1] == 6 and np.isfinite(o).all() for o in rows),
             "predictor output: expected 8 finite (n, 6) arrays")
@@ -1165,7 +1255,8 @@ def phase_main(cfg, gpu_model, rng, card):
 
     t_start = time.perf_counter()
     pred = _predictor(gpu_model)
-    requests = [rng.integers(0, 256, (B, *SRC_HW, 3), dtype=np.uint8)
+    hw = frames_hw(gpu_model)
+    requests = [rng.integers(0, 256, (B, *hw, 3), dtype=np.uint8)
                 for _ in range(WARMUP + REQUESTS)]
     for frames in requests[:WARMUP]:
         pred(frames)
@@ -1188,7 +1279,7 @@ def phase_main(cfg, gpu_model, rng, card):
         else {}
     emit({"phase": _phase("main", cfg, dtype), "model": cfg[0][:-5], "nc": cfg[1],
           "dtype": str(dtype).split(".")[-1], "imgsz": pred.imgsz, **extra,
-          "batch": B, "frames": list(SRC_HW), "requests": REQUESTS,
+          "batch": B, "frames": list(hw), "requests": REQUESTS,
           "latency_ms": [t * 1e3 for t in lat], "median_ms": med * 1e3, "img_per_s": B / med,
           "boxes_per_image": n_boxes, "launches": launches,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -1245,7 +1336,8 @@ def _parts(events, calls):
 def phase_profile(cfg, pred, rng, median_ms, requests=2):
     """Device time of one request by kernel and by part of the path."""
     t_start = time.perf_counter()
-    frames = [rng.integers(0, 256, (B, *SRC_HW, 3), dtype=np.uint8) for _ in range(requests)]
+    frames = [rng.integers(0, 256, (B, *frames_hw(pred.model), 3), dtype=np.uint8)
+              for _ in range(requests)]
     p = by_part(lambda i: pred(frames[i]), requests)
     emit({"phase": _phase("profile", cfg, pred.model.dtype), "requests": requests,
           "seconds": time.perf_counter() - t_start,
@@ -1260,7 +1352,11 @@ def train_batches(rng, n, b=TRAIN_B, imgsz=IMGSZ, m=TRAIN_M, nc=NC, task="detect
     1-8 real boxes per image (normalized xywh, classes 0..nc-1) padded to m;
     for `task` "segment" also each box's rectangle as its mask at a quarter
     of imgsz (`gt_masks`), for "pose" 17 keypoints inside each box, a fifth
-    of them invisible (`gt_kpts`, xy in [0, 1])."""
+    of them invisible (`gt_kpts`, xy in [0, 1]); for "obb" m // 8 to m real
+    rotated boxes an image, aerial-sized (1-12% of a side), with angles in
+    [-π/4, 3π/4) (`gt_boxes` (b, m, 5))."""
+    if task == "obb":
+        return [_obb_batch(rng, b, imgsz, m, nc) for _ in range(n)]
     out = []
     for _ in range(n):
         real = rng.integers(1, 9, b)
@@ -1287,9 +1383,19 @@ def train_batches(rng, n, b=TRAIN_B, imgsz=IMGSZ, m=TRAIN_M, nc=NC, task="detect
     return out
 
 
+def _obb_batch(rng, b, imgsz, m, nc):
+    real = rng.integers(max(m // 8, 1), m + 1, b)
+    gt = np.concatenate([rng.uniform(0.05, 0.95, (b, m, 2)), rng.uniform(0.01, 0.12, (b, m, 2)),
+                         rng.uniform(-np.pi / 4, 3 * np.pi / 4, (b, m, 1))], -1)
+    mask = (np.arange(m)[None] < real[:, None]).astype(np.float32)
+    return dict(img=rng.integers(0, 256, (b, imgsz, imgsz, 3), dtype=np.uint8),
+                gt_boxes=(gt * mask[..., None]).astype(np.float32),
+                gt_cls=rng.integers(0, nc, (b, m)).astype(np.int32), gt_mask=mask)
+
+
 def _task(model):
-    """The loss's batch task of a model: segment, pose or detect."""
-    return {"Segment": "segment", "Pose": "pose"}.get(model.head_name, "detect")
+    """The loss's batch task of a model: segment, pose, obb or detect."""
+    return {"Segment": "segment", "Pose": "pose", "OBB": "obb"}.get(model.head_name, "detect")
 
 
 def e2e_terms(model, train_cfg, batch):
@@ -1332,7 +1438,9 @@ def phase_train(cfg, card, dtype=torch.float32):
     model = DetectionModel(name, nc=nc, device="cuda", generator=torch.Generator().manual_seed(0),
                            dtype=dtype)
     trainer = Trainer(model, {"batch": TRAIN_B}).setup(steps_per_epoch=100)
+    imgsz = imgsz_of(model)
     batches = train_batches(np.random.default_rng(1), TRAIN_WARMUP + TRAIN_STEPS + 1, nc=nc,
+                            imgsz=imgsz, m=OBB_M if model.head_name == "OBB" else TRAIN_M,
                             task=_task(model))
     params = [p for _, p in model.named_parameters()]
     losses, step_ms = [], []
@@ -1366,9 +1474,11 @@ def phase_train(cfg, card, dtype=torch.float32):
              if model.head_name == "v10Detect" else {})
     if model.head_name in ("Segment", "Pose"):
         extra["task_term"] = _task_term_ms(model, trainer.cfg, batches[-1])
+    if model.head_name == "OBB":
+        extra["gt_per_image"] = float(np.mean([b["gt_mask"].sum(1).mean() for b in batches]))
     med = statistics.median(step_ms)
     emit({"phase": _phase("train", cfg, dtype), "model": name[:-5], "nc": nc,
-          "dtype": str(dtype).split(".")[-1], "imgsz": IMGSZ,
+          "dtype": str(dtype).split(".")[-1], "imgsz": imgsz,
           "batch": TRAIN_B, "optimizer": trainer.optimizer.name, "steps": TRAIN_STEPS,
           "step_ms": step_ms, "median_ms": med, "img_per_s": TRAIN_B / (med / 1e3),
           "losses": losses, "max_memory_allocated_bytes": peak, "launches": launches,
@@ -1506,7 +1616,7 @@ def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
 # comes through the plain attention's two products and softmax
 KERNEL_FED_LEAVES = {DBL: (".offset.conv.", 6), V13: (".attn.qkv.conv.", 8),
                      V12: (".attn.qkv.conv.", 8), V10: (".attn.qkv.conv.", 1),
-                     SEG: (".proto.", 11), POSE: (".cv4_0_2.", 2)}
+                     SEG: (".proto.", 11), POSE: (".cv4_0_2.", 2), OBB: (".cv4_0_2.", 2)}
 
 
 def phase_train_parity(cfg, cpu_model, gpu_model):
@@ -1554,7 +1664,7 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     # where float32 itself does not reach that (a leaf whose gradient is a sum
     # that cancels), within 4x the CPU float32's own distance from g64; plus
     # 1e-10 of the model's largest |g64| for leaves whose exact gradient is 0.
-    _, g64 = _float64_grads(cpu_model, train_cfg, batch)
+    _, g64 = _float64_grads(cpu_model, train_cfg, batch, device="cuda")
     g_max = max(float(g.abs().max()) for g in g64.values())
     leaves = {}
     for n, ref in g64.items():
@@ -1717,13 +1827,13 @@ def phase_train_parity_bf16(cfg, cpu32, cpu16, gpu16):
                         dict(zip(names, (g.cpu() for g in grads))), dict(kernels.launches)))
     (lc, gc, _), (lg, gg, launches) = results
     require(launches == PER_STEP[cfg, BF16], f"launches in one bf16 card step: {launches}")
-    l64, g64 = _float64_grads(cpu32, train_cfg, batch)
+    l64, g64 = _float64_grads(cpu32, train_cfg, batch, device="cuda")
     runs = [(lg, lc, l64)]
     seeds = BF16_LOSS_SEEDS_BY_MODEL.get(cfg, BF16_LOSS_SEEDS)
     for seed in seeds[1:]:
         more = train_batches(np.random.default_rng(seed), 1, b=2, imgsz=256, nc=cfg[1])[0]
         runs.append((_loss_items(gpu16, train_cfg, more), _loss_items(cpu16, train_cfg, more),
-                     _float64_grads(cpu32, train_cfg, more, grads=False)[0]))
+                     _float64_grads(cpu32, train_cfg, more, grads=False, device="cuda")[0]))
     loss_d = {k: dict(card=[abs(g[k] - r[k]) for g, _, r in runs],
                       cpu_bf16=[abs(c[k] - r[k]) for _, c, r in runs],
                       float64=[r[k] for _, _, r in runs]) for k in l64}
@@ -2077,26 +2187,36 @@ def _facade_gate(best, frames, conf=0.001, iou=0.45, imgsz=IMGSZ):
     and 1e-3 at every anchor; the card's NMS on its decode equal to the
     CPU's NMS on that decode; and in each frame equal kept counts with boxes
     within 0.05 px, scores within 1e-3 and equal classes, or kept rows
-    that part at decisions `_nms_partings` names on the two decodes. NMS is
+    that part at decisions `_nms_partings` names on the two decodes. An OBB
+    checkpoint's rows and NMS are the rotated ones (angles 1e-4,
+    `_nms_partings_rotated`), and its decode's angle row is held at 1e-4. NMS is
     discrete: a score or an IoU within float32 rounding of its threshold
     may fall on either side of it on the two devices; the decode's bars
     bound how far."""
     from yolo_dbl_tpu_torch.engine.model import YOLO
-    from yolo_dbl_tpu_torch.ops.nms import non_max_suppression
+    from yolo_dbl_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_rotated
 
     with tf32_off():
         got, raw_got = _predict_recorded(YOLO(best), frames, conf, iou, imgsz)
         want, raw_want = _predict_recorded(YOLO(best, device="cpu"), frames, conf, iou, imgsz)
+    obb = got[0].obb is not None
+    nms_fn = non_max_suppression_rotated if obb else non_max_suppression
     require(len(raw_got) == len(raw_want) == len(frames),
             f"decodes recorded: {len(raw_got)} card, {len(raw_want)} CPU, {len(frames)} frames")
     decode_box = max(float((g[:4] - w[:4]).abs().max()) for g, w in zip(raw_got, raw_want))
-    decode_score = max(float((g[4:] - w[4:]).abs().max()) for g, w in zip(raw_got, raw_want))
+    last = -1 if obb else None  # an OBB decode's angle row, held apart
+    decode_score = max(float((g[4:last] - w[4:last]).abs().max())
+                       for g, w in zip(raw_got, raw_want))
+    decode_angle = max(float((g[-1] - w[-1]).abs().max()) for g, w in zip(raw_got, raw_want)) \
+        if obb else 0.0
     nms_equal = True
     for g in raw_got:
-        (dc, nc), (dh, nh) = (non_max_suppression(g[None].to(dev), conf_thres=conf, iou_thres=iou)
+        (dc, nc), (dh, nh) = (nms_fn(g[None].to(dev), conf_thres=conf, iou_thres=iou)
                               for dev in ("cuda", "cpu"))
         nms_equal &= torch.equal(nc.cpu(), nh) and torch.equal(dc.cpu(), dh)
     def rows(r):
+        if obb:  # [x, y, w, h, angle, conf, cls] in frame pixels
+            return r.obb.data
         return np.concatenate([r.boxes.xyxy, r.boxes.conf[:, None], r.boxes.cls[:, None]], 1)
 
     frames_gate, named = _frames_alike([rows(r) for r in got], [rows(r) for r in want],
@@ -2105,41 +2225,105 @@ def _facade_gate(best, frames, conf=0.001, iou=0.45, imgsz=IMGSZ):
             "kept_cpu": _counts(want), "decode_box_max_abs_px": decode_box,
             "decode_score_max_abs": decode_score, "nms_card_equals_cpu": nms_equal,
             **frames_gate, "tf32": False}
+    if obb:
+        gate["decode_angle_max_abs"] = decode_angle
     task = got[0].masks is not None or got[0].keypoints is not None
     if task:
         gate["rows_kept_alike"] = _facade_task_rows(best, frames, conf, iou, imgsz)
-    require(decode_box < 0.05 and decode_score <= 1e-3 and nms_equal and sum(_counts(want)) > 0
+    require(decode_box < 0.05 and decode_score <= 1e-3 and decode_angle <= 1e-4 and nms_equal
+            and sum(_counts(want)) > 0
             and frames_gate["box_max_abs_px"] < 0.05 and frames_gate["score_max_abs"] <= 1e-3
             and frames_gate["classes_equal"] and named
             and (not task or _task_rows_ok(gate["rows_kept_alike"])), f"facade card vs CPU: {gate}")
     return gate
 
 
+def _rotated_nms_decisions(pred, conf, pre_nms_topk=1024):
+    """What ops/nms.py's rotated NMS decides from on one image's OBB decode
+    (4+nc+1, A) on the host: each anchor's best score, whose comparison with
+    `conf` picks the candidates; its best class; the anchors of the top
+    `pre_nms_topk` candidates, in order; and each anchor's rotated box."""
+    from yolo_dbl_tpu_torch.ops.nms import _topk
+
+    scores = pred[4:-1]
+    best = scores.amax(0)
+    vals, idx = _topk(torch.where(best >= conf, best, -torch.inf), min(pre_nms_topk, len(best)))
+    return best, scores.argmax(0), idx[vals > -torch.inf], torch.cat([pred[:4], pred[-1:]]).T
+
+
+def _nms_partings_rotated(card, cpu, conf, iou):
+    """`_nms_partings` for the rotated fast-NMS of two OBB decodes of an
+    image: best scores on the other side of `conf` (>=), a best class that
+    differs, the top candidates, two candidates' order, and a probiou of two
+    candidates of both on the other side of `iou` (>=; every earlier live
+    candidate counts, kept or not)."""
+    from yolo_dbl_tpu_torch.losses.extra import probiou
+
+    (fa, ca, ia, ba), (fb, cb, ib, bb) = (_rotated_nms_decisions(p, conf) for p in (card, cpu))
+    out = {}
+    over = ((fa >= conf) != (fb >= conf)).nonzero()[:, 0]
+    if len(over):
+        j = int(over[0])
+        out["score >= conf"] = {"count": len(over), "conf": conf, "card": float(fa[j]),
+                                "cpu": float(fb[j])}
+    flipped = [int(j) for j in ia.tolist() if int(ca[j]) != int(cb[j])]
+    if flipped:
+        j = flipped[0]
+        out["best class"] = {"count": len(flipped), "card": [int(ca[j]), float(fa[j])],
+                             "cpu": [int(cb[j]), float(fb[j])]}
+    moved = set(ia.tolist()) ^ set(ib.tolist())
+    if moved:
+        out["top candidates"] = {"count": len(moved)}
+    rank_card = {f: r for r, f in enumerate(ia.tolist())}
+    both = [f for f in ib.tolist() if f in rank_card]  # in the CPU's order
+    swaps = [i for i in range(len(both) - 1) if rank_card[both[i]] > rank_card[both[i + 1]]]
+    if swaps:
+        f, g = both[swaps[0]], both[swaps[0] + 1]
+        out["candidate order"] = {"count": len(swaps), "card": [float(fa[f]), float(fa[g])],
+                                  "cpu": [float(fb[f]), float(fb[g])]}
+    idx = torch.tensor(both, dtype=torch.long)
+    ua, ub = (probiou(x[idx][:, None], x[idx][None]).triu(1) for x in (ba, bb))
+    part = ((ua >= iou) != (ub >= iou)).nonzero()
+    if len(part):
+        i, j = part[0].tolist()
+        out["probiou >= iou_thres"] = {"count": len(part), "iou_thres": iou,
+                                       "card": float(ua[i, j]), "cpu": float(ub[i, j])}
+    return out
+
+
 def _frames_alike(card_rows, cpu_rows, card_decodes, cpu_decodes, conf, iou):
     """Each frame's kept rows on the card against the CPU's, each an (n, 6)
-    array [x1, y1, x2, y2, conf, cls]: alike (equal counts, boxes within
-    0.05 px, scores within 1e-3, equal classes), or parted, with the
-    decisions `_nms_partings` names on the frame's two decodes ({} for an
-    alike frame). Returns ({box_max_abs_px, score_max_abs, classes_equal}
-    over the alike frames, frames_parted, partings) and whether every
-    parted frame's partings are named."""
-    box = score = 0.0
-    cls_equal, parted, partings = True, [], []
+    array [x1, y1, x2, y2, conf, cls], or an OBB model's (n, 7) [x, y, w, h,
+    angle, conf, cls]: alike (equal counts, boxes within 0.05 px, angles
+    within 1e-4, scores within 1e-3, equal classes), or parted, with the
+    decisions `_nms_partings` (`_nms_partings_rotated`) names on the frame's
+    two decodes ({} for an alike frame). Returns ({box_max_abs_px,
+    score_max_abs, classes_equal} (and angle_max_abs) over the alike frames,
+    frames_parted, partings) and whether every parted frame's partings are
+    named."""
+    box = score = angle = 0.0
+    cls_equal, parted, partings, rotated = True, [], [], False
     for i, (g, w) in enumerate(zip(card_rows, cpu_rows)):
         g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        rotated = g.shape[-1] == 7
         alike = len(g) == len(w)
         if alike:
             fb = float(np.abs(g[:, :4] - w[:, :4]).max(initial=0))
-            fs = float(np.abs(g[:, 4] - w[:, 4]).max(initial=0))
-            fc = bool(np.array_equal(g[:, 5], w[:, 5]))
-            alike = fb < 0.05 and fs <= 1e-3 and fc
+            fa = float(np.abs(g[:, 4] - w[:, 4]).max(initial=0)) if rotated else 0.0
+            fs = float(np.abs(g[:, -2] - w[:, -2]).max(initial=0))
+            fc = bool(np.array_equal(g[:, -1], w[:, -1]))
+            alike = fb < 0.05 and fa <= 1e-4 and fs <= 1e-3 and fc
         if alike:
-            box, score, cls_equal = max(box, fb), max(score, fs), cls_equal and fc
+            box, angle, score = max(box, fb), max(angle, fa), max(score, fs)
+            cls_equal = cls_equal and fc
         else:
             parted.append(i)
-        partings.append({} if alike else _nms_partings(card_decodes[i], cpu_decodes[i], conf, iou))
+        names = _nms_partings_rotated if rotated else _nms_partings
+        partings.append({} if alike else names(card_decodes[i], cpu_decodes[i], conf, iou))
     out = {"box_max_abs_px": box, "score_max_abs": score, "classes_equal": cls_equal,
            "frames_parted": parted, "partings": partings}
+    if rotated:
+        out["angle_max_abs"] = angle
     return out, all(partings[i] for i in parted)
 
 
@@ -2728,18 +2912,63 @@ def phase_parity_task(cfg, cpu_model, gpu_model, frames):
     require(_task_rows_ok(rows), f"{head} outputs card vs CPU: {out}")
 
 
+def phase_parity_obb(cfg, cpu_model, gpu_model, frames):
+    """An OBB model's card against CPU on 2 frames of 1024x1024 at imgsz
+    1024 (TF32 off), in the facade gate's form: the decode at every anchor
+    (xywh 0.05 px, angle 1e-4, scores 1e-3) and the angle maps within 1e-4
+    of their largest; the card's rotated NMS on its decode equal to the
+    CPU's on it; and each frame's kept rows alike (counts, boxes 0.05 px,
+    angles 1e-4, scores 1e-3, classes) or parted at decisions
+    `_nms_partings_rotated` names."""
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dbl_tpu_torch.ops.nms import non_max_suppression_rotated
+
+    t_start = time.perf_counter()
+    u8, size = torch.from_numpy(frames), (OBB_IMGSZ, OBB_IMGSZ)
+    with tf32_off():
+        oc, pred_c = _forward_decode(cpu_model, letterbox_normalize(u8, size))
+        og, pred_card = _forward_decode(gpu_model, letterbox_normalize(u8.cuda(), size))
+        og_c, pred_g = _to_cpu(og), pred_card.cpu()
+        nms = functools.partial(non_max_suppression_rotated, conf_thres=0.25, iou_thres=0.45,
+                                max_det=300, nc=cfg[1])
+        (dg, ng), (dh, nh), (dc, nc_) = (_to_cpu(nms(p)) for p in (pred_card, pred_g, pred_c))
+    anchors = n_anchors(gpu_model, OBB_IMGSZ)
+    require(pred_g.shape == pred_c.shape == (2, 4 + cfg[1] + 1, anchors)
+            and bool(torch.isfinite(pred_g).all()),
+            f"OBB decode: card {tuple(pred_g.shape)}, CPU {tuple(pred_c.shape)}")
+    box_err = float((pred_g[:, :4] - pred_c[:, :4]).abs().max())
+    angle_err = float((pred_g[:, -1] - pred_c[:, -1]).abs().max())
+    score_err = float((pred_g[:, 4:-1] - pred_c[:, 4:-1]).abs().max())
+    angle_rel = max(float((g - c).abs().max() / c.abs().max()) for g, c in zip(og_c[1], oc[1]))
+    nms_equal = torch.equal(dg, dh) and torch.equal(ng, nh)
+    frames_gate, named = _frames_alike([d[:int(k)] for d, k in zip(dg, ng)],
+                                       [d[:int(k)] for d, k in zip(dc, nc_)],
+                                       pred_g, pred_c, 0.25, 0.45)
+    out = {"phase": _phase("parity", cfg), "frames": 2, "imgsz": OBB_IMGSZ, "head": "OBB",
+           "box_max_abs_px": box_err, "angle_max_abs": angle_err, "score_max_abs": score_err,
+           "angle_maps_max_abs_of_largest": angle_rel, "nms_card_equals_cpu": nms_equal,
+           "kept_card": ng.tolist(), "kept_cpu": nc_.tolist(), "kept_rows": frames_gate,
+           "seconds": time.perf_counter() - t_start}
+    emit(out)
+    require(box_err < 0.05 and angle_err <= 1e-4 and score_err <= 1e-3 and angle_rel <= 1e-4
+            and nms_equal and sum(nc_.tolist()) > 0 and named, f"OBB card vs CPU: {out}")
+
+
 # the task heads' other configs, at 320 (as zoo_v9v10): the configs' own nc
 ZOO_TASKS = {"yolov8n-seg.yaml": 80, "yolov9c-seg.yaml": 80, "yolov9e-seg.yaml": 80,
-             "yolov8n-pose.yaml": 1, "yolov8n-cls.yaml": 1000}
+             "yolov8n-pose.yaml": 1, "yolov8n-cls.yaml": 1000, "yolov8n-obb.yaml": 15,
+             "yolo11n-cls-resnet18.yaml": 10, "yolov8-cls-resnet50.yaml": 1000,
+             "yolov8-cls-resnet101.yaml": 1000}
 
 
 def phase_zoo_tasks(card):
     """The task heads' other configs at 320: on 2 frames, the card's decode
-    against the CPU's (TF32 off; 0.05 px, 1e-3) and every task output
-    (coefficients, prototypes, keypoint maps) within 1e-4 of its largest, or
-    a classifier's probabilities within 1e-4; K1 once a forward; one train
-    step at batch 4 with finite losses (not the classifier: it does not
-    train)."""
+    against the CPU's (TF32 off; 0.05 px, 1e-3, an OBB decode's angle 1e-4)
+    and every task output (coefficients, prototypes, keypoint or angle maps)
+    within 1e-4 of its largest, or a classifier's probabilities (yolov8n-cls
+    and the three ResNet classifiers) within 1e-4; K1 once a forward; one
+    train step at batch 4 with finite losses (not the classifiers: they do
+    not train)."""
     import copy
 
     from yolo_dbl_tpu_torch import ClassificationModel, DetectionModel, kernels
@@ -2768,13 +2997,18 @@ def phase_zoo_tasks(card):
                 oc, pc = _forward_decode(cpu, letterbox_normalize(frames, size))
                 og, pg = _forward_decode(gpu, letterbox_normalize(frames.cuda(), size))
                 og = _to_cpu(og)
-                box, score = _boxes_scores(pg.cpu(), pc)
+                pg = pg.cpu()
+                obb = gpu.head_name == "OBB"  # the angle is its decode's last row
+                box, score = _boxes_scores(pg[:, :-1] if obb else pg, pc[:, :-1] if obb else pc)
                 maps = [(g, c) for g, c in zip(torch.utils._pytree.tree_leaves(og[1:]),
                                                torch.utils._pytree.tree_leaves(oc[1:]))]
                 side = max(float((g - c).abs().max() / c.abs().max()) for g, c in maps)
                 row = {"box_max_abs_px": box, "score_max_abs": score,
                        "task_output_max_abs_of_largest": side, "task_maps": len(maps)}
-                ok = box < 0.05 and score <= 1e-3 and side <= 1e-4
+                if obb:
+                    row["angle_max_abs"] = float((pg[:, -1] - pc[:, -1]).abs().max())
+                ok = box < 0.05 and score <= 1e-3 and side <= 1e-4 \
+                    and row.get("angle_max_abs", 0.0) <= 1e-4
         fwd = dict(kernels.launches)
         row.update(params=sum(p.numel() for p in gpu.parameters()), head=gpu.head_name,
                    forward_launches=fwd)
@@ -2796,15 +3030,17 @@ def phase_zoo_tasks(card):
 
 
 # the facade's task cells: a task shapes set at 320 (8 train, 4 val), batch 4
-FACADE_TASKS = (("segment", "yolo11n-seg.yaml"), ("pose", "yolo11n-pose.yaml"))
+FACADE_TASKS = (("segment", "yolo11n-seg.yaml"), ("pose", "yolo11n-pose.yaml"),
+                ("obb", "yolov8n-obb.yaml"))
 FT_IMGSZ, FT_TRAIN, FT_VAL, FT_B = 320, 8, 4, 4
 
 
 def phase_facade_tasks(card):
-    """yolo11n-seg and yolo11n-pose (nc=2) through YOLO on the card: train 1
-    epoch (2 steps of 4 at 320), validate (box and mask or pose mAP), predict
-    8 uint8 512x768 frames from memory; gate: `_facade_gate` at 320 over 2
-    frames, with the masks or keypoints of the rows both devices keep."""
+    """yolo11n-seg, yolo11n-pose and yolov8n-obb (nc=2) through YOLO on the
+    card: train 1 epoch (2 steps of 4 at 320), validate (box and mask, pose
+    or rbox mAP), predict 8 uint8 512x768 frames from memory; gate:
+    `_facade_gate` at 320 over 2 frames, with the masks or keypoints of the
+    rows both devices keep (the OBB rows themselves rotated)."""
     import tempfile
 
     from yolo_dbl_tpu_torch import kernels
@@ -2829,7 +3065,7 @@ def phase_facade_tasks(card):
                           name=task, workers=0, plots=False, verbose=False)
             torch.cuda.synchronize()
             wall["train_epoch"] = time.perf_counter() - t0
-            key = "mask" if task == "segment" else "pose"
+            key = {"segment": "mask", "pose": "pose", "obb": "rbox"}[task]
             launches[f"facade_{task}_train"] = dict(kernels.launches)
             require(y.trainer.steps == FT_TRAIN // FT_B
                     and all(np.isfinite(v) for h in out["history"] for v in h.values())
@@ -2851,7 +3087,7 @@ def phase_facade_tasks(card):
                 res = yb.predict(frames, imgsz=FT_IMGSZ)
                 request_ms.append((time.perf_counter() - t0) * 1e3)
             launches[f"facade_{task}_predict"] = dict(kernels.launches)
-            extra = [r.masks if task == "segment" else r.keypoints for r in res]
+            extra = [{"segment": r.masks, "pose": r.keypoints, "obb": r.obb}[task] for r in res]
             require(launches[f"facade_{task}_predict"] == _launches(
                 {"letterbox_normalize": FACADE_REQUESTS}, torch.float32) and len(res) == B
                 and all(len(e) == len(r) for e, r in zip(extra, res)),
@@ -2942,7 +3178,7 @@ def phase_facade_dbl2(card):
     return launches
 
 
-DP_B, DP_STEPS = 16, 3
+DP_B, DP_STEPS = 16, 2
 
 
 def _float64_reference(cpu, batch):
@@ -2967,14 +3203,14 @@ def _float64_reference(cpu, batch):
 
 
 def phase_dp(card):
-    """Data-parallel training of YOLO-DBL-s (nc=3, 640, global batch 16, 3
+    """Data-parallel training of YOLO-DBL-s (nc=3, 640, global batch 16, 2
     steps) through `Trainer(mesh=...)` against the one-process Trainer on the
     same weights and batches, TF32 off on both: (a) NCCL at world 1 in this
     process; (b) Gloo at world 2, two processes on this one card, 8 rows
     each (NCCL refuses two ranks on one card: "Duplicate GPU detected",
     tried and printed here); (c) (b) in bfloat16. Bars: loss items 1e-4
     relative; the first step's gradient 1e-3 of each leaf's largest (a leaf
-    that misses it by float32 order: both runs against a float64 CPU
+    that misses it by float32 order: both runs against the float64
     gradient, as train_parity); BatchNorm statistics after the steps 1e-4;
     the parameters bit for bit equal on the ranks; bfloat16: loss items and
     the K2-fed leaves within 4x the one-process bfloat16 step's distance from
@@ -3066,7 +3302,7 @@ def phase_dp(card):
     return launches
 
 
-TP_B, TP_STEPS, TP_REQUESTS = 8, 3, 3
+TP_B, TP_STEPS, TP_REQUESTS = 8, 2, 2
 
 
 def _parallel_models(tmp):
@@ -3144,10 +3380,10 @@ def _model_bytes_share(cpu, n_model):
 def phase_tp(card, tmp, setup):
     """Tensor parallelism of YOLO-DBL-s (nc=3, 640) over Gloo ranks on this
     one card (NCCL refuses two ranks on one card): (a) a 1x2 mesh (2
-    processes) and (b) a 2x2 mesh (4 processes) train 3 steps at global
+    processes) and (b) a 2x2 mesh (4 processes) train 2 steps at global
     batch 8, float32 with TF32 off, against the one-process Trainer on the
     same weights and batches at the dp phase's bars (`check_dp_float32`);
-    (a) then serves 3 requests of 8 u8 frames in float32 and bfloat16
+    (a) then serves 2 requests of 8 u8 frames in float32 and bfloat16
     through a model `shard_variables` sharded (K1, the forward, decode,
     NMS): its decode against the one-process float32 decode at the parity
     bars (bfloat16: parity_bf16's). K2 forward and backward launch 3 times
@@ -3236,7 +3472,7 @@ def phase_tp(card, tmp, setup):
 def phase_sp(card, setup):
     """Spatial parallelism of YOLO-DBL-s (nc=3, 640, float32, TF32 off) over
     Gloo at world 2 on this one card (a 1x2 mesh, 320 image rows a rank):
-    3 requests of 8 u8 frames through `spatial(model, mesh)` (K1 on the
+    2 requests of 8 u8 frames through `spatial(model, mesh)` (K1 on the
     whole frames, the forward on row shards with halos, DySample and the
     hypergraph on gathered maps: K2 3 times a request on every rank); its
     decode against the one-process float32 decode at the parity bars. Prints
@@ -3301,7 +3537,7 @@ def main():
             rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
-    paths = (DBL, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS)
+    paths = (DBL, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS, OBB)
     for cfg in paths:
         for dtype in (torch.float32,) if cfg in (V11, V9, V7, POSE, CLS) else (torch.float32, BF16):
             with took(_phase("path", cfg, dtype)):
@@ -3314,7 +3550,9 @@ def main():
                 models[cfg, dtype] = (cpu_model, gpu_model, frames)
     with took("parity"):
         for cfg in paths:
-            if cfg in (SEG, POSE, CLS):
+            if cfg == OBB:
+                phase_parity_obb(cfg, *models[cfg, torch.float32])
+            elif cfg in (SEG, POSE, CLS):
                 phase_parity_task(cfg, *models[cfg, torch.float32])
             else:
                 phase_parity(cfg, *models[cfg, torch.float32])
@@ -3324,7 +3562,7 @@ def main():
             cpu16, gpu16, _ = models[cfg, BF16]
             phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames)
     with took("train_parity"):
-        for cfg in (DBL, V13, V12, V10, SEG, POSE):
+        for cfg in (DBL, V13, V12, V10, SEG, POSE, OBB):
             phase_train_parity(cfg, *models[cfg, torch.float32][:2])
     with took("train_parity_bf16"):
         for cfg in (DBL, V13, V12, V10):
@@ -3363,7 +3601,7 @@ def main():
         with took("sp"):
             sp = phase_sp(card, setup)
         del setup
-    # launches: per the path's run (5 requests; 10 train steps) on the path each row serves
+    # launches: per the path's run (5 requests; 5 train steps) on the path each row serves
     f32, bf16 = torch.float32, BF16
     home = {"letterbox_normalize": serve[DBL, f32], "sample_bilinear": serve[DBL, f32],
             "sample_bilinear_backward": train[DBL, f32], "area_attention": serve[V13, f32],

@@ -198,10 +198,14 @@ def test_segment_transforms_match_jax(tmp_path, mode):
 
 
 def test_port_loader_takes_detect_datasets_only(tmp_path):
-    """Detect, segment and pose datasets load (tests/test_torch_tasks.py
-    holds their batches to JAX's); obb and classify are refused."""
+    """Detect, segment, pose and obb datasets load (tests/test_torch_tasks.py
+    and tests/test_torch_obb.py hold their batches to JAX's): an obb loader
+    turns augmentation off and gives (B, max_gt, 5) rotated boxes; classify
+    is refused."""
     root = make_task_dataset(tmp_path / "obb", task="obb", n_train=2, imgsz=64)
-    with pytest.raises(NotImplementedError, match="obb"):
-        DataLoader(YOLODataset(root, task="obb"), batch_size=2, imgsz=IMGSZ)
+    loader = DataLoader(YOLODataset(root, task="obb"), batch_size=2, imgsz=IMGSZ, prefetch=0)
+    assert loader.task == "obb" and not loader.augment and not loader.shuffle
+    batch = next(iter(loader))
+    assert batch["gt_boxes"].shape == (2, loader.max_gt, 5) and batch["gt_mask"].sum() > 0
     with pytest.raises(NotImplementedError, match="classify"):
         DataLoader(YOLODataset(root, task="obb"), batch_size=2, imgsz=IMGSZ, task="classify")

@@ -431,7 +431,7 @@ def test_cli_checks_and_settings(capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["track", "source=x.mp4"], ["detect", "export"], ["benchmark"],
-                                  ["solutions"], ["obb", "train"]])
+                                  ["solutions"], ["obb", "track"]])
 def test_cli_unported_modes_exit_nonzero(argv):
     with pytest.raises(SystemExit) as e:
         entrypoint(argv)

@@ -3,7 +3,9 @@ decisions that part two decodes of an image (a score on either side of
 conf, two candidates' order, an IoU on either side of iou), and names none
 where NMS decides alike on both decodes, which then keep the same rows;
 `_frames_alike` holds each frame's kept rows alike or parted at named
-decisions; `k1_source_bytes` counts the source rows K1's taps touch; `plain_kernels`
+decisions; `_nms_partings_rotated` does the same for the rotated fast-NMS
+of two OBB decodes (a best score at conf, a best class, a probiou at iou);
+`k1_source_bytes` counts the source rows K1's taps touch; `plain_kernels`
 binds the models' kernel call sites to the plain versions and back."""
 
 from __future__ import annotations
@@ -12,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (_frames_alike, _nms_decisions, _nms_partings, k1_source_bytes,
-                        plain_kernels)
+from chip_smoke import (_frames_alike, _nms_decisions, _nms_partings, _nms_partings_rotated,
+                        k1_source_bytes, plain_kernels)
 from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_geometry
+from yolo_dbl_tpu_torch.losses.extra import probiou
 from yolo_dbl_tpu_torch.ops.boxes import box_iou, xywh2xyxy
-from yolo_dbl_tpu_torch.ops.nms import non_max_suppression
+from yolo_dbl_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_rotated
 
 CONF, IOU = 0.001, 0.45
 
@@ -161,3 +164,78 @@ def test_plain_kernels_binds_the_plain_versions_and_restores():
         got = resample.sample_bilinear_pixel(x, gy, gx, groups=2)
     assert (resample.sample_bilinear, blocks.area_attention) == wrappers
     assert torch.equal(got, resample.sample_bilinear_pixel(x, gy, gx, groups=2))
+
+
+# ---------------------------------------------------------------- the rotated NMS's partings
+
+def _obb_decode(seed, nc=3, a=300):
+    """A seeded OBB decode (4+nc+1, A) on a 320 px canvas: rotated boxes of
+    8-60 px, scores in [0, 0.6), angles in [-π/4, 3π/4)."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.concatenate([
+        rng.uniform(0, 320, (2, a)), rng.uniform(8, 60, (2, a)), rng.uniform(0, 0.6, (nc, a)),
+        rng.uniform(-np.pi / 4, 3 * np.pi / 4, (1, a))]).astype(np.float32))
+
+
+def _kept_rotated(pred, conf=0.25):
+    dets, n = non_max_suppression_rotated(pred[None], conf_thres=conf, iou_thres=IOU)
+    return dets[0, : int(n[0])]
+
+
+def _pair_at_probiou():
+    """Two rotated boxes of one class (scores 0.9, 0.8) whose float32 probiou
+    lies on either side of IOU for two adjacent float32 shifts: (decode at
+    or above, decode below)."""
+    def decode(dx):
+        pred = torch.zeros((4 + 3 + 1, 2), dtype=torch.float32)
+        pred[:, 0] = torch.tensor([100.0, 100.0, 30.0, 12.0, 0.9, 0.0, 0.0, 0.3])
+        pred[:, 1] = torch.stack([100.0 + dx, *torch.tensor([100.0, 30.0, 12.0, 0.8, 0.0, 0.0,
+                                                             0.3])])
+        return pred
+
+    def piou(dx):
+        rb = torch.cat([decode(dx)[:4], decode(dx)[-1:]]).T
+        return float(probiou(rb[0], rb[1]))
+
+    lo, hi = torch.tensor(0.0), torch.tensor(30.0)  # piou(lo) >= IOU > piou(hi)
+    while _next(float(lo), float(hi)) < hi:
+        mid = (lo + hi) / 2
+        if mid in (lo, hi):
+            mid = _next(float(lo), float(hi))
+        lo, hi = (mid, hi) if piou(mid) >= IOU else (lo, mid)
+    return decode(lo), decode(hi)
+
+
+def test_rotated_decodes_alike_part_nowhere():
+    pred = _obb_decode(4)
+    assert _nms_partings_rotated(pred, pred.clone(), 0.25, IOU) == {}
+    rows = _kept_rotated(pred)
+    gate, named = _frames_alike([rows], [rows.clone()], [pred], [pred], 0.25, IOU)
+    assert len(rows) > 5 and gate["frames_parted"] == [] and named
+    assert gate["angle_max_abs"] == 0 and gate["classes_equal"]
+
+
+def test_a_probiou_at_iou_thres_is_named_and_parts_the_rotated_rows():
+    """The rotated fast-NMS keeps one row of the pair at probiou >= iou and
+    two below; `_nms_partings_rotated` names that probiou with both values,
+    and `_frames_alike` parts the frame at it. A flipped best class and a
+    best score across conf are named too; an angle 1e-3 apart parts a frame
+    unnamed where the decodes decide alike."""
+    above, below = _pair_at_probiou()
+    assert len(_kept_rotated(above)) == 1 and len(_kept_rotated(below)) == 2
+    parting = _nms_partings_rotated(above, below, 0.25, IOU)
+    assert list(parting) == ["probiou >= iou_thres"]
+    assert parting["probiou >= iou_thres"]["cpu"] < IOU <= parting["probiou >= iou_thres"]["card"]
+    gate, named = _frames_alike([_kept_rotated(above)], [_kept_rotated(below)], [above], [below],
+                                0.25, IOU)
+    assert gate["frames_parted"] == [0] and named
+    flipped = below.clone()
+    flipped[5, 1] = 0.85  # class 1 now beats class 0 at the second anchor
+    flipped[4, 0] = _next(0.25, 0.0)  # the first anchor's best score just under conf
+    named_kinds = _nms_partings_rotated(below, flipped, 0.25, IOU)
+    assert {"best class", "score >= conf"} <= set(named_kinds)
+    rows = _kept_rotated(below)
+    turned = rows.clone()
+    turned[:, 4] += 1e-3
+    gate, named = _frames_alike([turned], [rows], [below], [below], 0.25, IOU)
+    assert gate["frames_parted"] == [0] and not named

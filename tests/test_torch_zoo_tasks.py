@@ -308,10 +308,11 @@ def test_classify_serves_but_does_not_train_or_validate(task_sets, tmp_path, cap
     assert "frame00.jpg" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name", ["yolov8n-seg.yaml", "yolov8n-pose.yaml", "yolov8n-cls.yaml"])
+@pytest.mark.parametrize("name", ["yolov8n-seg.yaml", "yolov8n-pose.yaml", "yolov8n-cls.yaml",
+                                  "yolov8n-obb.yaml"])
 def test_task_models_refuse_the_parallel_paths(name):
     """A task model does not train under a mesh (its mask and keypoint
-    normalizers would be a rank's) and has no tensor- or spatial-parallel
+    normalizers, or the OBB loss's, would be a rank's) and has no tensor- or spatial-parallel
     form (ROADMAP Queue 1 item 7). The v8 trunks: yolo11's C2PSA is refused
     by spatial parallelism before the head."""
     model = _undrawn(ClassificationModel if _is_cls(name) else DetectionModel, name, nc=2)

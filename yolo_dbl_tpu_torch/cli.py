@@ -1,8 +1,8 @@
 """Command line: `python -m yolo_dbl_tpu_torch [task] <mode> key=value ...`
 (port of yolo_dbl_tpu/cli.py; console script `yolo-dbl-torch`).
 
-Tasks: detect, segment, pose, classify (the task comes from the model's
-head; the word is accepted and obb exits non-zero). Modes: train, val,
+Tasks: detect, segment, pose, obb, classify (the task comes from the
+model's head; the word is accepted). Modes: train, val,
 predict, tune, checks (torch and its CUDA devices) and settings. track,
 export, benchmark and solutions are not ported yet and exit non-zero.
 `device=cpu` runs on the CPU; without it the model runs on the card.
@@ -39,7 +39,7 @@ HELP = """yolo_dbl_tpu_torch CLI: the PyTorch/CUDA port of yolo_dbl_tpu
 
 usage: python -m yolo_dbl_tpu_torch [task] [mode] [key=value ...]
 
-tasks: detect (the default), segment, pose, classify (predict only); not ported yet: obb
+tasks: detect (the default), segment, pose, obb, classify (predict only)
 modes: train, val, predict, tune; not ported yet: track, export, benchmark
 
 examples:
@@ -85,8 +85,6 @@ def entrypoint(argv=None):
     if not argv:
         raise SystemExit("missing mode; " + HELP)
     mode = argv.pop(0)
-    if task == "obb":
-        raise SystemExit("task 'obb' is not ported yet: ROADMAP Queue 1 item 6.2 (the OBB head)")
     if mode in NOT_PORTED:
         raise SystemExit(f"mode '{mode}' is not ported yet: {NOT_PORTED[mode]}")
     kv = parse_kv(argv)

@@ -10,10 +10,11 @@ take the native lane (:169-241) where the native loader built: decode,
 letterbox and collate of the whole batch in its C++ worker pool, with the
 Python transform's semantics; `YOLO_DBL_NATIVE_LOADER=0` turns it off, and
 without g++, libjpeg or libpng the loader runs the Python lane.
-`format_batch_task` (:49) adds the segment and pose targets: masks
-rasterized at a quarter of the input with cv2.fillPoly, and normalized
-keypoints. Rotated boxes (obb) wait for their head (ROADMAP Queue 1 item
-6.2).
+`format_batch_task` (:49) adds the segment, pose and obb targets: masks
+rasterized at a quarter of the input with cv2.fillPoly, normalized
+keypoints, and rotated boxes in place of the axis-aligned ones. An obb
+loader runs without augmentation and, unless asked, without shuffling
+(:114-117): rotated boxes do not go through mosaic or the affine.
 """
 
 from __future__ import annotations
@@ -60,10 +61,11 @@ def format_batch_task(images, labels_list, imgsz: int, max_gt: int, task: str = 
     `gt_masks` (B, max_gt, imgsz / mask_ratio, imgsz / mask_ratio) float32,
     each polygon (letterboxed pixels) divided by mask_ratio, truncated to
     int32 and filled with cv2.fillPoly; for pose `gt_kpts` (B, max_gt, K,
-    nd) with x and y divided by imgsz."""
-    if task not in ("detect", "segment", "pose"):
-        raise NotImplementedError(f"task {task!r} batches are not ported: obb waits for its head "
-                                  "(ROADMAP Queue 1 item 6.2)")
+    nd) with x and y divided by imgsz; for obb `gt_boxes` (B, max_gt, 5),
+    each image's `rboxes` (normalized xywh and the angle), with `gt_mask`
+    and `gt_cls` set on their rows."""
+    if task not in ("detect", "segment", "pose", "obb"):
+        raise NotImplementedError(f"task {task!r} batches: the JAX package has no {task} loader")
     batch = format_batch(images, labels_list, imgsz, max_gt)
     b = len(images)
     if task == "segment":
@@ -90,11 +92,21 @@ def format_batch_task(images, labels_list, imgsz: int, max_gt: int, task: str = 
                 kk[..., 1] /= imgsz
                 gt_kpts[i, :n] = kk[:, :k]
         batch["gt_kpts"] = gt_kpts
+    elif task == "obb":
+        gt5 = np.zeros((b, max_gt, 5), np.float32)
+        for i, lab in enumerate(labels_list):
+            rb = lab.get("rboxes")
+            if rb is not None and len(rb):
+                n = min(len(rb), max_gt)
+                gt5[i, :n] = rb[:n]
+                batch["gt_mask"][i, :n] = 1.0
+                batch["gt_cls"][i, :n] = lab["cls"][:n]
+        batch["gt_boxes"] = gt5
     return batch
 
 
 class DataLoader:
-    """Epoch iterator over a detect, segment or pose dataset with a
+    """Epoch iterator over a detect, segment, pose or obb dataset with a
     background prefetch thread.
 
     Decode and augmentation run on a host thread while the card runs the
@@ -106,10 +118,12 @@ class DataLoader:
     ``img`` (B, S, S, 3) uint8, ``gt_boxes``, ``gt_cls``, ``gt_mask``,
     ``indices``, and, without augmentation, ``labels`` (per-image boxes in
     letterboxed pixels, classes, ``ratio_pad``, ``orig_shape``); segment
-    batches add ``gt_masks`` and pose batches ``gt_kpts``
-    (`format_batch_task`). ``task`` defaults to the dataset's. Pose
-    augmentation flips no image left to right (the JAX loader's rule without
-    a dataset ``flip_idx``); segment and pose batches take the Python lane.
+    batches add ``gt_masks`` and pose batches ``gt_kpts``; obb batches hold
+    (B, max_gt, 5) rotated ``gt_boxes`` (`format_batch_task`). ``task``
+    defaults to the dataset's. Pose augmentation flips no image left to
+    right (the JAX loader's rule without a dataset ``flip_idx``); an obb
+    loader never augments, and so shuffles only when ``shuffle`` asks
+    (:114-117); task batches take the Python lane.
 
     With a ``mesh`` (parallel/mesh.py) ``batch_size`` is the global batch and
     each batch holds the rows of this rank's data coordinate (d of N: rows
@@ -129,9 +143,11 @@ class DataLoader:
         self.task = task or getattr(dataset, "task", "detect")
         if self.task == "classify":
             raise NotImplementedError("classify batches: the JAX package has no classify loader")
-        if self.task not in ("detect", "segment", "pose"):
-            raise NotImplementedError(f"task {self.task!r} batches are not ported: obb waits for "
-                                      "its head (ROADMAP Queue 1 item 6.2)")
+        if self.task not in ("detect", "segment", "pose", "obb"):
+            raise NotImplementedError(f"task {self.task!r} batches: the JAX package has no "
+                                      f"{self.task} loader")
+        if self.task == "obb":
+            augment = False  # rotated boxes take no mosaic or affine (:114-117)
         if self.task == "pose" and augment and not (hyp or {}).get("flip_idx"):
             hyp = dict(hyp or {}, flip_idx=None, fliplr=0.0)  # (:116-122)
         if mesh is not None and batch_size % mesh.n_data:

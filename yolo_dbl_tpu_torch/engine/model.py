@@ -4,8 +4,9 @@ One object holding a model with `train`, `val`, `predict` (`__call__`) and
 `tune`. `YOLO('yolov13s_DBL.yaml', nc=3)` builds the model from its YAML
 with seeded weights (a name with "cls" in it a `ClassificationModel`, as
 JAX's :48-55); `YOLO('runs/train/best.ckpt')` loads a deploy checkpoint
-(utils/checkpoint.py). The task (`task`: detect, segment, pose, classify)
-follows the head and picks the datasets, loaders, validator and predictor.
+(utils/checkpoint.py). The task (`task`: detect, segment, pose, obb,
+classify) follows the head and picks the datasets, loaders, validator and
+predictor.
 A classify model serves only: the JAX package has no classify loss, loader
 or validator, so `train` and `val` raise. The model lives on
 `device` (None means the card, through utils/device.py; tests pass "cpu")
@@ -46,7 +47,7 @@ from ..utils.checkpoint import load_deploy, peek_checkpoint_meta, save_checkpoin
 from ..utils.checks import check_imgsz
 from .predictor import TASK_PREDICTORS
 from .trainer import Trainer, check_trainable
-from .validator import DetectionValidator, PoseValidator, SegmentationValidator
+from .validator import DetectionValidator, OBBValidator, PoseValidator, SegmentationValidator
 
 NOT_PORTED = "not ported yet: it waits for the trackers and the exporter (ROADMAP Queue 1 item 6)"
 
@@ -102,10 +103,12 @@ class YOLO:
                                       "classify loss, loader or validator; it serves only")
 
     def _make_validator(self, model, **kw):
-        """The task's validator (model.py:80): detect, segment or pose."""
+        """The task's validator (model.py:80): detect, segment, pose or obb."""
         task = self.task
         if task == "segment":
             return SegmentationValidator(model, **kw)
+        if task == "obb":
+            return OBBValidator(model, **kw)
         if task == "pose":
             return PoseValidator(model, kpt_shape=self.model.yaml.get("kpt_shape"), **kw)
         return DetectionValidator(model, **kw)

@@ -1,7 +1,7 @@
-"""Predictors and their `Results` (port of yolo_dbl_tpu/engine/predictor.py
-but its OBB parts: `Boxes` :27, `Masks` :71, `Keypoints` :101, `Probs` :117,
+"""Predictors and their `Results` (port of yolo_dbl_tpu/engine/predictor.py:
+`Boxes` :27, `Masks` :71, `Keypoints` :101, `Probs` :117, `OBB` :142,
 `Results` :183, `_load_source` :334, `BasePredictor` :354, the detect,
-segment, pose and classify predictors :456-597).
+segment, pose, obb and classify predictors :456-597).
 
 `predict(source)` (JAX's `predictor(variables, source)`) makes one `Results`
 per image of a source: a path or directory of images, a list of RGB frames,
@@ -22,8 +22,10 @@ resolution (`decode_masks`), resized bilinearly to the letterboxed input,
 the padding cut off, resized to the frame, > 0.5 (JAX does the two resizes
 with cv2's INTER_LINEAR on the host, :489-507). `PosePredictor` gathers the
 decoded keypoints (visibility sigmoided) and un-letterboxes them;
-`ClassificationPredictor` gives each frame's class probabilities of its
-letterboxed canvas (JAX's letterbox, not a centre crop).
+`OBBPredictor` keeps rotated rows by the rotated NMS and maps their centres
+and sizes back to the frame (`Results.obb`; the angle unchanged, the rows
+not clipped); `ClassificationPredictor` gives each frame's class
+probabilities of its letterboxed canvas (JAX's letterbox, not a centre crop).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 
 from ..kernels.preprocess import letterbox_geometry, letterbox_normalize
 from ..nn.heads import decode_masks
-from ..ops.nms import mask_classes, non_max_suppression
+from ..ops.nms import mask_classes, non_max_suppression, non_max_suppression_rotated
 
 
 @dataclass
@@ -153,9 +155,50 @@ class Probs:
 
 
 @dataclass
+class OBB:
+    """Rotated boxes in source-frame pixels: data (n, 7) [cx, cy, w, h,
+    angle (radians), conf, cls]."""
+
+    data: np.ndarray
+
+    @property
+    def xywhr(self):
+        return self.data[:, :5]
+
+    @property
+    def conf(self):
+        return self.data[:, 5]
+
+    @property
+    def cls(self):
+        return self.data[:, 6]
+
+    @property
+    def xyxyxyxy(self):
+        """(n, 4, 2) corners: centre ± the half-width and half-height
+        vectors (+ +, - +, - -, + -)."""
+        cx, cy, w, h, a = (self.data[:, i] for i in range(5))
+        cos, sin = np.cos(a), np.sin(a)
+        c = np.stack([cx, cy], -1)[:, None]
+        d1 = np.stack([(w / 2) * cos, (w / 2) * sin], -1)[:, None]
+        d2 = np.stack([-(h / 2) * sin, (h / 2) * cos], -1)[:, None]
+        return np.concatenate([c + d1 + d2, c - d1 + d2, c - d1 - d2, c + d1 - d2], axis=1)
+
+    @property
+    def xyxy(self):
+        """The rotated boxes' axis-aligned envelopes (n, 4)."""
+        pts = self.xyxyxyxy
+        return np.concatenate([pts.min(1), pts.max(1)], axis=1)
+
+    def __len__(self):
+        return len(self.data)
+
+
+@dataclass
 class Results:
     """The result of one image, in its own pixels: boxes, and the masks or
-    keypoints of the same rows, or a classifier's probabilities."""
+    keypoints of the same rows, or rotated boxes, or a classifier's
+    probabilities."""
 
     boxes: Optional[Boxes]
     orig_shape: tuple
@@ -164,10 +207,11 @@ class Results:
     masks: Optional[Masks] = None
     keypoints: Optional[Keypoints] = None
     probs: Optional[Probs] = None
+    obb: Optional[OBB] = None
     orig_img: Optional[np.ndarray] = None
 
     def __len__(self):
-        for attr in (self.boxes, self.masks, self.keypoints):
+        for attr in (self.boxes, self.obb, self.masks, self.keypoints):
             if attr is not None:
                 return len(attr)
         return 0
@@ -176,6 +220,12 @@ class Results:
         if self.probs is not None:
             return [{"name": self.names.get(self.probs.top1, str(self.probs.top1)),
                      "class": self.probs.top1, "confidence": self.probs.top1conf}]
+        if self.obb is not None:
+            return [{"name": self.names.get(int(row[6]), str(int(row[6]))), "class": int(row[6]),
+                     "confidence": float(row[5]),
+                     "box": {"x": float(row[0]), "y": float(row[1]), "w": float(row[2]),
+                             "h": float(row[3]), "angle": float(row[4])}}
+                    for row in self.obb.data]
         out = []
         segs = self.masks.xy if self.masks is not None else []
         for i, row in enumerate(self.boxes.data):
@@ -200,21 +250,27 @@ class Results:
         if self.probs is not None:
             return ", ".join(f"{self.names.get(i, i)} {self.probs.data[i]:.2f}"
                              for i in self.probs.top5)
-        if self.boxes is None or len(self.boxes) == 0:
+        src = self.obb if self.obb is not None else self.boxes
+        if src is None or len(src) == 0:
             return "(no detections)"
         counts: Dict[str, int] = {}
-        for c in self.boxes.cls:
+        for c in src.cls:
             name = self.names.get(int(c), str(int(c)))
             counts[name] = counts.get(name, 0) + 1
         return ", ".join(f"{n} {k}{'s' if n > 1 else ''}" for k, n in counts.items())
 
     def save_txt(self, path, save_conf: bool = True):
-        """YOLO-format rows: class, normalized xywh, and conf; a classifier's
-        top 5 as 'probability name'."""
+        """YOLO-format rows: class, normalized xywh, and conf; rotated boxes
+        as class and their 4 normalized corners (DOTA style), and conf; a
+        classifier's top 5 as 'probability name'."""
         h, w = self.orig_shape
         lines = []
         if self.probs is not None:
             lines = [f"{self.probs.data[i]:.2f} {self.names.get(i, i)}" for i in self.probs.top5]
+        elif self.obb is not None:
+            for row, pts in zip(self.obb.data, self.obb.xyxyxyxy / np.array([w, h])):
+                coords = " ".join(f"{v:.6f}" for v in pts.reshape(-1))
+                lines.append(f"{int(row[6])} {coords}" + (f" {row[5]:.6f}" if save_conf else ""))
         else:
             for row in self.boxes.data:
                 x1, y1, x2, y2 = row[:4]
@@ -252,7 +308,8 @@ class Results:
 
     def plot(self, img: Optional[np.ndarray] = None, color=(255, 64, 64), kpt_radius: int = 3):
         """The result drawn on a copy of the image: masks blended in, boxes
-        and labels, keypoints of visibility > 0.25, or the top-1 class."""
+        and labels, keypoints of visibility > 0.25, rotated boxes as
+        polygons with labels, or the top-1 class."""
         import cv2
 
         if img is None:
@@ -268,6 +325,13 @@ class Results:
                 cc = tuple(int(v) for v in np.array(color) * (0.5 + 0.5 * ((j % 3) / 2)))
                 overlay[m.astype(bool)] = cc
             canvas = cv2.addWeighted(canvas, 0.6, overlay, 0.4, 0)
+        if self.obb is not None:
+            for row, pts in zip(self.obb.data, self.obb.xyxyxyxy):
+                cv2.polylines(canvas, [pts.astype(np.int32)], True, color, 2)
+                label = f"{self.names.get(int(row[6]), int(row[6]))} {row[5]:.2f}"
+                cv2.putText(canvas, label, (int(pts[0, 0]), max(int(pts[0, 1]) - 4, 12)),
+                            cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1)
+            return canvas
         if self.boxes is not None:
             for row in self.boxes.data:
                 x1, y1, x2, y2 = (int(v) for v in row[:4])
@@ -514,6 +578,41 @@ class PosePredictor(BasePredictor):
                        orig_img=im)
 
 
+class OBBPredictor(BasePredictor):
+    """Rotated boxes (:561): the rotated NMS on the device, the rows mapped
+    back to the frame by the letterbox gain and padding."""
+
+    @torch.inference_mode()
+    def infer_images(self, img: torch.Tensor):
+        """Letterboxed images → rotated NMS output (dets (B, max_det, 7),
+        counts (B,)) in letterboxed pixels."""
+        pred = mask_classes(self.model.predict(img), self.classes, self.model.nc)
+        return non_max_suppression_rotated(pred, conf_thres=self.conf, iou_thres=self.iou,
+                                           max_det=self.max_det, nc=self.model.nc)
+
+    @staticmethod
+    def _frame_rows(d, gain, pad):
+        """Letterboxed [x, y, w, h, angle, conf, cls] rows → frame pixels,
+        float64 (:571-574)."""
+        d = np.asarray(d, np.float64).copy()
+        d[:, 0] = (d[:, 0] - pad[0]) / gain
+        d[:, 1] = (d[:, 1] - pad[1]) / gain
+        d[:, 2:4] /= gain
+        return d
+
+    def __call__(self, frames) -> List[np.ndarray]:
+        """The device lane alone: uint8 (B, H, W, 3) frames of one size →
+        per-image (n, 7) float64 rows [x, y, w, h, angle, conf, cls] in
+        frame pixels."""
+        (dets, counts), gain, pad = self._infer_frames(frames)
+        return [self._frame_rows(dets[i, : int(counts[i])], gain, pad) for i in range(len(dets))]
+
+    def build_result(self, out, i, im, gain, pad, path):
+        dets, num = out
+        return Results(None, orig_shape=im.shape[:2], path=path, names=self.model.names,
+                       obb=OBB(self._frame_rows(dets[i][: int(num[i])], gain, pad)), orig_img=im)
+
+
 class ClassificationPredictor(BasePredictor):
     """Class probabilities (:581): the softmax of the Classify head."""
 
@@ -533,4 +632,5 @@ class ClassificationPredictor(BasePredictor):
 
 
 TASK_PREDICTORS = {"detect": DetectionPredictor, "segment": SegmentationPredictor,
-                   "pose": PosePredictor, "classify": ClassificationPredictor}
+                   "pose": PosePredictor, "obb": OBBPredictor,
+                   "classify": ClassificationPredictor}

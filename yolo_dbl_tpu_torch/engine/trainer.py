@@ -4,12 +4,12 @@ yolo_dbl_tpu/engine/trainer.py).
 The train step is the JAX `make_train_step` (:62): uint8 batch → /255 →
 train-mode forward (BatchNorm on batch statistics) → the head's loss
 (`task_loss`: `detection_loss`, v10Detect's `e2e_detect_loss`, Segment's
-`segmentation_loss` or Pose's `pose_loss`) → gradients → optimizer → EMA,
-with the metrics loss/box_loss/cls_loss/dfl_loss (and mask_loss, or
-kpt_loss and kobj_loss). An IDetect model (YOLOv7) and a Classify model do
+`segmentation_loss`, Pose's `pose_loss` or OBB's `obb_loss`) → gradients →
+optimizer → EMA, with the metrics loss/box_loss/cls_loss/dfl_loss (and
+mask_loss, or kpt_loss and kobj_loss). An IDetect model (YOLOv7) and a Classify model do
 not train: the JAX package has no loss dispatch for either, so `Trainer`
-and `train_loss` raise NotImplementedError. A Segment or Pose model does
-not train under a mesh either (`check_trainable`).
+and `train_loss` raise NotImplementedError. A Segment, Pose or OBB model
+does not train under a mesh either (`check_trainable`).
 On the card the DySample samplers run the K2 kernels forward and backward.
 A bfloat16 model runs its forward and backward in bfloat16; the loss, the
 TAL assigner, the float32 parameters, their gradients, the optimizer and
@@ -54,7 +54,7 @@ import torch
 from ..cfg import get_cfg
 from ..kernels.preprocess import device_normalize
 from ..losses.detection import detection_loss
-from ..losses.extra import e2e_detect_loss, pose_loss, segmentation_loss
+from ..losses.extra import e2e_detect_loss, obb_loss, pose_loss, segmentation_loss
 from ..nn.common import cross_rank
 from ..nn.tasks import DetectionModel
 from ..parallel.mesh import Mesh, shard_batch
@@ -65,7 +65,7 @@ from .train_state import build_optimizer, ema_update
 BUCKET_BYTES = 25 * 2**20
 
 
-TASK_HEADS = ("Segment", "Pose")
+TASK_HEADS = ("Segment", "Pose", "OBB")
 
 
 def check_trainable(model: DetectionModel, mesh: Optional[Mesh] = None):
@@ -73,10 +73,11 @@ def check_trainable(model: DetectionModel, mesh: Optional[Mesh] = None):
     under a mesh. IDetect (YOLOv7): JAX's `_task_loss` (:28) hands its 5-D
     maps to `detection_loss`, which expects anchor-free maps. Classify:
     `_task_loss` has no branch for it (nor has the JAX package a classify
-    loader or validator). The port invents no loss for either. Segment and
-    Pose under a mesh: their mask and keypoint normalizers (`fg.sum()`,
-    `n_fg`) would be a rank's, where JAX's program takes them over the
-    global batch (ROADMAP Queue 1 item 7)."""
+    loader or validator). The port invents no loss for either. Segment,
+    Pose and OBB under a mesh: their mask and keypoint normalizers
+    (`fg.sum()`, `n_fg`) and the OBB loss's `tss` would be a rank's, where
+    JAX's program takes them over the global batch (ROADMAP Queue 1 item
+    7)."""
     if model.head_name == "IDetect":
         raise NotImplementedError("IDetect (YOLOv7) does not train: the JAX package has no "
                                   "IDetect loss; it serves and validates only")
@@ -93,7 +94,8 @@ def task_loss(model: DetectionModel, cfg, outputs, batch, mesh: Optional[Mesh] =
     """(loss, items) of the model's raw outputs by its head (:28
     `_task_loss`): `segmentation_loss` (with `cfg.overlap_mask`) or
     `pose_loss` (with the YAML's `kpt_shape` and `cfg.pose`, `cfg.kobj`)
-    for a Segment or Pose tuple; `e2e_detect_loss` for v10Detect's dict,
+    for a Segment or Pose tuple; `obb_loss` for OBB's (Detect maps, angle
+    maps); `e2e_detect_loss` for v10Detect's dict,
     whose loss is the sum of its two terms and whose items are one2many's;
     else `detection_loss`."""
     check_trainable(model, mesh)
@@ -107,6 +109,9 @@ def task_loss(model: DetectionModel, cfg, outputs, batch, mesh: Optional[Mesh] =
         return pose_loss(det, kpts, batch, model.strides, model.nc,
                          kpt_shape=tuple(model.yaml.get("kpt_shape", (17, 3))),
                          pose_gain=cfg.pose, kobj_gain=cfg.kobj, **gains)
+    if model.head_name == "OBB":
+        det, angles = outputs
+        return obb_loss(det, angles, batch, model.strides, model.nc, **gains)
     gains["mesh"] = mesh
     if isinstance(outputs, dict):
         total, items = e2e_detect_loss(outputs, batch, model.strides, model.nc, **gains)

@@ -1,5 +1,5 @@
 """Validation: inference and NMS on the model's device, metrics on the host
-(port of yolo_dbl_tpu/engine/validator.py:26-250, the OBB validator aside).
+(port of yolo_dbl_tpu/engine/validator.py).
 
 Each batch's uint8 images go to the model's device, where they are
 normalized to the model's type (`device_normalize`), predicted and kept by
@@ -21,7 +21,10 @@ the batch arrays (`gt_boxes`, `gt_cls`, `gt_mask`, and `gt_masks` or
 `gt_kpts`): `DetectionModel.kept_rows` keeps each row's anchor index and
 gathers the kept rows' coefficients or decoded keypoints on the device, and the masks are decoded there at prototype
 resolution (> 0.5); the mask IoU and the OKS (GT box area x 0.53) are
-computed on the host.
+computed on the host. `OBBValidator` (:252) keeps rows by the rotated NMS
+and scores the rotated boxes' axis-aligned extents [cx ± w/2, cy ± h/2]
+as boxes and their probiou with the GT's rotated boxes as the task
+affinity (`rbox_mAP50`, `rbox_mAP50-95`).
 """
 
 from __future__ import annotations
@@ -35,10 +38,11 @@ import numpy as np
 import torch
 
 from ..kernels.preprocess import device_normalize
+from ..losses.extra import probiou
 from ..nn.heads import decode_masks
 from ..nn.tasks import DetectionModel
 from ..ops.boxes import xywh2xyxy
-from ..ops.nms import non_max_suppression
+from ..ops.nms import non_max_suppression, non_max_suppression_rotated
 from ..utils.metrics import COCOEvaluator, DetMetrics, TaskMetrics, kpt_oks_np, mask_iou_np
 
 
@@ -69,6 +73,11 @@ class DetectionValidator:
         return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
                                    max_det=self.max_det)
 
+    @staticmethod
+    def _box_rows(d):
+        """An image's kept rows as [x1, y1, x2, y2, conf, cls] for the box metrics."""
+        return d
+
     def _ground_truth(self, batch, i, imgsz):
         """Image i's GT: (mask over the batch's GT rows or None, xyxy boxes in
         pixels, classes), from `labels` where the batch has them."""
@@ -97,7 +106,7 @@ class DetectionValidator:
             imgsz = batch["img"].shape[1]
             for i in range(len(dets)):
                 k = int(num[i])
-                d = dets[i][:k]
+                d = self._box_rows(dets[i][:k])
                 m, gt_boxes, gt_cls = self._ground_truth(batch, i, imgsz)
                 metrics.update(d, gt_boxes, gt_cls)
                 if self.task_key:
@@ -183,3 +192,49 @@ class PoseValidator(_TaskValidator):
         area = np.clip((gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1]),
                        1e-9, None) * 0.53
         return kpt_oks_np(gk, out[2][i, :k].float().cpu().numpy(), area)
+
+
+def _extent(xywh):
+    """[cx - w/2, cy - h/2, cx + w/2, cy + h/2] of (n, >= 4) numpy rows."""
+    return np.concatenate([xywh[:, 0:1] - xywh[:, 2:3] / 2, xywh[:, 1:2] - xywh[:, 3:4] / 2,
+                           xywh[:, 0:1] + xywh[:, 2:3] / 2, xywh[:, 1:2] + xywh[:, 3:4] / 2], 1)
+
+
+def _gt_rboxes(batch, i, imgsz):
+    """Image i's (mask, (n, 5) float64 rotated GT boxes in pixels, classes)."""
+    m = np.asarray(batch["gt_mask"][i]).astype(bool)
+    gt5 = np.asarray(batch["gt_boxes"][i])[m].astype(np.float64).copy()
+    gt5[:, :4] *= imgsz
+    return m, gt5, np.asarray(batch["gt_cls"][i])[m]
+
+
+class OBBValidator(DetectionValidator):
+    """Box and rotated-box (probiou) mAP (validator.py:252): the rotated NMS
+    on the device; the box metrics take the kept rows' and the GT's
+    axis-aligned extents, the task metrics the probiou of each GT with each
+    kept row, in float32 (JAX's jnp arrays), on the host."""
+
+    task_key = "rbox"
+
+    @torch.inference_mode()
+    def infer(self, img: torch.Tensor):
+        """NHWC images on the model's device → rotated NMS output: dets
+        (B, max_det, 7) [x, y, w, h, angle, conf, cls] and counts (B,)."""
+        pred = self.model.predict(device_normalize(img, self.model.dtype))
+        return non_max_suppression_rotated(pred, conf_thres=self.conf, iou_thres=self.iou,
+                                           max_det=self.max_det, nc=self.model.nc)
+
+    @staticmethod
+    def _box_rows(d):
+        return np.concatenate([_extent(d), d[:, 5:7]], 1)
+
+    def _ground_truth(self, batch, i, imgsz):
+        m, gt5, gt_cls = _gt_rboxes(batch, i, imgsz)
+        return m, _extent(gt5), gt_cls
+
+    def _affinity(self, out, i, k, batch, m, gt_boxes, imgsz):
+        gt5 = _gt_rboxes(batch, i, imgsz)[1]
+        if not (k and len(gt5)):
+            return np.zeros((len(gt5), k))
+        rows = out[0][i, :k, :5].float().cpu()
+        return probiou(torch.as_tensor(gt5[:, None], dtype=torch.float32), rows[None]).numpy()

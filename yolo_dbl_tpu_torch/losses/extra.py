@@ -1,11 +1,10 @@
 """Task losses beyond plain detection (port of yolo_dbl_tpu/losses/extra.py):
-YOLOv10's end-to-end loss, the classification loss, the segmentation loss
-and the pose loss, with their helpers. The rotated (OBB) loss waits for its
-head (ROADMAP Queue 1 item 6.2).
+YOLOv10's end-to-end loss, the classification loss, the segmentation loss,
+the pose loss and the rotated (OBB) loss, with their helpers (`probiou`).
 
 Each loss computes in float32 for float32 and bfloat16 maps, as the JAX
-losses cast to it. The segment and pose terms keep float64 maps in float64
-(`loss_dtype`), the reference that tests hold float32 runs to; their
+losses cast to it. The segment, pose and OBB terms keep float64 maps in
+float64 (`loss_dtype`), the reference that tests hold float32 runs to; their
 `detection_loss` term is float32 whatever the maps' type, as JAX's
 detection loss casts to it (JAX's losses/detection.py:87).
 
@@ -26,10 +25,10 @@ import numpy as np
 import torch
 
 from ..nn.heads import dfl_expectation, flatten_levels, kpts_decode
-from ..ops.anchors import dist2bbox, make_anchors
+from ..ops.anchors import bbox2dist, dist2bbox, dist2rbox, make_anchors
 from ..ops.boxes import xywh2xyxy
-from .detection import LossItems, _bce_with_logits, detection_loss
-from .tal import task_aligned_assign
+from .detection import LossItems, _bce_with_logits, _df_loss, detection_loss
+from .tal import rotated_task_aligned_assign, task_aligned_assign
 
 
 class SegItems(NamedTuple):
@@ -240,3 +239,84 @@ def pose_loss(feats, kpt_maps, batch, strides, nc, kpt_shape=(17, 3), pose_gain=
         loss_kobj = torch.zeros((), dtype=dt, device=dev)
     total = total_det + (loss_kpt * pose_gain + loss_kobj * kobj_gain) * b
     return total, PoseItems(*items, loss_kpt * pose_gain, loss_kobj * kobj_gain)
+
+
+def probiou(obb1, obb2, eps=1e-7):
+    """Probabilistic IoU of broadcastable (..., 5) rotated boxes (cx, cy, w,
+    h, angle) → (...,) in [0, 1] (extra.py:84): one minus the Hellinger
+    distance of the boxes' Gaussians, the same operations in the same order.
+    A box of w or h 0 has a zero covariance determinant, whose square root's
+    gradient is infinite here as in JAX."""
+    x1, y1, w1, h1, r1 = obb1.unbind(-1)
+    x2, y2, w2, h2, r2 = obb2.unbind(-1)
+
+    def cov(w, h, r):
+        a = (w**2 / 12) * torch.cos(r) ** 2 + (h**2 / 12) * torch.sin(r) ** 2
+        b = (w**2 / 12) * torch.sin(r) ** 2 + (h**2 / 12) * torch.cos(r) ** 2
+        c = ((w**2 - h**2) / 12) * torch.cos(r) * torch.sin(r)
+        return a, b, c
+
+    a1, b1, c1 = cov(w1, h1, r1)
+    a2, b2, c2 = cov(w2, h2, r2)
+    zero = torch.zeros((), dtype=a1.dtype, device=a1.device)
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / (
+        (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps) * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / ((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps) * 0.5
+    t3 = torch.log(((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2)
+                   / (4 * torch.sqrt(torch.maximum(a1 * b1 - c1**2, zero)
+                                     * torch.maximum(a2 * b2 - c2**2, zero)) + eps) + eps) * 0.5
+    bd = torch.minimum(torch.maximum(t1 + t2 + t3, torch.full_like(zero, eps)),
+                       torch.full_like(zero, 100.0))
+    hd = torch.sqrt(1.0 - torch.exp(-bd) + eps)
+    return 1.0 - hd
+
+
+def obb_loss(feats, angle_maps, batch, strides, nc, reg_max=16, box_gain=7.5, cls_gain=0.5,
+             dfl_gain=1.5):
+    """The rotated detection loss (extra.py:285): BCE classes, the probiou
+    box term and DFL against the target's axis-aligned box, with the rotated
+    TAL on the detached predictions. feats: per-level NHWC Detect maps;
+    angle_maps: the head's per-level angles (B, H, W, 1); batch["gt_boxes"]
+    (B, M, 5): xywh normalized to [0, 1] and the angle in radians. GTs under
+    2 px on a side are dropped. Returns (total, LossItems), the total times
+    the batch size."""
+    b = feats[0].shape[0]
+    dev = feats[0].device
+    imgsz_h = feats[0].shape[1] * strides[0]
+    imgsz_w = feats[0].shape[2] * strides[0]
+    anchor_points, stride_t = make_anchors([f.shape[1:3] for f in feats], strides, device=dev)
+    x = flatten_levels(feats)
+    dt = loss_dtype(x)
+    x = x.to(dt)
+    anchor_points, stride_t = anchor_points.to(dt), stride_t.to(dt)
+    pred_distri, pred_scores = x[..., : 4 * reg_max], x[..., 4 * reg_max:]
+    pred_angle = flatten_levels(angle_maps).to(dt)  # (B, A, 1)
+    pd = pred_distri.reshape(b, -1, 4, reg_max)
+    dist = dfl_expectation(pred_distri, reg_max)
+    pred_rboxes = torch.cat([dist2rbox(dist, pred_angle, anchor_points[None]), pred_angle], -1)
+
+    gt = batch["gt_boxes"].to(dt)
+    scale = torch.tensor([imgsz_w, imgsz_h, imgsz_w, imgsz_h], dtype=dt, device=dev)
+    gt_rboxes = torch.cat([gt[..., :4] * scale, gt[..., 4:5]], -1)
+    size_ok = (gt_rboxes[..., 2] >= 2) & (gt_rboxes[..., 3] >= 2)  # (extra.py:318)
+    mask_gt = batch["gt_mask"].to(dt) * size_ok.to(dt)
+
+    with torch.no_grad():
+        assign = pred_rboxes.detach().clone()
+        assign[..., :4] *= stride_t[None]
+        _, tgt_rboxes, tgt_scores, fg_mask, _ = rotated_task_aligned_assign(
+            torch.sigmoid(pred_scores.detach()), assign, anchor_points * stride_t,
+            batch["gt_cls"].long(), gt_rboxes, mask_gt, num_classes=nc)
+        tgt_rboxes = torch.cat([tgt_rboxes[..., :4] / stride_t[None], tgt_rboxes[..., 4:]], -1)
+    fg = fg_mask.to(dt)
+    tss = torch.clamp(tgt_scores.sum(), min=1.0)
+
+    loss_cls = _bce_with_logits(pred_scores, tgt_scores).sum() / tss
+    weight = tgt_scores.sum(-1) * fg
+    iou = torch.maximum(probiou(pred_rboxes, tgt_rboxes), torch.zeros((), dtype=dt, device=dev))
+    loss_box = ((1.0 - iou) * weight).sum() / tss
+    tgt_ltrb = bbox2dist(anchor_points[None], xywh2xyxy(tgt_rboxes[..., :4]), reg_max)
+    tgt_ltrb = tgt_ltrb.clamp(0, reg_max - 1 - 0.01)
+    loss_dfl = (_df_loss(pd, tgt_ltrb, reg_max) * weight).sum() / tss
+    items = LossItems(box=loss_box * box_gain, cls=loss_cls * cls_gain, dfl=loss_dfl * dfl_gain)
+    return (items.box + items.cls + items.dfl) * b, items

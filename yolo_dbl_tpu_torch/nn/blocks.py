@@ -1,7 +1,8 @@
 """YOLO building blocks (NCHW inside, PyTorch).
 
 Port of the YOLOv13/DBL-family and stock detect-family (v3, v5, v6, v8,
-11, v12) subset of yolo_dbl_tpu/nn/blocks.py, in dependency order.
+11, v12) subset of yolo_dbl_tpu/nn/blocks.py, and the ResNet layers of the
+`-cls-resnet` configs, in dependency order.
 Attribute names are the flax scope names (`cv1`, `m_0`, `edge_generator`,
 ...), so JAX variables load key by key (utils/convert.py). Each class cites
 the JAX class it mirrors.
@@ -179,6 +180,47 @@ class SPP(nn.Module):
         ys = [y] + [_nchw(max_pool(_nhwc(y), k, 1, k // 2)) for k in self.k]
         return self.cv2(torch.cat(ys, 1))
 
+
+class ResNetBlock(nn.Module):
+    """Bottleneck ResNet block (blocks.py:344): cv1 1x1 and cv2 3x3 (stride
+    s) Convs with their SiLU, cv3 1x1 to e·c2 without activation, a
+    `shortcut` Conv (1x1, stride s, no activation) where the shape changes,
+    and ReLU on the sum."""
+
+    def __init__(self, c1, c2, s=1, e=4):
+        super().__init__()
+        c3 = e * c2
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, 3, s, p=1)
+        self.cv3 = Conv(c2, c3, 1, act=False)
+        self.shortcut = Conv(c1, c3, 1, s, act=False) if s != 1 or c1 != c3 else None
+
+    def forward(self, x):
+        y = self.cv3(self.cv2(self.cv1(x)))
+        return torch.relu(y + (x if self.shortcut is None else self.shortcut(x)))
+
+
+class ResNetLayer(nn.Module):
+    """n ResNet blocks `b0`, `b1`, ... (the first of stride s), or with
+    `is_first` the stem: a 7x7 stride-2 Conv and a 3x3 stride-2 max pool
+    of padding 1 (blocks.py:365)."""
+
+    def __init__(self, c1, c2, s=1, is_first=False, n=1, e=4):
+        super().__init__()
+        self.is_first, self.n = is_first, n
+        if is_first:
+            self.stem = Conv(c1, c2, 7, 2, p=3)
+            return
+        self.b0 = ResNetBlock(c1, c2, s, e)
+        for i in range(1, n):
+            self.add_module(f"b{i}", ResNetBlock(e * c2, c2, 1, e))
+
+    def forward(self, x):
+        if self.is_first:
+            return _nchw(max_pool(_nhwc(self.stem(x)), 3, 2, 1))
+        for i in range(self.n):
+            x = getattr(self, f"b{i}")(x)
+        return x
 
 
 class SPPCSPC(nn.Module):

@@ -9,17 +9,20 @@ the NMS-free top-k selection of a decoded one2one output.
 
 The task heads nest a Detect as `detect` and return tuples: `Segment`
 (Detect maps, per-level mask coefficients, the prototypes of `Proto`),
-`Pose` (Detect maps, per-level raw keypoint maps); `Classify` returns
-(B, nc) logits. `decode_masks` turns kept coefficients into box-cropped mask
-probabilities at prototype resolution.
+`Pose` (Detect maps, per-level raw keypoint maps), `OBB` (Detect maps,
+per-level angles); `Classify` returns (B, nc) logits. `decode_masks` turns
+kept coefficients into box-cropped mask probabilities at prototype
+resolution; `decode_obb` decodes an OBB head to rotated boxes.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
-from ..ops.anchors import dist2bbox, make_anchors
+from ..ops.anchors import dist2bbox, dist2rbox, make_anchors
 from ..ops.boxes import xywh2xyxy
 from .common import Conv, Conv2d, DWConv, conv2d, linear
 
@@ -248,6 +251,23 @@ class Pose(nn.Module):
         return self.detect(xs), _run_side_branch(self, xs)
 
 
+class OBB(nn.Module):
+    """Oriented-box head (heads.py:171): a nested `detect` Detect and per
+    level ne angle channels through `cv4_{i}_*` (c4 = max(ch[0] // 4, ne)),
+    mapped to [-π/4, 3π/4) as (σ - 0.25)·π. Returns (Detect maps, angle
+    maps), NCHW."""
+
+    def __init__(self, nc=80, ne=1, ch=(), legacy=False):
+        super().__init__()
+        self.nc, self.nl, self.ne = nc, len(ch), ne
+        self.detect = Detect(nc, ch, legacy=legacy)
+        _side_branch(self, ch, max(ch[0] // 4, ne), ne)
+
+    def forward(self, xs):
+        return self.detect(xs), [(torch.sigmoid(a) - 0.25) * math.pi
+                                 for a in _run_side_branch(self, xs)]
+
+
 class Classify(nn.Module):
     """Classification head (heads.py:194): `conv` Conv 1x1 to 1280, the
     global mean, then the Dense `linear` to c2 logits. JAX's dropout has rate
@@ -299,6 +319,19 @@ def decode_keypoints(det_maps, kpt_maps, strides, kpt_shape):
     if nd == 3:
         return torch.cat([xy, torch.sigmoid(dec[..., 2:])], -1)
     return xy
+
+
+def decode_obb(feats, angle_maps, strides, nc, reg_max=16):
+    """OBB head maps (per-level NHWC) → (B, 4+nc+1, A) in the maps' type
+    (heads.py:292): rotated xywh in input pixels, sigmoid scores, and the
+    angle last."""
+    x = flatten_levels(feats)
+    anchors, stride_t = make_anchors([f.shape[1:3] for f in feats], strides, device=x.device)
+    angle = flatten_levels(angle_maps)
+    box_logits, cls_logits = x[..., : 4 * reg_max], x[..., 4 * reg_max:]
+    dist = dfl_expectation(box_logits, reg_max)
+    rbox = dist2rbox(dist, angle, anchors[None].to(dist.dtype)) * stride_t[None].to(dist.dtype)
+    return torch.cat([rbox, torch.sigmoid(cls_logits), angle], dim=-1).transpose(-1, -2)
 
 
 def gather_anchors(x, anchor_idx):

@@ -1,9 +1,10 @@
 """YAML → model compiler and the detection model (port of yolo_dbl_tpu/nn/tasks.py).
 
 Only the branches that the YOLOv13/DBL family (`cfg/models/v13/`), the
-detect families' rows (v3, v5, v6, v7, v8, v9, v10, 11, v12) and the
-segment, pose and classify heads use are ported; any other module name
-raises NotImplementedError. The model YAMLs
+detect families' rows (v3, v5, v6, v7, v8, v9, v10, 11, v12), the
+segment, pose, OBB and classify heads and the `-cls-resnet` trunks
+(ResNetLayer, TorchVision) use are ported; any other module name raises
+NotImplementedError. The model YAMLs
 are the port's own verbatim copies under cfg/, read by path with the port's
 small YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
 """
@@ -28,8 +29,9 @@ from . import v9v10 as V
 from .attention import SLA
 from .common import Conv, ConvTranspose2d, DSConv, DWConv, default_act
 from ..ops.nms import mask_classes, non_max_suppression
-from .heads import (Classify, Detect, IDetect, Pose, Segment, V10Detect, decode_detections,
-                    decode_keypoints, decode_v7, flatten_levels, gather_anchors)
+from .heads import (OBB, Classify, Detect, IDetect, Pose, Segment, V10Detect, decode_detections,
+                    decode_keypoints, decode_obb, decode_v7, flatten_levels, gather_anchors)
+from .structures.blocks import TorchVision
 from .upsample import carafe as U
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
@@ -218,7 +220,7 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
             args = [c1, c2, *args[1:]]
         elif m in TORCH_ROWS:
             c2 = chs[f]
-        elif m in ("Detect", "Segment", "Pose"):
+        elif m in ("Detect", "Segment", "Pose", "OBB"):
             if m == "Segment" and len(args) > 2:  # the prototypes' width
                 args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             args.append([chs[x] for x in f])
@@ -228,6 +230,11 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
             c1, c2 = chs[f], args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
+            args = [c1, c2, *args[1:]]
+        elif m == "ResNetLayer":  # unscaled (tasks.py:264): c2 = args[1], or 4x past the stem
+            c2 = args[1] if args[3] else args[1] * 4
+        elif m == "TorchVision":  # the trunk's width, unscaled (tasks.py:279-281)
+            c1, c2 = chs[f], args[0]
             args = [c1, c2, *args[1:]]
         elif m in _ARGS_AS_GIVEN:
             c2 = chs[f] if isinstance(f, int) else chs[f[-1]]
@@ -273,8 +280,14 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
     if m == "Pose":
         return Pose(nc=a[0], kpt_shape=tuple(a[1]) if len(a) > 3 else (17, 3), ch=tuple(a[-2]),
                     legacy=a[-1])
+    if m == "OBB":  # (tasks.py:597)
+        return OBB(nc=a[0], ne=a[1] if len(a) > 3 else 1, ch=tuple(a[-2]), legacy=a[-1])
     if m == "Classify":
         return Classify(a[0], a[1])
+    if m == "ResNetLayer":  # [c1, c2, s, is_first, n(, e)] (tasks.py:542)
+        return B.ResNetLayer(c_in[0], *a[1:])
+    if m == "TorchVision":
+        return TorchVision(*a)
     if m == "IDetect":
         return IDetect(nc=a[0], anchors=a[1], ch=tuple(a[2]))
     if m in ("Concat", "Upsample", "CBFuse") or m in TORCH_ROWS:
@@ -320,9 +333,11 @@ class DetectionModel(nn.Module):
     (B, H, W, na, 5 + nc) maps in float32 and decodes them with `decode_v7`
     (its A counts na anchors a cell). A Segment model returns (Detect maps,
     coefficient maps, prototypes (B, Hm, Wm, nm)) and a Pose model (Detect
-    maps, keypoint maps), all NHWC, and both decode the Detect maps; neither
-    gets the bias prior (`_bias_init`). `ClassificationModel` holds a
-    Classify head.
+    maps, keypoint maps), all NHWC, and both decode the Detect maps; an OBB
+    model returns (Detect maps, angle maps) and decodes to (B, 4+nc+1, A)
+    rotated boxes with the angle last (`decode_obb`). None of the three gets
+    the bias prior (`_bias_init`). `ClassificationModel` holds a Classify
+    head.
     """
 
     def __init__(self, cfg="yolov13s_DBL.yaml", ch=3, nc=None, device=None,
@@ -364,7 +379,7 @@ class DetectionModel(nn.Module):
         feats = self.forward(torch.zeros((1, probe, probe, ch)))
         if isinstance(feats, dict):  # v10Detect (tasks.py:802)
             feats = feats["one2one"]
-        elif isinstance(feats, tuple):  # Segment, Pose (tasks.py:804)
+        elif isinstance(feats, tuple):  # Segment, Pose, OBB (tasks.py:804)
             feats = feats[0]
         return tuple(int(probe // f.shape[1]) for f in feats)
 
@@ -419,7 +434,7 @@ class DetectionModel(nn.Module):
         """Stride-aware Detect bias prior (tasks.py:814), on a plain Detect
         head only: JAX's rule matches `m{head}/cv2_{lvl}_2/conv/bias`, which
         no v10Detect leaf (`m{head}/one2many/cv2_...`), no Segment or Pose
-        leaf (`m{head}/detect/cv2_...`) and no IDetect leaf matches, so those
+        leaf (`m{head}/detect/cv2_...`), no OBB leaf and no IDetect leaf matches, so those
         heads keep zero biases (ROADMAP Queue 3)."""
         if self.head_name != "Detect":
             return
@@ -430,7 +445,7 @@ class DetectionModel(nn.Module):
 
     @property
     def detect(self) -> nn.Module:
-        """The head module: Detect, V10Detect, IDetect, Segment, Pose or Classify."""
+        """The head module: Detect, V10Detect, IDetect, Segment, Pose, OBB or Classify."""
         return getattr(self, f"m{self.spec.layers[-1].i}")
 
     @property
@@ -441,7 +456,7 @@ class DetectionModel(nn.Module):
         det = self.detect
         if isinstance(det, V10Detect):
             return [det.one2many, det.one2one]
-        if isinstance(det, (Segment, Pose)):
+        if isinstance(det, (Segment, Pose, OBB)):
             return [det.detect]
         return [det] if isinstance(det, Detect) else []
 
@@ -527,10 +542,13 @@ class DetectionModel(nn.Module):
     def decode_outputs(self, feats):
         """Raw forward outputs → (B, 4+nc, A) (tasks.py:843): v10Detect's
         one2one branch, a Segment or Pose head's Detect maps, or IDetect's
-        maps through `decode_v7`."""
+        maps through `decode_v7`; an OBB head's maps and angles → (B,
+        4+nc+1, A) through `decode_obb`."""
         if isinstance(feats, dict):
             feats = feats["one2one"]
         elif isinstance(feats, tuple):
+            if self.head_name == "OBB":
+                return decode_obb(feats[0], feats[1], self.strides, self.nc, self.reg_max)
             feats = feats[0]
         if self.head_name == "IDetect":
             return decode_v7(feats, self.strides, self.detect.anchors, self.nc)

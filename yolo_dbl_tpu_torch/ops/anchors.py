@@ -38,3 +38,16 @@ def bbox2dist(anchor_points, bbox, reg_max):
     dist = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1)
     return torch.minimum(torch.maximum(dist, torch.zeros((), dtype=dist.dtype, device=dist.device)),
                          torch.full((), reg_max - 0.01, dtype=dist.dtype, device=dist.device))
+
+
+def dist2rbox(pred_dist, pred_angle, anchor_points):
+    """DFL distances (..., 4) and an angle (..., 1) → rotated xywh boxes
+    (anchors.py:54): the ltrb centre offset turned by the angle, added to
+    the anchor; w, h = l + r, t + b."""
+    lt, rb = pred_dist[..., :2], pred_dist[..., 2:]
+    cos, sin = torch.cos(pred_angle), torch.sin(pred_angle)
+    xf = (rb[..., :1] - lt[..., :1]) / 2
+    yf = (rb[..., 1:] - lt[..., 1:]) / 2
+    x = xf * cos - yf * sin
+    y = xf * sin + yf * cos
+    return torch.cat([torch.cat([x, y], -1) + anchor_points, lt + rb], -1)

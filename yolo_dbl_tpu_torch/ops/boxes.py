@@ -73,3 +73,16 @@ def bbox_iou(box1, box2, xywh=True, GIoU=False, DIoU=False, CIoU=False, eps=1e-7
     else:
         out = iou
     return out.squeeze(-1)
+
+
+def xywhr2xyxyxyxy(rboxes):
+    """Rotated (cx, cy, w, h, angle) boxes → their 4 corners (boxes.py:146):
+    (..., 5) → (..., 4, 2), in the order ctr ± the half-width and
+    half-height vectors (+ +, + -, - -, - +)."""
+    ctr = rboxes[..., :2]
+    w, h, angle = rboxes[..., 2:3], rboxes[..., 3:4], rboxes[..., 4:5]
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    vec1 = torch.cat([w / 2 * cos, w / 2 * sin], dim=-1)
+    vec2 = torch.cat([-h / 2 * sin, h / 2 * cos], dim=-1)
+    return torch.stack([ctr + vec1 + vec2, ctr + vec1 - vec2, ctr - vec1 - vec2,
+                        ctr - vec1 + vec2], dim=-2)

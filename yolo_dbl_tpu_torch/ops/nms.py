@@ -9,6 +9,12 @@ The class indices are float32, as in the JAX package (nms.py:144,151), so
 bfloat16 predictions are suppressed with float32 class offsets and come
 out as float32 rows: in bfloat16, 79 x MAX_WH would be 4,096 pixels apart
 from its neighbours.
+
+`non_max_suppression_rotated` (nms.py:182) is another algorithm, the JAX
+package's single-pass fast-NMS for an OBB decode: a candidate dies when a
+higher-scoring live candidate's probiou with it reaches `iou_thres`,
+whether or not that one survives itself, and no class offset keeps classes
+apart (mirrored, ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -115,3 +121,42 @@ def non_max_suppression(prediction, conf_thres=0.25, iou_thres=0.45, max_det=300
         return dets, counts
     kept = torch.where(valid, anchor_idx.gather(1, order), 0).to(torch.int32)
     return dets, counts, torch.nn.functional.pad(kept, (0, max_det - n_out))
+
+
+def non_max_suppression_rotated(prediction, conf_thres=0.25, iou_thres=0.45, max_det=300,
+                                pre_nms_topk=1024, nc=None):
+    """Fixed-shape rotated fast-NMS (nms.py:182). prediction: (B, 4+nc+1, A)
+    `decode_obb` output (xywh, scores, angle). Each anchor's best class
+    score >= `conf_thres` makes it a candidate; of the top `pre_nms_topk`,
+    a candidate is kept when no higher-scoring candidate overlaps it with
+    probiou >= `iou_thres`; then the top `max_det` kept. Computes in float32
+    for a bfloat16 decode (a departure: JAX's would take probiou's log and
+    square root in bfloat16). Returns dets (B, max_det, 7) [x, y, w, h,
+    angle, conf, cls], zero-padded, and counts (B,) int32."""
+    from ..losses.extra import probiou
+
+    pred = prediction.transpose(-1, -2)
+    pred = pred.to(torch.promote_types(pred.dtype, torch.float32))
+    b, a, no = pred.shape
+    nc = no - 5 if nc is None else nc
+    boxes, scores, angle = pred[..., :4], pred[..., 4:4 + nc], pred[..., 4 + nc:]
+    ninf = torch.tensor(-torch.inf, dtype=pred.dtype, device=pred.device)
+    conf = scores.amax(-1)
+    cls = scores.argmax(-1).float()
+    k = min(pre_nms_topk, a)
+    top_conf, idx = _topk(torch.where(conf >= conf_thres, conf, ninf), k)
+    rb = torch.cat([boxes, angle], -1).gather(1, idx[..., None].expand(b, k, 5))  # (B, K, 5)
+    iou = probiou(rb[:, :, None, :], rb[:, None, :, :])  # (B, K, K)
+    live = torch.isfinite(top_conf)
+    later = torch.ones((k, k), dtype=torch.bool, device=pred.device).triu(1)  # [i, j]: i before j
+    overlap = torch.where(later & live[:, None, :] & live[:, :, None], iou, 0.0)
+    keep = (overlap.amax(1) < iou_thres) & live
+    n_out = min(max_det, k)
+    out_s, out_i = _topk(torch.where(keep, top_conf, ninf), n_out)
+    valid = torch.isfinite(out_s)
+    dets = torch.cat([rb.gather(1, out_i[..., None].expand(b, n_out, 5)), out_s[..., None],
+                      cls.gather(1, idx).gather(1, out_i)[..., None]], -1)
+    dets = torch.where(valid[..., None], dets, 0.0)
+    if n_out < max_det:
+        dets = torch.nn.functional.pad(dets, (0, 0, 0, max_det - n_out))
+    return dets, valid.sum(-1).to(torch.int32)

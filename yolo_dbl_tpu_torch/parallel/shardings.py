@@ -134,14 +134,14 @@ def model_parallel_shardings(model_or_state, mesh: Mesh, min_size: int = 1 << 14
     specs of the same structure)."""
     n_model = model_axis_size(mesh)
     if isinstance(model_or_state, torch.nn.Module):
-        from ..nn.heads import Classify, IDetect, Pose, Segment
+        from ..nn.heads import OBB, Classify, IDetect, Pose, Segment
 
         if n_model > 1 and any(isinstance(m, IDetect) for m in model_or_state.modules()):
             # its ia/im leaves are (1, C, 1, 1) here, (1, 1, 1, C) in JAX: no rule reads them
             raise NotImplementedError("IDetect's implicit leaves have no tensor-parallel rule yet "
                                       "(ROADMAP Queue 1 item 7)")
         task = next((m for m in model_or_state.modules()
-                     if isinstance(m, (Segment, Pose, Classify))), None)
+                     if isinstance(m, (Segment, Pose, OBB, Classify))), None)
         if n_model > 1 and task is not None:
             # tuple and logit outputs, and Proto's transposed conv: not held to one process yet
             raise NotImplementedError(f"the {type(task).__name__} head has no tensor-parallel "

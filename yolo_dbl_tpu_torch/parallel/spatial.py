@@ -27,8 +27,8 @@ level; a size that does not divide raises (nothing is padded). A model
 with a layer that has no row-sharded form yet raises (ROADMAP Queue 1 item
 7): SLA, the CARAFE family, SPP, ConvTranspose2d, V10Attention, the pools
 of AConv, ADown (JAX's right and bottom padded mean), SPPELAN and SPPCSPC,
-the heads V10Detect (its dict of two branches), IDetect, Segment, Pose
-and Classify (tuple and logit outputs, Proto's transposed conv), and the
+the heads V10Detect (its dict of two branches), IDetect, Segment, Pose,
+OBB and Classify (tuple and logit outputs, Proto's transposed conv), and the
 nn.MaxPool2d, nn.ZeroPad2d, MP, SP and CBFuse (nearest resize) rows.
 """
 
@@ -193,7 +193,7 @@ def spatial(model, mesh: Mesh):
     from ..nn.attention import SLA
     from ..nn.blocks import SPP, SPPCSPC, SPPF, AAttn, AdaHGComputation, DySample
     from ..nn.common import ConvTranspose2d
-    from ..nn.heads import Classify, Detect, IDetect, Pose, Segment, V10Detect
+    from ..nn.heads import OBB, Classify, Detect, IDetect, Pose, Segment, V10Detect
     from ..nn.upsample import carafe
     from ..nn.v9v10 import SPPELAN, ADown, AConv, V10Attention
 
@@ -201,7 +201,8 @@ def spatial(model, mesh: Mesh):
         raise ValueError("spatial parallelism runs a whole (unsharded) model")
     local_only = (SLA, carafe.CARAFE, carafe.CARAFEPack, carafe.CARAFE_XiaLiPKU,
                   carafe.CARAFE_simplified, carafe.DLU, SPP, ConvTranspose2d, V10Attention,
-                  AConv, ADown, SPPELAN, SPPCSPC, V10Detect, IDetect, Segment, Pose, Classify)
+                  AConv, ADown, SPPELAN, SPPCSPC, V10Detect, IDetect, Segment, Pose, OBB,
+                  Classify)
     rows = sorted({layer.name for layer in model.spec.layers}
                   & {"nn.MaxPool2d", "nn.ZeroPad2d", "MP", "SP", "CBFuse"})
     if rows:
