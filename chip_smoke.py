@@ -283,6 +283,32 @@ weights, Detect class biases 0; TF32 off in the parity phases):
               configs (yolo11n-cls-resnet18, yolov8-cls-resnet50 and -101;
               serving only); facade_tasks also runs yolov8n-obb (train,
               val with the rbox mAP, predict; the gate with rotated rows).
+The module pools' configs and YOLO-World (nc=80, 640, seeded random weights;
+the world heads' contrastive bias 0, the others' class biases 0; TF32 off in
+the parity phases):
+ 44. main_world, profile_world, train_world, train_profile_world and their
+              _bf16 phases - YOLOv8-s-worldv2 (yolov8s-worldv2.yaml,
+              12,759,864 parameters; C2fAttn, WorldDetect with the
+              BNContrastiveHead) scoring against its seeded `txt_feats` (80
+              prompts) in requests of 8 uint8 512x768 frames, and training
+              on the zero text (as JAX's step does) at batch 16; main_emac,
+              profile_emac, train_emac, train_profile_emac (float32) and
+              main_emac_bf16, profile_emac_bf16 - YOLO-EMAC at its default
+              (s) scale (13,008,914 parameters; C3k2_EAMC, M2C2f's window
+              attention at 3, 5 and 7); K1 once a request, no hand kernel in
+              a step;
+ 45. parity_world, parity_emac - parity's bars, and each frame's kept rows
+              (conf 0.25) alike or parted at decisions `_frames_alike`
+              names; parity_world_bf16 at parity_bf16's bars;
+              train_parity_world, train_parity_emac - train_parity (the
+              C2fAttn attention's projection convs, or M2C2f's window-3
+              qkv Dense, named);
+ 46. zoo_pools - yolov8n-world, FFCA-YOLO (its default scale), FFCA-YOLO-L and
+              yolo11n-C3k2_EFE-IRSTE at 320, as zoo; facade_tasks also runs
+              yolov8n-worldv2 (nc=2: train, val, predict; its checkpoint
+              reloads as a plain DetectionModel, as in JAX, so the gate
+              scores the reloaded weights in a WorldModel with its seeded
+              text and the contrastive bias 0).
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -292,6 +318,7 @@ exits non-zero before the result lines; without CUDA it exits 2.
 """
 
 import contextlib
+import copy
 import functools
 import json
 import os
@@ -341,8 +368,12 @@ CLS_IMGSZ = 224
 # them with up to 64 rotated GTs a tile (Ultralytics' OBB models' imgsz)
 OBB = ("yolo11s-obb.yaml", 15)
 OBB_IMGSZ, OBB_M = 1024, 64
+# the module pools' full-width paths: YOLOv8-s-worldv2 with 80 seeded prompts,
+# and YOLO-EMAC at its default (s) scale
+WORLD, EMAC = ("yolov8s-worldv2.yaml", 80), ("YOLO-EMAC.yaml", 80)
 SUFFIX = {DBL: "", V13: "_v13", DBL2: "_dbl2", V12: "_v12", V11: "_v11", V10: "_v10", V9: "_v9",
-          V7: "_v7", SEG: "_seg", POSE: "_pose", CLS: "_cls", OBB: "_obb"}
+          V7: "_v7", SEG: "_seg", POSE: "_pose", CLS: "_cls", OBB: "_obb", WORLD: "_world",
+          EMAC: "_emac"}
 # YOLOv13-s A2C2f sites at 640: (areas, N, heads) per image; each site runs
 # 4 AAttn (2 repeats x 2 ABlocks), hd 32. Row 6: 40x40 tokens in 4 areas.
 # YOLOv12-s's rows 6 and 8 are the same two sites.
@@ -370,7 +401,8 @@ PER_REQUEST = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for c
     (V11, {"letterbox_normalize": 1}), (V10, {"letterbox_normalize": 1}),
     (V9, {"letterbox_normalize": 1}), (V7, {"letterbox_normalize": 1}),
     (SEG, {"letterbox_normalize": 1}), (POSE, {"letterbox_normalize": 1}),
-    (CLS, {"letterbox_normalize": 1}), (OBB, {"letterbox_normalize": 1}))}
+    (CLS, {"letterbox_normalize": 1}), (OBB, {"letterbox_normalize": 1}),
+    (WORLD, {"letterbox_normalize": 1}), (EMAC, {"letterbox_normalize": 1}))}
 PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
     (DBL, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
     (DBL2, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
@@ -378,7 +410,8 @@ PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg,
            "area_attention_backward_dkv": 8}),
     (V12, {"area_attention": 8, "area_attention_backward_dq": 8,
            "area_attention_backward_dkv": 8}),
-    (V11, {}), (V10, {}), (V9, {}), (SEG, {}), (POSE, {}), (OBB, {}))}
+    (V11, {}), (V10, {}), (V9, {}), (SEG, {}), (POSE, {}), (OBB, {}), (WORLD, {}),
+    (EMAC, {}))}
 
 
 def emit(obj):
@@ -1135,21 +1168,42 @@ def phase_k3_backward(gen, dtype=torch.float32):
     return dkv, dq, worst_fwd
 
 
-def build_models(cfg, dtype=torch.float32, zero_class_bias=True):
+def model_class(name):
+    """The model class of a config name: ClassificationModel for "-cls",
+    WorldModel for "world", else DetectionModel (as YOLO picks them)."""
+    from yolo_dbl_tpu_torch import ClassificationModel, DetectionModel, WorldModel
+
+    return (ClassificationModel if "-cls" in name else WorldModel if "world" in name
+            else DetectionModel)
+
+
+def seeded_model(cfg, dtype=torch.float32):
+    """The model of `cfg` computing in `dtype` on the CPU, its weights drawn
+    from seed 0 (the model's own init)."""
+    name, nc = cfg
+    return model_class(name)(name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0),
+                             dtype=dtype)
+
+
+def on_card(model):
+    """A copy of a CPU model on the card, as a model built there is
+    (channels_last, in its mode): the weights are drawn once."""
+    return copy.deepcopy(model).to("cuda").to(memory_format=torch.channels_last)
+
+
+def build_models(cfg, dtype=torch.float32, zero_class_bias=True, seeded=None):
     """One seeded model of `cfg` computing in `dtype` on the CPU with the
-    smoke settings, and its copy on the card (the same weights in both
+    smoke settings (a copy of `seeded`, `seeded_model`'s, where given), and
+    its copy on the card (the same weights in both
     types: parameters are float32). `zero_class_bias=False` keeps the Detect
     class biases of the model's own init (the stride-aware prior), whose
     spread of scores keeps NMS away from near-ties at a low threshold.
     YOLOv7's IDetect has no class bias to zero: its scores are σ(obj)σ(cls);
-    a classifier (a "-cls" name: ClassificationModel) has no Detect."""
-    from yolo_dbl_tpu_torch import ClassificationModel, DetectionModel
+    a classifier (a "-cls" name: ClassificationModel) has no Detect; a
+    world model's contrastive bias is zeroed instead (-10 at init)."""
     from yolo_dbl_tpu_torch.nn.blocks import FullPAD_Tunnel
 
-    name, nc = cfg
-    model_cls = ClassificationModel if "-cls" in name else DetectionModel
-    cpu = model_cls(name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0),
-                    dtype=dtype)
+    cpu = seeded_model(cfg, dtype) if seeded is None else copy.deepcopy(seeded)
     with torch.no_grad():
         for mod in cpu.modules():
             if isinstance(mod, FullPAD_Tunnel):
@@ -1158,9 +1212,7 @@ def build_models(cfg, dtype=torch.float32, zero_class_bias=True):
         cpu.zero_class_biases()  # give NMS real candidates (both v10Detect branches)
     if cpu.head_name == "Segment":
         calibrate_mask_head(cpu)
-    gpu = model_cls(name, nc=nc, device="cuda", dtype=dtype)
-    gpu.load_state_dict(cpu.state_dict())
-    return cpu, gpu
+    return cpu, on_card(cpu)
 
 
 def calibrate_mask_head(model, imgsz=256, seed=3):
@@ -1428,15 +1480,32 @@ def e2e_terms(model, train_cfg, batch):
     return out
 
 
-def phase_train(cfg, card, dtype=torch.float32):
-    """Training steps of `cfg` computing in `dtype` on the card through Trainer.step."""
-    from yolo_dbl_tpu_torch import DetectionModel, kernels
+def zero_grad_leaves(model, train_cfg, batch):
+    """The names of the parameters whose gradient of the train-mode loss of
+    `batch` is exactly 0. A world model trains on the zero text (JAX's step
+    applies the module without one), so every class logit is its
+    contrastive `bias` alone: the head's class-embedding branches and the
+    guide Dense kernels get no gradient, nor does a level no target is
+    assigned to."""
+    from yolo_dbl_tpu_torch.engine.trainer import train_loss
+
+    names, params = zip(*model.named_parameters())
+    loss, _ = train_loss(model, train_cfg, {k: torch.as_tensor(v).to(model.device)
+                                           for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, params, materialize_grads=True)
+    return {n for n, g in zip(names, grads) if not bool(g.any())}
+
+
+def phase_train(cfg, card, dtype=torch.float32, seeded=None):
+    """Training steps of `cfg` computing in `dtype` on the card through
+    Trainer.step, from the seeded weights (a copy of `seeded`,
+    `seeded_model`'s, where given)."""
+    from yolo_dbl_tpu_torch import kernels
     from yolo_dbl_tpu_torch.engine.trainer import Trainer
 
     t_start = time.perf_counter()
     name, nc = cfg
-    model = DetectionModel(name, nc=nc, device="cuda", generator=torch.Generator().manual_seed(0),
-                           dtype=dtype)
+    model = on_card(seeded_model(cfg, dtype) if seeded is None else seeded)
     trainer = Trainer(model, {"batch": TRAIN_B}).setup(steps_per_epoch=100)
     imgsz = imgsz_of(model)
     batches = train_batches(np.random.default_rng(1), TRAIN_WARMUP + TRAIN_STEPS + 1, nc=nc,
@@ -1462,10 +1531,15 @@ def phase_train(cfg, card, dtype=torch.float32):
     require(all(np.isfinite(v) for m in losses for v in m.values()), f"non-finite losses {losses}")
     require(all(bool(torch.isfinite(p).all()) for p in params + trainer.ema),
             "non-finite parameters or EMA after training")
-    moved = sum(not torch.equal(a, p) for a, p in zip(after_first, params))
-    ema_moved = sum(not torch.equal(a, e) for a, e in zip(ema_first, trainer.ema))
-    require(moved > 0.9 * len(params) and ema_moved > 0.9 * len(params),
-            f"{moved} parameters and {ema_moved} EMA tensors of {len(params)} changed")
+    # a world model trains on the zero text: the leaves it leaves without a
+    # gradient do not move
+    dead = zero_grad_leaves(model, trainer.cfg, batches[-1]) if model.takes_text else set()
+    live = [i for i, (n, _) in enumerate(model.named_parameters()) if n not in dead]
+    moved = sum(not torch.equal(after_first[i], params[i]) for i in live)
+    ema_moved = sum(not torch.equal(ema_first[i], trainer.ema[i]) for i in live)
+    require(moved > 0.9 * len(live) and ema_moved > 0.9 * len(live),
+            f"{moved} parameters and {ema_moved} EMA tensors of {len(live)} changed "
+            f"({len(dead)} without a gradient on the zero text left out)")
     want = {k: v * TRAIN_STEPS for k, v in PER_STEP[cfg, dtype].items()}
     require(launches == want, f"launches in {TRAIN_STEPS} steps: {launches}, expected {want}")
     require(all(t.dtype == torch.float32 for t in params + trainer.ema),
@@ -1483,6 +1557,7 @@ def phase_train(cfg, card, dtype=torch.float32):
           "step_ms": step_ms, "median_ms": med, "img_per_s": TRAIN_B / (med / 1e3),
           "losses": losses, "max_memory_allocated_bytes": peak, "launches": launches,
           "params_changed": moved, "ema_changed": ema_moved, "n_params": len(params),
+          "zero_grad_leaves": len(dead),
           "tf32_conv": torch.backends.cudnn.allow_tf32, **extra, "card": card})
     last = batches[-1]
     p = by_part(lambda i: (trainer.step(last), torch.cuda.synchronize()), 1)
@@ -1558,11 +1633,36 @@ def phase_parity(cfg, cpu_model, gpu_model, frames):
         extra["score_range"] = [float(pred_g[:, 4:].min()), float(pred_g[:, 4:].max())]
         require(0.0 <= extra["score_range"][0] and extra["score_range"][1] <= 1.0,
                 f"decode_v7 scores outside [0, 1]: {extra['score_range']}")
+    named = True
+    if cfg in (WORLD, EMAC):
+        extra["kept_rows"], named = _kept_rows_alike(pred_card, pred_c, cfg[1])
     emit({"phase": _phase("parity", cfg), "frames": 2, "box_max_abs_px": box_err,
           "score_max_abs": score_err, "max_score": float(pred_c[:, 4:].max()),
           "head": gpu_model.head_name, **extra, "seconds": time.perf_counter() - t_start})
     require(box_err < 0.05 and score_err <= 1e-3,
             f"card vs CPU: boxes {box_err} px (< 0.05), scores {score_err} (<= 1e-3)")
+    if cfg in (WORLD, EMAC):
+        rows = extra["kept_rows"]
+        require(sum(rows["kept_cpu"]) > 0 and rows["box_max_abs_px"] < 0.05
+                and rows["score_max_abs"] <= 1e-3 and rows["classes_equal"] and named,
+                f"kept rows card vs CPU: {rows}")
+
+
+def _kept_rows_alike(pred_card, pred_cpu, nc, conf=0.25, iou=0.45):
+    """Each frame's rows that NMS (conf 0.25, iou 0.45, as the predictor's)
+    keeps of the card's decode on the card and of the CPU's on the CPU,
+    through `_frames_alike`: ({kept_card, kept_cpu, box_max_abs_px, ...},
+    whether every parted frame's partings are named)."""
+    from yolo_dbl_tpu_torch.ops.nms import non_max_suppression
+
+    kept = []
+    for pred in (pred_card, pred_cpu):
+        dets, num = non_max_suppression(pred, conf_thres=conf, iou_thres=iou, nc=nc)
+        dets, num = dets.cpu().numpy(), num.cpu().tolist()
+        kept.append([dets[i, :k] for i, k in enumerate(num)])
+    rows, named = _frames_alike(kept[0], kept[1], pred_card.cpu(), pred_cpu.cpu(), conf, iou)
+    return {"kept_card": [len(k) for k in kept[0]], "kept_cpu": [len(k) for k in kept[1]],
+            "conf": conf, "iou": iou, **rows}, named
 
 
 @contextlib.contextmanager
@@ -1589,9 +1689,8 @@ def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
     loss of a float64 copy of the CPU model on `device` (the plain sampler
     and attention take float64; on the card through `plain_kernels`):
     train_loss's steps, with the images normalized to float64.
-    `grads=False`: the loss items alone (and None)."""
-    import copy
-
+    `grads=False`: the loss items alone (and None). The forward is the
+    trainer's (`forward_text`: a world model on the zero text)."""
     from yolo_dbl_tpu_torch.engine.trainer import task_loss
     from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
 
@@ -1601,8 +1700,8 @@ def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
     names, params = zip(*model.named_parameters())
     with (plain_kernels() if model.device.type == "cuda" else contextlib.nullcontext()), \
             torch.set_grad_enabled(grads):
-        loss, items = task_loss(model, cfg, model(device_normalize(batch["img"], torch.float64)),
-                                batch)
+        loss, items = task_loss(model, cfg, model.forward_text(
+            device_normalize(batch["img"], torch.float64)), batch)
     values = dict(loss=float(loss.detach()),
                   **{k: float(v.detach()) for k, v in items._asdict().items()})
     if not grads:
@@ -1613,10 +1712,23 @@ def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
 # leaves named in train_parity, whose gradient comes only through a kernel's
 # backward: the DySample offset convs (K2), the AAttn qkv convs (K3, and pe);
 # YOLOv10-s has no hand kernel in a step: its PSA's qkv conv, whose gradient
-# comes through the plain attention's two products and softmax
+# comes through the plain attention's two products and softmax; likewise
+# YOLOv8-s-worldv2's C2fAttn attention projection convs (through the max-sigmoid
+# text gate; their BatchNorm biases' gradients nearly cancel in the next
+# train-mode BatchNorm where the gate is near one value, so they are not
+# named) and YOLO-EMAC's window-3 qkv Dense (through the window attention)
 KERNEL_FED_LEAVES = {DBL: (".offset.conv.", 6), V13: (".attn.qkv.conv.", 8),
                      V12: (".attn.qkv.conv.", 8), V10: (".attn.qkv.conv.", 1),
-                     SEG: (".proto.", 11), POSE: (".cv4_0_2.", 2), OBB: (".cv4_0_2.", 2)}
+                     SEG: (".proto.", 11), POSE: (".cv4_0_2.", 2), OBB: (".cv4_0_2.", 2),
+                     WORLD: (".attn.proj_conv.conv.", 4), EMAC: (".win3.qkv.", 8)}
+
+
+def grads_rel(card, cpu, names):
+    """{name: max |card - cpu| over the CPU gradient's max |g|} for `names`;
+    a leaf whose CPU gradient is 0 (a world head's embedding conv on the zero
+    text) reads 0 where the card's is 0 too, and past any bar where not."""
+    return {n: float((card[n] - cpu[n]).abs().max()) / max(float(cpu[n].abs().max()), 1e-30)
+            for n in names}
 
 
 def phase_train_parity(cfg, cpu_model, gpu_model):
@@ -1658,7 +1770,7 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     checked = [n for n in gc if fed in n or n.startswith("m0.")
                or (n.startswith(detect) and any(f".{cv}_0_2." in "." + n[len(detect):]
                                                 for cv in ("cv2", "cv3")))]
-    grad_rel = {n: float((gg[n] - gc[n]).abs().max() / gc[n].abs().max()) for n in checked}
+    grad_rel = grads_rel(gg, gc, checked)
     # Every leaf against the float64 gradient (g64) of the same weights and
     # batch on the CPU: the card within 1e-3 of the leaf's largest |g64|, or,
     # where float32 itself does not reach that (a leaf whose gradient is a sum
@@ -2181,7 +2293,7 @@ def _nms_partings(card, cpu, conf, iou):
     return out
 
 
-def _facade_gate(best, frames, conf=0.001, iou=0.45, imgsz=IMGSZ):
+def _facade_gate(best, frames, conf=0.001, iou=0.45, imgsz=IMGSZ, load=None):
     """The best checkpoint on the card and on the CPU (TF32 off) over 2
     frames at conf 0.001: the decode handed NMS within 0.05 px of the canvas
     and 1e-3 at every anchor; the card's NMS on its decode equal to the
@@ -2192,13 +2304,15 @@ def _facade_gate(best, frames, conf=0.001, iou=0.45, imgsz=IMGSZ):
     `_nms_partings_rotated`), and its decode's angle row is held at 1e-4. NMS is
     discrete: a score or an IoU within float32 rounding of its threshold
     may fall on either side of it on the two devices; the decode's bars
-    bound how far."""
+    bound how far. `load(best, device=)` builds the YOLO of each device
+    (default `YOLO`)."""
     from yolo_dbl_tpu_torch.engine.model import YOLO
     from yolo_dbl_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_rotated
 
+    load = load or YOLO
     with tf32_off():
-        got, raw_got = _predict_recorded(YOLO(best), frames, conf, iou, imgsz)
-        want, raw_want = _predict_recorded(YOLO(best, device="cpu"), frames, conf, iou, imgsz)
+        got, raw_got = _predict_recorded(load(best), frames, conf, iou, imgsz)
+        want, raw_want = _predict_recorded(load(best, device="cpu"), frames, conf, iou, imgsz)
     obb = got[0].obb is not None
     nms_fn = non_max_suppression_rotated if obb else non_max_suppression
     require(len(raw_got) == len(raw_want) == len(frames),
@@ -2674,6 +2788,10 @@ ZOO["yolov3_edit3.yaml"] = ({"letterbox_normalize": 1, "area_attention": 16},
 ZOO_V9V10 = {name: ({"letterbox_normalize": 1}, {}) for name in (
     "yolov9t.yaml", "yolov9m.yaml", "yolov9c.yaml", "yolov9e.yaml", "yolov10.yaml",
     "yolov10n.yaml", "yolov10m.yaml", "yolov10b.yaml", "yolov10l.yaml", "yolov10x.yaml")}
+# the module pools' other four configs (yolov8-world at n; FFCA-YOLO at its
+# default scale; FFCA-YOLO-L has none), at nc=80 and 320: K1 alone
+ZOO_POOLS = {name: ({"letterbox_normalize": 1}, {}) for name in (
+    "yolov8n-world.yaml", "FFCA-YOLO.yaml", "FFCA-YOLO-L.yaml", "yolo11n-C3k2_EFE-IRSTE.yaml")}
 
 
 def phase_zoo(card, zoo=ZOO, phase="zoo"):
@@ -2683,18 +2801,15 @@ def phase_zoo(card, zoo=ZOO, phase="zoo"):
     Detect class biases 0 (both v10Detect branches), as in `family`. The
     card's model is a copy of the CPU's: the YOLOv3 family's 48-114 M
     weights are drawn once."""
-    import copy
-
-    from yolo_dbl_tpu_torch import DetectionModel
-
     t_start = time.perf_counter()
     rng = np.random.default_rng(9)
     frames = torch.from_numpy(rng.integers(0, 256, (2, *SRC_HW, 3), dtype=np.uint8))
     out, launches = {}, {}
     for name, (per_forward, per_step) in zoo.items():
         t0 = time.perf_counter()
-        cpu = DetectionModel(name, nc=80, device="cpu", generator=torch.Generator().manual_seed(0))
-        cpu.zero_class_biases()  # scores near 0.5, not the prior's ~1e-4
+        cpu = model_class(name)(name, nc=80, device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+        cpu.zero_class_biases()  # scores near 0.5, not the prior's ~1e-4 (a world head's ~5e-5)
         gpu = copy.deepcopy(cpu).to("cuda").to(memory_format=torch.channels_last)
         row, fwd = _config_decode(name, cpu, gpu, frames, ZOO_IMGSZ, per_forward)
         row.update(strides=list(gpu.strides),
@@ -2969,8 +3084,6 @@ def phase_zoo_tasks(card):
     and the three ResNet classifiers) within 1e-4; K1 once a forward; one
     train step at batch 4 with finite losses (not the classifiers: they do
     not train)."""
-    import copy
-
     from yolo_dbl_tpu_torch import ClassificationModel, DetectionModel, kernels
     from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
 
@@ -3031,22 +3144,39 @@ def phase_zoo_tasks(card):
 
 # the facade's task cells: a task shapes set at 320 (8 train, 4 val), batch 4
 FACADE_TASKS = (("segment", "yolo11n-seg.yaml"), ("pose", "yolo11n-pose.yaml"),
-                ("obb", "yolov8n-obb.yaml"))
+                ("obb", "yolov8n-obb.yaml"), ("world", "yolov8n-worldv2.yaml"))
 FT_IMGSZ, FT_TRAIN, FT_VAL, FT_B = 320, 8, 4, 4
 
 
+def _world_yolo(best, device=None):
+    """YOLO(best) with the checkpoint's weights in a WorldModel (its seeded
+    `txt_feats`) with the contrastive bias 0: the checkpoint alone reloads
+    as a plain DetectionModel on the zero text, whose every score is
+    sigmoid(bias), one value at every anchor (JAX's facade reloads it so)."""
+    from yolo_dbl_tpu_torch import WorldModel
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+
+    y = YOLO(best, device=device)
+    world = WorldModel(y.model.yaml, nc=y.model.nc, device=device)
+    world.load_state_dict(y.model.state_dict())
+    world.zero_class_biases()
+    y.model = world
+    return y
+
+
 def phase_facade_tasks(card):
-    """yolo11n-seg, yolo11n-pose and yolov8n-obb (nc=2) through YOLO on the
-    card: train 1 epoch (2 steps of 4 at 320), validate (box and mask, pose
-    or rbox mAP), predict 8 uint8 512x768 frames from memory; gate:
-    `_facade_gate` at 320 over 2 frames, with the masks or keypoints of the
-    rows both devices keep (the OBB rows themselves rotated)."""
+    """yolo11n-seg, yolo11n-pose, yolov8n-obb and yolov8n-worldv2 (nc=2)
+    through YOLO on the card: train 1 epoch (2 steps of 4 at 320), validate
+    (box and mask, pose or rbox mAP), predict 8 uint8 512x768 frames from
+    memory; gate: `_facade_gate` at 320 over 2 frames, with the masks or
+    keypoints of the rows both devices keep (the OBB rows themselves
+    rotated; the world checkpoint in `_world_yolo`)."""
     import tempfile
 
     from yolo_dbl_tpu_torch import kernels
     from yolo_dbl_tpu_torch.engine.model import YOLO
 
-    from tests.fixtures import make_task_dataset
+    from tests.fixtures import make_shapes_dataset, make_task_dataset
 
     t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = True  # as in the timed float32 phases
@@ -3056,8 +3186,10 @@ def phase_facade_tasks(card):
         tmp = Path(tmp)
         for task, name in FACADE_TASKS:
             wall = {}
-            data = make_task_dataset(tmp / task, task=task, n_train=FT_TRAIN, n_val=FT_VAL,
-                                     imgsz=FT_IMGSZ)
+            data = (make_shapes_dataset(tmp / task, n_train=FT_TRAIN, n_val=FT_VAL, imgsz=FT_IMGSZ)
+                    if task == "world" else
+                    make_task_dataset(tmp / task, task=task, n_train=FT_TRAIN, n_val=FT_VAL,
+                                      imgsz=FT_IMGSZ))
             y = YOLO(name, nc=2)
             kernels.reset_launches()
             t0 = time.perf_counter()
@@ -3065,7 +3197,7 @@ def phase_facade_tasks(card):
                           name=task, workers=0, plots=False, verbose=False)
             torch.cuda.synchronize()
             wall["train_epoch"] = time.perf_counter() - t0
-            key = {"segment": "mask", "pose": "pose", "obb": "rbox"}[task]
+            key = {"segment": "mask_", "pose": "pose_", "obb": "rbox_", "world": ""}[task]
             launches[f"facade_{task}_train"] = dict(kernels.launches)
             require(y.trainer.steps == FT_TRAIN // FT_B
                     and all(np.isfinite(v) for h in out["history"] for v in h.values())
@@ -3076,7 +3208,7 @@ def phase_facade_tasks(card):
             t0 = time.perf_counter()
             metrics = yb.val(data, imgsz=FT_IMGSZ, batch=FT_B)
             wall["val"] = time.perf_counter() - t0
-            require(metrics["images"] == FT_VAL and f"{key}_mAP50-95" in metrics,
+            require(metrics["images"] == FT_VAL and f"{key}mAP50-95" in metrics,
                     f"{task} val: {metrics}")
             yb.predict(frames, imgsz=FT_IMGSZ)  # warm-up
             torch.cuda.synchronize()
@@ -3087,16 +3219,18 @@ def phase_facade_tasks(card):
                 res = yb.predict(frames, imgsz=FT_IMGSZ)
                 request_ms.append((time.perf_counter() - t0) * 1e3)
             launches[f"facade_{task}_predict"] = dict(kernels.launches)
-            extra = [{"segment": r.masks, "pose": r.keypoints, "obb": r.obb}[task] for r in res]
+            extra = [{"segment": r.masks, "pose": r.keypoints, "obb": r.obb,
+                      "world": r.boxes}[task] for r in res]
             require(launches[f"facade_{task}_predict"] == _launches(
                 {"letterbox_normalize": FACADE_REQUESTS}, torch.float32) and len(res) == B
                 and all(len(e) == len(r) for e, r in zip(extra, res)),
                 f"{task} predict: {launches[f'facade_{task}_predict']}")
-            gate = _facade_gate(best, frames[:2], imgsz=FT_IMGSZ)
+            gate = _facade_gate(best, frames[:2], imgsz=FT_IMGSZ,
+                                load=_world_yolo if task == "world" else None)
             cells[task] = {"model": name[:-5], "train": {"steps": y.trainer.steps,
                                                          "history": out["history"]},
-                           "val": {k: metrics[k] for k in (*METRIC_KEYS, f"{key}_mAP50",
-                                                           f"{key}_mAP50-95", "images")},
+                           "val": {k: metrics[k] for k in (*METRIC_KEYS, f"{key}mAP50",
+                                                           f"{key}mAP50-95", "images")},
                            "predict": {"request_ms": request_ms,
                                        "median_request_ms": statistics.median(request_ms),
                                        "boxes_per_image": _counts(res)},
@@ -3537,16 +3671,20 @@ def main():
             rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
-    paths = (DBL, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS, OBB)
+    paths = (DBL, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS, OBB, WORLD, EMAC)
     for cfg in paths:
         for dtype in (torch.float32,) if cfg in (V11, V9, V7, POSE, CLS) else (torch.float32, BF16):
             with took(_phase("path", cfg, dtype)):
-                cpu_model, gpu_model = build_models(cfg, dtype)
+                seeded = seeded_model(cfg, dtype)  # drawn once for serving and training
+                cpu_model, gpu_model = build_models(cfg, dtype, seeded=seeded)
                 serve[cfg, dtype], frames, predictor, median_ms = phase_main(cfg, gpu_model, rng,
                                                                              card)
                 phase_profile(cfg, predictor, rng, median_ms * 1e3)
-                if cfg not in (V7, CLS):  # IDetect and Classify do not train (no JAX loss for them)
-                    train[cfg, dtype] = phase_train(cfg, card, dtype)
+                # IDetect and Classify do not train (no JAX loss for them); YOLO-EMAC
+                # trains in float32 only
+                if cfg not in (V7, CLS) and (cfg, dtype) != (EMAC, BF16):
+                    train[cfg, dtype] = phase_train(cfg, card, dtype, seeded)
+                del seeded
                 models[cfg, dtype] = (cpu_model, gpu_model, frames)
     with took("parity"):
         for cfg in paths:
@@ -3557,12 +3695,12 @@ def main():
             else:
                 phase_parity(cfg, *models[cfg, torch.float32])
     with took("parity_bf16"):
-        for cfg in (DBL, V13, DBL2, V12, V10, SEG):
+        for cfg in (DBL, V13, DBL2, V12, V10, SEG, WORLD):
             cpu32, _, frames = models[cfg, torch.float32]
             cpu16, gpu16, _ = models[cfg, BF16]
             phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames)
     with took("train_parity"):
-        for cfg in (DBL, V13, V12, V10, SEG, POSE, OBB):
+        for cfg in (DBL, V13, V12, V10, SEG, POSE, OBB, WORLD, EMAC):
             phase_train_parity(cfg, *models[cfg, torch.float32][:2])
     with took("train_parity_bf16"):
         for cfg in (DBL, V13, V12, V10):
@@ -3585,6 +3723,8 @@ def main():
         zoo.update(phase_zoo(card, ZOO_V9V10, "zoo_v9v10"))
     with took("zoo_tasks"):
         zoo.update(phase_zoo_tasks(card))
+    with took("zoo_pools"):
+        zoo.update(phase_zoo(card, ZOO_POOLS, "zoo_pools"))
     with took("facade_dbl2"):
         facade.update(phase_facade_dbl2(card))
     with took("facade_tasks"):

@@ -144,8 +144,8 @@ def test_yaml_copy_and_reader():
 
 
 def test_unported_module_raises():
-    d = {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "C3_Faster", [32]]], "head": []}
-    with pytest.raises(NotImplementedError, match="C3_Faster"):
+    d = {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "C2f_PIG", [32]]], "head": []}
+    with pytest.raises(NotImplementedError, match="C2f_PIG"):
         T.parse_model_spec(d)
 
 

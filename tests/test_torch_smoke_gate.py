@@ -6,7 +6,15 @@ where NMS decides alike on both decodes, which then keep the same rows;
 decisions; `_nms_partings_rotated` does the same for the rotated fast-NMS
 of two OBB decodes (a best score at conf, a best class, a probiou at iou);
 `k1_source_bytes` counts the source rows K1's taps touch; `plain_kernels`
-binds the models' kernel call sites to the plain versions and back."""
+binds the models' kernel call sites to the plain versions and back.
+For the module pools' paths: `_kept_rows_alike` (parity_world,
+parity_emac) holds two decodes' kept rows through `_frames_alike`;
+`grads_rel` reads a zero gradient on both devices as 0; `model_class`
+picks WorldModel; the contrastive bias zeroed gives a seeded world model
+candidates; `_float64_grads` runs the trainer's forward (the zero text);
+`_world_yolo` scores a world checkpoint with its seeded text;
+`zero_grad_leaves` names the leaves a world model's zero-text step leaves
+without a gradient (train_world's moved-parameters check leaves them out)."""
 
 from __future__ import annotations
 
@@ -14,8 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (_frames_alike, _nms_decisions, _nms_partings, _nms_partings_rotated,
-                        k1_source_bytes, plain_kernels)
+from chip_smoke import (_float64_grads, _frames_alike, _kept_rows_alike, _nms_decisions,
+                        _nms_partings, _nms_partings_rotated, _world_yolo, grads_rel,
+                        k1_source_bytes, model_class, plain_kernels, zero_grad_leaves)
+from yolo_dbl_tpu_torch import ClassificationModel, DetectionModel, WorldModel
+from yolo_dbl_tpu_torch.cfg import get_cfg
+from yolo_dbl_tpu_torch.utils.checkpoint import save_deploy
+
+from tests.torch_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
 from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_geometry
 from yolo_dbl_tpu_torch.losses.extra import probiou
 from yolo_dbl_tpu_torch.ops.boxes import box_iou, xywh2xyxy
@@ -239,3 +253,113 @@ def test_a_probiou_at_iou_thres_is_named_and_parts_the_rotated_rows():
     turned[:, 4] += 1e-3
     gate, named = _frames_alike([turned], [rows], [below], [below], 0.25, IOU)
     assert gate["frames_parted"] == [0] and not named
+
+
+# ---------------------------------------------------------------- the module pools' paths
+
+def _world(nc=3):
+    return WorldModel("yolov8n-worldv2.yaml", nc=nc, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+
+
+def test_kept_rows_alike_holds_decodes_and_names_a_parting():
+    """parity_world's and parity_emac's rows: two equal decodes keep alike
+    rows; a score moved across conf 0.25 parts the frame, and is named."""
+    pred = torch.stack([_decode(5, a=300), _decode(6, a=300)])
+    pred[:, 4:] *= 20  # scores over [0, 1)
+    rows, named = _kept_rows_alike(pred, pred.clone(), 3)
+    assert named and rows["frames_parted"] == [] and sum(rows["kept_cpu"]) > 0
+    assert rows["box_max_abs_px"] == rows["score_max_abs"] == 0 and rows["classes_equal"]
+    moved = pred.clone()
+    j = int(moved[1, 4:].amax(0).argmax())
+    moved[1, 4:, j] = 0.2499  # the frame's best candidate falls under conf
+    rows, named = _kept_rows_alike(moved, pred, 3)
+    assert rows["frames_parted"] == [1] and named and "score > conf" in rows["partings"][1]
+
+
+def test_grads_rel_reads_zero_gradients_on_both_devices_as_zero():
+    zero, g = torch.zeros(3), torch.tensor([1.0, -2.0, 0.5])
+    rel = grads_rel({"a": zero, "b": g * (1 + 1e-5), "c": g * 0},
+                    {"a": zero, "b": g, "c": zero + 1e-3}, ["a", "b", "c"])
+    assert rel["a"] == 0 and rel["b"] == pytest.approx(1e-5, rel=1e-2) and rel["c"] == 1.0
+    assert grads_rel({"a": g}, {"a": zero}, ["a"])["a"] > 1e29
+
+
+def test_model_class_picks_the_world_and_classify_models():
+    assert model_class("yolov8s-worldv2.yaml") is WorldModel
+    assert model_class("yolo11s-cls.yaml") is ClassificationModel
+    assert model_class("YOLO-EMAC.yaml") is model_class("yolov8n.yaml") is DetectionModel
+
+
+def test_zeroed_contrastive_bias_gives_a_seeded_world_model_candidates():
+    """At its init every world logit is the contrastive bias -10 plus a
+    similarity: NMS at conf 0.25 keeps nothing; with the bias 0 it keeps rows."""
+    model = _world()
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    _, num = non_max_suppression(model.predict(x), conf_thres=0.25, iou_thres=0.45, nc=3)
+    assert int(num.max()) == 0
+    model.zero_class_biases()
+    assert all(float(getattr(model.detect, f"cv4_{i}").bias) == 0 for i in range(3))
+    _, num = non_max_suppression(model.predict(x), conf_thres=0.25, iou_thres=0.45, nc=3)
+    assert int(num.min()) > 0
+
+
+def _batch(seed=2, b=2):
+    rng = np.random.default_rng(seed)
+    return {"img": rng.integers(0, 256, (b, 64, 64, 3), dtype=np.uint8),
+            "gt_boxes": np.tile(np.array([[[0.5, 0.5, 0.3, 0.3]]], np.float32), (b, 2, 1)),
+            "gt_cls": np.zeros((b, 2), np.int32), "gt_mask": np.ones((b, 2), np.float32)}
+
+
+def test_zero_grad_leaves_of_a_world_step_are_its_class_embedding_branch():
+    """On the zero text every cv3_* leaf, the contrastive heads' scale and
+    norm and the guide Dense kernels get no gradient; the contrastive bias
+    and the box branch do. A plain Detect model's class branch has a
+    gradient everywhere."""
+    model = _world()
+    dead = zero_grad_leaves(model, get_cfg(), _batch())
+    head = f"m{model.spec.layers[-1].i}."
+    names = [n for n, _ in model.named_parameters()]
+    assert {n for n in names if n.startswith(head + "cv3_") or n.endswith("attn.gl.weight")
+            or (n.startswith(head + "cv4_") and not n.endswith(("_0.bias", "_1.bias", "_2.bias")))
+            } <= dead
+    assert not dead & {f"{head}cv4_0.bias", f"{head}cv2_0_2.conv.weight", "m0.conv.weight"}
+    plain = DetectionModel("yolov8n.yaml", nc=3, device="cpu")
+    head = f"m{plain.spec.layers[-1].i}."
+    # at 64 px no target is assigned to the P5 level: its box branch alone has no gradient
+    assert {n[len(head):].split(".")[0] for n in zero_grad_leaves(plain, get_cfg(), _batch())} \
+        <= {"cv2_2_0", "cv2_2_1", "cv2_2_2"}
+
+
+def test_float64_grads_run_the_trainer_forward_on_the_zero_text():
+    """train_parity's float64 reference of a world model does not read its
+    `txt_feats`, as the trainer's step does not."""
+    model = _world()
+    batch = _batch()
+    first, _ = _float64_grads(model, get_cfg(), batch, grads=False)
+    model.txt_feats = torch.randn(1, 3, 512)
+    again, _ = _float64_grads(model, get_cfg(), batch, grads=False)
+    assert first == again and first["box"] > 0
+
+
+def test_world_yolo_scores_a_world_checkpoint_with_its_text(tmp_path):
+    """A world checkpoint reloads as a plain DetectionModel, one score at
+    every anchor (the zero text); `_world_yolo` puts its weights in a
+    WorldModel with the seeded text and the contrastive bias 0."""
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+
+    model = _world(nc=2)
+    path = tmp_path / "best.ckpt"
+    params = dict(model.named_parameters())
+    save_deploy(path, {"params": params, "batch_stats": {
+        k: v for k, v in model.state_dict().items() if k not in params}},
+                model_yaml=model.yaml, nc=2)
+    x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(3))
+    plain = YOLO(str(path), device="cpu").model
+    assert type(plain) is DetectionModel
+    scores = plain.predict(x)[:, 4:]
+    assert float(scores.max() - scores.min()) == 0
+    world = _world_yolo(str(path), device="cpu").model
+    assert isinstance(world, WorldModel) and torch.equal(world.txt_feats, model.txt_feats)
+    scores = world.predict(x)[:, 4:]
+    assert float(scores.max() - scores.min()) > 0

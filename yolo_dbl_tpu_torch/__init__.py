@@ -18,6 +18,6 @@ runs its plain PyTorch version instead, which is what the tests use.
 
 __version__ = "0.1.0"
 
-from .nn.tasks import ClassificationModel, DetectionModel
+from .nn.tasks import ClassificationModel, DetectionModel, WorldModel
 
-__all__ = ["ClassificationModel", "DetectionModel", "__version__"]
+__all__ = ["ClassificationModel", "DetectionModel", "WorldModel", "__version__"]

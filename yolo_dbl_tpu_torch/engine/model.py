@@ -2,9 +2,12 @@
 
 One object holding a model with `train`, `val`, `predict` (`__call__`) and
 `tune`. `YOLO('yolov13s_DBL.yaml', nc=3)` builds the model from its YAML
-with seeded weights (a name with "cls" in it a `ClassificationModel`, as
-JAX's :48-55); `YOLO('runs/train/best.ckpt')` loads a deploy checkpoint
-(utils/checkpoint.py). The task (`task`: detect, segment, pose, obb,
+with seeded weights (a name with "cls" in it a `ClassificationModel`, one
+with "world" a `WorldModel`, as JAX's :48-55); `YOLO('runs/train/best.ckpt')`
+loads a deploy checkpoint (utils/checkpoint.py), as a plain
+`DetectionModel` for a world model too, as in JAX (:38-46): it scores
+against the zero text (ROADMAP Queue 3). JAX's facade has no `set_classes`;
+call `YOLO(...).model.set_classes`. The task (`task`: detect, segment, pose, obb,
 classify) follows the head and picks the datasets, loaders, validator and
 predictor.
 A classify model serves only: the JAX package has no classify loss, loader
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from ..cfg import get_cfg
-from ..nn.tasks import ClassificationModel, DetectionModel
+from ..nn.tasks import ClassificationModel, DetectionModel, WorldModel
 from ..utils.callbacks import Callbacks
 from ..utils.checkpoint import load_deploy, peek_checkpoint_meta, save_checkpoint, save_deploy
 from ..utils.checks import check_imgsz
@@ -66,7 +69,9 @@ class YOLO:
             self.model = cls(cfg, nc=self.ckpt_meta.get("nc"), device=device, dtype=dtype)
             self.model.load_state_dict({**variables["params"], **variables["batch_stats"]})
         else:
-            cls = ClassificationModel if "cls" in Path(model).stem.lower() else DetectionModel
+            stem = Path(model).stem.lower()
+            cls = (ClassificationModel if "cls" in stem else WorldModel if "world" in stem
+                   else DetectionModel)
             self.model = cls(model, nc=nc, device=device, dtype=dtype)
         self.trainer: Optional[Trainer] = None
         self.callbacks = Callbacks()

@@ -124,12 +124,15 @@ def train_loss(model: DetectionModel, cfg, batch: Dict[str, torch.Tensor],
     """(loss, LossItems) of one batch with the model in train mode (BatchNorm
     on batch statistics, its running statistics updated); the model's mode is
     restored afterwards. Under a `mesh`, `batch` is this rank's rows and the
-    loss is this rank's share of the global batch's."""
+    loss is this rank's share of the global batch's. The forward is
+    `forward_text` without a text, as JAX's step applies the module (:82):
+    a world model trains on the zero text, not on its `txt_feats`, whose
+    prompts count as its `nc` in the loss (ROADMAP Queue 3)."""
     was_training = model.training
     model.train()
     try:
         with cross_rank(model, mesh):
-            feats = model(device_normalize(batch["img"], model.dtype))
+            feats = model.forward_text(device_normalize(batch["img"], model.dtype))
         return task_loss(model, cfg, feats, batch, mesh)
     finally:
         model.train(was_training)

@@ -26,6 +26,7 @@ from ..kernels.attention import area_attention
 from ..ops.resample import (avg_pool2, grid_sample_bilinear, max_pool, nearest_upsample,
                             pixel_shuffle)
 from .common import Conv, Conv2d, DSConv, DWConv, conv2d, linear
+from .structures.blocks import FasterBlock
 
 
 def _nhwc(x):
@@ -330,6 +331,16 @@ class C3k2(_CSPSplit):
         else:
             blocks = [Bottleneck(c, c, shortcut, g, (3, 3), 0.5) for _ in range(n)]
         super().__init__(c1, c2, c, blocks)
+
+
+class C3_Faster(_CSP3):
+    """C3 over FasterNet blocks (blocks.py:401). JAX calls FasterBlock(c_,
+    c_): the second argument is `shortcut`, truthy, so each block is
+    residual."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        c_ = int(c2 * e)
+        super().__init__(c1, c2, c_, [FasterBlock(c_, c_, c_) for _ in range(n)])
 
 
 class GhostConv(nn.Module):

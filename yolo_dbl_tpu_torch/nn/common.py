@@ -82,7 +82,8 @@ def linear(dense: nn.Linear, x):
     shard = getattr(dense, "shard", None)
     if shard is not None:
         return shard.linear(dense, x)
-    return nn.functional.linear(x, dense.weight.to(x.dtype), dense.bias.to(x.dtype))
+    bias = None if dense.bias is None else dense.bias.to(x.dtype)
+    return nn.functional.linear(x, dense.weight.to(x.dtype), bias)
 
 
 class BatchNorm(nn.BatchNorm2d):

@@ -1,1 +1,2 @@
-"""Structure blocks (port of yolo_dbl_tpu/nn/structures/, `TorchVision` only)."""
+"""Structure blocks (port of part of yolo_dbl_tpu/nn/structures/): PConv,
+FasterBlock and TorchVision."""

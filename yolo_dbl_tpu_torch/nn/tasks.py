@@ -2,9 +2,10 @@
 
 Only the branches that the YOLOv13/DBL family (`cfg/models/v13/`), the
 detect families' rows (v3, v5, v6, v7, v8, v9, v10, 11, v12), the
-segment, pose, OBB and classify heads and the `-cls-resnet` trunks
-(ResNetLayer, TorchVision) use are ported; any other module name raises
-NotImplementedError. The model YAMLs
+segment, pose, OBB and classify heads, the `-cls-resnet` trunks
+(ResNetLayer, TorchVision), and the module pools' rows that FFCA-YOLO{,-L},
+YOLO-EMAC, yolo11-C3k2_EFE-IRSTE and YOLO-World (`WorldModel`) use are
+ported; any other module name raises NotImplementedError. The model YAMLs
 are the port's own verbatim copies under cfg/, read by path with the port's
 small YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
 """
@@ -18,6 +19,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, List, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -26,13 +28,16 @@ from ..utils.device import resolve_device
 from ..utils.yaml_subset import load_yaml
 from . import blocks as B
 from . import v9v10 as V
+from . import world as W
 from .attention import SLA
 from .common import Conv, ConvTranspose2d, DSConv, DWConv, default_act
 from ..ops.nms import mask_classes, non_max_suppression
 from .heads import (OBB, Classify, Detect, IDetect, Pose, Segment, V10Detect, decode_detections,
                     decode_keypoints, decode_obb, decode_v7, flatten_levels, gather_anchors)
-from .structures.blocks import TorchVision
+from .structures.blocks import FasterBlock, TorchVision
+from .upsample import batch3 as U3
 from .upsample import carafe as U
+from .upsample import misc as UM
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
 
@@ -94,15 +99,17 @@ class ModelSpec:
 _C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "C2f", "C3", "C3k",
               "C3k2", "DSC3k2", "DSC3k", "SPPF", "A2C2f", "GhostConv", "GhostBottleneck",
               "C3Ghost", "C1", "C2", "SPP", "C2PSA", "RepConv", "RepCSP", "RepNCSPELAN4",
-              "ELAN1", "ADown", "AConv", "SPPELAN", "SCDown", "C2fCIB", "PSA"}
+              "ELAN1", "ADown", "AConv", "SPPELAN", "SCDown", "C2fCIB", "PSA",
+              "SPDConv", "FEM", "C3k2_EFE", "M2C2f", "C3k2_EAMC", "C3_Faster", "FasterBlock",
+              "C2fAttn"}
 _REPEAT_INSERT = {"C2f", "C3", "C3k2", "DSC3k2", "DSC3k", "A2C2f", "C3Ghost", "C1", "C2", "C2PSA",
-                  "C2fCIB", "RepCSP"}
+                  "C2fCIB", "RepCSP", "C3k2_EFE", "M2C2f", "C3k2_EAMC", "C2fAttn", "C3_Faster"}
 _LEGACY_FALSE = {"C3k2", "DSC3k2", "A2C2f"}
 # parameter-free layers, run in DetectionModel.forward (tasks.py:275-278,
 # :743-759): YOLOv7's MP (k x k max pool, stride k) and SP (stride 1, pad
 # k // 2), YOLOv9-E's Silence (the identity)
 TORCH_ROWS = {"nn.MaxPool2d", "nn.ZeroPad2d", "nn.Identity", "Silence", "MP", "SP"}
-_C1_ONLY = {"DySample", "LSKblock", "SLA", "DLU", "CARAFE", "CARAFEPack"}
+_C1_ONLY = {"DySample", "LSKblock", "SLA", "DLU", "CARAFE", "CARAFEPack", "SCAM"}
 # rows whose args pass through unchanged and whose width is their input's
 # (the final `else` of tasks.py:141's branches)
 _ARGS_AS_GIVEN = {"CARAFE_XiaLiPKU", "CARAFE_simplified"}
@@ -118,9 +125,25 @@ _FROM_ARGS = {"Conv": Conv, "DWConv": DWConv, "DSConv": DSConv, "ConvTranspose2d
               "RepConv": V.RepConv, "RepCSP": V.RepCSP, "RepNCSPELAN4": V.RepNCSPELAN4,
               "ELAN1": V.ELAN1, "ADown": V.ADown, "AConv": V.AConv, "SPPELAN": V.SPPELAN,
               "SCDown": V.SCDown, "C2fCIB": V.C2fCIB, "PSA": V.PSA, "SPPCSPC": B.SPPCSPC,
-              "CBLinear": B.CBLinear}
-# rows whose JAX builder reads only their first args (tasks.py:469-471): how many
-_ARGS_READ = {"ELAN1": 4, "ADown": 2, "AConv": 2}
+              "CBLinear": B.CBLinear, "SPDConv": UM.SPDConv, "FEM": UM.FEM,
+              "C3k2_EFE": UM.C3k2_EFE, "Multibranch": UM.Multibranch, "SCAM": UM.SCAM,
+              "FFM_Concat2": UM.FFM_Concat2, "FFM_Concat3": UM.FFM_Concat3, "M2C2f": U3.M2C2f,
+              "C3k2_EAMC": U3.C3k2_EAMC, "C3_Faster": B.C3_Faster, "FasterBlock": FasterBlock,
+              "C2fAttn": W.C2fAttn}
+# rows whose JAX builder reads only their first args (tasks.py:469-471,503,526): how many
+_ARGS_READ = {"ELAN1": 4, "ADown": 2, "AConv": 2, "SPDConv": 2}
+# rows that take the text (tasks.py:684-741): C2fAttn the running text,
+# ImagePoolingAttn replaces it, WorldDetect the original
+TEXT_ROWS = ("C2fAttn", "ImagePoolingAttn", "WorldDetect")
+# the width of a text embedding: the default text is zeros (B, nc, 512) (tasks.py:690)
+TEXT_WIDTH = 512
+# the module pools' blocks, which have no tensor- or spatial-parallel form
+# (their Dense, LayerNorm and Conv1d layers, FFTs, window padding, global
+# poolings and text inputs; ROADMAP Queue 1 item 7)
+POOL_MODULES = (UM.SPDConv, UM.EFE, UM.C3k2_EFE, UM.FGM, UM.OmniKernel, UM.Multibranch, UM.FEM,
+                UM.SCAM, UM._FFMConcat, U3.DyT, U3.WindowMHSA, U3.MBlock, U3.M2C2f, U3.C3k2_EAMC,
+                FasterBlock, W.MaxSigmoidAttnBlock, W.C2fAttn, W.ImagePoolingAttn,
+                W.WorldDetect)
 
 
 def _not_ported(m: str):
@@ -158,12 +181,19 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
                     args[j] = ast.literal_eval(a)
                 except (ValueError, SyntaxError):
                     pass
+        # an `anchors` arg without a top-level anchors key (FFCA-YOLO-L.yaml)
+        # is a stale placeholder for the anchor-free Detect: dropped (tasks.py:170-172)
+        args = [a for a in args if not (isinstance(a, str) and a == "anchors")]
         n = max(round(n * depth), 1) if n > 1 else n
 
         if m in _C2_SCALED:
             c1, c2 = chs[f], args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
+            if m == "C2fAttn":  # embed channels and heads (tasks.py:181-184)
+                args[1] = make_divisible(min(args[1], max_channels // 2) * width, 8)
+                args[2] = int(max(round(min(args[2], max_channels // 2 // 32)) * width, 1)
+                              if args[2] > 1 else args[2])
             args = [c1, c2, *args[1:]]
             if m in _REPEAT_INSERT:
                 args.insert(2, n)
@@ -191,9 +221,24 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
         elif m == "FullPAD_Tunnel":
             c2 = chs[f[0]]
             args = []
+        elif m == "Multibranch":
+            c2 = chs[f]
+            args = [c2]
         elif m in _C1_ONLY:
             c1 = c2 = chs[f]
             args = [c1, *args[1:]]
+        elif m == "FFM_Concat2":  # [dim, c // 2, c // 2] (tasks.py:229-232)
+            c2 = sum(chs[x] for x in f)
+            args = [args[0], c2 // 2, c2 // 2]
+        elif m == "FFM_Concat3":  # [dim, c // 4, c // 2, c // 4] (tasks.py:233-236)
+            c2 = sum(chs[x] for x in f)
+            args = [args[0], c2 // 4, c2 // 2, c2 // 4]
+        elif m == "ImagePoolingAttn":  # [ec, ch]; its output is the text (tasks.py:266-268)
+            args.append([chs[x] for x in f])
+            c2 = chs[f[0]]
+        elif m == "WorldDetect":
+            args.append([chs[x] for x in f])
+            c2 = 0
         elif m == "Concat":
             c2 = sum(chs[x] for x in f)
         elif m in ("v10Detect", "IDetect"):
@@ -290,6 +335,10 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
         return TorchVision(*a)
     if m == "IDetect":
         return IDetect(nc=a[0], anchors=a[1], ch=tuple(a[2]))
+    if m == "ImagePoolingAttn":
+        return W.ImagePoolingAttn(ec=a[0], ch=tuple(a[1]))
+    if m == "WorldDetect":
+        return W.WorldDetect(nc=a[0], embed=a[1], with_bn=a[2], ch=tuple(a[3]))
     if m in ("Concat", "Upsample", "CBFuse") or m in TORCH_ROWS:
         return None
     raise _not_ported(m)
@@ -338,6 +387,11 @@ class DetectionModel(nn.Module):
     rotated boxes with the angle last (`decode_obb`). None of the three gets
     the bias prior (`_bias_init`). `ClassificationModel` holds a Classify
     head.
+
+    A model with C2fAttn, ImagePoolingAttn or WorldDetect rows takes a text,
+    (B, K, 512) prompt embeddings: `forward(x, text)`; without one the text
+    is zeros of (B, nc, 512), as in JAX's module (tasks.py:686-690).
+    `WorldModel` supplies its own `txt_feats` instead.
     """
 
     def __init__(self, cfg="yolov13s_DBL.yaml", ch=3, nc=None, device=None,
@@ -369,6 +423,9 @@ class DetectionModel(nn.Module):
                 widths.append(layer.c2)
             self.strides = self._probe_strides(ch)
         self.to_empty(device="cpu")
+        for mod in self.modules():  # constant buffers, which to_empty left unset
+            if hasattr(mod, "init_buffers"):
+                mod.init_buffers()
         self.init_weights(generator if generator is not None else torch.Generator().manual_seed(0))
         self.to(dev)
         if dev.type == "cuda":
@@ -376,7 +433,7 @@ class DetectionModel(nn.Module):
         self.eval()
 
     def _probe_strides(self, ch, probe=256):
-        feats = self.forward(torch.zeros((1, probe, probe, ch)))
+        feats = self.forward_text(torch.zeros((1, probe, probe, ch)))
         if isinstance(feats, dict):  # v10Detect (tasks.py:802)
             feats = feats["one2one"]
         elif isinstance(feats, tuple):  # Segment, Pose, OBB (tasks.py:804)
@@ -386,14 +443,15 @@ class DetectionModel(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
         """flax default initialisers (lecun_normal kernels, zero biases, unit
-        BatchNorm, xavier_uniform prototypes, zero gates; zero kernels where
-        flax's `kernel_init` is zeros, marked `zero_init`) + the bias prior."""
+        BatchNorm and LayerNorm, xavier_uniform prototypes, zero gates; zero
+        kernels where flax's `kernel_init` is zeros, marked `zero_init`; the
+        pools' own initial values, `init_own`) + the bias prior."""
         for mod in self.modules():
             if isinstance(mod, (nn.Conv2d, nn.Linear)) and getattr(mod, "zero_init", False):
                 mod.weight.zero_()
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+            elif isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d, nn.Conv1d)):
                 # flax's fan-in is a kernel's in-channels times its window:
                 # weight[0] for (out, in, kh, kw) and (out, in), but the
                 # transposed conv's weight is (in, out, kh, kw)
@@ -413,6 +471,10 @@ class DetectionModel(nn.Module):
                 mod.gamma.fill_(0.01)
             elif isinstance(mod, B.DySample):
                 mod.init_pos = mod._init_pos()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.reset_parameters()
+            elif hasattr(mod, "init_own"):  # the pools' own parameters
+                mod.init_own()
             elif isinstance(mod, IDetect):
                 for i in range(mod.nl):
                     getattr(mod, f"ia{i}").normal_(0.0, 0.02, generator=generator)
@@ -431,12 +493,13 @@ class DetectionModel(nn.Module):
 
     @torch.no_grad()
     def _bias_init(self):
-        """Stride-aware Detect bias prior (tasks.py:814), on a plain Detect
-        head only: JAX's rule matches `m{head}/cv2_{lvl}_2/conv/bias`, which
-        no v10Detect leaf (`m{head}/one2many/cv2_...`), no Segment or Pose
-        leaf (`m{head}/detect/cv2_...`), no OBB leaf and no IDetect leaf matches, so those
-        heads keep zero biases (ROADMAP Queue 3)."""
-        if self.head_name != "Detect":
+        """Stride-aware Detect bias prior (tasks.py:814), on a plain Detect or
+        a WorldDetect head only: JAX's rule matches `m{head}/cv2_{lvl}_2/conv/bias`
+        and `cv3_{lvl}_2`, which WorldDetect has too (its cv3_{lvl}_2 is the
+        512-wide embedding conv), but no v10Detect leaf (`m{head}/one2many/cv2_...`), no
+        Segment or Pose leaf (`m{head}/detect/cv2_...`), no OBB leaf and no IDetect leaf
+        matches, so those heads keep zero biases (ROADMAP Queue 3)."""
+        if self.head_name not in ("Detect", "WorldDetect"):
             return
         det = self.detect
         for lvl, s in enumerate(self.strides):
@@ -462,11 +525,15 @@ class DetectionModel(nn.Module):
 
     @torch.no_grad()
     def zero_class_biases(self):
-        """Zero the class biases of every Detect branch (scores near 0.5
-        for random weights, so NMS has candidates)."""
+        """Zero the class biases of every Detect branch, or a WorldDetect's
+        contrastive `bias` (-10 at init), so that random weights score near
+        0.5 and NMS has candidates."""
         for det in self.detect_branches:
             for lvl in range(det.nl):
                 getattr(det, f"cv3_{lvl}_2").conv.bias.zero_()
+        if isinstance(self.detect, W.WorldDetect):
+            for lvl in range(self.detect.nl):
+                getattr(self.detect, f"cv4_{lvl}").bias.zero_()
 
     @property
     def device(self) -> torch.device:
@@ -480,10 +547,30 @@ class DetectionModel(nn.Module):
         p = next(self.parameters()).dtype
         return self._dtype if p == torch.float32 else p
 
-    def forward(self, x):
-        """NHWC images → the head's raw NHWC outputs (tasks.py:682 routing)."""
+    @property
+    def takes_text(self) -> bool:
+        """Whether a row of the model reads a text (C2fAttn, ImagePoolingAttn, WorldDetect)."""
+        return any(layer.name in TEXT_ROWS for layer in self.spec.layers)
+
+    def forward(self, x, text=None):
+        """NHWC images (and a text, where the model takes one) → the head's
+        raw NHWC outputs."""
+        return self.forward_text(x, text)
+
+    def forward_text(self, x, text=None):
+        """The layers' routing (tasks.py:682): NHWC images → the head's raw
+        NHWC outputs. A model that takes a text gets `text`, or zeros of (B,
+        nc, 512) without one, as JAX's module does; the trainer calls this
+        without a text, as JAX's train step applies the module (a world model
+        trains on the zero text). The text is cast once to the compute
+        type, as the images are."""
         y: List[Any] = []
         out = x.permute(0, 3, 1, 2).to(self.dtype)
+        if self.takes_text:
+            if text is None:
+                text = torch.zeros((x.shape[0], self.spec.nc, TEXT_WIDTH), device=x.device)
+            text = text.to(self.dtype)
+        txt = text  # the running text, which ImagePoolingAttn replaces
         save = set(self.spec.save)
         for layer in self.spec.layers:
             f = layer.f
@@ -515,6 +602,12 @@ class DetectionModel(nn.Module):
                 out = max_pool(inp.permute(0, 2, 3, 1), k, 1, k // 2).permute(0, 3, 1, 2)
             elif layer.name == "CBFuse":
                 out = B.cb_fuse(inp, layer.args[0])
+            elif layer.name == "C2fAttn":
+                out = getattr(self, f"m{layer.i}")(inp, txt)
+            elif layer.name == "ImagePoolingAttn":  # the layer's output is its inputs, unchanged
+                txt, out = getattr(self, f"m{layer.i}")(inp, txt), inp
+            elif layer.name == "WorldDetect":  # the original text (tasks.py:739-740)
+                out = getattr(self, f"m{layer.i}")(inp, text)
             else:
                 out = inp
                 for name in _layer_names(layer):
@@ -591,3 +684,43 @@ class ClassificationModel(DetectionModel):
     def predict(self, x):
         """NHWC images → (B, nc) class probabilities (tasks.py:915)."""
         return torch.softmax(self.forward(x), -1)
+
+
+class WorldModel(DetectionModel):
+    """The YOLO-World open-vocabulary detector (tasks.py:920). Its text,
+    `txt_feats` (1, K, 512), is the seeded buffer the JAX model keeps in
+    place of CLIP's prompt embeddings: `np.random.default_rng(0)
+    .standard_normal((1, nc, 512))` in float32, not normalized.
+    `set_classes` installs precomputed embeddings. `forward` and `predict`
+    use `txt_feats`, broadcast to the batch, unless a text is given; the
+    trainer calls `forward_text` without one, so a world model trains on the
+    zero text, as JAX's train step applies its module (ROADMAP Queue 3)."""
+
+    def __init__(self, cfg="yolov8s-world.yaml", ch=3, nc=None, device=None,
+                 generator: torch.Generator = None, dtype=torch.float32):
+        super().__init__(cfg, ch=ch, nc=nc, device=device, generator=generator, dtype=dtype)
+        feats = np.random.default_rng(0).standard_normal((1, self.nc, TEXT_WIDTH))
+        self.register_buffer("txt_feats", torch.from_numpy(feats.astype(np.float32)).to(self.device),
+                             persistent=False)
+
+    @torch.no_grad()
+    def set_classes(self, embeddings, names=None):
+        """Install (K, 512) or (1, K, 512) precomputed text embeddings,
+        l2-normalized (tasks.py:938); `nc` becomes K."""
+        emb = torch.as_tensor(np.asarray(embeddings, np.float32))
+        if emb.dim() == 2:
+            emb = emb[None]
+        norm = torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True), min=1e-12)
+        self.txt_feats = (emb / norm).to(self.device)
+        self.nc = emb.shape[1]
+        if names is not None:
+            self.names = dict(enumerate(names))
+
+    def _text(self, batch: int):
+        t = self.txt_feats
+        return t.expand(batch, *t.shape[1:]) if t.shape[0] != batch else t
+
+    def forward(self, x, text=None):
+        """NHWC images → raw NHWC WorldDetect maps, scored against `text` or
+        `txt_feats` (tasks.py:967)."""
+        return self.forward_text(x, self._text(x.shape[0]) if text is None else text)

@@ -11,10 +11,13 @@ Module and attribute names of the port are the flax scope names, so a leaf
   conv's (the shapes agree when in == out), so the callers that hold the
   module pass the names of its transposed convs (`transposed_convs`);
 - Dense kernel (I, O) → (O, I);
-- BatchNorm params scale/bias → weight/bias, batch_stats mean/var →
-  running_mean/running_var;
-- `prototype_base`, the FullPAD `gate` and the A2C2f `gamma` are copied as
-  they are;
+- a 1-D conv's kernel (k, in, out) → Conv1d's (out, in, k) (C3k2_EAMC's
+  `reduce_conv`);
+- BatchNorm and LayerNorm params scale/bias → weight/bias, batch_stats
+  mean/var → running_mean/running_var;
+- `prototype_base`, the FullPAD `gate`, the A2C2f and M2C2f `gamma`, DyT's
+  and FGM's `alpha` and `beta`, FFM's `w` and the contrastive heads'
+  scalar `logit_scale` are copied as they are;
 - YOLOv7 IDetect's implicit leaves `ia{i}` and `im{i}`, (1, 1, 1, C) in
   NHWC, → (1, C, 1, 1); its per-level bare conv `m{i}` is a conv like any
   other (`m105/m0/kernel` → `m105.m0.weight`).
@@ -49,7 +52,7 @@ import torch
 # BatchNorm's step counter exists only on the PyTorch side; it is set to 0.
 TORCH_ONLY_SUFFIX = "num_batches_tracked"
 # parameters whose name and layout are the same on both sides
-COPIED_LEAVES = ("prototype_base", "gate", "gamma")
+COPIED_LEAVES = ("prototype_base", "gate", "gamma", "alpha", "beta", "w", "logit_scale")
 # IDetect's implicit-knowledge leaves: (1, 1, 1, C) in JAX, (1, C, 1, 1) here
 IMPLICIT_LEAF = re.compile(r"i[am]\d+")
 
@@ -78,6 +81,8 @@ def _torch_leaf(collection: str, path, arr: np.ndarray, transposed: FrozenSet[st
             return scopes, "weight", arr.transpose(3, 2, 0, 1)
         if leaf == "kernel" and arr.ndim == 2:
             return scopes, "weight", arr.T
+        if leaf == "kernel" and arr.ndim == 3:
+            return scopes, "weight", arr.transpose(2, 1, 0)
         if leaf == "scale":
             return scopes, "weight", arr
         if IMPLICIT_LEAF.fullmatch(leaf) and arr.ndim == 4:
@@ -150,9 +155,10 @@ def jax_param_paths(module: torch.nn.Module) -> Dict[str, str]:
         for name, _ in mod.named_parameters(recurse=False):
             leaf = name
             if name == "weight" and isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
-                                                     torch.nn.Linear)):
+                                                     torch.nn.Linear, torch.nn.Conv1d)):
                 leaf = "kernel"
-            elif name == "weight" and isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+            elif name == "weight" and isinstance(mod, (torch.nn.modules.batchnorm._BatchNorm,
+                                                       torch.nn.LayerNorm)):
                 leaf = "scale"
             elif name not in ("bias",) + COPIED_LEAVES and not IMPLICIT_LEAF.fullmatch(name):
                 raise KeyError(f"no JAX rule for parameter {mod_name}.{name}")
