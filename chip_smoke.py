@@ -49,7 +49,7 @@ Phases, each printing one JSON line:
               share (train_profile);
  10. main_v13, profile_v13 - as main and profile for the stock YOLOv13-s
               (nc=80, the config's own): K1 once and K3 8 times per request;
- 11. train_v13 - as train for YOLOv13-s (nc=80, batch 16, 2 warm-up and 5
+ 11. train_v13 - as train for YOLOv13-s (nc=80, batch 16, 2 warm-up and 3
               timed steps): each K3 kernel 8 times per step (train_profile_v13);
  12. parity, parity_v13 - the same weights and 2 frames on the CPU (plain
               versions) and on the card (kernels, TF32 off): decoded boxes
@@ -186,7 +186,7 @@ The mesh's 'model' axis (parallel/shardings.py, tensor.py, spatial.py):
               bars (replicated leaves and whole gathered parameters bit for
               bit equal on the ranks); each rank holds the specs' share of
               the parameter, EMA and moment bytes; then the 1x2 ranks serve
-              2 requests of 8 u8 frames through a `shard_variables` model in
+              a request of 8 u8 frames through a `shard_variables` model in
               float32 and bfloat16 (decode against the one-process float32
               one: 0.05 px and 1e-3, bf16 at parity_bf16's bars; float32
               kept counts equal); the collectives a step by kind and bytes,
@@ -194,7 +194,7 @@ The mesh's 'model' axis (parallel/shardings.py, tensor.py, spatial.py):
               K2 forward and backward 3 launches a step, K1 once and K2 3
               times a request, on every rank;
  32. sp       - YOLO-DBL-s (nc=3, 640, float32) spatial-parallel over Gloo
-              1x2 on this card: 2 requests of 8 u8 frames through
+              1x2 on this card: a request of 8 u8 frames through
               `spatial(model, mesh)` (320 image rows a rank, halo
               exchanges, DySample and the hypergraph on gathered maps),
               held as tp's serving; halo and gather bytes a request.
@@ -309,6 +309,48 @@ the parity phases):
               reloads as a plain DetectionModel, as in JAX, so the gate
               scores the reloaded weights in a WorldModel with its seeded
               text and the contrastive bias 0).
+RT-DETR (RT-DETR-l, rt-detr/rtdetr-l.yaml, nc=80, 32,970,476 parameters,
+seeded random weights; TF32 off in the parity phases):
+ 47. main_rtdetr, profile_rtdetr, train_rtdetr, train_profile_rtdetr and
+              main_rtdetr_bf16, profile_rtdetr_bf16 - requests of 8 uint8
+              512x768 frames through `RTDETRRequests` (K1, the forward,
+              rtdetr_postprocess's 300 sorted rows, those above conf 0.25
+              rescaled to each frame; no NMS; the port's predictor refuses
+              RT-DETR), steps of 16 at 640 through rtdetr_loss on 8-64 GTs an
+              image, with the host solve's ms a step (the costs' copy,
+              scipy's 112 matchings, the indices back) and peak memory; K1
+              once and K2 18 times a request (6 decoder layers x 3 levels;
+              the bfloat16 model samples with the float32 kernel), K2's
+              forward and backward 18 times a step; k2 and k2_backward also
+              hold K2 at the first decoder layer's three MSDeformAttn sites
+              (80², 40², 20² of 256 channels in 8 groups, 1,200 points,
+              zeros padding, the seeded decoder's own coordinates,
+              `rtdetr_sites`) against its plain version, with the off-map
+              share, the window misses and F.grid_sample (zeros) beside it;
+ 48. parity_rtdetr - card against CPU on 2 frames, query by query (each
+              device's top-300 recorded; where they part, each parted
+              token named and held to a near-tie, and the card's forward
+              taken again under the CPU's selection): the final layer's
+              boxes within 0.05 px, scores 1e-3, equal classes;
+              parity_rtdetr_bf16 at parity_bf16's bars under the CPU float32's
+              selection; train_parity_rtdetr - train_parity at 256 from
+              zeroed final box layers (`rtdetr_anchor_boxes`, RT-DETR's
+              published decoder initialization) under the CPU's selection
+              and matchings (the card's own recorded: the count that
+              differ, each a named near-tie): the loss items and BatchNorm
+              statistics at train_parity's bars, every leaf within half its
+              largest of float64 (RTDETR_LEAF_BAR: no float32 run reaches
+              1e-3 of it on this step); train_parity_decoder_rtdetr - the
+              decoder and its loss alone on one float32 pyramid, at
+              train_parity's rules: the items within 1e-4, the last decoder
+              layer's MSDeformAttn leaves card against CPU within 1e-3 of
+              their largest, every decoder leaf against float64;
+ 49. facade_rtdetr - DetectionPredictor, DetectionValidator and
+              YOLO.train/val/predict refuse RT-DETR on the card (ROADMAP
+              Queue 3);
+ 50. zoo_rtdetr - rtdetr-x, rtdetr-resnet50 and rtdetr-resnet101 at 320 as
+              zoo (decode query by query as parity_rtdetr; K1 once and K2
+              18 times a forward, K2's forward and backward 18 times a step).
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -371,9 +413,19 @@ OBB_IMGSZ, OBB_M = 1024, 64
 # the module pools' full-width paths: YOLOv8-s-worldv2 with 80 seeded prompts,
 # and YOLO-EMAC at its default (s) scale
 WORLD, EMAC = ("yolov8s-worldv2.yaml", 80), ("YOLO-EMAC.yaml", 80)
+# RT-DETR's full-width path: RT-DETR-l (HGNetV2, AIFI, the deformable decoder)
+# at COCO's 80 classes, served through DetectionModel.predict (K1, the forward,
+# rtdetr_postprocess: no NMS) and trained with rtdetr_loss on 8-64 GTs an image
+RTDETR = ("rtdetr-l.yaml", 80)
+RTDETR_M = 64
+# MSDeformAttn's K2 sites in RT-DETR-l at 640: the P3-P5 maps (H, W) of 256
+# channels in 8 heads of 32, sampled at 300 queries x 4 points a head, once a
+# level in each of the 6 decoder layers
+RTDETR_LEVELS = {"p3": (80, 80), "p4": (40, 40), "p5": (20, 20)}
+RTDETR_HEADS, RTDETR_LAYERS = 8, 6
 SUFFIX = {DBL: "", V13: "_v13", DBL2: "_dbl2", V12: "_v12", V11: "_v11", V10: "_v10", V9: "_v9",
           V7: "_v7", SEG: "_seg", POSE: "_pose", CLS: "_cls", OBB: "_obb", WORLD: "_world",
-          EMAC: "_emac"}
+          EMAC: "_emac", RTDETR: "_rtdetr"}
 # YOLOv13-s A2C2f sites at 640: (areas, N, heads) per image; each site runs
 # 4 AAttn (2 repeats x 2 ABlocks), hd 32. Row 6: 40x40 tokens in 4 areas.
 # YOLOv12-s's rows 6 and 8 are the same two sites.
@@ -412,6 +464,17 @@ PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg,
            "area_attention_backward_dkv": 8}),
     (V11, {}), (V10, {}), (V9, {}), (SEG, {}), (POSE, {}), (OBB, {}), (WORLD, {}),
     (EMAC, {}))}
+# RT-DETR: K2 (zeros) once a level in each decoder layer, 18 a forward; a
+# bfloat16 model samples its upcast value with the float32 kernel at float32
+# coordinates, as JAX promotes that sample (models/rtdetr.py); it trains in
+# float32 only
+RTDETR_K2 = RTDETR_LAYERS * len(RTDETR_LEVELS)
+PER_REQUEST[RTDETR, torch.float32] = _launches({"letterbox_normalize": 1,
+                                                "sample_bilinear": RTDETR_K2}, torch.float32)
+PER_REQUEST[RTDETR, BF16] = {**NO_LAUNCH, "letterbox_normalize_bf16": 1,
+                             "sample_bilinear": RTDETR_K2}
+PER_STEP[RTDETR, torch.float32] = _launches({"sample_bilinear": RTDETR_K2,
+                                             "sample_bilinear_backward": RTDETR_K2}, torch.float32)
 
 
 def emit(obj):
@@ -506,8 +569,9 @@ def timings(fn, iters, warmup=3, only=None):
 
 
 def source_of(*sources):
-    """One source for a time summed from timings of these sources."""
-    return "profiler" if set(sources) == {"profiler"} else "cuda_event"
+    """One source for a time summed from timings of these sources (None: a
+    site where that time was not taken)."""
+    return "profiler" if set(sources) - {None} == {"profiler"} else "cuda_event"
 
 
 def _larger(t_bytes, t_ops):
@@ -791,10 +855,12 @@ def _route(rows, prefix=""):
     return routes.pop() if len(routes) == 1 else "mixed"
 
 
-def phase_k2(gen, dtype=torch.float32):
+def phase_k2(gen, dtype=torch.float32, deform=None):
     """The sampler's forward kernel of `dtype` against its plain version at
     the three sites at serving batch 8, both padding modes, DySample and
-    uniform coordinates; F.grid_sample in `dtype` as the yardstick."""
+    uniform coordinates; F.grid_sample in `dtype` as the yardstick. With
+    `deform` (`rtdetr_sites`' batch 8), also at MSDeformAttn's three sites
+    (`deform_k2_sites`; float32: RT-DETR samples in float32 in either type)."""
     from yolo_dbl_tpu_torch.kernels.sampling import sample_bilinear, sample_bilinear_plain
 
     es, sites, worst, src = dtype.itemsize, {}, 0.0, []
@@ -836,7 +902,13 @@ def phase_k2(gen, dtype=torch.float32):
                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                            call_ms=call_ms, plain_call_ms=plain_call_ms,
                            library_call_ms=library_call_ms)
-    emit({"phase": _kphase("k2", dtype), "sites": sites,
+    extra = {}
+    if deform is not None:
+        deform_rows, deform_src = deform_k2_sites(deform)
+        extra["rtdetr_l_sites"] = _rtdetr_row(deform_rows)
+        src += deform_src
+        worst = max(worst, max(r["max_abs_err"] for r in deform_rows.values()))
+    emit({"phase": _kphase("k2", dtype), "sites": sites, **extra,
           **({"tolerance": BF16_BAR} if dtype == BF16 else {})})
     total = {key: sum(sites[s][key] for s in DYSAMPLE_SITES)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -845,7 +917,7 @@ def phase_k2(gen, dtype=torch.float32):
                 replaces="yolo_dbl_tpu/kernels/sampling.py:102", max_abs_err=worst,
                 bound_by=_by(sites[s] for s in DYSAMPLE_SITES), time_sources=_time_sources(src),
                 dbl2_l_sites=_dbl2_sites(sites, ("max_abs_err", "ms", "plain_ms", "library_ms",
-                                                 "bound_ms", "bound_by")), **total)
+                                                 "bound_ms", "bound_by")), **extra, **total)
 
 
 def _dbl2_sites(sites, keys):
@@ -860,11 +932,13 @@ def _time_sources(src, keys=("ms", "plain_ms", "library_ms")):
     return {key: source_of(*col) for key, col in zip(keys, zip(*src))}
 
 
-def phase_k2_backward(gen, dtype=torch.float32):
+def phase_k2_backward(gen, dtype=torch.float32, deform=None):
     """The sampler's backward kernel of `dtype` at the three sites at
     training batch 16, and its forward kernel at the same shapes (the train
-    step runs both), against their plain versions. Returns the backward's
-    kernel row and the forward's worst error here."""
+    step runs both), against their plain versions; with `deform`
+    (`rtdetr_sites`' batch 16), at MSDeformAttn's three sites too
+    (`deform_k2_backward_sites`). Returns the backward's kernel row and the
+    forward's worst error here."""
     from yolo_dbl_tpu_torch.kernels.sampling import (backward_shared_bytes,
                                                      backward_window_misses, sample_bilinear,
                                                      sample_bilinear_backward,
@@ -945,9 +1019,16 @@ def phase_k2_backward(gen, dtype=torch.float32):
                            plain_call_ms=plain_call_ms)
         if scratch:
             sites[site]["bound_ms_without_scratch"] = bound(n_bytes, b * n * c * 24)[0]
+    extra = {}
+    if deform is not None:
+        deform_rows, deform_src = deform_k2_backward_sites(deform, gen)
+        extra["rtdetr_l_sites"] = _rtdetr_row(deform_rows)
+        src += [(*t, None) for t in deform_src]  # the zero fill is timed at DySample's sites
+        worst_fwd = max(worst_fwd, max(r["errors"]["forward"] for r in deform_rows.values()))
+        worst["dx"] = max(worst["dx"], max(r["errors"]["dx"] for r in deform_rows.values()))
     tolerance = BF16_BAR if dtype == BF16 else {"dx": 1e-4, "dg_rel": 1e-4, "forward": TOL}
     emit({"phase": _kphase("k2_backward", dtype), "batch": b, "tolerance": tolerance,
-          "forward_max_abs_err": worst_fwd, "sites": sites})
+          "forward_max_abs_err": worst_fwd, "sites": sites, **extra})
     keys = ("ms", "zero_fill_ms", "plain_ms", "library_ms", "bound_ms")
     if dtype == BF16:
         keys += ("bound_ms_without_scratch",)
@@ -961,7 +1042,7 @@ def phase_k2_backward(gen, dtype=torch.float32):
                                                  "bound_ms", "bound_by", "window_missed_share",
                                                  "shared_bytes")),
                 time_sources=_time_sources(src, ("ms", "plain_ms", "library_ms", "zero_fill_ms")),
-                **total), worst_fwd
+                **extra, **total), worst_fwd
 
 
 def _k3_inputs(gen, b, site, dtype=torch.float32):
@@ -1263,12 +1344,39 @@ def frames_hw(model):
     return (OBB_IMGSZ, OBB_IMGSZ) if model.head_name == "OBB" else SRC_HW
 
 
+class RTDETRRequests:
+    """RT-DETR's requests through the port's entry points, as Ultralytics'
+    RTDETRPredictor serves them: K1's letterbox (`letterbox_normalize`),
+    `DetectionModel.predict` (the forward and rtdetr_postprocess's sorted
+    rows; no NMS) and the rows above `conf` rescaled to each frame. The
+    port's predictor refuses RT-DETR (ROADMAP Queue 3)."""
+
+    def __init__(self, model, conf=0.25, imgsz=IMGSZ):
+        self.model, self.conf, self.imgsz = model, conf, imgsz
+
+    def __call__(self, frames):
+        from yolo_dbl_tpu_torch.engine.predictor import BasePredictor
+        from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_geometry, letterbox_normalize
+
+        frames = torch.as_tensor(frames)
+        h, w = frames.shape[1:3]
+        gain, _, _, top, left = letterbox_geometry(h, w, self.imgsz, self.imgsz, scaleup=False)
+        img = letterbox_normalize(frames.to(self.model.device).contiguous(),
+                                  (self.imgsz, self.imgsz), scaleup=False,
+                                  out_dtype=self.model.dtype)
+        dets = self.model.predict(img).float().cpu().numpy()
+        return [BasePredictor._rescale_boxes(d[d[:, 4] > self.conf], gain,
+                                             (float(left), float(top)), (h, w)) for d in dets]
+
+
 def _predictor(model, **kw):
     """The model's task predictor (engine/predictor.py TASK_PREDICTORS) at
     the smoke's serving settings: conf 0.25, iou 0.45, max_det 300, at
-    `imgsz_of`."""
+    `imgsz_of`; RT-DETR's requests (`RTDETRRequests`, conf 0.25)."""
     from yolo_dbl_tpu_torch.engine import predictor as P
 
+    if model.head_name == "RTDETRDecoder":
+        return RTDETRRequests(model, imgsz=imgsz_of(model))
     cls = {"Segment": P.SegmentationPredictor, "Pose": P.PosePredictor, "OBB": P.OBBPredictor,
            "Classify": P.ClassificationPredictor}.get(model.head_name, P.DetectionPredictor)
     return cls(model, **{**dict(conf=0.25, iou=0.45, max_det=300, imgsz=imgsz_of(model)), **kw})
@@ -1385,7 +1493,7 @@ def _parts(events, calls):
                 top_kernels_ms=[[k[:90], v] for k, v in top])
 
 
-def phase_profile(cfg, pred, rng, median_ms, requests=2):
+def phase_profile(cfg, pred, rng, median_ms, requests=1):
     """Device time of one request by kernel and by part of the path."""
     t_start = time.perf_counter()
     frames = [rng.integers(0, 256, (B, *frames_hw(pred.model), 3), dtype=np.uint8)
@@ -1399,9 +1507,10 @@ def phase_profile(cfg, pred, rng, median_ms, requests=2):
           "top_kernels_ms": p["top_kernels_ms"]})
 
 
-def train_batches(rng, n, b=TRAIN_B, imgsz=IMGSZ, m=TRAIN_M, nc=NC, task="detect"):
+def train_batches(rng, n, b=TRAIN_B, imgsz=IMGSZ, m=TRAIN_M, nc=NC, task="detect", real=(1, 9)):
     """Seeded synthetic batches of the loss's batch contract: uint8 images,
-    1-8 real boxes per image (normalized xywh, classes 0..nc-1) padded to m;
+    `real` (low, high + 1) real boxes per image, 1-8 unless given
+    (normalized xywh, classes 0..nc-1) padded to m;
     for `task` "segment" also each box's rectangle as its mask at a quarter
     of imgsz (`gt_masks`), for "pose" 17 keypoints inside each box, a fifth
     of them invisible (`gt_kpts`, xy in [0, 1]); for "obb" m // 8 to m real
@@ -1409,9 +1518,9 @@ def train_batches(rng, n, b=TRAIN_B, imgsz=IMGSZ, m=TRAIN_M, nc=NC, task="detect
     [-π/4, 3π/4) (`gt_boxes` (b, m, 5))."""
     if task == "obb":
         return [_obb_batch(rng, b, imgsz, m, nc) for _ in range(n)]
-    out = []
+    out, span = [], real
     for _ in range(n):
-        real = rng.integers(1, 9, b)
+        real = rng.integers(*span, b)
         xy = rng.uniform(0.15, 0.85, (b, m, 2))
         wh = rng.uniform(0.04, 0.3, (b, m, 2))
         batch = dict(img=rng.integers(0, 256, (b, imgsz, imgsz, 3), dtype=np.uint8),
@@ -1508,24 +1617,29 @@ def phase_train(cfg, card, dtype=torch.float32, seeded=None):
     model = on_card(seeded_model(cfg, dtype) if seeded is None else seeded)
     trainer = Trainer(model, {"batch": TRAIN_B}).setup(steps_per_epoch=100)
     imgsz = imgsz_of(model)
+    detr = model.head_name == "RTDETRDecoder"
+    m = {"OBB": OBB_M, "RTDETRDecoder": RTDETR_M}.get(model.head_name, TRAIN_M)
     batches = train_batches(np.random.default_rng(1), TRAIN_WARMUP + TRAIN_STEPS + 1, nc=nc,
-                            imgsz=imgsz, m=OBB_M if model.head_name == "OBB" else TRAIN_M,
-                            task=_task(model))
+                            imgsz=imgsz, m=m, task=_task(model),
+                            real=(8, RTDETR_M + 1) if detr else (1, 9))
     params = [p for _, p in model.named_parameters()]
     losses, step_ms = [], []
-    for i, batch in enumerate(batches[:TRAIN_WARMUP + TRAIN_STEPS]):
-        if i == TRAIN_WARMUP:
+    solve = host_solve_timer() if detr else contextlib.nullcontext([])
+    with solve as solve_ms:
+        for i, batch in enumerate(batches[:TRAIN_WARMUP + TRAIN_STEPS]):
+            if i == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                after_first = [p.detach().clone() for p in params]
+                ema_first = [e.clone() for e in trainer.ema]
+                kernels.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                solve_ms.clear()
+            t0 = time.perf_counter()
+            metrics = {k: float(v) for k, v in trainer.step(batch).items()}
             torch.cuda.synchronize()
-            after_first = [p.detach().clone() for p in params]
-            ema_first = [e.clone() for e in trainer.ema]
-            kernels.reset_launches()
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        metrics = {k: float(v) for k, v in trainer.step(batch).items()}
-        torch.cuda.synchronize()
-        if i >= TRAIN_WARMUP:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(metrics)
+            if i >= TRAIN_WARMUP:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(metrics)
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
     require(all(np.isfinite(v) for m in losses for v in m.values()), f"non-finite losses {losses}")
@@ -1548,8 +1662,12 @@ def phase_train(cfg, card, dtype=torch.float32, seeded=None):
              if model.head_name == "v10Detect" else {})
     if model.head_name in ("Segment", "Pose"):
         extra["task_term"] = _task_term_ms(model, trainer.cfg, batches[-1])
-    if model.head_name == "OBB":
+    if model.head_name in ("OBB", "RTDETRDecoder"):
         extra["gt_per_image"] = float(np.mean([b["gt_mask"].sum(1).mean() for b in batches]))
+    if detr:  # the host's part of each timed step: the costs' copy, scipy, the indices back
+        require(len(solve_ms) == TRAIN_STEPS, f"host solves in {TRAIN_STEPS} steps: {solve_ms}")
+        extra.update(host_solve_ms=solve_ms, host_solve_median_ms=statistics.median(solve_ms),
+                     matchings_per_step=TRAIN_B * (RTDETR_LAYERS + 1))
     med = statistics.median(step_ms)
     emit({"phase": _phase("train", cfg, dtype), "model": name[:-5], "nc": nc,
           "dtype": str(dtype).split(".")[-1], "imgsz": imgsz,
@@ -1706,7 +1824,8 @@ def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
                   **{k: float(v.detach()) for k, v in items._asdict().items()})
     if not grads:
         return values, None
-    return values, {n: g.cpu() for n, g in zip(names, torch.autograd.grad(loss, params))}
+    return values, {n: g.cpu() for n, g in zip(names, torch.autograd.grad(
+        loss, params, materialize_grads=True))}
 
 
 # leaves named in train_parity, whose gradient comes only through a kernel's
@@ -1716,8 +1835,13 @@ def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
 # YOLOv8-s-worldv2's C2fAttn attention projection convs (through the max-sigmoid
 # text gate; their BatchNorm biases' gradients nearly cancel in the next
 # train-mode BatchNorm where the gate is near one value, so they are not
-# named) and YOLO-EMAC's window-3 qkv Dense (through the window attention)
+# named) and YOLO-EMAC's window-3 qkv Dense (through the window attention);
+# RT-DETR-l's last decoder layer's MSDeformAttn Dense layers, whose
+# sampling offsets and value projection get their gradient through K2's
+# backward (dgy, dgx and dx), its attention weights and output projection
+# through K2's forward (held on the decoder's own step: RTDETR_LEAF_BAR)
 KERNEL_FED_LEAVES = {DBL: (".offset.conv.", 6), V13: (".attn.qkv.conv.", 8),
+                     RTDETR: (".decoder_layers_5.cross_attn.", 8),
                      V12: (".attn.qkv.conv.", 8), V10: (".attn.qkv.conv.", 1),
                      SEG: (".proto.", 11), POSE: (".cv4_0_2.", 2), OBB: (".cv4_0_2.", 2),
                      WORLD: (".attn.proj_conv.conv.", 4), EMAC: (".win3.qkv.", 8)}
@@ -1734,7 +1858,13 @@ def grads_rel(card, cpu, names):
 def phase_train_parity(cfg, cpu_model, gpu_model):
     """One train-mode loss and backward of the same weights on the CPU (plain
     versions) and on the card (kernels, TF32 off). Dropout is off on both:
-    the two devices draw different random bits."""
+    the two devices draw different random bits. RT-DETR's card step and the
+    float64 reference take the CPU's query selection and Hungarian
+    matchings (`pinned_queries`, `pinned_matching`); the card's own are
+    recorded, and where one parts from the CPU's it must be a near-tie,
+    named with its scores or its two assignments' costs. RT-DETR's leaves
+    are held at RTDETR_LEAF_BAR of their largest, its named leaves on its
+    decoder's own step (`phase_train_parity_decoder`)."""
     from yolo_dbl_tpu_torch import kernels
     from yolo_dbl_tpu_torch.cfg import get_cfg
     from yolo_dbl_tpu_torch.engine.trainer import train_loss
@@ -1745,7 +1875,8 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     train_cfg = get_cfg()
     batch = train_batches(np.random.default_rng(2), 1, b=2, imgsz=256, nc=cfg[1],
                           task=_task(cpu_model))[0]
-    results = {}
+    results, detr = {}, cpu_model.head_name == "RTDETRDecoder"
+    pins = {"queries": None, "matching": None}
     for model in (cpu_model, gpu_model):
         for mod in model.modules():
             if isinstance(mod, torch.nn.Dropout):
@@ -1753,10 +1884,18 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
         dev = model.device
         names, params = zip(*model.named_parameters())
         kernels.reset_launches()
-        loss, items = train_loss(model, train_cfg,
-                                 {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
-        grads = torch.autograd.grad(loss, params)
-        stats = {k: v.cpu() for k, v in model.state_dict().items() if k.endswith(("_mean", "_var"))}
+        with (pinned_queries(pins["queries"]) if detr else contextlib.nullcontext([])) as sq, \
+                (pinned_matching(pins["matching"]) if detr else contextlib.nullcontext([])) as sm:
+            loss, items = train_loss(model, train_cfg,
+                                     {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+        if detr and dev.type == "cpu":
+            pins = {"queries": sq[0][0], "matching": sm[0][0], "own": (sq[0], sm[0])}
+        elif detr:
+            pins["partings"] = _rtdetr_partings(sq[0], sm[0], pins["own"])
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        # copies: a CPU model's statistics are its live buffers
+        stats = {k: v.cpu().clone() for k, v in model.state_dict().items()
+                 if k.endswith(("_mean", "_var"))}
         results[dev.type] = (dict(loss=float(loss.detach()),
                                   **{k: float(v.detach()) for k, v in items._asdict().items()}),
                              dict(zip(names, (g.cpu() for g in grads))), stats,
@@ -1776,29 +1915,41 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     # where float32 itself does not reach that (a leaf whose gradient is a sum
     # that cancels), within 4x the CPU float32's own distance from g64; plus
     # 1e-10 of the model's largest |g64| for leaves whose exact gradient is 0.
-    _, g64 = _float64_grads(cpu_model, train_cfg, batch, device="cuda")
+    with (pinned_queries(pins["queries"]) if detr else contextlib.nullcontext()), \
+            (pinned_matching(pins["matching"]) if detr else contextlib.nullcontext()):
+        l64, g64 = _float64_grads(cpu_model, train_cfg, batch, device="cuda")
     g_max = max(float(g.abs().max()) for g in g64.values())
     leaves = {}
     for n, ref in g64.items():
         card, cpu = (float((g[n].double() - ref).abs().max()) for g in (gg, gc))
         m = float(ref.abs().max())
         tol = max(1e-3 * m, 4 * cpu) + 1e-10 * g_max
+        if detr and m > 1e-12 * g_max:
+            tol = RTDETR_LEAF_BAR * m
         leaves[n] = dict(card_err=card, cpu_err=cpu, leaf_max=m, tol=tol,
                          card_vs_cpu=float((gg[n] - gc[n]).abs().max()))
     failing = {n: e for n, e in leaves.items() if e["card_err"] > e["tol"]}
-    worst = sorted(leaves.items(), key=lambda kv: -kv[1]["card_err"] / max(kv[1]["leaf_max"], 1e-30))
+    # the worst of the leaves whose float64 gradient is not 0
+    worst = sorted(((n, e) for n, e in leaves.items() if e["leaf_max"] > 1e-12 * g_max),
+                   key=lambda kv: -kv[1]["card_err"] / kv[1]["leaf_max"])
     stats_err = max(float(((sg[k] - sc[k]).abs() / (1 + sc[k].abs())).max()) for k in sc)
+    past = {side: sum(e[f"{side}_err"] > 1e-3 * e["leaf_max"] + 1e-10 * g_max
+                      for e in leaves.values()) for side in ("card", "cpu")}
+    extra, near = pins["partings"] if detr else ({}, True)
     emit({"phase": _phase("train_parity", cfg), "batch": 2, "imgsz": 256, "losses_cpu": lc,
-          "losses_card": lg, "loss_rel": loss_rel, "grad_rel_of_leaf_max": grad_rel,
-          "model_max_abs_grad": g_max, "leaves": len(leaves),
+          "losses_card": lg, "losses_float64": l64, "loss_rel": loss_rel,
+          "grad_rel_of_leaf_max": grad_rel, "model_max_abs_grad": g_max, "leaves": len(leaves),
           "zero_leaves": sum(e["leaf_max"] == 0 for e in leaves.values()),
-          "leaves_past_1e-3_of_leaf_max": sum(e["card_err"] > 1e-3 * e["leaf_max"] + 1e-10 * g_max
-                                              for e in leaves.values()),
+          "leaves_past_1e-3_of_leaf_max": past["card"],
+          "cpu_leaves_past_1e-3_of_leaf_max": past["cpu"],
           "worst_leaves_vs_float64": [dict(name=n, **e) for n, e in worst[:5]],
-          "bn_stats_rel": stats_err, "launches": launches,
+          "bn_stats_rel": stats_err, "launches": launches, **extra,
           "seconds": time.perf_counter() - t_start})
+    require(near, f"RT-DETR selection or matching parted away from a near-tie: {extra}")
     require(max(loss_rel.values()) <= 1e-4, f"loss items card vs CPU: {loss_rel}")
-    require(len([n for n in checked if fed in n]) == n_fed and max(grad_rel.values()) <= 1e-3,
+    # RT-DETR's named leaves are held at 1e-3 on its decoder's own step
+    require(len([n for n in checked if fed in n]) == n_fed
+            and (detr or max(grad_rel.values()) <= 1e-3),
             f"gradients card vs CPU (of each leaf's max |g|): {grad_rel}")
     require(set(leaves) == set(gg) and not failing,
             f"leaf gradients on the card vs float64 past their tolerance: {failing}")
@@ -1933,7 +2084,7 @@ def phase_train_parity_bf16(cfg, cpu32, cpu16, gpu16):
         kernels.reset_launches()
         loss, items = train_loss(model, train_cfg,
                                  {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
-        grads = torch.autograd.grad(loss, params)
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
         results.append((dict(loss=float(loss.detach()),
                              **{k: float(v.detach()) for k, v in items._asdict().items()}),
                         dict(zip(names, (g.cpu() for g in grads))), dict(kernels.launches)))
@@ -1976,6 +2127,29 @@ VAL_COLOURS = ((230, 200, 60), (60, 220, 220), (10, 10, 120))
 V8, V8_PARAMS = ("yolov8n.yaml", NC), 3011417
 METRIC_KEYS = ("mAP50", "mAP50-95", "precision", "recall")
 NOT_A_QUALITY_CLAIM = "random weights: the mAP shows the path runs, it is no quality claim"
+
+
+@contextlib.contextmanager
+def host_solve_timer():
+    """Wall ms of each RT-DETR host solve (losses/detr.py `assign`: the
+    costs' copy to the host, scipy, the indices back on the card), the card
+    synchronised first so that the forward's tail does not count."""
+    from yolo_dbl_tpu_torch.losses import detr
+
+    times, inner = [], detr.assign
+
+    def timed(cost, counts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(cost, counts)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    detr.assign = timed
+    try:
+        yield times
+    finally:
+        detr.assign = inner
 
 
 @contextlib.contextmanager
@@ -2227,8 +2401,8 @@ def _predict_recorded(yolo, frames, conf, iou, imgsz=IMGSZ):
     model's `decode_outputs` (the detect one inside `predict`)."""
     raw, decode = [], yolo.model.decode_outputs
 
-    def recorded(feats):
-        out = decode(feats)
+    def recorded(feats, **kw):
+        out = decode(feats, **kw)
         raw.extend(out.float().cpu())
         return out
 
@@ -2706,6 +2880,14 @@ def _config_decode(name, cpu, gpu, frames, imgsz, per_forward):
     from yolo_dbl_tpu_torch import kernels
     from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
 
+    if cpu.head_name == "RTDETRDecoder":
+        row, near = rtdetr_card_vs_cpu(cpu, gpu, frames, imgsz)
+        row["params"] = sum(p.numel() for p in gpu.parameters())
+        fwd = row["forward_launches"]
+        require(row["box_max_abs_px"] < 0.05 and row["score_max_abs"] <= 1e-3
+                and row["classes_equal"] and near
+                and fwd == _launches(per_forward, torch.float32), f"{name} card vs CPU: {row}")
+        return row, fwd
     size = (imgsz, imgsz)
     kernels.reset_launches()
     with tf32_off():
@@ -2792,6 +2974,11 @@ ZOO_V9V10 = {name: ({"letterbox_normalize": 1}, {}) for name in (
 # default scale; FFCA-YOLO-L has none), at nc=80 and 320: K1 alone
 ZOO_POOLS = {name: ({"letterbox_normalize": 1}, {}) for name in (
     "yolov8n-world.yaml", "FFCA-YOLO.yaml", "FFCA-YOLO-L.yaml", "yolo11n-C3k2_EFE-IRSTE.yaml")}
+# RT-DETR's other three configs, at nc=80 and 320 (2,100 tokens for 300
+# queries): K1 and K2 18 times a forward, K2 forward and backward 18 times a step
+ZOO_RTDETR = {name: ({"letterbox_normalize": 1, "sample_bilinear": RTDETR_K2},
+                     {"sample_bilinear": RTDETR_K2, "sample_bilinear_backward": RTDETR_K2})
+              for name in ("rtdetr-x.yaml", "rtdetr-resnet50.yaml", "rtdetr-resnet101.yaml")}
 
 
 def phase_zoo(card, zoo=ZOO, phase="zoo"):
@@ -3436,7 +3623,7 @@ def phase_dp(card):
     return launches
 
 
-TP_B, TP_STEPS, TP_REQUESTS = 8, 2, 2
+TP_B, TP_STEPS, TP_REQUESTS = 8, 2, 1
 
 
 def _parallel_models(tmp):
@@ -3517,7 +3704,7 @@ def phase_tp(card, tmp, setup):
     processes) and (b) a 2x2 mesh (4 processes) train 2 steps at global
     batch 8, float32 with TF32 off, against the one-process Trainer on the
     same weights and batches at the dp phase's bars (`check_dp_float32`);
-    (a) then serves 2 requests of 8 u8 frames in float32 and bfloat16
+    (a) then serves a request of 8 u8 frames in float32 and bfloat16
     through a model `shard_variables` sharded (K1, the forward, decode,
     NMS): its decode against the one-process float32 decode at the parity
     bars (bfloat16: parity_bf16's). K2 forward and backward launch 3 times
@@ -3606,7 +3793,7 @@ def phase_tp(card, tmp, setup):
 def phase_sp(card, setup):
     """Spatial parallelism of YOLO-DBL-s (nc=3, 640, float32, TF32 off) over
     Gloo at world 2 on this one card (a 1x2 mesh, 320 image rows a rank):
-    2 requests of 8 u8 frames through `spatial(model, mesh)` (K1 on the
+    a request of 8 u8 frames through `spatial(model, mesh)` (K1 on the
     whole frames, the forward on row shards with halos, DySample and the
     hypergraph on gathered maps: K2 3 times a request on every rank); its
     decode against the one-process float32 decode at the parity bars. Prints
@@ -3627,6 +3814,538 @@ def phase_sp(card, setup):
           "ranks": ranks, "launches": launches, "wall_s": time.perf_counter() - t_start,
           "card": card})
     return launches
+
+
+# ---------------------------------------------------------------- RT-DETR
+
+@contextlib.contextmanager
+def pinned_queries(forced=None):
+    """Every RT-DETR decoder's query selection inside the block, recorded as
+    (selected token indices (B, nq), every token's best encoder score (B, S))
+    on the CPU, in call order; with `forced` ((B, nq)) the decoders take
+    those tokens instead of their own (which are still recorded)."""
+    from yolo_dbl_tpu_torch.models.rtdetr import RTDETRDecoder
+
+    own, seen = RTDETRDecoder.select_queries, []
+
+    def select(self, enc_scores):
+        topi = own(self, enc_scores)
+        seen.append((topi.cpu(), enc_scores.detach().amax(-1).float().cpu()))
+        return topi if forced is None else forced.to(topi.device)
+
+    RTDETRDecoder.select_queries = select
+    try:
+        yield seen
+    finally:
+        RTDETRDecoder.select_queries = own
+
+
+@contextlib.contextmanager
+def pinned_matching(forced=None):
+    """Every RT-DETR Hungarian matching inside the block (losses/detr.py
+    `assign`), recorded as (own query indices (N, M), the costs (N, Q, M))
+    on the CPU; with `forced` the loss takes those indices instead."""
+    from yolo_dbl_tpu_torch.losses import detr
+
+    own, seen = detr.assign, []
+
+    def assign(cost, counts):
+        idx = own(cost, counts)
+        seen.append((idx.cpu(), cost.float().cpu(), counts.long().cpu()))
+        return idx if forced is None else forced.to(idx.device)
+
+    detr.assign = assign
+    try:
+        yield seen
+    finally:
+        detr.assign = own
+
+
+def _selection_partings(card, cpu, bar=1e-3):
+    """Where two devices' top-k query selections part: each rank at which
+    they hold different tokens (a swap of two near-equal scores, or a
+    token at the k-th that only one side keeps), named with both tokens'
+    best encoder scores on both devices. `card`, `cpu`: (selected (B, nq),
+    best scores (B, S)). Returns (partings, whether the encoder's scores
+    agree within `bar` (the score bar) and each parting is a near-tie: its two
+    tokens' scores within 2e of each other on each device, e the largest
+    score difference between the devices, since two tokens can change
+    places only where their scores lie within e of each other)."""
+    (sel_g, best_g), (sel_c, best_c) = card, cpu
+    e = float((best_g - best_c).abs().max())
+    out, near = [], e <= bar
+    for i in range(sel_g.shape[0]):
+        for rank in torch.nonzero(sel_g[i] != sel_c[i]).flatten().tolist():
+            a, b = int(sel_g[i, rank]), int(sel_c[i, rank])
+            sg, sc = [float(best_g[i, a]), float(best_g[i, b])], [float(best_c[i, a]),
+                                                                   float(best_c[i, b])]
+            out.append({"frame": i, "rank": rank, "token_card": a, "token_cpu": b,
+                        "scores_card": sg, "scores_cpu": sc})
+            near = near and abs(sg[0] - sg[1]) <= 2 * e and abs(sc[0] - sc[1]) <= 2 * e
+    return out, near
+
+
+def _rtdetr_rows_alike(card, cpu, imgsz):
+    """The final decoder layer's rows of two decodes under one query
+    selection, query by query: {box_max_abs_px (xyxy in pixels of the
+    square `imgsz`), score_max_abs (sigmoid), classes_equal (each query's
+    best class)}. `card`, `cpu`: (dec_bboxes, dec_scores) on the CPU."""
+    from yolo_dbl_tpu_torch.ops.boxes import xywh2xyxy
+
+    (bg, sg), (bc, sc) = ((b[:, -1].double(), torch.sigmoid(s[:, -1].double())) for b, s in (card, cpu))
+    return {"box_max_abs_px": float((xywh2xyxy(bg) - xywh2xyxy(bc)).abs().max()) * imgsz,
+            "score_max_abs": float((sg - sc).abs().max()),
+            "classes_equal": bool(torch.equal(sg.argmax(-1), sc.argmax(-1)))}
+
+
+def rtdetr_card_vs_cpu(cpu, gpu, u8, imgsz):
+    """RT-DETR's decode of uint8 frames letterboxed to `imgsz` on the card
+    against the CPU's (TF32 off), query by query: each device's own top-k
+    selection, the tokens where they part (`_selection_partings`), and the
+    final layer's rows under the CPU's selection (the card's forward again
+    with it where they part: rows are compared query by query, and one
+    different query changes every query's self-attention). Also `predict`'s (B, Q, 6) rows, finite and sorted.
+    Returns ({box_max_abs_px, score_max_abs, classes_equal,
+    selection_partings, ...}, whether every parting is a near-tie)."""
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+
+    size = (imgsz, imgsz)
+    with tf32_off(), torch.inference_mode():
+        x_c = letterbox_normalize(u8, size)
+        with pinned_queries() as sc:
+            out_c = cpu(x_c)
+        kernels.reset_launches()
+        x_g = letterbox_normalize(u8.cuda(), size)
+        with pinned_queries() as sg:
+            out_g = gpu(x_g)
+        launches = dict(kernels.launches)
+        partings, near = _selection_partings(sg[0], sc[0])
+        if partings:
+            with pinned_queries(sc[0][0]):
+                out_g = gpu(x_g)
+        dets = gpu.decode_outputs(out_g, img_size=imgsz).cpu()
+    out_g = [o.cpu() for o in out_g]
+    require(all(bool(torch.isfinite(o).all()) for o in out_g) and dets.shape[-1] == 6
+            and bool((dets[..., 4].diff(dim=1) <= 0).all()),
+            f"RT-DETR decode: outputs {[tuple(o.shape) for o in out_g]}, rows {tuple(dets.shape)}")
+    row = _rtdetr_rows_alike(out_g[:2], out_c[:2], imgsz)
+    row.update(forward_launches=launches, queries=int(out_c[0].shape[2]),
+               tokens=int(sc[0][1].shape[1]),
+               selection_partings=partings, max_score=float(torch.sigmoid(out_c[1][:, -1]).max()),
+               rows_above_conf=[int((d[:, 4] > 0.25).sum()) for d in dets])
+    return row, near
+
+
+def phase_parity_rtdetr(cfg, cpu_model, gpu_model, frames):
+    """RT-DETR-l's decode of 2 frames on the card against the CPU (TF32 off):
+    the final layer's rows, query by query, within 0.05 px and 1e-3 with
+    equal classes, under one selection; where the two top-300s part, each
+    parted token named with both devices' scores and k-th scores, and
+    required to be such a near-tie."""
+    t_start = time.perf_counter()
+    row, near = rtdetr_card_vs_cpu(cpu_model, gpu_model, torch.from_numpy(frames), IMGSZ)
+    emit({"phase": _phase("parity", cfg), "frames": 2, **row, "tf32": False,
+          "seconds": time.perf_counter() - t_start})
+    require(row["box_max_abs_px"] < 0.05 and row["score_max_abs"] <= 1e-3
+            and row["classes_equal"] and near, f"RT-DETR card vs CPU: {row}")
+
+
+def phase_parity_bf16_rtdetr(cfg, cpu32, cpu16, gpu16, frames):
+    """The card's bfloat16 RT-DETR-l against the CPU's float32 at the same
+    weights and frames, within check_amp's bars (boxes 0.02 of imgsz, scores
+    0.05), query by query under the CPU float32's selection (bfloat16
+    encoder scores tie and reorder the top-300: the share of the card's own
+    selection that the float32 one holds is printed); card bfloat16 against
+    CPU bfloat16 beside the CPU's own bfloat16-against-float32 spread."""
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+
+    t_start = time.perf_counter()
+    u8 = torch.from_numpy(frames)
+    size = (IMGSZ, IMGSZ)
+    with torch.inference_mode():
+        with pinned_queries() as s32:
+            out32 = cpu32(letterbox_normalize(u8, size))
+        sel = s32[0][0]
+        with pinned_queries(sel) as s16:
+            outs = {"cpu16": cpu16(letterbox_normalize(u8, size, out_dtype=BF16)),
+                    "card16": [o.cpu() for o in gpu16(letterbox_normalize(u8.cuda(), size,
+                                                                           out_dtype=BF16))]}
+    own16 = s16[1][0]
+    kept = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / len(a)
+                          for a, b in zip(own16, sel)]))
+    require(all(bool(torch.isfinite(o.float()).all()) for o in outs["card16"])
+            and outs["card16"][1].dtype == BF16, "bf16 RT-DETR outputs")
+    pair = {k: _rtdetr_rows_alike(outs[a][:2], b[:2], IMGSZ) for k, a, b in (
+        ("card_bf16_vs_cpu_f32", "card16", out32), ("card_bf16_vs_cpu_bf16", "card16",
+                                                    outs["cpu16"]),
+        ("cpu_bf16_vs_cpu_f32", "cpu16", out32))}
+    box_bar, score_bar = 0.02 * IMGSZ, 0.05
+    emit({"phase": _phase("parity", cfg, BF16), "frames": 2, **pair,
+          "card_bf16_own_selection_share_in_f32": kept,
+          "bars": {"box_px": box_bar, "score": score_bar},
+          "seconds": time.perf_counter() - t_start})
+    got = pair["card_bf16_vs_cpu_f32"]
+    require(got["box_max_abs_px"] < box_bar and got["score_max_abs"] < score_bar,
+            f"card bf16 vs CPU f32 (RT-DETR): {got}")
+
+
+def _matching_partings(card, cpu):
+    """The Hungarian matchings in which the card's own assignment differs
+    from the CPU's, both solved on their own device's costs of the same
+    queries. `card`, `cpu`: (indices (N, M), costs (N, Q, M), GT counts
+    (N,)). Each is named with both assignments' total costs on the card's
+    costs and the costs' largest difference d between the devices; it is a
+    near-tie where the CPU's assignment costs at most 2 k d more than the
+    card's optimum on the card's costs (k GTs), the most that costs moved
+    by d can part two optima. Returns (partings, whether each is a
+    near-tie)."""
+    (idx, cost, counts), (forced, cost_cpu, _) = card, cpu
+    out, near = [], True
+    for n in range(idx.shape[0]):
+        k = int(counts[n])
+        a, b = idx[n, :k], forced[n, :k]
+        if torch.equal(a, b):
+            continue
+        c = cost[n, :, :k].double()
+        d = float((c - cost_cpu[n, :, :k].double()).abs().max())
+        cols = torch.arange(k)
+        ca, cb = float(c[a, cols].sum()), float(c[b, cols].sum())
+        out.append({"matching": n, "gts": k, "own_cost": ca, "cpu_cost": cb,
+                    "cost_max_abs_diff": d})
+        near = near and cb - ca <= 2 * k * d
+    return out, near
+
+
+def _rtdetr_partings(card_queries, card_matchings, cpu_own):
+    """({selection_partings, matchings, matchings_differing,
+    matching_partings, held_under}, whether each is a near-tie) of the
+    card's own query selection and matchings (`pinned_queries`' and
+    `pinned_matching`'s records) against the CPU's; train-mode scores part
+    by float32 order, so the score bar is 1e-3 of their largest."""
+    bar = 1e-3 * float(cpu_own[0][1].abs().max())
+    (sel, sel_near), (match, match_near) = (_selection_partings(card_queries, cpu_own[0], bar),
+                                            _matching_partings(card_matchings, cpu_own[1]))
+    return ({"selection_partings": sel, "matchings": int(cpu_own[1][0].shape[0]),
+             "matchings_differing": len(match), "matching_partings": match,
+             "held_under": "the CPU's selection and matchings"}, sel_near and match_near)
+
+
+# RT-DETR-l's seeded train step is held at two levels. Its trunk's
+# train-mode BatchNorms multiply a relative change of the input ~1e3-fold
+# by P5 in float64 (in eval mode ~1-fold), and the ReLU and bilinear kinks
+# behind them turn that into gradients that no float32 run reaches within
+# 1e-3 of a leaf's largest: two CPU runs in 8 and 1 threads part from
+# float64 by up to 13% and 23% of a leaf's largest at 256 px, and one
+# leaf's distance on the card and on the CPU can differ 4-fold
+# (tools/exp_rtdetr_conditioning.py). The whole step's leaves are held
+# against float64 at half of their largest (a zeroed, sign-flipped or
+# doubled gradient fails), its loss items and BatchNorm statistics at the
+# bars of every model; the decoder alone, fed one float32 pyramid, at
+# train_parity's rules (`phase_train_parity_decoder`)
+RTDETR_LEAF_BAR = 0.5
+
+
+def rtdetr_anchor_boxes(model):
+    """Zero the final Dense of each box head of an RT-DETR model (the
+    encoder's and each decoder layer's), as RT-DETR's published decoder
+    initialization does: each layer's box starts as its query's anchor. The
+    seeded final layers make the six layers' box refinement amplify
+    float32's rounding ~4-fold a layer; the train parity phases start
+    here."""
+    dec = model.detect
+    with torch.no_grad():
+        for head in (dec.enc_bbox_head, *(getattr(dec, f"dec_bbox_head_{i}")
+                                          for i in range(dec.ndl))):
+            last = getattr(head, f"layers_{head.n - 1}")
+            last.weight.zero_()
+            last.bias.zero_()
+
+
+def phase_train_parity_decoder(cfg, cpu_model, gpu_model):
+    """RT-DETR's decoder and set loss alone, in train mode, fed one float32
+    pyramid on every side (the CPU trunk's train-mode P3-P5 of
+    train_parity's batch): the CPU (plain versions), the card (K2's forward
+    and backward, TF32 off) and float64 on the card through `plain_kernels`,
+    the card and float64 under the CPU's selection and matchings (the
+    card's own recorded, each parting a named near-tie). Held at
+    train_parity's rules: the loss items card against CPU within 1e-4
+    relative; the last decoder layer's MSDeformAttn leaves
+    (KERNEL_FED_LEAVES) card against CPU within 1e-3 of their largest; every
+    decoder leaf and each level's input gradient against float64 within
+    1e-3 of its largest |g64| or 4x the CPU's own distance (a ReLU or a
+    bilinear tap at a kink that float32 puts on the other side moves a
+    leaf up to ~1% of its largest on either device), plus 1e-10 of the
+    largest of all."""
+    from yolo_dbl_tpu_torch import kernels
+    from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
+    from yolo_dbl_tpu_torch.losses.detr import rtdetr_loss
+
+    t_start = time.perf_counter()
+    batch = train_batches(np.random.default_rng(2), 1, b=2, imgsz=256, nc=cfg[1])[0]
+    trunk, pyramid = copy.deepcopy(cpu_model).train(), []
+    hook = trunk.detect.register_forward_pre_hook(lambda mod, args: pyramid.extend(args[0]))
+    with torch.no_grad():
+        trunk(device_normalize(torch.from_numpy(batch["img"]), torch.float32))
+    hook.remove()
+    del trunk
+    sides, pins, own, partings, launches = {}, (None, None), None, None, None
+    for side, dec, dev, dt in (("cpu", cpu_model.detect, "cpu", torch.float32),
+                               ("card", gpu_model.detect, "cuda", torch.float32),
+                               ("float64", cpu_model.detect, "cuda", torch.float64)):
+        dec = copy.deepcopy(dec).to(device=dev, dtype=dt).train()
+        feats = [f.to(dev, dt).requires_grad_() for f in pyramid]
+        targets = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        kernels.reset_launches()
+        with tf32_off(), (plain_kernels() if dt == torch.float64 else contextlib.nullcontext()), \
+                pinned_queries(pins[0]) as sq, pinned_matching(pins[1]) as sm:
+            loss, items = rtdetr_loss(dec(feats), targets, cfg[1])
+            names, params = zip(*dec.named_parameters())
+            grads = torch.autograd.grad(loss, [*params, *feats], materialize_grads=True)
+        if side == "cpu":
+            pins, own = (sq[0][0], sm[0][0]), (sq[0], sm[0])
+        elif side == "card":
+            partings, launches = _rtdetr_partings(sq[0], sm[0], own), dict(kernels.launches)
+        sides[side] = (dict(loss=float(loss.detach()),
+                            **{k: float(v.detach()) for k, v in items._asdict().items()}),
+                       dict(zip([*names, "P3", "P4", "P5"], (g.cpu() for g in grads))))
+    (lc, gc), (lg, gg), (l64, g64) = sides["cpu"], sides["card"], sides["float64"]
+    loss_rel = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc}
+    fed, n_fed = KERNEL_FED_LEAVES[cfg]
+    named = [n for n in gc if fed in "." + n]
+    grad_rel = grads_rel(gg, gc, named)
+    g_max = max(float(g.abs().max()) for g in g64.values())
+    leaves = {}
+    for n, ref in g64.items():
+        card, cpu = (float((g[n].double() - ref).abs().max()) for g in (gg, gc))
+        m = float(ref.abs().max())
+        leaves[n] = dict(card_err=card, cpu_err=cpu, leaf_max=m,
+                         tol=max(1e-3 * m, 4 * cpu) + 1e-10 * g_max)
+    failing = {n: e for n, e in leaves.items() if e["card_err"] > e["tol"]}
+    worst = sorted(leaves.items(), key=lambda kv: -kv[1]["card_err"] / max(kv[1]["leaf_max"], 1e-30))
+    past = {side: sum(e[f"{side}_err"] > 1e-3 * e["leaf_max"] + 1e-10 * g_max
+                      for e in leaves.values()) for side in ("card", "cpu")}
+    extra, near = partings
+    emit({"phase": _phase("train_parity_decoder", cfg), "batch": 2, "imgsz": 256,
+          "losses_cpu": lc, "losses_card": lg, "losses_float64": l64, "loss_rel": loss_rel,
+          "grad_rel_of_leaf_max": grad_rel, "model_max_abs_grad": g_max, "leaves": len(leaves),
+          "zero_leaves": sum(e["leaf_max"] == 0 for e in leaves.values()),
+          "leaves_past_1e-3_of_leaf_max": past["card"],
+          "cpu_leaves_past_1e-3_of_leaf_max": past["cpu"],
+          "worst_leaves_vs_float64": [dict(name=n, **e) for n, e in worst[:5]],
+          "launches": launches, **extra, "seconds": time.perf_counter() - t_start})
+    require(near, f"RT-DETR selection or matching parted away from a near-tie: {extra}")
+    require(launches == PER_STEP[cfg, torch.float32], f"launches in one decoder step: {launches}")
+    require(max(loss_rel.values()) <= 1e-4, f"decoder loss items card vs CPU: {loss_rel}")
+    require(len(named) == n_fed and max(grad_rel.values()) <= 1e-3,
+            f"decoder gradients card vs CPU (of each leaf's max |g|): {grad_rel}")
+    require(set(leaves) == set(gg) and not failing,
+            f"decoder leaf gradients on the card vs float64 past their tolerance: {failing}")
+
+
+def phase_facade_rtdetr(card, gpu_model):
+    """The port's predictor, validator and YOLO.train/val/predict refuse
+    RT-DETR on the card (ROADMAP Queue 3: JAX's run NMS over the decode's
+    sorted rows); `DetectionModel.predict` serves it (the main_rtdetr
+    phases)."""
+    from yolo_dbl_tpu_torch import DetectionModel
+    from yolo_dbl_tpu_torch.engine.model import YOLO
+    from yolo_dbl_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_dbl_tpu_torch.engine.validator import DetectionValidator
+
+    init = DetectionModel.init_weights
+    DetectionModel.init_weights = lambda self, generator: None  # a refusal needs no weights
+    try:
+        yolo = YOLO(RTDETR[0], nc=RTDETR[1], device="cuda")
+    finally:
+        DetectionModel.init_weights = init
+    frame = np.zeros((*SRC_HW, 3), np.uint8)
+    calls = {"DetectionPredictor": lambda: DetectionPredictor(gpu_model),
+             "DetectionValidator": lambda: DetectionValidator(gpu_model),
+             "YOLO.train": lambda: yolo.train("no-dataset", epochs=1),
+             "YOLO.val": lambda: yolo.val("no-dataset"),
+             "YOLO.predict": lambda: yolo.predict(frame)}
+    refused = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            refused[name] = None
+        except NotImplementedError as e:
+            refused[name] = str(e)
+    emit({"phase": "facade_rtdetr", "refused": refused, "device": str(yolo.model.device),
+          "card": card})
+    require(all(v and "ROADMAP Queue 3" in v for v in refused.values())
+            and yolo.trainer is None, f"RT-DETR refusals: {refused}")
+
+
+def rtdetr_sites(model, rng, batches=(B, TRAIN_B)):
+    """{batch: {level: (x, gy, gx)}}: the K2 inputs of the first decoder
+    layer's MSDeformAttn (the projected value (B, H, W, 256), coordinates
+    (B, 1200, 8) in pixels, points off the map among them) in one eval
+    forward of the seeded RT-DETR-l on the card, on random uint8 frames at
+    640, at serving batch 8 and training batch 16."""
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+    from yolo_dbl_tpu_torch.ops import resample
+
+    inner, out = resample.sample_bilinear, {}
+    for b in batches:
+        calls = []
+
+        def record(x, gy, gx, mode):
+            if len(calls) < len(RTDETR_LEVELS):
+                require(mode == "zeros", f"MSDeformAttn samples with {mode}")
+                calls.append((x.clone(), gy.clone(), gx.clone()))
+            return inner(x, gy, gx, mode)
+
+        frames = torch.from_numpy(rng.integers(0, 256, (b, *SRC_HW, 3), dtype=np.uint8))
+        resample.sample_bilinear = record
+        try:
+            with torch.no_grad():
+                model(letterbox_normalize(frames.cuda(), (IMGSZ, IMGSZ)))
+        finally:
+            resample.sample_bilinear = inner
+        out[b] = dict(zip(RTDETR_LEVELS, calls))
+    return out
+
+
+def _point_taps(x, gy, gx):
+    """(off-map share: points none of whose 4 taps lands on the map, bytes
+    of x the in-map taps need: each distinct pixel and group's C/G values
+    once)."""
+    b, h, w, c = x.shape
+    g = gy.shape[-1]
+    y0, x0 = torch.floor(gy).long(), torch.floor(gx).long()
+    keys, hit = [], torch.zeros_like(y0, dtype=torch.bool)
+    bi = torch.arange(b, device=x.device).view(b, 1, 1)
+    gi = torch.arange(g, device=x.device).view(1, 1, g)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yy, xx = y0 + dy, x0 + dx
+            inb = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            hit |= inb
+            keys.append((((bi * h + yy) * w + xx) * g + gi)[inb])
+    touched = int(torch.unique(torch.cat(keys)).numel())
+    return float(1.0 - hit.float().mean()), touched * (c // g) * x.element_size()
+
+
+def _grid_layout(xs, gy, gx):
+    """F.grid_sample's layout for point sites: (B*G, C/G, H, W) planes of
+    each NHWC x and a (B*G, 1, N, 2) normalized grid, one a group."""
+    b, h, w, c = xs[0].shape
+    g = gy.shape[-1]
+    planes = [x.reshape(b, h, w, g, c // g).permute(0, 3, 4, 1, 2).reshape(b * g, c // g, h, w)
+              .contiguous() for x in xs]
+    grid = torch.stack([(gx + 0.5) * 2 / w - 1, (gy + 0.5) * 2 / h - 1], -1)
+    return planes, grid.permute(0, 2, 1, 3).reshape(b * g, 1, -1, 2).contiguous()
+
+
+def deform_k2_sites(sites):
+    """The forward kernel against its plain version at MSDeformAttn's three
+    sites at serving batch 8 (zeros, the decoder's own coordinates): max
+    error, the off-map share, times (kernel, plain, F.grid_sample with
+    zeros padding) and the bound on the bytes the in-map taps need (each
+    touched pixel's group read once, the output written, the coordinates
+    read); the whole map's bound beside it."""
+    from yolo_dbl_tpu_torch.kernels.sampling import sample_bilinear, sample_bilinear_plain
+
+    rows, src = {}, []
+    for level, (x, gy, gx) in sites.items():
+        b, h, w, c = x.shape
+        n, g = gy.shape[1:]
+        xs = [x] + [x.clone() for _ in range(copies_for(x.numel() * 4) - 1)]
+        got, want = sample_bilinear(x, gy, gx, "zeros"), sample_bilinear_plain(x, gy, gx, "zeros")
+        err = max_abs(got, want)
+        require(err <= TOL, f"sampler kernel vs plain at MSDeformAttn {level}: {err}")
+        off, x_bytes = _point_taps(x, gy, gx)
+        planes, grid = _grid_layout(xs, gy, gx)
+
+        def library(i):
+            return F.grid_sample(planes[i % len(xs)], grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)
+
+        lib = library(0).reshape(b, g, c // g, n).permute(0, 3, 1, 2).reshape(b, n, c)
+        k = len(xs)
+        ms, _, s1 = timings(lambda i: sample_bilinear(xs[i % k], gy, gx, "zeros"), 50)
+        plain_ms, _, s2 = timings(lambda i: sample_bilinear_plain(xs[i % k], gy, gx, "zeros"), 10)
+        library_ms, _, s3 = timings(library, 50)
+        src.append((s1, s2, s3))
+        io = (b * n * c + 2 * b * n * g) * 4
+        bound_ms, bound_by = bound(x_bytes + io, b * n * c * 11)
+        rows[level] = dict(x=[b, h, w, c], n=n, groups=g, max_abs_err=err,
+                           library_vs_kernel=max_abs(lib, got), off_map_share=off,
+                           tapped_x_bytes=x_bytes, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           bound_ms_whole_map=bound(x.numel() * 4 + io, b * n * c * 11)[0])
+    return rows, src
+
+
+def deform_k2_backward_sites(sites, gen):
+    """The backward kernel (and the forward) against the plain versions at
+    MSDeformAttn's three sites at training batch 16 (zeros, the decoder's
+    coordinates, a random output gradient): errors, the share of taps that
+    missed their tile's window, times (kernel, plain, F.grid_sample's
+    backward with zeros padding) and the bound: the in-map taps' bytes of x,
+    g read, dx written whole, the coordinates read and their gradients
+    written."""
+    from yolo_dbl_tpu_torch.kernels.sampling import (backward_window_misses, sample_bilinear,
+                                                     sample_bilinear_backward,
+                                                     sample_bilinear_backward_plain,
+                                                     sample_bilinear_plain)
+
+    rows, src = {}, []
+    for level, (x, gy, gx) in sites.items():
+        b, h, w, c = x.shape
+        n, g = gy.shape[1:]
+        k = copies_for((x.numel() + b * n * c) * 4)
+        xs = [x] + [x.clone() for _ in range(k - 1)]
+        gs = [torch.randn((b, n, c), generator=gen).cuda() for _ in range(k)]
+        fwd = max_abs(sample_bilinear(x, gy, gx, "zeros"), sample_bilinear_plain(x, gy, gx, "zeros"))
+        got = sample_bilinear_backward(x, gy, gx, gs[0], "zeros")
+        want = sample_bilinear_backward_plain(x, gy, gx, gs[0], "zeros")
+        errs = {"dx": max_abs(got[0], want[0]), "forward": fwd}
+        errs.update({f"{nm}_rel": max_abs(a, r) / float(r.abs().max())
+                     for nm, a, r in zip(("dgy", "dgx"), got[1:], want[1:])})
+        require(fwd <= TOL and errs["dx"] <= 1e-4 and errs["dgy_rel"] <= 1e-4
+                and errs["dgx_rel"] <= 1e-4, f"sampler backward vs plain at MSDeformAttn {level}: "
+                f"{errs}")
+        taps, miss = backward_window_misses(x, gy, gx, gs[0], "zeros")
+        off, x_bytes = _point_taps(x, gy, gx)
+        planes, grid = _grid_layout(xs, gy, gx)
+        planes = [p.requires_grad_() for p in planes]
+        grid.requires_grad_()
+        g_planes = [t.reshape(b, n, g, c // g).permute(0, 2, 3, 1).reshape(b * g, c // g, 1, n)
+                    .contiguous() for t in gs]
+
+        def library(i):
+            out = F.grid_sample(planes[i % k], grid, mode="bilinear", padding_mode="zeros",
+                                align_corners=False)
+            return torch.autograd.grad(out, (planes[i % k], grid), g_planes[i % k])
+
+        ms, _, s1 = timings(lambda i: sample_bilinear_backward(xs[i % k], gy, gx, gs[i % k],
+                                                               "zeros"), 30)
+        plain_ms, _, s2 = timings(lambda i: sample_bilinear_backward_plain(
+            xs[i % k], gy, gx, gs[i % k], "zeros"), 5)
+        library_ms, _, s3 = timings(library, 20, only="grid_sampler_2d_backward")
+        src.append((s1, s2, s3))
+        io = (b * n * c + x.numel() + 4 * b * n * g) * 4
+        bound_ms, bound_by = bound(x_bytes + io, b * n * c * 24)
+        rows[level] = dict(x=[b, h, w, c], n=n, groups=g, errors=errs, off_map_share=off,
+                           window_missed_share=miss / taps, taps=taps, tapped_x_bytes=x_bytes,
+                           ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by,
+                           bound_ms_whole_map=bound(x.numel() * 4 + io, b * n * c * 24)[0])
+    return rows, src
+
+
+def _rtdetr_row(rows):
+    """A kernel row's summary of the MSDeformAttn sites: each site's numbers
+    and, for a forward of RT-DETR-l, their sums times the 6 decoder layers
+    (each layer samples the same shapes)."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    return {"sites": rows, "per_forward": {k: RTDETR_LAYERS * sum(r[k] for r in rows.values())
+                                           for k in keys},
+            "bound_by": _by(rows.values())}
+
 
 
 def main():
@@ -3650,19 +4369,27 @@ def main():
                   SRC_HW, (IMGSZ, IMGSZ), B, out_dtype=dt) for dt in (torch.float32, torch.bfloat16)},
               **attention.shared_bytes(),
               "sample_bilinear_backward_kernel": {
-                  f"C/G={c // GROUPS}": sampling.backward_shared_bytes(c, GROUPS)
-                  for c in sorted({c for _, _, c in (*DYSAMPLE_SITES.values(),
-                                                     *DBL2_SITES.values())})}},
+                  **{f"C/G={c // GROUPS}": sampling.backward_shared_bytes(c, GROUPS)
+                     for c in sorted({c for _, _, c in (*DYSAMPLE_SITES.values(),
+                                                        *DBL2_SITES.values())})},
+                  "C/G=32 (MSDeformAttn)": sampling.backward_shared_bytes(256, RTDETR_HEADS)}},
           "card": card, "sm_clock_max_mhz": sm_clock_max_mhz(),
           "sms": torch.cuda.get_device_properties(0).multi_processor_count,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     gen = torch.Generator().manual_seed(0)
     rows = []
+    with took("rtdetr_sites"):
+        # RT-DETR-l's weights, drawn once for the K2 sites and its float32 path
+        seeded_rtdetr = seeded_model(RTDETR)
+        deform = rtdetr_sites(on_card(seeded_rtdetr), np.random.default_rng(10))
+        torch.cuda.empty_cache()
     with took("kernels"):
         for dtype, k1_row in zip((torch.float32, BF16), phase_k1(gen)):
-            k2_row = phase_k2(gen, dtype)
-            k2_backward_row, k2_train_err = phase_k2_backward(gen, dtype)
+            f32 = dtype == torch.float32
+            k2_row = phase_k2(gen, dtype, deform[B] if f32 else None)
+            k2_backward_row, k2_train_err = phase_k2_backward(gen, dtype,
+                                                              deform[TRAIN_B] if f32 else None)
             k3_row = phase_k3(gen, dtype)
             k3_dkv_row, k3_dq_row, k3_train_err = phase_k3_backward(gen, dtype)
             for row, train_err in ((k2_row, k2_train_err), (k3_row, k3_train_err)):
@@ -3671,40 +4398,51 @@ def main():
             rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
-    paths = (DBL, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS, OBB, WORLD, EMAC)
+    paths = (DBL, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS, OBB, WORLD, EMAC, RTDETR)
     for cfg in paths:
         for dtype in (torch.float32,) if cfg in (V11, V9, V7, POSE, CLS) else (torch.float32, BF16):
             with took(_phase("path", cfg, dtype)):
-                seeded = seeded_model(cfg, dtype)  # drawn once for serving and training
+                # drawn once for serving and training
+                seeded = (seeded_rtdetr if (cfg, dtype) == (RTDETR, torch.float32)
+                          else seeded_model(cfg, dtype))
                 cpu_model, gpu_model = build_models(cfg, dtype, seeded=seeded)
                 serve[cfg, dtype], frames, predictor, median_ms = phase_main(cfg, gpu_model, rng,
                                                                              card)
                 phase_profile(cfg, predictor, rng, median_ms * 1e3)
                 # IDetect and Classify do not train (no JAX loss for them); YOLO-EMAC
-                # trains in float32 only
-                if cfg not in (V7, CLS) and (cfg, dtype) != (EMAC, BF16):
+                # and RT-DETR train in float32 only
+                if cfg not in (V7, CLS) and (cfg, dtype) not in ((EMAC, BF16), (RTDETR, BF16)):
                     train[cfg, dtype] = phase_train(cfg, card, dtype, seeded)
                 del seeded
                 models[cfg, dtype] = (cpu_model, gpu_model, frames)
+    del seeded_rtdetr
     with took("parity"):
         for cfg in paths:
             if cfg == OBB:
                 phase_parity_obb(cfg, *models[cfg, torch.float32])
+            elif cfg == RTDETR:
+                phase_parity_rtdetr(cfg, *models[cfg, torch.float32])
             elif cfg in (SEG, POSE, CLS):
                 phase_parity_task(cfg, *models[cfg, torch.float32])
             else:
                 phase_parity(cfg, *models[cfg, torch.float32])
     with took("parity_bf16"):
-        for cfg in (DBL, V13, DBL2, V12, V10, SEG, WORLD):
+        for cfg in (DBL, V13, DBL2, V12, V10, SEG, WORLD, RTDETR):
             cpu32, _, frames = models[cfg, torch.float32]
             cpu16, gpu16, _ = models[cfg, BF16]
-            phase_parity_bf16(cfg, cpu32, cpu16, gpu16, frames)
+            (phase_parity_bf16_rtdetr if cfg == RTDETR else phase_parity_bf16)(
+                cfg, cpu32, cpu16, gpu16, frames)
     with took("train_parity"):
-        for cfg in (DBL, V13, V12, V10, SEG, POSE, OBB, WORLD, EMAC):
+        for model in models[RTDETR, torch.float32][:2]:
+            rtdetr_anchor_boxes(model)
+        for cfg in (DBL, V13, V12, V10, SEG, POSE, OBB, WORLD, EMAC, RTDETR):
             phase_train_parity(cfg, *models[cfg, torch.float32][:2])
+        phase_train_parity_decoder(RTDETR, *models[RTDETR, torch.float32][:2])
     with took("train_parity_bf16"):
         for cfg in (DBL, V13, V12, V10):
             phase_train_parity_bf16(cfg, models[cfg, torch.float32][0], *models[cfg, BF16][:2])
+    with took("facade_rtdetr"):
+        phase_facade_rtdetr(card, models[RTDETR, torch.float32][1])
     del models
     with took("val"):
         cpu32, f32_metrics, val = phase_val(card)
@@ -3725,6 +4463,8 @@ def main():
         zoo.update(phase_zoo_tasks(card))
     with took("zoo_pools"):
         zoo.update(phase_zoo(card, ZOO_POOLS, "zoo_pools"))
+    with took("zoo_rtdetr"):
+        zoo.update(phase_zoo(card, ZOO_RTDETR, "zoo_rtdetr"))
     with took("facade_dbl2"):
         facade.update(phase_facade_dbl2(card))
     with took("facade_tasks"):

@@ -781,6 +781,60 @@ def test_sample_bilinear_kernels_at_dbl2_sites(cuda, dtype, padding_mode, h, w, 
         _assert_within_bf16_ulp(a, r, scale)
 
 
+# RT-DETR-l's MSDeformAttn sites at 640: the P3-P5 maps (H, W) of 256
+# channels in 8 heads of 32, 300 queries x 4 points a head
+MSDEFORM_SITES = [(80, 80), (40, 40), (20, 20)]
+
+
+def _deform_coords(rng, b, h, w, queries=300, points=4, heads=8):
+    """(gy, gx) (B, queries x points, heads) in pixels as MSDeformAttn forms
+    them: reference boxes anywhere on the map with sides up to its size, and
+    each point up to half a side from the centre, so that many points fall
+    off the map."""
+    ctr = rng.uniform(0, 1, (b, queries, 1, 1, 2))
+    side = rng.uniform(0.05, 1.0, (b, queries, 1, 1, 2))
+    loc = ctr + rng.uniform(-1, 1, (b, queries, heads, points, 2)) * side * 0.5
+    loc = loc.transpose(0, 1, 3, 2, 4).reshape(b, queries * points, heads, 2)
+    return loc[..., 1] * h - 0.5, loc[..., 0] * w - 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", MSDEFORM_SITES)
+def test_sample_bilinear_kernels_at_msdeformattn_sites(cuda, dtype, h, w):
+    """The forward and backward kernels of `dtype` at RT-DETR-l's
+    deformable-attention sites (batch 2, zeros padding, 32 channels a
+    group, points off the map) against the plain versions: float32 within
+    1e-5 (forward), 1e-4 (dx) and 1e-4 of the largest (dgy, dgx); bfloat16
+    within one bfloat16 step plus 1e-6 of the terms' scale."""
+    rng = np.random.default_rng(29)
+    b, c, g = 2, 256, 8
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda).to(dtype)
+    gy, gx = (torch.from_numpy(a.astype(np.float32)).to(cuda).to(dtype)
+              for a in _deform_coords(rng, b, h, w))
+    off = ((gy <= -1) | (gy >= h) | (gx <= -1) | (gx >= w)).float().mean()
+    assert 0.05 < float(off) < 0.5
+    grad = torch.from_numpy(rng.standard_normal((b, gy.shape[1], c)).astype(np.float32))
+    grad = grad.to(cuda).to(dtype)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    before = dict(kernels.launches)
+    out = TS.sample_bilinear(x, gy, gx, "zeros")
+    got = TS.sample_bilinear_backward(x, gy, gx, grad, "zeros")
+    torch.cuda.synchronize()
+    for name in ("sample_bilinear", "sample_bilinear_backward"):
+        assert kernels.launches[name + suffix] == before[name + suffix] + 1
+    want_out = TS.sample_bilinear_plain(x, gy, gx, "zeros")
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want_out, atol=TOL, rtol=0)
+        _assert_backward_matches_plain(got, x, gy, gx, grad, "zeros")
+        return
+    g_max, x_max, cg = float(grad.abs().max()), float(x.abs().max()), c // g
+    _assert_within_bf16_ulp(out, want_out, x_max)
+    want = TS.sample_bilinear_backward_plain(x, gy, gx, grad, "zeros")
+    for a, r, scale in zip(got, want, (4 * g_max, cg * g_max * x_max, cg * g_max * x_max)):
+        _assert_within_bf16_ulp(a, r, scale)
+
+
 @pytest.mark.cuda
 def test_dbl2_l_card_forward_matches_cpu_at_640(cuda):
     """YOLO-DBL2-l (C3Ghost, DySample at 128, 256 and 128 channels a group)

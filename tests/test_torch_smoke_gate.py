@@ -14,7 +14,11 @@ picks WorldModel; the contrastive bias zeroed gives a seeded world model
 candidates; `_float64_grads` runs the trainer's forward (the zero text);
 `_world_yolo` scores a world checkpoint with its seeded text;
 `zero_grad_leaves` names the leaves a world model's zero-text step leaves
-without a gradient (train_world's moved-parameters check leaves them out)."""
+without a gradient (train_world's moved-parameters check leaves them out).
+For RT-DETR: the query-selection and matching partings, the rows compared
+query by query, the K2 site inputs, `RTDETRRequests`, the pinned
+selection and matching, `rtdetr_anchor_boxes` and `_rtdetr_partings`;
+`source_of` skips a site where a time was not taken."""
 
 from __future__ import annotations
 
@@ -363,3 +367,218 @@ def test_world_yolo_scores_a_world_checkpoint_with_its_text(tmp_path):
     assert isinstance(world, WorldModel) and torch.equal(world.txt_feats, model.txt_feats)
     scores = world.predict(x)[:, 4:]
     assert float(scores.max() - scores.min()) > 0
+
+
+# ---------------------------------------------------------------- RT-DETR's checks
+
+def _selection(best, nq):
+    """(selected (B, nq), best (B, S)) as the decoder's `select_queries`
+    records them."""
+    from yolo_dbl_tpu_torch.models.rtdetr import sort_descending
+
+    return sort_descending(best, 1)[1][:, :nq], best
+
+
+def test_selection_partings_name_near_ties_in_order_and_at_the_kth_query():
+    """Two devices' top-3 of 6 tokens part where scores sit within float32
+    rounding of each other: a swap of the 1st and 2nd, and the 3rd kept on
+    one side only; each rank is named with both tokens' scores on both
+    devices, and is a near-tie. Equal scores part nowhere; where any
+    token's scores part by more than 1e-3, no parting is a near-tie."""
+    from chip_smoke import _selection_partings
+
+    best = torch.tensor([[0.9, 0.2, 0.5000001, 0.9000001, 0.5, 0.1]])
+    other = best.clone()
+    other[0, 2], other[0, 4], other[0, 3] = 0.4999999, 0.5000002, 0.8999999
+    assert _selection_partings(_selection(best, 3), _selection(best.clone(), 3)) == ([], True)
+    parts, near = _selection_partings(_selection(best, 3), _selection(other, 3))
+    assert near and [(p["rank"], p["token_card"], p["token_cpu"]) for p in parts] == \
+        [(0, 3, 0), (1, 0, 3), (2, 2, 4)]
+    assert parts[2]["scores_card"] == pytest.approx([0.5000001, 0.5])
+    far = other.clone()
+    far[0, 5] = 0.1011  # an unselected token moved past the score bar
+    assert not _selection_partings(_selection(best, 3), _selection(far, 3))[1]
+
+
+def test_rtdetr_rows_alike_compare_the_final_layer_query_by_query():
+    """Boxes in pixels of the canvas (xyxy), sigmoid scores and each query's
+    best class, from the last decoder layer only."""
+    from chip_smoke import _rtdetr_rows_alike
+
+    rng = np.random.default_rng(5)
+    boxes = torch.from_numpy(rng.uniform(0.2, 0.6, (2, 3, 7, 4)).astype(np.float32))
+    scores = torch.from_numpy(rng.normal(0, 1, (2, 3, 7, 5)).astype(np.float32))
+    moved_b, moved_s = boxes.clone(), scores.clone()
+    moved_b[1, -1, 4, 0] += 1e-4  # the centre x: both x corners move
+    moved_s[0, 0] += 3.0  # an earlier layer: not compared
+    out = _rtdetr_rows_alike((moved_b, moved_s), (boxes, scores), 640)
+    assert out["box_max_abs_px"] == pytest.approx(0.064, rel=1e-2)
+    assert out["score_max_abs"] == 0 and out["classes_equal"]
+    moved_s[1, -1, 2, :] = scores[1, -1, 2].flip(0)
+    assert not _rtdetr_rows_alike((boxes, moved_s), (boxes, scores), 640)["classes_equal"]
+
+
+def test_matching_partings_count_differing_matchings_and_hold_them_to_near_ties():
+    """A matching whose assignments part where the two devices' costs moved
+    by d is a named near-tie when the CPU's assignment costs at most 2 k d
+    more on the card's costs; one that costs more than that is not."""
+    from chip_smoke import _matching_partings
+
+    cost = torch.tensor([[[1.0, 5.0], [5.0, 1.0], [1.001, 5.0]],
+                         [[1.0, 5.0], [5.0, 1.0], [3.0, 3.0]]])
+    counts = torch.tensor([2, 2])
+    own = torch.tensor([[0, 1], [0, 1]])
+    card = (own, cost, counts)
+    assert _matching_partings(card, (own.clone(), cost, counts)) == ([], True)
+    moved = cost.clone()
+    moved[0, 0, 0] = 1.002  # the CPU's costs: row 2 is now its optimum for GT 0
+    parts, near = _matching_partings(card, (torch.tensor([[2, 1], [0, 1]]), moved, counts))
+    assert near and [p["matching"] for p in parts] == [0]
+    assert parts[0]["cpu_cost"] - parts[0]["own_cost"] == pytest.approx(0.001, abs=1e-6)
+    parts, near = _matching_partings(card, (torch.tensor([[2, 1], [2, 1]]), moved, counts))
+    assert not near and len(parts) == 2 and parts[1]["cpu_cost"] - parts[1]["own_cost"] == 2.0
+
+
+def test_k2_point_site_inputs_count_taps_and_match_grid_sample():
+    """MSDeformAttn's K2 site inputs: `_point_taps` counts the points with no
+    tap on the map and the bytes the in-map taps need (each pixel's group
+    once); F.grid_sample with zeros padding on `_grid_layout`'s planes and
+    grid equals the plain sampler in zeros mode, points off the map too."""
+    import torch.nn.functional as F
+
+    from chip_smoke import _grid_layout, _point_taps
+    from yolo_dbl_tpu_torch.kernels.sampling import sample_bilinear_plain
+
+    x = torch.randn((2, 5, 6, 8), generator=torch.Generator().manual_seed(6))
+    gy = torch.tensor([[[0.0, 0.5], [-3.0, 1.5], [4.0, 10.0]]] * 2)  # (B, N=3, G=2)
+    gx = torch.tensor([[[0.0, 0.5], [2.0, -1.5], [5.0, 2.0]]] * 2)
+    off, n_bytes = _point_taps(x, gy, gx)
+    # no tap on the map: (y, x) = (-3, 2) and (10, 2), and (1.5, -1.5), whose x taps are
+    # -2 and -1: 3 of an image's 6 points
+    assert off == pytest.approx(3 / 6)
+    # pixels the in-map taps touch an image: group 0 the 2x2 at (0, 0) and (4, 5) alone,
+    # group 1 the 2x2 at (0, 0); 4 values a group, 4 bytes a value
+    assert n_bytes == 2 * (5 + 4) * 4 * 4
+    gy = torch.from_numpy(np.random.default_rng(7).uniform(-2, 6, (2, 9, 2)).astype(np.float32))
+    gx = torch.from_numpy(np.random.default_rng(8).uniform(-2, 7, (2, 9, 2)).astype(np.float32))
+    planes, grid = _grid_layout([x], gy, gx)
+    lib = F.grid_sample(planes[0], grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=False)
+    lib = lib.reshape(2, 2, 4, 9).permute(0, 3, 1, 2).reshape(2, 9, 8)
+    assert torch.allclose(lib, sample_bilinear_plain(x, gy, gx, "zeros"), atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def rtdetr():
+    """RT-DETR-l (nc=80) on the CPU, seeded."""
+    return DetectionModel("rtdetr-l.yaml", nc=80, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+
+
+def test_rtdetr_requests_serve_rows_above_conf_in_frame_pixels(rtdetr):
+    """`RTDETRRequests`: K1's letterbox, `predict`'s sorted rows, those above
+    conf, rescaled to each frame and clipped: the rows `rtdetr_postprocess`
+    gives on the letterboxed canvas, mapped back."""
+    from chip_smoke import RTDETRRequests
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+
+    frames = np.random.default_rng(9).integers(0, 256, (2, 48, 80, 3), dtype=np.uint8)
+    rows = RTDETRRequests(rtdetr, conf=0.25, imgsz=64)(frames)
+    dets = rtdetr.predict(letterbox_normalize(torch.from_numpy(frames), (64, 64), scaleup=False))
+    gain, _, _, top, left = letterbox_geometry(48, 80, 64, 64, scaleup=False)
+    for r, d in zip(rows, dets.numpy()):
+        keep = d[d[:, 4] > 0.25]
+        assert r.shape == keep.shape and len(r) > 0
+        want = (keep[:, [0, 2]] - left) / gain
+        assert np.allclose(r[:, [0, 2]], want.clip(0, 80), atol=1e-4)
+        assert np.allclose(r[:, [1, 3]], ((keep[:, [1, 3]] - top) / gain).clip(0, 48), atol=1e-4)
+        assert np.array_equal(r[:, 4:], keep[:, 4:])
+
+
+def test_pinned_queries_and_matching_record_and_force(rtdetr):
+    """Inside `pinned_queries(forced)` the decoder takes the forced tokens
+    and records its own; inside `pinned_matching(forced)` the loss takes
+    the forced matching and records its own with the costs; after, both
+    are the port's own again."""
+    from chip_smoke import pinned_matching, pinned_queries
+    from yolo_dbl_tpu_torch.engine.trainer import train_loss
+    from yolo_dbl_tpu_torch.losses import detr
+    from yolo_dbl_tpu_torch.models.rtdetr import RTDETRDecoder
+
+    own = RTDETRDecoder.select_queries, detr.assign
+    rng = np.random.default_rng(10)
+    batch = {"img": torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)),
+             "gt_boxes": torch.from_numpy(rng.uniform(0.3, 0.6, (2, 3, 4)).astype(np.float32)),
+             "gt_cls": torch.from_numpy(rng.integers(0, 80, (2, 3))),
+             "gt_mask": torch.tensor([[1.0, 1.0, 0.0], [1.0, 1.0, 1.0]])}
+    with pinned_queries() as sq, pinned_matching() as sm:
+        loss, _ = train_loss(rtdetr, get_cfg(), batch)
+    (sel, best), (idx, cost, counts) = sq[0], sm[0]
+    assert sel.shape == (2, 84) and best.shape == (2, 84) and cost.shape == (14, 84, 3)
+    assert counts.tolist() == [2] * 7 + [3] * 7
+    flipped = sel.flip(1)
+    forced = torch.zeros_like(idx)
+    with pinned_queries(flipped) as sq2, pinned_matching(forced) as sm2:
+        loss2, _ = train_loss(rtdetr, get_cfg(), batch)
+    assert torch.equal(sq2[0][0], sel) and float(loss2.detach()) != float(loss.detach())
+    assert (RTDETRDecoder.select_queries, detr.assign) == own
+    # the flipped order with its own matching: the loss is the unpinned one
+    with pinned_queries(flipped), pinned_matching(sm2[0][0]):
+        again, _ = train_loss(rtdetr, get_cfg(), batch)
+    assert float(again.detach()) == pytest.approx(float(loss.detach()), rel=1e-5)
+
+
+def test_rtdetr_anchor_boxes_start_each_layer_at_its_anchor(rtdetr):
+    """`rtdetr_anchor_boxes` zeroes the final Dense of the encoder's and each
+    decoder layer's box head: every decoder layer's box is then the
+    selected query's anchor box, the encoder's."""
+    import copy
+
+    from chip_smoke import rtdetr_anchor_boxes
+    from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
+
+    model = copy.deepcopy(rtdetr)
+    rtdetr_anchor_boxes(model)
+    dec = model.detect
+    for head in (dec.enc_bbox_head, *(getattr(dec, f"dec_bbox_head_{i}") for i in range(6))):
+        assert not head.layers_2.weight.any() and not head.layers_2.bias.any()
+    assert dec.dec_bbox_head_0.layers_1.weight.any()  # the inner layers keep their weights
+    img = torch.from_numpy(np.random.default_rng(11).integers(0, 256, (1, 64, 64, 3),
+                                                               dtype=np.uint8))
+    with torch.no_grad():
+        dec_bboxes, _, enc_bboxes, _ = model.eval()(device_normalize(img, torch.float32))
+    assert torch.allclose(dec_bboxes, enc_bboxes[:, None].expand_as(dec_bboxes), atol=1e-6)
+
+
+def test_rtdetr_partings_pack_the_card_records():
+    """`_rtdetr_partings` reads the card's own selection and matchings
+    against the CPU's: the count of matchings, those that differ, and
+    whether each parting is a near-tie."""
+    from chip_smoke import _rtdetr_partings
+
+    best = torch.tensor([[0.9, 0.8, 0.7, 0.1]])
+    cpu_sel = (torch.tensor([[0, 1, 2]]), best)
+    cost = torch.tensor([[[0.0, 5.0], [5.0, 0.0], [3.0, 3.0]]] * 2)
+    counts = torch.tensor([2, 2])
+    cpu_match = (torch.tensor([[0, 1], [0, 1]]), cost, counts)
+    extra, near = _rtdetr_partings(cpu_sel, cpu_match, (cpu_sel, cpu_match))
+    assert near and extra["matchings"] == 2 and extra["matchings_differing"] == 0
+    assert extra["selection_partings"] == [] and extra["matching_partings"] == []
+    # matching 1's costs 0.1 apart between the devices: the card's (1, 0) costs 0
+    # on its costs, the CPU's (0, 1) 10.1, past 2 k d = 0.4: no near-tie
+    cost[1, :2] = torch.tensor([[5.0, 0.0], [0.0, 5.0]])
+    card_cost = cost.clone()
+    card_cost[1, 0, 0] = 5.1
+    card_match = (torch.tensor([[0, 1], [1, 0]]), card_cost, counts)
+    extra, near = _rtdetr_partings(cpu_sel, card_match, (cpu_sel, cpu_match))
+    assert extra["matchings_differing"] == 1 and not near
+
+
+def test_source_of_reads_untimed_sites_as_absent():
+    """A time summed over sites where one was not taken (None) keeps the
+    source of the sites that took it."""
+    from chip_smoke import source_of
+
+    assert source_of("profiler", None) == "profiler"
+    assert source_of("profiler", "cuda_event", None) == "cuda_event"
+    assert source_of("profiler", "profiler") == "profiler"

@@ -48,7 +48,7 @@ from ..nn.tasks import ClassificationModel, DetectionModel, WorldModel
 from ..utils.callbacks import Callbacks
 from ..utils.checkpoint import load_deploy, peek_checkpoint_meta, save_checkpoint, save_deploy
 from ..utils.checks import check_imgsz
-from .predictor import TASK_PREDICTORS
+from .predictor import TASK_PREDICTORS, refuse_rtdetr
 from .trainer import Trainer, check_trainable
 from .validator import DetectionValidator, OBBValidator, PoseValidator, SegmentationValidator
 
@@ -106,6 +106,8 @@ class YOLO:
         if self.task == "classify":
             raise NotImplementedError(f"YOLO.{what} of a classify model: the JAX package has no "
                                       "classify loss, loader or validator; it serves only")
+        # training validates each epoch through the validator, which refuses RT-DETR
+        refuse_rtdetr(self.model, "validator" if what in ("train", "val") else "predictor")
 
     def _make_validator(self, model, **kw):
         """The task's validator (model.py:80): detect, segment, pose or obb."""

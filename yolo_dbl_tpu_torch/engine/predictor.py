@@ -349,6 +349,19 @@ class Results:
         return canvas
 
 
+def refuse_rtdetr(model, what: str):
+    """Raise for an RT-DETR model: the JAX package's predictor and validator
+    hand `rtdetr_postprocess`'s sorted (B, Q, 6) rows to NMS as if they were
+    a (B, 4+nc, A) decode, which keeps rows that are none of the decode's
+    (ROADMAP Queue 3). The port refuses rather than mirror it;
+    `DetectionModel.predict` serves RT-DETR's rows."""
+    if getattr(model, "head_name", None) == "RTDETRDecoder":
+        raise NotImplementedError(
+            f"RT-DETR has no {what} in the port: the JAX package's runs NMS over "
+            "rtdetr_postprocess's (B, Q, 6) rows as a (B, 4+nc, A) decode (ROADMAP Queue 3); "
+            "DetectionModel.predict returns RT-DETR's rows")
+
+
 def _load_source(source):
     """A predict source as ([RGB images], [paths])."""
     import cv2
@@ -376,6 +389,7 @@ class BasePredictor:
     def __init__(self, model, conf: float = 0.25, iou: float = 0.45, max_det: int = 300,
                  imgsz: int = 640, device_preprocess: bool = True, agnostic_nms: bool = False,
                  classes=None):
+        refuse_rtdetr(model, "predictor")
         self.model = model
         self.conf = conf
         self.iou = iou

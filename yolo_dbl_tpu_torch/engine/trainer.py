@@ -4,12 +4,15 @@ yolo_dbl_tpu/engine/trainer.py).
 The train step is the JAX `make_train_step` (:62): uint8 batch → /255 →
 train-mode forward (BatchNorm on batch statistics) → the head's loss
 (`task_loss`: `detection_loss`, v10Detect's `e2e_detect_loss`, Segment's
-`segmentation_loss`, Pose's `pose_loss` or OBB's `obb_loss`) → gradients →
-optimizer → EMA, with the metrics loss/box_loss/cls_loss/dfl_loss (and
-mask_loss, or kpt_loss and kobj_loss). An IDetect model (YOLOv7) and a Classify model do
+`segmentation_loss`, Pose's `pose_loss`, OBB's `obb_loss` or RT-DETR's
+`rtdetr_loss`) → gradients → optimizer → EMA, with the metrics
+loss/box_loss/cls_loss/dfl_loss (and mask_loss, or kpt_loss and
+kobj_loss; RT-DETR's giou_loss/cls_loss/l1_loss). An IDetect model (YOLOv7) and a Classify model do
 not train: the JAX package has no loss dispatch for either, so `Trainer`
-and `train_loss` raise NotImplementedError. A Segment, Pose or OBB model
-does not train under a mesh either (`check_trainable`).
+and `train_loss` raise NotImplementedError. A Segment, Pose, OBB or
+RT-DETR model does not train under a mesh either, and RT-DETR trains in
+float32 only (`check_trainable`). RT-DETR's matching is solved on the
+host: one copy of its costs a step (losses/detr.py).
 On the card the DySample samplers run the K2 kernels forward and backward.
 A bfloat16 model runs its forward and backward in bfloat16; the loss, the
 TAL assigner, the float32 parameters, their gradients, the optimizer and
@@ -54,6 +57,7 @@ import torch
 from ..cfg import get_cfg
 from ..kernels.preprocess import device_normalize
 from ..losses.detection import detection_loss
+from ..losses.detr import rtdetr_loss
 from ..losses.extra import e2e_detect_loss, obb_loss, pose_loss, segmentation_loss
 from ..nn.common import cross_rank
 from ..nn.tasks import DetectionModel
@@ -65,7 +69,7 @@ from .train_state import build_optimizer, ema_update
 BUCKET_BYTES = 25 * 2**20
 
 
-TASK_HEADS = ("Segment", "Pose", "OBB")
+TASK_HEADS = ("Segment", "Pose", "OBB", "RTDETRDecoder")
 
 
 def check_trainable(model: DetectionModel, mesh: Optional[Mesh] = None):
@@ -75,15 +79,19 @@ def check_trainable(model: DetectionModel, mesh: Optional[Mesh] = None):
     `_task_loss` has no branch for it (nor has the JAX package a classify
     loader or validator). The port invents no loss for either. Segment,
     Pose and OBB under a mesh: their mask and keypoint normalizers
-    (`fg.sum()`, `n_fg`) and the OBB loss's `tss` would be a rank's, where
-    JAX's program takes them over the global batch (ROADMAP Queue 1 item
-    7)."""
+    (`fg.sum()`, `n_fg`), the OBB loss's `tss` and RT-DETR's `num_gts`
+    would be a rank's, where JAX's program takes them over the global batch
+    (ROADMAP Queue 1 item 7). RT-DETR in bfloat16: not ported yet (ROADMAP
+    Queue 1)."""
     if model.head_name == "IDetect":
         raise NotImplementedError("IDetect (YOLOv7) does not train: the JAX package has no "
                                   "IDetect loss; it serves and validates only")
     if model.head_name == "Classify":
         raise NotImplementedError("Classify does not train: the JAX package's trainer has no "
                                   "classification loss dispatch; it serves only")
+    if model.head_name == "RTDETRDecoder" and model.dtype == torch.bfloat16:
+        raise NotImplementedError("RT-DETR trains in float32 only: bfloat16 training is not "
+                                  "ported yet (ROADMAP Queue 1)")
     if mesh is not None and model.head_name in TASK_HEADS:
         raise NotImplementedError(f"{model.head_name} does not train under a mesh yet: its loss "
                                   "normalizers would be a rank's, not the global batch's "
@@ -95,10 +103,13 @@ def task_loss(model: DetectionModel, cfg, outputs, batch, mesh: Optional[Mesh] =
     `_task_loss`): `segmentation_loss` (with `cfg.overlap_mask`) or
     `pose_loss` (with the YAML's `kpt_shape` and `cfg.pose`, `cfg.kobj`)
     for a Segment or Pose tuple; `obb_loss` for OBB's (Detect maps, angle
-    maps); `e2e_detect_loss` for v10Detect's dict,
+    maps); `rtdetr_loss` for RT-DETR's decoder outputs (items GIoU, class,
+    L1); `e2e_detect_loss` for v10Detect's dict,
     whose loss is the sum of its two terms and whose items are one2many's;
     else `detection_loss`."""
     check_trainable(model, mesh)
+    if model.head_name == "RTDETRDecoder":
+        return rtdetr_loss(outputs, batch, model.nc)
     gains = dict(box_gain=cfg.box, cls_gain=cfg.cls, dfl_gain=cfg.dfl)
     if model.head_name == "Segment":
         det, coeffs, protos = outputs

@@ -44,6 +44,7 @@ from ..nn.tasks import DetectionModel
 from ..ops.boxes import xywh2xyxy
 from ..ops.nms import non_max_suppression, non_max_suppression_rotated
 from ..utils.metrics import COCOEvaluator, DetMetrics, TaskMetrics, kpt_oks_np, mask_iou_np
+from .predictor import refuse_rtdetr
 
 
 class DetectionValidator:
@@ -57,6 +58,7 @@ class DetectionValidator:
     def __init__(self, model: DetectionModel, conf: float = 0.001, iou: float = 0.7,
                  max_det: int = 300, use_coco_stats: bool = False, save_json: bool = False,
                  save_dir=None):
+        refuse_rtdetr(model, "validator")
         self.model = model
         self.conf = conf
         self.iou = iou

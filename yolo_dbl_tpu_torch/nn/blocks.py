@@ -1,8 +1,9 @@
 """YOLO building blocks (NCHW inside, PyTorch).
 
 Port of the YOLOv13/DBL-family and stock detect-family (v3, v5, v6, v8,
-11, v12) subset of yolo_dbl_tpu/nn/blocks.py, and the ResNet layers of the
-`-cls-resnet` configs, in dependency order.
+11, v12) subset of yolo_dbl_tpu/nn/blocks.py, the ResNet layers of the
+`-cls-resnet` configs and RT-DETR's HGStem, HGBlock and RepC3, in
+dependency order.
 Attribute names are the flax scope names (`cv1`, `m_0`, `edge_generator`,
 ...), so JAX variables load key by key (utils/convert.py). Each class cites
 the JAX class it mirrors.
@@ -27,6 +28,7 @@ from ..ops.resample import (avg_pool2, grid_sample_bilinear, max_pool, nearest_u
                             pixel_shuffle)
 from .common import Conv, Conv2d, DSConv, DWConv, conv2d, linear
 from .structures.blocks import FasterBlock
+from .v9v10 import RepConv
 
 
 def _nhwc(x):
@@ -146,6 +148,77 @@ class LightConv(nn.Module):
 
     def forward(self, x):
         return self.conv2(self.conv1(x))
+
+
+def _relu_conv(c1, c2, k=1, s=1, p=None):
+    return Conv(c1, c2, k, s, p, act=nn.ReLU())
+
+
+class HGStem(nn.Module):
+    """PPHGNetV2 stem (blocks.py:273): five ReLU Convs and a 2x2 stride-1 max
+    pool. One zero pad on the right and bottom of stem1's output feeds both
+    the stem2a branch and the pool, which is then a plain valid pool."""
+
+    def __init__(self, c1, cm, c2):
+        super().__init__()
+        self.stem1 = _relu_conv(c1, cm, 3, 2)
+        self.stem2a = _relu_conv(cm, cm // 2, 2, 1, 0)
+        self.stem2b = _relu_conv(cm // 2, cm, 2, 1, 0)
+        self.stem3 = _relu_conv(cm * 2, cm, 3, 2)
+        self.stem4 = _relu_conv(cm, c2, 1, 1)
+
+    def forward(self, x):
+        x = F.pad(self.stem1(x), (0, 1, 0, 1))
+        x2 = self.stem2b(F.pad(self.stem2a(x), (0, 1, 0, 1)))
+        x1 = _nchw(max_pool(_nhwc(x), 2, 1, 0))
+        return self.stem4(self.stem3(torch.cat([x1, x2], 1)))
+
+
+class HGBlock(nn.Module):
+    """PPHGNetV2 block (blocks.py:296): n chained LightConvs or ReLU Convs
+    `m_{i}`, the squeeze conv `sc` over the input and all their outputs,
+    the excite conv `ec`; the input added where `shortcut` and the widths
+    match."""
+
+    def __init__(self, c1, cm, c2, k=3, n=6, lightconv=False, shortcut=False):
+        super().__init__()
+        self.n = n
+        for i in range(n):
+            ci = c1 if i == 0 else cm
+            self.add_module(f"m_{i}", LightConv(ci, cm, k) if lightconv
+                            else _relu_conv(ci, cm, k))
+        self.sc = _relu_conv(c1 + n * cm, c2 // 2, 1, 1)
+        self.ec = _relu_conv(c2 // 2, c2, 1, 1)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = [x]
+        for i in range(self.n):
+            y.append(getattr(self, f"m_{i}")(y[-1]))
+        out = self.ec(self.sc(torch.cat(y, 1)))
+        return out + x if self.add else out
+
+
+class RepC3(nn.Module):
+    """RT-DETR's CSP block (blocks.py:322): cv1, n RepConvs `m_{i}`, plus
+    cv2 of the input; cv3 only where its width c_ differs from c2."""
+
+    def __init__(self, c1, c2, n=3, e=1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        for i in range(n):
+            self.add_module(f"m_{i}", RepConv(c_, c_))
+        self.cv3 = Conv(c_, c2, 1, 1) if c_ != c2 else None
+
+    def forward(self, x):
+        y = self.cv1(x)
+        for i in range(self.n):
+            y = getattr(self, f"m_{i}")(y)
+        y = y + self.cv2(x)
+        return y if self.cv3 is None else self.cv3(y)
 
 
 class SPPF(nn.Module):

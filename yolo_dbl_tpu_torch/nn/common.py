@@ -86,6 +86,12 @@ def linear(dense: nn.Linear, x):
     return nn.functional.linear(x, dense.weight.to(x.dtype), bias)
 
 
+def layer_norm(norm: nn.LayerNorm, x):
+    """`norm(x)` in `x`'s type, its scale and bias cast to it."""
+    return nn.functional.layer_norm(x, norm.normalized_shape, norm.weight.to(x.dtype),
+                                    norm.bias.to(x.dtype), norm.eps)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax `nn.BatchNorm` semantics in PyTorch.
 

@@ -3,9 +3,10 @@
 Only the branches that the YOLOv13/DBL family (`cfg/models/v13/`), the
 detect families' rows (v3, v5, v6, v7, v8, v9, v10, 11, v12), the
 segment, pose, OBB and classify heads, the `-cls-resnet` trunks
-(ResNetLayer, TorchVision), and the module pools' rows that FFCA-YOLO{,-L},
-YOLO-EMAC, yolo11-C3k2_EFE-IRSTE and YOLO-World (`WorldModel`) use are
-ported; any other module name raises NotImplementedError. The model YAMLs
+(ResNetLayer, TorchVision), the module pools' rows that FFCA-YOLO{,-L},
+YOLO-EMAC, yolo11-C3k2_EFE-IRSTE and YOLO-World (`WorldModel`) use, and
+RT-DETR's (HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder) are ported; any
+other module name raises NotImplementedError. The model YAMLs
 are the port's own verbatim copies under cfg/, read by path with the port's
 small YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
 """
@@ -29,7 +30,9 @@ from ..utils.yaml_subset import load_yaml
 from . import blocks as B
 from . import v9v10 as V
 from . import world as W
+from ..models.rtdetr import RTDETRDecoder, rtdetr_postprocess
 from .attention import SLA
+from .attention.extra import AIFI, TorchMHA
 from .common import Conv, ConvTranspose2d, DSConv, DWConv, default_act
 from ..ops.nms import mask_classes, non_max_suppression
 from .heads import (OBB, Classify, Detect, IDetect, Pose, Segment, V10Detect, decode_detections,
@@ -101,9 +104,10 @@ _C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "C2f", "
               "C3Ghost", "C1", "C2", "SPP", "C2PSA", "RepConv", "RepCSP", "RepNCSPELAN4",
               "ELAN1", "ADown", "AConv", "SPPELAN", "SCDown", "C2fCIB", "PSA",
               "SPDConv", "FEM", "C3k2_EFE", "M2C2f", "C3k2_EAMC", "C3_Faster", "FasterBlock",
-              "C2fAttn"}
+              "C2fAttn", "RepC3"}
 _REPEAT_INSERT = {"C2f", "C3", "C3k2", "DSC3k2", "DSC3k", "A2C2f", "C3Ghost", "C1", "C2", "C2PSA",
-                  "C2fCIB", "RepCSP", "C3k2_EFE", "M2C2f", "C3k2_EAMC", "C2fAttn", "C3_Faster"}
+                  "C2fCIB", "RepCSP", "C3k2_EFE", "M2C2f", "C3k2_EAMC", "C2fAttn", "C3_Faster",
+                  "RepC3"}
 _LEGACY_FALSE = {"C3k2", "DSC3k2", "A2C2f"}
 # parameter-free layers, run in DetectionModel.forward (tasks.py:275-278,
 # :743-759): YOLOv7's MP (k x k max pool, stride k) and SP (stride 1, pad
@@ -129,7 +133,8 @@ _FROM_ARGS = {"Conv": Conv, "DWConv": DWConv, "DSConv": DSConv, "ConvTranspose2d
               "C3k2_EFE": UM.C3k2_EFE, "Multibranch": UM.Multibranch, "SCAM": UM.SCAM,
               "FFM_Concat2": UM.FFM_Concat2, "FFM_Concat3": UM.FFM_Concat3, "M2C2f": U3.M2C2f,
               "C3k2_EAMC": U3.C3k2_EAMC, "C3_Faster": B.C3_Faster, "FasterBlock": FasterBlock,
-              "C2fAttn": W.C2fAttn}
+              "C2fAttn": W.C2fAttn, "HGStem": B.HGStem, "HGBlock": B.HGBlock, "RepC3": B.RepC3,
+              "AIFI": AIFI}
 # rows whose JAX builder reads only their first args (tasks.py:469-471,503,526): how many
 _ARGS_READ = {"ELAN1": 4, "ADown": 2, "AConv": 2, "SPDConv": 2}
 # rows that take the text (tasks.py:684-741): C2fAttn the running text,
@@ -144,6 +149,10 @@ POOL_MODULES = (UM.SPDConv, UM.EFE, UM.C3k2_EFE, UM.FGM, UM.OmniKernel, UM.Multi
                 UM.SCAM, UM._FFMConcat, U3.DyT, U3.WindowMHSA, U3.MBlock, U3.M2C2f, U3.C3k2_EAMC,
                 FasterBlock, W.MaxSigmoidAttnBlock, W.C2fAttn, W.ImagePoolingAttn,
                 W.WorldDetect)
+# RT-DETR's modules, which have no tensor- or spatial-parallel form either
+# (Dense and LayerNorm layers, attention over the whole map, the decoder's
+# top-k and deformable sampling; ROADMAP Queue 1 item 7)
+RTDETR_MODULES = (RTDETRDecoder, AIFI, TorchMHA, B.HGStem, B.HGBlock)
 
 
 def _not_ported(m: str):
@@ -276,6 +285,18 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
             args = [c1, c2, *args[1:]]
+        elif m == "AIFI":  # channels prepended, cm and heads raw (tasks.py:253)
+            args = [chs[f], *args]
+            c2 = chs[f]
+        elif m in ("HGStem", "HGBlock"):  # unscaled (tasks.py:257)
+            c1, cm, c2 = chs[f], args[0], args[1]
+            args = [c1, cm, c2, *args[2:]]
+            if m == "HGBlock":
+                args.insert(4, n)
+                n = 1
+        elif m == "RTDETRDecoder":  # the channel list inserted (tasks.py:272)
+            args.insert(1, [chs[x] for x in f])
+            c2 = 0
         elif m == "ResNetLayer":  # unscaled (tasks.py:264): c2 = args[1], or 4x past the stem
             c2 = args[1] if args[3] else args[1] * 4
         elif m == "TorchVision":  # the trunk's width, unscaled (tasks.py:279-281)
@@ -333,6 +354,8 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
         return B.ResNetLayer(c_in[0], *a[1:])
     if m == "TorchVision":
         return TorchVision(*a)
+    if m == "RTDETRDecoder":
+        return RTDETRDecoder(nc=a[0], ch=tuple(a[1]))
     if m == "IDetect":
         return IDetect(nc=a[0], anchors=a[1], ch=tuple(a[2]))
     if m == "ImagePoolingAttn":
@@ -386,7 +409,9 @@ class DetectionModel(nn.Module):
     model returns (Detect maps, angle maps) and decodes to (B, 4+nc+1, A)
     rotated boxes with the angle last (`decode_obb`). None of the three gets
     the bias prior (`_bias_init`). `ClassificationModel` holds a Classify
-    head.
+    head. An RTDETRDecoder model (RT-DETR) returns the decoder's tuple
+    (models/rtdetr.py) and decodes to its sorted (B, Q, 6) rows in pixels
+    (`rtdetr_postprocess`); its strides are (8, 16, 32), unprobed.
 
     A model with C2fAttn, ImagePoolingAttn or WorldDetect rows takes a text,
     (B, K, 512) prompt embeddings: `forward(x, text)`; without one the text
@@ -421,7 +446,10 @@ class DetectionModel(nn.Module):
                     if module is not None:
                         self.add_module(name, module)
                 widths.append(layer.c2)
-            self.strides = self._probe_strides(ch)
+            # the decoder takes the P3-P5 pyramid and decodes normalized boxes:
+            # no probe (tasks.py:792)
+            self.strides = ((8, 16, 32) if self.head_name == "RTDETRDecoder"
+                            else self._probe_strides(ch))
         self.to_empty(device="cpu")
         for mod in self.modules():  # constant buffers, which to_empty left unset
             if hasattr(mod, "init_buffers"):
@@ -463,6 +491,11 @@ class DetectionModel(nn.Module):
                     mod.bias.zero_()
             elif isinstance(mod, nn.BatchNorm2d):
                 mod.reset_parameters()
+            elif isinstance(mod, nn.Embedding):  # flax Embed: fan-in (the width) normal
+                std = math.sqrt(1.0 / mod.weight.shape[1]) / _TRUNC_STD
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            elif isinstance(mod, TorchMHA):
+                mod.init_own(generator)
             elif isinstance(mod, B.AdaHyperedgeGen):
                 nn.init.xavier_uniform_(mod.prototype_base, generator=generator)
             elif isinstance(mod, B.FullPAD_Tunnel):
@@ -613,13 +646,13 @@ class DetectionModel(nn.Module):
                 for name in _layer_names(layer):
                     out = getattr(self, name)(out)
             y.append(out if layer.i in save else None)
+        if self.head_name in ("Classify", "RTDETRDecoder"):
+            return out
         if isinstance(out, dict):
             return {k: [o.permute(0, 2, 3, 1) for o in v] for k, v in out.items()}
         if isinstance(out, tuple):  # Segment, Pose: lists of maps, and the prototypes
             return tuple([o.permute(0, 2, 3, 1) for o in v] if isinstance(v, list)
                          else v.permute(0, 2, 3, 1) for v in out)
-        if self.head_name == "Classify":
-            return out
         if self.head_name == "IDetect":
             return [o.permute(0, 2, 3, 1).unflatten(-1, (self.detect.na, -1)) for o in out]
         return [o.permute(0, 2, 3, 1) for o in out]
@@ -630,13 +663,19 @@ class DetectionModel(nn.Module):
         model that parallel/shardings.py `shard_variables` sharded, or one
         run inside parallel/spatial.py `spatial`, returns the replicated
         result on every model rank; the decode runs on whole maps."""
-        return self.decode_outputs(self.forward(x))
+        feats = self.forward(x)
+        if self.head_name == "RTDETRDecoder":  # pixels of the input's side (tasks.py:837-840)
+            return self.decode_outputs(feats, img_size=x.shape[1])
+        return self.decode_outputs(feats)
 
-    def decode_outputs(self, feats):
+    def decode_outputs(self, feats, img_size=None):
         """Raw forward outputs → (B, 4+nc, A) (tasks.py:843): v10Detect's
         one2one branch, a Segment or Pose head's Detect maps, or IDetect's
         maps through `decode_v7`; an OBB head's maps and angles → (B,
-        4+nc+1, A) through `decode_obb`."""
+        4+nc+1, A) through `decode_obb`; RT-DETR's outputs → the (B, Q, 6)
+        rows of `rtdetr_postprocess` in pixels of a square `img_size`."""
+        if self.head_name == "RTDETRDecoder":
+            return rtdetr_postprocess(feats[0], feats[1], img_size=img_size)
         if isinstance(feats, dict):
             feats = feats["one2one"]
         elif isinstance(feats, tuple):

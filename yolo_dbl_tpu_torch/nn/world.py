@@ -25,18 +25,12 @@ from torch import nn
 from torch.nn import functional as F
 
 from .blocks import Bottleneck
-from .common import Conv, Conv2d, flax_batch_norm, linear
+from .common import Conv, Conv2d, flax_batch_norm, layer_norm, linear
 
 
 def _l2_normalized(x, dim):
     """x / max(‖x‖, 1e-12) along `dim` (world.py:150)."""
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True), min=1e-12)
-
-
-def layer_norm(norm: nn.LayerNorm, x):
-    """`norm(x)` in `x`'s type, its scale and bias cast to it."""
-    return F.layer_norm(x, norm.normalized_shape, norm.weight.to(x.dtype), norm.bias.to(x.dtype),
-                        norm.eps)
 
 
 class MaxSigmoidAttnBlock(nn.Module):

@@ -135,7 +135,7 @@ def model_parallel_shardings(model_or_state, mesh: Mesh, min_size: int = 1 << 14
     n_model = model_axis_size(mesh)
     if isinstance(model_or_state, torch.nn.Module):
         from ..nn.heads import OBB, Classify, IDetect, Pose, Segment
-        from ..nn.tasks import POOL_MODULES
+        from ..nn.tasks import POOL_MODULES, RTDETR_MODULES
 
         if n_model > 1 and any(isinstance(m, IDetect) for m in model_or_state.modules()):
             # its ia/im leaves are (1, C, 1, 1) here, (1, 1, 1, C) in JAX: no rule reads them
@@ -147,7 +147,8 @@ def model_parallel_shardings(model_or_state, mesh: Mesh, min_size: int = 1 << 14
             # tuple and logit outputs, and Proto's transposed conv: not held to one process yet
             raise NotImplementedError(f"the {type(task).__name__} head has no tensor-parallel "
                                       "form yet (ROADMAP Queue 1 item 7)")
-        pool = next((m for m in model_or_state.modules() if isinstance(m, POOL_MODULES)), None)
+        pool = next((m for m in model_or_state.modules()
+                     if isinstance(m, POOL_MODULES + RTDETR_MODULES)), None)
         if n_model > 1 and pool is not None:
             raise NotImplementedError(f"{type(pool).__name__} has no tensor-parallel form yet "
                                       "(ROADMAP Queue 1 item 7)")

@@ -194,7 +194,7 @@ def spatial(model, mesh: Mesh):
     from ..nn.blocks import SPP, SPPCSPC, SPPF, AAttn, AdaHGComputation, DySample
     from ..nn.common import ConvTranspose2d
     from ..nn.heads import OBB, Classify, Detect, IDetect, Pose, Segment, V10Detect
-    from ..nn.tasks import POOL_MODULES
+    from ..nn.tasks import POOL_MODULES, RTDETR_MODULES
     from ..nn.upsample import carafe
     from ..nn.v9v10 import SPPELAN, ADown, AConv, V10Attention
 
@@ -203,7 +203,7 @@ def spatial(model, mesh: Mesh):
     local_only = (SLA, carafe.CARAFE, carafe.CARAFEPack, carafe.CARAFE_XiaLiPKU,
                   carafe.CARAFE_simplified, carafe.DLU, SPP, ConvTranspose2d, V10Attention,
                   AConv, ADown, SPPELAN, SPPCSPC, V10Detect, IDetect, Segment, Pose, OBB,
-                  Classify, *POOL_MODULES)
+                  Classify, *POOL_MODULES, *RTDETR_MODULES)
     rows = sorted({layer.name for layer in model.spec.layers}
                   & {"nn.MaxPool2d", "nn.ZeroPad2d", "MP", "SP", "CBFuse"})
     if rows:

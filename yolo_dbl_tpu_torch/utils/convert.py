@@ -16,8 +16,12 @@ Module and attribute names of the port are the flax scope names, so a leaf
 - BatchNorm and LayerNorm params scale/bias → weight/bias, batch_stats
   mean/var → running_mean/running_var;
 - `prototype_base`, the FullPAD `gate`, the A2C2f and M2C2f `gamma`, DyT's
-  and FGM's `alpha` and `beta`, FFM's `w` and the contrastive heads'
-  scalar `logit_scale` are copied as they are;
+  and FGM's `alpha` and `beta`, FFM's `w`, the contrastive heads'
+  scalar `logit_scale` and RT-DETR's packed attention projection
+  `in_proj_weight` (3C, C) and `in_proj_bias`, already in torch's layout,
+  are copied as they are;
+- a flax `Embed`'s `embedding` (n, C) → nn.Embedding's `weight`, as it is
+  (RT-DETR's `denoising_class_embed`);
 - YOLOv7 IDetect's implicit leaves `ia{i}` and `im{i}`, (1, 1, 1, C) in
   NHWC, → (1, C, 1, 1); its per-level bare conv `m{i}` is a conv like any
   other (`m105/m0/kernel` → `m105.m0.weight`).
@@ -52,7 +56,8 @@ import torch
 # BatchNorm's step counter exists only on the PyTorch side; it is set to 0.
 TORCH_ONLY_SUFFIX = "num_batches_tracked"
 # parameters whose name and layout are the same on both sides
-COPIED_LEAVES = ("prototype_base", "gate", "gamma", "alpha", "beta", "w", "logit_scale")
+COPIED_LEAVES = ("prototype_base", "gate", "gamma", "alpha", "beta", "w", "logit_scale",
+                 "in_proj_weight", "in_proj_bias")
 # IDetect's implicit-knowledge leaves: (1, 1, 1, C) in JAX, (1, C, 1, 1) here
 IMPLICIT_LEAF = re.compile(r"i[am]\d+")
 
@@ -83,7 +88,7 @@ def _torch_leaf(collection: str, path, arr: np.ndarray, transposed: FrozenSet[st
             return scopes, "weight", arr.T
         if leaf == "kernel" and arr.ndim == 3:
             return scopes, "weight", arr.transpose(2, 1, 0)
-        if leaf == "scale":
+        if leaf in ("scale", "embedding"):
             return scopes, "weight", arr
         if IMPLICIT_LEAF.fullmatch(leaf) and arr.ndim == 4:
             return scopes, leaf, arr.transpose(0, 3, 1, 2)
@@ -160,6 +165,8 @@ def jax_param_paths(module: torch.nn.Module) -> Dict[str, str]:
             elif name == "weight" and isinstance(mod, (torch.nn.modules.batchnorm._BatchNorm,
                                                        torch.nn.LayerNorm)):
                 leaf = "scale"
+            elif name == "weight" and isinstance(mod, torch.nn.Embedding):
+                leaf = "embedding"
             elif name not in ("bias",) + COPIED_LEAVES and not IMPLICIT_LEAF.fullmatch(name):
                 raise KeyError(f"no JAX rule for parameter {mod_name}.{name}")
             key = f"{mod_name}.{name}" if mod_name else name
