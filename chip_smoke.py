@@ -351,6 +351,25 @@ seeded random weights; TF32 off in the parity phases):
  50. zoo_rtdetr - rtdetr-x, rtdetr-resnet50 and rtdetr-resnet101 at 320 as
               zoo (decode query by query as parity_rtdetr; K1 once and K2
               18 times a forward, K2's forward and backward 18 times a step).
+The module catalogue (utils/benchmarks.py: 9 upsamplers, 26 attentions):
+ 51. k2, k2_backward (float32) also at DAttention's sites in the catalogue's
+              DeBiAttention_YOLO (`dattention_sites`: x 4x256x256x64 and
+              1x64x64x64, two channel groups of 32, 128x128 or 32x32 points
+              a group from its offset network, border padding, clipped
+              coordinates) against the plain versions at TOL, with the
+              bound on the bytes the taps need beside the whole map's and
+              F.grid_sample's time (border);
+ 52. catalogue - each of the 35 entries card against CPU at a small shape
+              (TF32 off, within 1e-4 of the CPU's largest), then timed with
+              CUDA events at the reference shape (2x64x64x64, 4x256x256x64)
+              or, where `catalogue_score_bytes` reckons its score tensors
+              above half the card's memory before anything runs (MHSA,
+              BoTAttention, HiLo, DeBiAttention_YOLO), at 1x64x64x64; ms a
+              call, peak bytes, and K2's launches a call (DySample and
+              DeBiAttention_YOLO once, every other entry none; then one
+              forward and backward of those two: K2's forward and backward
+              once each); counts set to 0 before each entry's calls and read
+              after them.
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -855,12 +874,13 @@ def _route(rows, prefix=""):
     return routes.pop() if len(routes) == 1 else "mixed"
 
 
-def phase_k2(gen, dtype=torch.float32, deform=None):
+def phase_k2(gen, dtype=torch.float32, deform=None, dattention=None):
     """The sampler's forward kernel of `dtype` against its plain version at
     the three sites at serving batch 8, both padding modes, DySample and
     uniform coordinates; F.grid_sample in `dtype` as the yardstick. With
     `deform` (`rtdetr_sites`' batch 8), also at MSDeformAttn's three sites
-    (`deform_k2_sites`; float32: RT-DETR samples in float32 in either type)."""
+    (`deform_k2_sites`; float32: RT-DETR samples in float32 in either type);
+    with `dattention` (`dattention_sites`), at DAttention's two (border)."""
     from yolo_dbl_tpu_torch.kernels.sampling import sample_bilinear, sample_bilinear_plain
 
     es, sites, worst, src = dtype.itemsize, {}, 0.0, []
@@ -908,6 +928,11 @@ def phase_k2(gen, dtype=torch.float32, deform=None):
         extra["rtdetr_l_sites"] = _rtdetr_row(deform_rows)
         src += deform_src
         worst = max(worst, max(r["max_abs_err"] for r in deform_rows.values()))
+    if dattention is not None:
+        rows_d, src_d = deform_k2_sites(dattention, "border", "DAttention")
+        extra["dattention_sites"] = {"sites": rows_d, "bound_by": _by(rows_d.values())}
+        src += src_d
+        worst = max(worst, max(r["max_abs_err"] for r in rows_d.values()))
     emit({"phase": _kphase("k2", dtype), "sites": sites, **extra,
           **({"tolerance": BF16_BAR} if dtype == BF16 else {})})
     total = {key: sum(sites[s][key] for s in DYSAMPLE_SITES)
@@ -932,13 +957,14 @@ def _time_sources(src, keys=("ms", "plain_ms", "library_ms")):
     return {key: source_of(*col) for key, col in zip(keys, zip(*src))}
 
 
-def phase_k2_backward(gen, dtype=torch.float32, deform=None):
+def phase_k2_backward(gen, dtype=torch.float32, deform=None, dattention=None):
     """The sampler's backward kernel of `dtype` at the three sites at
     training batch 16, and its forward kernel at the same shapes (the train
     step runs both), against their plain versions; with `deform`
     (`rtdetr_sites`' batch 16), at MSDeformAttn's three sites too
-    (`deform_k2_backward_sites`). Returns the backward's kernel row and the
-    forward's worst error here."""
+    (`deform_k2_backward_sites`); with `dattention`, at DAttention's two
+    (border). Returns the backward's kernel row and the forward's worst
+    error here."""
     from yolo_dbl_tpu_torch.kernels.sampling import (backward_shared_bytes,
                                                      backward_window_misses, sample_bilinear,
                                                      sample_bilinear_backward,
@@ -1026,6 +1052,12 @@ def phase_k2_backward(gen, dtype=torch.float32, deform=None):
         src += [(*t, None) for t in deform_src]  # the zero fill is timed at DySample's sites
         worst_fwd = max(worst_fwd, max(r["errors"]["forward"] for r in deform_rows.values()))
         worst["dx"] = max(worst["dx"], max(r["errors"]["dx"] for r in deform_rows.values()))
+    if dattention is not None:
+        rows_d, src_d = deform_k2_backward_sites(dattention, gen, "border", "DAttention")
+        extra["dattention_sites"] = {"sites": rows_d, "bound_by": _by(rows_d.values())}
+        src += [(*t, None) for t in src_d]
+        worst_fwd = max(worst_fwd, max(r["errors"]["forward"] for r in rows_d.values()))
+        worst["dx"] = max(worst["dx"], max(r["errors"]["dx"] for r in rows_d.values()))
     tolerance = BF16_BAR if dtype == BF16 else {"dx": 1e-4, "dg_rel": 1e-4, "forward": TOL}
     emit({"phase": _kphase("k2_backward", dtype), "batch": b, "tolerance": tolerance,
           "forward_max_abs_err": worst_fwd, "sites": sites, **extra})
@@ -4239,13 +4271,14 @@ def _grid_layout(xs, gy, gx):
     return planes, grid.permute(0, 2, 1, 3).reshape(b * g, 1, -1, 2).contiguous()
 
 
-def deform_k2_sites(sites):
-    """The forward kernel against its plain version at MSDeformAttn's three
-    sites at serving batch 8 (zeros, the decoder's own coordinates): max
-    error, the off-map share, times (kernel, plain, F.grid_sample with
-    zeros padding) and the bound on the bytes the in-map taps need (each
-    touched pixel's group read once, the output written, the coordinates
-    read); the whole map's bound beside it."""
+def deform_k2_sites(sites, mode="zeros", what="MSDeformAttn"):
+    """The forward kernel against its plain version at point sites with
+    their own coordinates (MSDeformAttn's three at serving batch 8, zeros
+    padding; DAttention's, border): max error, the off-map share, times
+    (kernel, plain, F.grid_sample with the same padding) and the bound on
+    the bytes the in-map taps need (each touched pixel's group read once,
+    the output written, the coordinates read); the whole map's bound
+    beside it."""
     from yolo_dbl_tpu_torch.kernels.sampling import sample_bilinear, sample_bilinear_plain
 
     rows, src = {}, []
@@ -4253,20 +4286,20 @@ def deform_k2_sites(sites):
         b, h, w, c = x.shape
         n, g = gy.shape[1:]
         xs = [x] + [x.clone() for _ in range(copies_for(x.numel() * 4) - 1)]
-        got, want = sample_bilinear(x, gy, gx, "zeros"), sample_bilinear_plain(x, gy, gx, "zeros")
+        got, want = sample_bilinear(x, gy, gx, mode), sample_bilinear_plain(x, gy, gx, mode)
         err = max_abs(got, want)
-        require(err <= TOL, f"sampler kernel vs plain at MSDeformAttn {level}: {err}")
+        require(err <= TOL, f"sampler kernel vs plain at {what} {level}: {err}")
         off, x_bytes = _point_taps(x, gy, gx)
         planes, grid = _grid_layout(xs, gy, gx)
 
         def library(i):
-            return F.grid_sample(planes[i % len(xs)], grid, mode="bilinear", padding_mode="zeros",
+            return F.grid_sample(planes[i % len(xs)], grid, mode="bilinear", padding_mode=mode,
                                  align_corners=False)
 
         lib = library(0).reshape(b, g, c // g, n).permute(0, 3, 1, 2).reshape(b, n, c)
         k = len(xs)
-        ms, _, s1 = timings(lambda i: sample_bilinear(xs[i % k], gy, gx, "zeros"), 50)
-        plain_ms, _, s2 = timings(lambda i: sample_bilinear_plain(xs[i % k], gy, gx, "zeros"), 10)
+        ms, _, s1 = timings(lambda i: sample_bilinear(xs[i % k], gy, gx, mode), 50)
+        plain_ms, _, s2 = timings(lambda i: sample_bilinear_plain(xs[i % k], gy, gx, mode), 10)
         library_ms, _, s3 = timings(library, 50)
         src.append((s1, s2, s3))
         io = (b * n * c + 2 * b * n * g) * 4
@@ -4279,14 +4312,14 @@ def deform_k2_sites(sites):
     return rows, src
 
 
-def deform_k2_backward_sites(sites, gen):
+def deform_k2_backward_sites(sites, gen, mode="zeros", what="MSDeformAttn"):
     """The backward kernel (and the forward) against the plain versions at
-    MSDeformAttn's three sites at training batch 16 (zeros, the decoder's
-    coordinates, a random output gradient): errors, the share of taps that
-    missed their tile's window, times (kernel, plain, F.grid_sample's
-    backward with zeros padding) and the bound: the in-map taps' bytes of x,
-    g read, dx written whole, the coordinates read and their gradients
-    written."""
+    point sites (MSDeformAttn's three at training batch 16, zeros padding;
+    DAttention's, border), with their own coordinates and a random output
+    gradient: errors, the share of taps that missed their tile's window,
+    times (kernel, plain, F.grid_sample's backward with the same padding)
+    and the bound: the in-map taps' bytes of x, g read, dx written whole,
+    the coordinates read and their gradients written."""
     from yolo_dbl_tpu_torch.kernels.sampling import (backward_window_misses, sample_bilinear,
                                                      sample_bilinear_backward,
                                                      sample_bilinear_backward_plain,
@@ -4299,16 +4332,16 @@ def deform_k2_backward_sites(sites, gen):
         k = copies_for((x.numel() + b * n * c) * 4)
         xs = [x] + [x.clone() for _ in range(k - 1)]
         gs = [torch.randn((b, n, c), generator=gen).cuda() for _ in range(k)]
-        fwd = max_abs(sample_bilinear(x, gy, gx, "zeros"), sample_bilinear_plain(x, gy, gx, "zeros"))
-        got = sample_bilinear_backward(x, gy, gx, gs[0], "zeros")
-        want = sample_bilinear_backward_plain(x, gy, gx, gs[0], "zeros")
+        fwd = max_abs(sample_bilinear(x, gy, gx, mode), sample_bilinear_plain(x, gy, gx, mode))
+        got = sample_bilinear_backward(x, gy, gx, gs[0], mode)
+        want = sample_bilinear_backward_plain(x, gy, gx, gs[0], mode)
         errs = {"dx": max_abs(got[0], want[0]), "forward": fwd}
         errs.update({f"{nm}_rel": max_abs(a, r) / float(r.abs().max())
                      for nm, a, r in zip(("dgy", "dgx"), got[1:], want[1:])})
         require(fwd <= TOL and errs["dx"] <= 1e-4 and errs["dgy_rel"] <= 1e-4
-                and errs["dgx_rel"] <= 1e-4, f"sampler backward vs plain at MSDeformAttn {level}: "
+                and errs["dgx_rel"] <= 1e-4, f"sampler backward vs plain at {what} {level}: "
                 f"{errs}")
-        taps, miss = backward_window_misses(x, gy, gx, gs[0], "zeros")
+        taps, miss = backward_window_misses(x, gy, gx, gs[0], mode)
         off, x_bytes = _point_taps(x, gy, gx)
         planes, grid = _grid_layout(xs, gy, gx)
         planes = [p.requires_grad_() for p in planes]
@@ -4317,14 +4350,14 @@ def deform_k2_backward_sites(sites, gen):
                     .contiguous() for t in gs]
 
         def library(i):
-            out = F.grid_sample(planes[i % k], grid, mode="bilinear", padding_mode="zeros",
+            out = F.grid_sample(planes[i % k], grid, mode="bilinear", padding_mode=mode,
                                 align_corners=False)
             return torch.autograd.grad(out, (planes[i % k], grid), g_planes[i % k])
 
         ms, _, s1 = timings(lambda i: sample_bilinear_backward(xs[i % k], gy, gx, gs[i % k],
-                                                               "zeros"), 30)
+                                                               mode), 30)
         plain_ms, _, s2 = timings(lambda i: sample_bilinear_backward_plain(
-            xs[i % k], gy, gx, gs[i % k], "zeros"), 5)
+            xs[i % k], gy, gx, gs[i % k], mode), 5)
         library_ms, _, s3 = timings(library, 20, only="grid_sampler_2d_backward")
         src.append((s1, s2, s3))
         io = (b * n * c + x.numel() + 4 * b * n * g) * 4
@@ -4346,6 +4379,178 @@ def _rtdetr_row(rows):
                                            for k in keys},
             "bound_by": _by(rows.values())}
 
+
+
+# the module catalogue (utils/benchmarks.py): the shapes its entries are held
+# card against CPU at, the bar, the timed calls, and the share of the card's
+# memory an entry's score tensors may reckon at the reference shape
+CATALOGUE_CHECK = {"upsample": (1, 16, 16, 64), "attention": (1, 32, 32, 64)}
+CATALOGUE_BAR = 1e-4  # of the CPU output's largest |value|
+CATALOGUE_CALLS, CATALOGUE_WARMUP = 10, 2
+CATALOGUE_MEMORY_SHARE = 0.5
+# K2's forward launches a call of each catalogue entry (every other entry: none)
+CATALOGUE_K2 = {"DySample": 1, "DeBiAttention_YOLO": 1}
+
+
+def catalogue_score_bytes(name, shape):
+    """Bytes of the float32 attention score tensors catalogue entry `name`
+    holds at once on an NHWC `shape` input, the port's as JAX writes them
+    (the whole (heads, N, M) tensor): the scores and their softmax; for
+    BoTAttention its q·k and q·position terms and their sum; for
+    DeBiAttention_YOLO the larger of DAttention's (4 heads over the
+    stride-2 grid's points) and BiFormer's dense masked scores (its input
+    padded to 7x7 regions; the scores, the masked copy and the softmax).
+    0 for an entry without a global score tensor."""
+    b, h, w, _ = shape
+    n, f32 = h * w, 4
+    if name == "MHSA":  # 4 heads, N x N
+        return 2 * b * 4 * n * n * f32
+    if name == "BoTAttention":  # 4 heads: q·k, q·pos, their sum; then the softmax
+        return 3 * b * 4 * n * n * f32
+    if name == "HiLo":  # the 4 low-frequency heads over the 2x2-pooled keys
+        return 2 * b * 4 * n * ((h // 2) * (w // 2)) * f32
+    if name == "NonLocalBlock2D":  # one head over the 2x2 max-pooled keys
+        return 2 * b * n * ((h // 2) * (w // 2)) * f32
+    if name == "DeBiAttention_YOLO":
+        points = -(-h // 2) * -(-w // 2)
+        tokens = 49 * -(-h // 7) * -(-w // 7)
+        return max(2 * b * 4 * n * points * f32, 3 * b * 4 * tokens * tokens * f32)
+    return 0
+
+
+def catalogue_plan(memory_bytes):
+    """[(kind, name, shape, reckoned bytes)] for every catalogue entry, in
+    the catalogue's order: the reference shape, or the quick one where the
+    reckoning passes `CATALOGUE_MEMORY_SHARE` of `memory_bytes`. Decided
+    before any entry runs."""
+    from yolo_dbl_tpu_torch.utils import benchmarks as bm
+
+    plan = [("upsample", name, bm.UPSAMPLE_SHAPE, 0) for name, _ in bm.upsample_catalogue()]
+    for name, _ in bm.attention_catalogue():
+        need = catalogue_score_bytes(name, bm.ATTENTION_SHAPE)
+        shape = (bm.ATTENTION_QUICK_SHAPE if need > CATALOGUE_MEMORY_SHARE * memory_bytes
+                 else bm.ATTENTION_SHAPE)
+        plan.append(("attention", name, shape, need))
+    return plan
+
+
+def _catalogue_module(kind, name, shape, device):
+    """Catalogue entry `name` built for an NHWC `shape` (BoTAttention's
+    tables sized to it) with seed 0's weights on `device`."""
+    from yolo_dbl_tpu_torch.utils import benchmarks as bm
+
+    entries = bm.upsample_catalogue() if kind == "upsample" else bm.attention_catalogue(
+        hw=shape[1:3])
+    return bm.prepare(dict(entries)[name], device)
+
+
+def _catalogue_out_shape(kind, name, shape):
+    """The NHWC output shape of an entry: an upsampler doubles H and W
+    (ResBlock_CBAM keeps them), an attention keeps its input's."""
+    b, h, w, c = shape
+    return (b, 2 * h, 2 * w, c) if kind == "upsample" and name != "ResBlock_CBAM" else shape
+
+
+def phase_catalogue(card):
+    """Every catalogue entry card against CPU at `CATALOGUE_CHECK`'s shape
+    (TF32 off), then timed with CUDA events at `catalogue_plan`'s shape:
+    ms a call, peak bytes above the input, K2's launches a call (the counts
+    set to 0 before the entry's calls and read after them). No error is
+    caught. For DySample and DeBiAttention_YOLO, one forward and backward
+    then reads K2's launches in training. Returns {entry: its launches a
+    call, entry_train: a forward and backward's} for the kernels line."""
+    from yolo_dbl_tpu_torch.kernels import launches, reset_launches
+    from yolo_dbl_tpu_torch.utils import benchmarks as bm
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    plan = catalogue_plan(total)
+    emit({"phase": "catalogue_plan", "memory_bytes": total, "share": CATALOGUE_MEMORY_SHARE,
+          "entries": {name: {"shape": list(shape), "score_bytes_at_reference": need}
+                      for _, name, shape, need in plan}})
+    rows, counts = {}, {}
+    for kind, name, shape, need in plan:
+        small = CATALOGUE_CHECK[kind]
+        cpu = _catalogue_module(kind, name, small, "cpu")
+        gpu = copy.deepcopy(cpu).cuda().to(memory_format=torch.channels_last)
+        x = bm.reference_input(small, "cpu")
+        with torch.no_grad(), tf32_off():
+            want = cpu(x).permute(0, 2, 3, 1)
+            got = gpu(x.cuda()).permute(0, 2, 3, 1).cpu()
+        err = max_abs(got, want) / float(want.abs().max())
+        require(tuple(got.shape) == _catalogue_out_shape(kind, name, small)
+                and bool(torch.isfinite(got).all()) and err <= CATALOGUE_BAR,
+                f"catalogue {name}: card vs CPU at {small}: {err} of the largest, shape "
+                f"{tuple(got.shape)}")
+        del cpu, gpu
+        module = _catalogue_module(kind, name, shape, "cuda")
+        x = bm.reference_input(shape, "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            for _ in range(CATALOGUE_WARMUP):
+                out = module(x)
+            start.record()
+            for _ in range(CATALOGUE_CALLS):
+                out = module(x)
+            end.record()
+        end.synchronize()
+        calls = CATALOGUE_WARMUP + CATALOGUE_CALLS
+        counts[name] = {k: v // calls for k, v in launches.items() if v}
+        require(all(v % calls == 0 for v in launches.values())
+                and counts[name].get("sample_bilinear", 0) == CATALOGUE_K2.get(name, 0),
+                f"catalogue {name}: K2 launches {dict(launches)} over {calls} calls")
+        out_shape = tuple(out.permute(0, 2, 3, 1).shape)
+        require(out_shape == _catalogue_out_shape(kind, name, shape)
+                and bool(torch.isfinite(out).all()), f"catalogue {name}: output {out_shape}")
+        rows[name] = dict(kind=kind, shape=list(shape), out_shape=list(out_shape),
+                          ms=start.elapsed_time(end) / CATALOGUE_CALLS,
+                          peak_bytes=torch.cuda.max_memory_allocated() - base,
+                          score_bytes=catalogue_score_bytes(name, shape),
+                          score_bytes_at_reference=need, card_vs_cpu_rel=err,
+                          launches_a_call=counts[name])
+        if name in CATALOGUE_K2:  # a YAML row that trains: one backward through K2's
+            reset_launches()
+            module(x.requires_grad_()).square().sum().backward()
+            torch.cuda.synchronize()
+            counts[f"{name}_train"] = {k: v for k, v in launches.items() if v}
+            require(counts[f"{name}_train"] == {"sample_bilinear": 1,
+                                                "sample_bilinear_backward": 1},
+                    f"catalogue {name}: a forward and backward launched {dict(launches)}")
+            rows[name]["launches_a_train_call"] = counts[f"{name}_train"]
+        del module, x, out
+        torch.cuda.empty_cache()
+    emit({"phase": "catalogue", "card": card, "calls": CATALOGUE_CALLS,
+          "warmup": CATALOGUE_WARMUP, "check_shapes": CATALOGUE_CHECK, "bar": CATALOGUE_BAR,
+          "entries": rows})
+    return counts
+
+
+def dattention_sites(device="cuda", shapes=None):
+    """{site: (x, gy, gx)}: K2's inputs in the catalogue's DeBiAttention_YOLO
+    (seed 0's weights, as the catalogue draws them) on its reference and
+    quick inputs: x the NHWC input, gy and gx (B, Hk·Wk, 2) the pixel
+    coordinates of its two channel groups, from DAttention's offset network
+    (`DAttention.grid`, clipped) through `pixel_coords`, as its forward
+    hands them to the sampler."""
+    from yolo_dbl_tpu_torch.nn.attention.bigarch import DeBiAttention_YOLO
+    from yolo_dbl_tpu_torch.ops.resample import pixel_coords
+    from yolo_dbl_tpu_torch.utils import benchmarks as bm
+
+    deform = bm.prepare(DeBiAttention_YOLO(64, 64, num_heads=4), device).attn.deform
+    shapes = shapes or {"reference": bm.ATTENTION_SHAPE, "quick": bm.ATTENTION_QUICK_SHAPE}
+    out = {}
+    for site, (b, h, w, c) in shapes.items():
+        x = bm.reference_input((b, h, w, c), device)
+        with torch.no_grad():
+            grid = deform.grid(deform.proj_q(x))
+        gy, gx = pixel_coords(grid, h, w)
+        g = grid.shape[-1]
+        out[site] = (x.permute(0, 2, 3, 1).contiguous(), gy.reshape(b, -1, g).contiguous(),
+                     gx.reshape(b, -1, g).contiguous())
+    return out
 
 
 def main():
@@ -4384,18 +4589,29 @@ def main():
         seeded_rtdetr = seeded_model(RTDETR)
         deform = rtdetr_sites(on_card(seeded_rtdetr), np.random.default_rng(10))
         torch.cuda.empty_cache()
+    with took("dattention_sites"):
+        dsites = dattention_sites()
     with took("kernels"):
         for dtype, k1_row in zip((torch.float32, BF16), phase_k1(gen)):
             f32 = dtype == torch.float32
-            k2_row = phase_k2(gen, dtype, deform[B] if f32 else None)
-            k2_backward_row, k2_train_err = phase_k2_backward(gen, dtype,
-                                                              deform[TRAIN_B] if f32 else None)
+            k2_row = phase_k2(gen, dtype, deform[B] if f32 else None, dsites if f32 else None)
+            k2_backward_row, k2_train_err = phase_k2_backward(
+                gen, dtype, deform[TRAIN_B] if f32 else None, dsites if f32 else None)
             k3_row = phase_k3(gen, dtype)
             k3_dkv_row, k3_dq_row, k3_train_err = phase_k3_backward(gen, dtype)
             for row, train_err in ((k2_row, k2_train_err), (k3_row, k3_train_err)):
                 row["max_abs_err_by_path"] = {"serve": row["max_abs_err"], "train": train_err}
                 row["max_abs_err"] = max(row["max_abs_err"], train_err)
             rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
+    del dsites
+    torch.cuda.empty_cache()
+    with took("catalogue"):
+        catalogue = phase_catalogue(card)
+    for row in rows:  # K2's launches a call of DAttention's module (forward; or a train call)
+        if "dattention_sites" in row:
+            row["dattention_sites"]["launches_a_call"] = catalogue[
+                "DeBiAttention_YOLO_train" if "backward" in row["name"]
+                else "DeBiAttention_YOLO"].get(row["name"], 0)
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
     paths = (DBL, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS, OBB, WORLD, EMAC, RTDETR)
@@ -4511,7 +4727,9 @@ def main():
                                        **{f"tp_{path}": runs.get(name, 0)
                                           for path, runs in tp.items()},
                                        **{f"sp_{path}": runs.get(name, 0)
-                                          for path, runs in sp.items()})
+                                          for path, runs in sp.items()},
+                                       **{f"catalogue_{entry}": runs.get(name, 0)
+                                          for entry, runs in catalogue.items()})
     # how often torch.profiler's trace had to be taken again, or gave way
     # to CUDA-event time (each row's `time_sources` says which it holds)
     emit({"phase": "timing", **TRACES, "seconds": SECONDS})

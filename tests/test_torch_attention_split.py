@@ -32,6 +32,7 @@ import torch
 
 from yolo_dbl_tpu_torch.kernels.attention import (area_attention_backward_plain,
                                                   area_attention_lse_plain, area_attention_plain)
+from tests.torch_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCE = ROOT / "yolo_dbl_tpu_torch" / "csrc" / "attention.cu"

@@ -1054,3 +1054,101 @@ def test_yolov12n_runs_k3_eight_times_a_forward_and_a_step(cuda, dtype):
                                 **{k + suffix: 8 for k in ("area_attention",
                                                            "area_attention_backward_dq",
                                                            "area_attention_backward_dkv")}}
+
+
+# the module catalogue (utils/benchmarks.py): DAttention's K2 sites and every entry card
+# against CPU
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 64, 64, 64), (2, 32, 48, 64)])
+def test_sample_bilinear_kernels_at_dattention_sites(cuda, shape):
+    """K2 forward and backward at the catalogue's DeBiAttention_YOLO's
+    DAttention sites (seed 0's weights; two groups of 32 channels, the
+    stride-2 grid's points from its offset network, clipped, border
+    padding) against the plain versions: forward within TOL, dx within
+    1e-4, the coordinate gradients within 1e-4 of their largest."""
+    from chip_smoke import dattention_sites
+
+    (x, gy, gx), = dattention_sites(cuda, {"site": shape}).values()
+    b, h, w, c = shape
+    assert gy.shape == (b, (h // 2) * (w // 2), 2)
+    assert float(gy.min()) >= -0.5 and float(gy.max()) <= h - 0.5
+    kernels.reset_launches()
+    got = TS.sample_bilinear(x, gy, gx, "border")
+    assert kernels.launches["sample_bilinear"] == 1
+    assert float((got - TS.sample_bilinear_plain(x, gy, gx, "border")).abs().max()) <= TOL
+    grad = torch.randn(got.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    dx, dgy, dgx = TS.sample_bilinear_backward(x, gy, gx, grad, "border")
+    want = TS.sample_bilinear_backward_plain(x, gy, gx, grad, "border")
+    assert float((dx - want[0]).abs().max()) <= 1e-4
+    for a, r in zip((dgy, dgx), want[1:]):
+        assert float((a - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_dattention_trains_through_the_kernels(cuda):
+    """DAT (two DAttention layers) forward and backward on the card: K2's
+    forward and backward twice each, and the input's and every parameter's
+    gradient within 1e-4 of its largest of the CPU's (TF32 off), plus 1e-7
+    of the largest of all: the keys' bias has an exact gradient of 0
+    (softmax ignores a shift common to a query's scores), which float32
+    leaves at ~4e-9 of the largest on the CPU."""
+    import copy
+
+    from yolo_dbl_tpu_torch.nn.attention.bigarch import DAT
+    from yolo_dbl_tpu_torch.utils import benchmarks as bm
+
+    cpu = bm.prepare(DAT(32, num_heads=4), "cpu").train()
+    gpu = copy.deepcopy(cpu).to(cuda).to(memory_format=torch.channels_last)
+    x = bm.reference_input((2, 24, 24, 32), "cpu")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xc, xg = x.clone().requires_grad_(), x.to(cuda).requires_grad_()
+    cpu(xc).square().sum().backward()
+    kernels.reset_launches()
+    gpu(xg).square().sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.launches == {**dict.fromkeys(kernels.launches, 0), "sample_bilinear": 2,
+                                "sample_bilinear_backward": 2}
+    pairs = [("x", xg.grad, xc.grad)] + [(n, p.grad, dict(cpu.named_parameters())[n].grad)
+                                        for n, p in gpu.named_parameters()]
+    floor = 1e-7 * max(float(want.abs().max()) for _, _, want in pairs)
+    for name, got, want in pairs:
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max()) + floor, name
+
+
+def _catalogue_entries():
+    from chip_smoke import CATALOGUE_CHECK
+
+    from yolo_dbl_tpu_torch.utils import benchmarks as bm
+
+    return [("upsample", n) for n, _ in bm.upsample_catalogue()] + \
+        [("attention", n) for n, _ in bm.attention_catalogue(hw=CATALOGUE_CHECK["attention"][1:3])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,name", _catalogue_entries())
+def test_catalogue_entry_on_the_card_matches_the_cpu(cuda, kind, name):
+    """Each of the 35 catalogue entries at chip_smoke.py's check shape, card
+    against CPU at seed 0's weights (TF32 off): within 1e-4 of the CPU
+    output's largest; K2's forward once a call for DySample and
+    DeBiAttention_YOLO, no kernel for the others."""
+    import copy
+
+    from chip_smoke import CATALOGUE_CHECK, CATALOGUE_K2, _catalogue_module
+
+    from yolo_dbl_tpu_torch.utils import benchmarks as bm
+
+    shape = CATALOGUE_CHECK[kind]
+    cpu = _catalogue_module(kind, name, shape, "cpu")
+    gpu = copy.deepcopy(cpu).to(cuda).to(memory_format=torch.channels_last)
+    x = bm.reference_input(shape, "cpu")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.reset_launches()
+    with torch.no_grad():
+        want = cpu(x)
+        got = gpu(x.to(cuda)).cpu()
+    assert kernels.launches == {**dict.fromkeys(kernels.launches, 0),
+                                **({"sample_bilinear": 1} if name in CATALOGUE_K2 else {})}
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -31,6 +31,7 @@ from yolo_dbl_tpu_torch.data.utils import check_det_dataset
 from yolo_dbl_tpu_torch.utils.yaml_subset import load_yaml
 
 from tests.fixtures import make_shapes_dataset, make_task_dataset
+from tests.torch_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 RECIPES = sorted(p.name for p in (REPO / "yolo_dbl_tpu/cfg/datasets").glob("*.yaml"))

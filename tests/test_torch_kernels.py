@@ -20,6 +20,7 @@ from yolo_dbl_tpu.ops import resample as JR
 from yolo_dbl_tpu_torch.kernels import preprocess as TP
 from yolo_dbl_tpu_torch.kernels import sampling as TS
 from yolo_dbl_tpu_torch.ops import resample as TR
+from tests.torch_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 

@@ -38,6 +38,7 @@ from yolo_dbl_tpu_torch.engine import predictor as TP
 from yolo_dbl_tpu_torch.native import loader as native
 
 from tests.fixtures import make_shapes_dataset
+from tests.torch_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _image(h, w, seed=0):

@@ -35,6 +35,7 @@ from yolo_dbl_tpu_torch.utils.convert import (TORCH_ONLY_SUFFIX, load_jax_variab
 from yolo_dbl_tpu_torch.utils.device import resolve_device
 
 from tests.test_torch_modules import random_variables
+from tests.torch_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 IMGSZ, NC = 64, 3

@@ -24,6 +24,7 @@ from yolo_dbl_tpu_torch.nn import common as TC
 from yolo_dbl_tpu_torch.nn import heads as TH
 from yolo_dbl_tpu_torch.ops.nms import non_max_suppression as torch_nms
 from yolo_dbl_tpu_torch.utils.convert import load_jax_variables
+from tests.torch_fixtures import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = RTOL = 1e-4
 

@@ -582,3 +582,79 @@ def test_source_of_reads_untimed_sites_as_absent():
     assert source_of("profiler", None) == "profiler"
     assert source_of("profiler", "cuda_event", None) == "cuda_event"
     assert source_of("profiler", "profiler") == "profiler"
+
+
+# ---------------------------------------------------------------- the module catalogue
+
+SCORE_ENTRIES = ("MHSA", "BoTAttention", "HiLo", "NonLocalBlock2D", "DeBiAttention_YOLO")
+
+
+@pytest.mark.parametrize("name", SCORE_ENTRIES)
+def test_catalogue_score_bytes_reckon_the_softmax_inputs(name, monkeypatch):
+    """`catalogue_score_bytes` at a 14x14 input against the softmax inputs
+    the port's module really forms: 2 copies of the largest (its scores and
+    their softmax), 3 for BoTAttention (q·k, q·pos, their sum) and for
+    BiFormer's dense masked scores (the scores, the masked copy, the
+    softmax)."""
+    from chip_smoke import _catalogue_module, catalogue_score_bytes
+
+    shape = (1, 14, 14, 64)
+    module = _catalogue_module("attention", name, shape, "cpu")
+    seen, softmax = [], torch.softmax
+    monkeypatch.setattr(torch, "softmax", lambda t, dim: seen.append(t.numel()) or softmax(t, dim))
+    with torch.no_grad():
+        module(torch.zeros(1, 64, 14, 14))
+    if name == "DeBiAttention_YOLO":  # DAttention's softmax, then BiFormer's
+        want = max(2 * 4 * seen[0], 3 * 4 * seen[1])
+    else:
+        want = (3 if name == "BoTAttention" else 2) * 4 * max(seen)
+    assert catalogue_score_bytes(name, shape) == want
+
+
+def test_catalogue_plan_times_the_four_global_attentions_at_the_quick_shape():
+    """On an 80 GB card (85,520,809,984 bytes, the H100's) the reckoning
+    sends MHSA, BoTAttention, HiLo and DeBiAttention_YOLO to 1x64x64x64
+    (137-1,649 GB at the reference shape) and keeps NonLocalBlock2D's 34 GB
+    and every other entry at the reference shapes; 9 + 26 entries."""
+    from chip_smoke import catalogue_plan
+
+    plan = catalogue_plan(85_520_809_984)
+    assert [kind for kind, *_ in plan] == ["upsample"] * 9 + ["attention"] * 26
+    quick = {name for _, name, shape, _ in plan if shape == (1, 64, 64, 64)}
+    assert quick == {"MHSA", "BoTAttention", "HiLo", "DeBiAttention_YOLO"}
+    need = {name: n for _, name, _, n in plan}
+    assert need["MHSA"] == 2 * 4 * 4 * 65536 ** 2 * 4
+    assert need["NonLocalBlock2D"] == 2 * 4 * 65536 * 16384 * 4 < 40e9
+    assert {shape for _, name, shape, _ in plan if name not in quick} == \
+        {(2, 64, 64, 64), (4, 256, 256, 64)}
+
+
+def test_dattention_sites_are_the_modules_sampler_inputs():
+    """`dattention_sites` hands K2 what DeBiAttention_YOLO's DAttention
+    samples: the plain sampler at its coordinates (border) is the module's
+    own grid sample, F.grid_sample (border) on `_grid_layout` agrees, the
+    points lie on the map's clipped range, and the offsets move them off
+    the regular grid."""
+    from chip_smoke import _grid_layout, dattention_sites
+
+    from yolo_dbl_tpu_torch.kernels.sampling import sample_bilinear_plain
+    from yolo_dbl_tpu_torch.nn.attention.bigarch import DeBiAttention_YOLO
+    from yolo_dbl_tpu_torch.ops.resample import grid_sample_bilinear
+    from yolo_dbl_tpu_torch.utils import benchmarks as bm
+
+    (x, gy, gx), = dattention_sites("cpu", {"s": (2, 16, 20, 64)}).values()
+    assert x.shape == (2, 16, 20, 64) and gy.shape == gx.shape == (2, 80, 2)
+    deform = bm.prepare(DeBiAttention_YOLO(64, 64, num_heads=4), "cpu").attn.deform
+    with torch.no_grad():
+        grid = deform.grid(deform.proj_q(x.permute(0, 3, 1, 2)))
+        want = grid_sample_bilinear(x, grid).reshape(2, 80, 64)
+    got = sample_bilinear_plain(x, gy, gx, "border")
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    planes, g = _grid_layout([x], gy, gx)
+    lib = torch.nn.functional.grid_sample(planes[0], g, padding_mode="border",
+                                          align_corners=False)
+    torch.testing.assert_close(lib.reshape(2, 2, 32, 80).permute(0, 3, 1, 2).reshape(2, 80, 64),
+                               got, atol=1e-5, rtol=0)
+    assert float(gy.min()) >= -0.5 and float(gy.max()) <= 15.5 and float(gx.max()) <= 19.5
+    regular = (torch.arange(8.0) * 2 + 0.5).view(1, 8, 1, 1)
+    assert float((gy.reshape(2, 8, 10, 2) - regular).abs().max()) > 0.05

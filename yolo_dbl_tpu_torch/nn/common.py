@@ -196,6 +196,17 @@ def cross_rank(model: nn.Module, mesh=None):
             del m.mesh
 
 
+# lecun_normal (flax's default kernel init): a normal truncated at two
+# standard deviations, its std corrected for the truncation
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight, fan_in: int, generator: torch.Generator):
+    """Draw `weight` in place from flax's lecun_normal for `fan_in`."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 def batch_norm(c: int) -> BatchNorm:
     return BatchNorm(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 

@@ -4,9 +4,11 @@ Only the branches that the YOLOv13/DBL family (`cfg/models/v13/`), the
 detect families' rows (v3, v5, v6, v7, v8, v9, v10, 11, v12), the
 segment, pose, OBB and classify heads, the `-cls-resnet` trunks
 (ResNetLayer, TorchVision), the module pools' rows that FFCA-YOLO{,-L},
-YOLO-EMAC, yolo11-C3k2_EFE-IRSTE and YOLO-World (`WorldModel`) use, and
-RT-DETR's (HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder) are ported; any
-other module name raises NotImplementedError. The model YAMLs
+YOLO-EMAC, yolo11-C3k2_EFE-IRSTE and YOLO-World (`WorldModel`) use,
+RT-DETR's (HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder) and the module
+catalogue's (utils/benchmarks.py: the attention and upsample rows of
+tasks.py:318-415 under JAX's names and aliases, `CATALOGUE_ROWS`) are
+ported; any other module name raises NotImplementedError. The model YAMLs
 are the port's own verbatim copies under cfg/, read by path with the port's
 small YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
 """
@@ -32,8 +34,11 @@ from . import v9v10 as V
 from . import world as W
 from ..models.rtdetr import RTDETRDecoder, rtdetr_postprocess
 from .attention import SLA
+from .attention import bigarch as AB
+from .attention import channel as AC
+from .attention import spatial as AS
 from .attention.extra import AIFI, TorchMHA
-from .common import Conv, ConvTranspose2d, DSConv, DWConv, default_act
+from .common import Conv, ConvTranspose2d, DSConv, DWConv, default_act, lecun_normal_
 from ..ops.nms import mask_classes, non_max_suppression
 from .heads import (OBB, Classify, Detect, IDetect, Pose, Segment, V10Detect, decode_detections,
                     decode_keypoints, decode_obb, decode_v7, flatten_levels, gather_anchors)
@@ -104,7 +109,10 @@ _C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "C2f", "
               "C3Ghost", "C1", "C2", "SPP", "C2PSA", "RepConv", "RepCSP", "RepNCSPELAN4",
               "ELAN1", "ADown", "AConv", "SPPELAN", "SCDown", "C2fCIB", "PSA",
               "SPDConv", "FEM", "C3k2_EFE", "M2C2f", "C3k2_EAMC", "C3_Faster", "FasterBlock",
-              "C2fAttn", "RepC3"}
+              "C2fAttn", "RepC3",
+              # the catalogue's (c1, c2) rows (tasks.py:104-108)
+              "CoordAttention", "GAM", "MHSA_YOLO", "EfficientAttention_YOLO", "SwinTransformer",
+              "ResBlock_CBAM", "DeBiAttention_YOLO"}
 _REPEAT_INSERT = {"C2f", "C3", "C3k2", "DSC3k2", "DSC3k", "A2C2f", "C3Ghost", "C1", "C2", "C2PSA",
                   "C2fCIB", "RepCSP", "C3k2_EFE", "M2C2f", "C3k2_EAMC", "C2fAttn", "C3_Faster",
                   "RepC3"}
@@ -113,10 +121,71 @@ _LEGACY_FALSE = {"C3k2", "DSC3k2", "A2C2f"}
 # :743-759): YOLOv7's MP (k x k max pool, stride k) and SP (stride 1, pad
 # k // 2), YOLOv9-E's Silence (the identity)
 TORCH_ROWS = {"nn.MaxPool2d", "nn.ZeroPad2d", "nn.Identity", "Silence", "MP", "SP"}
-_C1_ONLY = {"DySample", "LSKblock", "SLA", "DLU", "CARAFE", "CARAFEPack", "SCAM"}
+_C1_ONLY = {"DySample", "LSKblock", "SLA", "DLU", "CARAFE", "CARAFEPack", "SCAM",
+            # the catalogue's c1-only rows (tasks.py:124-138)
+            "CBAM", "EMA", "SELayer", "EdgeAwareAttention", "BAM", "BAM_YOLO",
+            "FullyAttentionalBlock", "HiLo", "NonLocalBlock2D", "BiFormerNCHW", "DAT_YOLO", "ELA",
+            "BoTAttention", "BoTAttention_YOLO", "CoTNetLayer", "TripletAttention", "EUCB", "MEUM",
+            "ECALayer", "SimAM", "MLCA", "AxialBlock_dynamic", "AxialBlock_wopos", "ECALayer_ns",
+            "ShiftWindowAttention", "FusedKQnA"}
 # rows whose args pass through unchanged and whose width is their input's
 # (the final `else` of tasks.py:141's branches)
-_ARGS_AS_GIVEN = {"CARAFE_XiaLiPKU", "CARAFE_simplified"}
+_ARGS_AS_GIVEN = {"CARAFE_XiaLiPKU", "CARAFE_simplified", "MHSA", "EfficientAttention",
+                  "AxialBlock_YOLO", "DeBiAttentionBlock"}
+
+
+def _opt(a, i, default):
+    return a[i] if len(a) > i else default
+
+
+# the catalogue's rows (tasks.py:318-415): {name: build(resolved args, input
+# width)}. The JAX modules read their input width from the input; the port's
+# take it as `c`, and an arg JAX ignores stays ignored (MHSA's and
+# EfficientAttention's first, DeBiAttentionBlock's width but in BiFormer's
+# scale, FusedKQnA's n_channels as the input width).
+CATALOGUE_ROWS = {
+    "SELayer": lambda a, c: AC.SELayer(c, *a[1:]),
+    "ECALayer": lambda a, c: AC.ECALayer(c, *a[1:]),
+    "CBAM": lambda a, c: AC.CBAM(c, *a[1:]),
+    "SimAM": lambda a, c: AC.SimAM(c, *a[1:]),
+    "EMA": lambda a, c: AC.EMA(c, *a[1:]),
+    "CoordAttention": lambda a, c: AC.CoordAttention(c, *a[1:]),
+    "GAM": lambda a, c: AC.GAM(c, *a[1:]),
+    "TripletAttention": lambda a, c: AC.TripletAttention(c, *a[1:]),
+    "MLCA": lambda a, c: AC.MLCA(a[0], *a[1:]),
+    "ELA": lambda a, c: AC.ELA(c, *a[1:]),
+    "BAM": lambda a, c: AC.BAM(c, *a[1:]),
+    "BAM_YOLO": lambda a, c: AC.BAM(c, *a[1:]),
+    "CoTNetLayer": lambda a, c: AC.CoTNetLayer(c, *a[1:]),
+    "ECALayer_ns": lambda a, c: AC.ECALayer_ns(c, _opt(a, 1, 3)),
+    "EfficientAttention": lambda a, c: AS.EfficientAttention(c, *a[1:]),
+    "EfficientAttention_YOLO": lambda a, c: AS.EfficientAttention(
+        c, key_channels=max(_opt(a, 3, 64), _opt(a, 2, 8)), head_count=_opt(a, 2, 8),
+        value_channels=a[0]),
+    "HiLo": lambda a, c: AS.HiLo(c, *a[1:]),
+    "FullyAttentionalBlock": lambda a, c: AS.FullyAttentionalBlock(c, *a[1:]),
+    "NonLocalBlock2D": lambda a, c: AS.NonLocalBlock2D(c, *a[1:]),
+    "MHSA": lambda a, c: AS.MHSA(c, *a[1:]),
+    "MHSA_YOLO": lambda a, c: AS.MHSA(c, *a[1:]),
+    "BoTAttention": lambda a, c: AS.BoTAttention(c, *a[1:]),
+    "BoTAttention_YOLO": lambda a, c: AS.BoTAttention(c, *a[1:]),
+    "EdgeAwareAttention": lambda a, c: AS.EdgeAwareAttention(c, *a[1:]),
+    "BiFormerNCHW": lambda a, c: AB.BiFormerNCHW(a[0], *a[1:], c1=c),
+    "DAT_YOLO": lambda a, c: AB.DAT(c, *a[1:]),
+    "DeBiAttentionBlock": lambda a, c: AB.DeBiAttentionBlock(a[0], *a[1:], c1=c),
+    "AxialBlock_YOLO": lambda a, c: AB.AxialBlock(c, a[0] // 2, kernel_size=_opt(a, 1, 20)),
+    "AxialBlock_dynamic": lambda a, c: AB.AxialBlock_dynamic(c, a[0] // 2,
+                                                             kernel_size=_opt(a, 1, 20)),
+    "AxialBlock_wopos": lambda a, c: AB.AxialBlock_wopos(c, a[0] // 2, kernel_size=_opt(a, 1, 20)),
+    "DeBiAttention_YOLO": lambda a, c: AB.DeBiAttention_YOLO(c, a[1], *a[2:]),
+    "ShiftWindowAttention": lambda a, c: AB.ShiftWindowAttention(c, *a[1:]),
+    "FusedKQnA": lambda a, c: AB.FusedKQnA(n_q=_opt(a, 1, 1), n_channels=a[0],
+                                           n_heads=_opt(a, 2, 8), ksize=_opt(a, 3, 3), c1=c),
+    "SwinTransformer": lambda a, c: AB.SwinTransformer(c, a[1], *a[2:]),
+    "EUCB": lambda a, c: UM.EUCB(c, *a[1:]),
+    "MEUM": lambda a, c: UM.MEUM(c, *a[1:]),
+    "ResBlock_CBAM": lambda a, c: UM.ResBlock_CBAM(c, a[1], *a[2:]),
+}
 # modules built as Module(*resolved args)
 _FROM_ARGS = {"Conv": Conv, "DWConv": DWConv, "DSConv": DSConv, "ConvTranspose2d": ConvTranspose2d,
               "DSBottleneck": B.DSBottleneck, "C2f": B.C2f, "C3": B.C3, "C3k": B.C3k,
@@ -148,7 +217,16 @@ TEXT_WIDTH = 512
 POOL_MODULES = (UM.SPDConv, UM.EFE, UM.C3k2_EFE, UM.FGM, UM.OmniKernel, UM.Multibranch, UM.FEM,
                 UM.SCAM, UM._FFMConcat, U3.DyT, U3.WindowMHSA, U3.MBlock, U3.M2C2f, U3.C3k2_EAMC,
                 FasterBlock, W.MaxSigmoidAttnBlock, W.C2fAttn, W.ImagePoolingAttn,
-                W.WorldDetect)
+                W.WorldDetect,
+                # the catalogue's (CATALOGUE_ROWS): global poolings and attentions over
+                # the whole map, Dense, LayerNorm and GroupNorm layers, K2's sampling
+                AC.SELayer, AC.ECALayer, AC.CBAM, AC.SimAM, AC.EMA, AC.CoordAttention, AC.GAM,
+                AC.TripletAttention, AC.MLCA, AC.ELA, AC.BAM, AC.CoTNetLayer, AC.ECALayer_ns,
+                AS.EfficientAttention, AS.HiLo, AS.FullyAttentionalBlock, AS.NonLocalBlock2D,
+                AS.MHSA, AS.BoTAttention, AS.EdgeAwareAttention, AB.BiFormerNCHW, AB.DAT,
+                AB.DeBiAttentionBlock, AB.AxialBlock, AB.DeBiAttention_YOLO,
+                AB.ShiftWindowAttention, AB.FusedKQnA, AB.SwinTransformer, UM.EUCB, UM.MEUM,
+                UM.ResBlock_CBAM)
 # RT-DETR's modules, which have no tensor- or spatial-parallel form either
 # (Dense and LayerNorm layers, attention over the whole map, the decoder's
 # top-k and deformable sampling; ROADMAP Queue 1 item 7)
@@ -322,6 +400,8 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
     m, a = spec.name, spec.args
     if m in _FROM_ARGS:
         return _FROM_ARGS[m](*a[:_ARGS_READ.get(m, len(a))])
+    if m in CATALOGUE_ROWS:
+        return CATALOGUE_ROWS[m](a, c_in[0])
     if m == "Bottleneck":
         kw = dict(zip(["shortcut", "g", "k", "e"], a[2:]))
         if "k" in kw:
@@ -374,9 +454,49 @@ def _layer_names(layer: LayerSpec) -> List[str]:
 
 # ---------------------------------------------------------------- model
 
-# lecun_normal (flax's default kernel init): truncated normal, std corrected
-# for the truncation at two standard deviations
-_TRUNC_STD = 0.87962566103423978
+@torch.no_grad()
+def init_flax_defaults(root: nn.Module, generator: torch.Generator):
+    """Draw every parameter of `root` from `generator` with flax's default
+    initialisers: lecun_normal kernels, zero biases, unit BatchNorm,
+    LayerNorm and GroupNorm, xavier_uniform prototypes, zero gates; zero
+    kernels where flax's `kernel_init` is zeros, marked `zero_init`; the
+    pools' and the catalogue's own initial values (`init_own`)."""
+    for mod in root.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)) and getattr(mod, "zero_init", False):
+            mod.weight.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d, nn.Conv1d)):
+            # flax's fan-in is a kernel's in-channels times its window:
+            # weight[0] for (out, in, kh, kw) and (out, in), but the
+            # transposed conv's weight is (in, out, kh, kw)
+            fan_in = (mod.weight.shape[0] * mod.weight[0, 0].numel()
+                      if isinstance(mod, nn.ConvTranspose2d) else mod.weight[0].numel())
+            lecun_normal_(mod.weight, fan_in, generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.reset_parameters()
+            if getattr(mod, "zero_scale", False):  # flax's scale_init=zeros
+                mod.weight.zero_()
+        elif isinstance(mod, nn.Embedding):  # flax Embed: fan-in (the width) normal
+            lecun_normal_(mod.weight, mod.weight.shape[1], generator)
+        elif isinstance(mod, B.AdaHyperedgeGen):
+            nn.init.xavier_uniform_(mod.prototype_base, generator=generator)
+        elif isinstance(mod, B.FullPAD_Tunnel):
+            mod.gate.zero_()
+        elif isinstance(mod, B.A2C2f) and mod.gamma is not None:
+            mod.gamma.fill_(0.01)
+        elif isinstance(mod, B.DySample):
+            mod.init_pos = mod._init_pos()
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+            mod.reset_parameters()
+        elif hasattr(mod, "init_own"):  # the pools' and the catalogue's own parameters
+            mod.init_own(generator)
+        elif isinstance(mod, IDetect):
+            for i in range(mod.nl):
+                getattr(mod, f"ia{i}").normal_(0.0, 0.02, generator=generator)
+                getattr(mod, f"im{i}").normal_(1.0, 0.02, generator=generator)
 
 
 class DetectionModel(nn.Module):
@@ -384,7 +504,9 @@ class DetectionModel(nn.Module):
 
     Layers are registered under their flax scope names (m0, m6_0, ...), so
     JAX variables load key by key (utils/convert.py). Built on the meta
-    device, the strides are probed there; weights are then drawn on the CPU
+    device, the strides are probed there on an `imgsz` image (640, the
+    size JAX's `init` takes; a BoTAttention row's position tables are sized
+    for it, as JAX's are); weights are then drawn on the CPU
     from `generator` (seed 0 when none is given) with flax's default
     initialisers and the Detect bias prior, and moved to `device` (default
     "cuda", which raises without a card). On CUDA the model runs
@@ -420,7 +542,7 @@ class DetectionModel(nn.Module):
     """
 
     def __init__(self, cfg="yolov13s_DBL.yaml", ch=3, nc=None, device=None,
-                 generator: torch.Generator = None, dtype=torch.float32):
+                 generator: torch.Generator = None, dtype=torch.float32, imgsz: int = 640):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
@@ -449,7 +571,7 @@ class DetectionModel(nn.Module):
             # the decoder takes the P3-P5 pyramid and decodes normalized boxes:
             # no probe (tasks.py:792)
             self.strides = ((8, 16, 32) if self.head_name == "RTDETRDecoder"
-                            else self._probe_strides(ch))
+                            else self._probe_strides(ch, imgsz))
         self.to_empty(device="cpu")
         for mod in self.modules():  # constant buffers, which to_empty left unset
             if hasattr(mod, "init_buffers"):
@@ -460,7 +582,10 @@ class DetectionModel(nn.Module):
             self.to(memory_format=torch.channels_last)
         self.eval()
 
-    def _probe_strides(self, ch, probe=256):
+    def _probe_strides(self, ch, probe=640):
+        """The head's strides, from one forward of a probe image on the meta
+        device; a BoTAttention row's position tables take their size from
+        it, as JAX's `init(imgsz)` sizes them."""
         feats = self.forward_text(torch.zeros((1, probe, probe, ch)))
         if isinstance(feats, dict):  # v10Detect (tasks.py:802)
             feats = feats["one2one"]
@@ -470,48 +595,8 @@ class DetectionModel(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        """flax default initialisers (lecun_normal kernels, zero biases, unit
-        BatchNorm and LayerNorm, xavier_uniform prototypes, zero gates; zero
-        kernels where flax's `kernel_init` is zeros, marked `zero_init`; the
-        pools' own initial values, `init_own`) + the bias prior."""
-        for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)) and getattr(mod, "zero_init", False):
-                mod.weight.zero_()
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d, nn.Conv1d)):
-                # flax's fan-in is a kernel's in-channels times its window:
-                # weight[0] for (out, in, kh, kw) and (out, in), but the
-                # transposed conv's weight is (in, out, kh, kw)
-                fan_in = (mod.weight.shape[0] * mod.weight[0, 0].numel()
-                          if isinstance(mod, nn.ConvTranspose2d) else mod.weight[0].numel())
-                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
-                mod.reset_parameters()
-            elif isinstance(mod, nn.Embedding):  # flax Embed: fan-in (the width) normal
-                std = math.sqrt(1.0 / mod.weight.shape[1]) / _TRUNC_STD
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-            elif isinstance(mod, TorchMHA):
-                mod.init_own(generator)
-            elif isinstance(mod, B.AdaHyperedgeGen):
-                nn.init.xavier_uniform_(mod.prototype_base, generator=generator)
-            elif isinstance(mod, B.FullPAD_Tunnel):
-                mod.gate.zero_()
-            elif isinstance(mod, B.A2C2f) and mod.gamma is not None:
-                mod.gamma.fill_(0.01)
-            elif isinstance(mod, B.DySample):
-                mod.init_pos = mod._init_pos()
-            elif isinstance(mod, nn.LayerNorm):
-                mod.reset_parameters()
-            elif hasattr(mod, "init_own"):  # the pools' own parameters
-                mod.init_own()
-            elif isinstance(mod, IDetect):
-                for i in range(mod.nl):
-                    getattr(mod, f"ia{i}").normal_(0.0, 0.02, generator=generator)
-                    getattr(mod, f"im{i}").normal_(1.0, 0.02, generator=generator)
+        """flax's default initial values (`init_flax_defaults`) + the bias prior."""
+        init_flax_defaults(self, generator)
         self._bias_init()
 
     def reset_weights(self, seed: int):
@@ -716,7 +801,7 @@ class ClassificationModel(DetectionModel):
     (tasks.py:903): `forward` returns (B, nc) logits and `predict` their
     softmax. No strides, no bias prior."""
 
-    def _probe_strides(self, ch, probe=256):
+    def _probe_strides(self, ch, probe=640):
         return ()
 
     @torch.inference_mode()

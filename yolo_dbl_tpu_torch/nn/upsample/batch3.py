@@ -28,7 +28,7 @@ class DyT(nn.Module):
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
-    def init_own(self):
+    def init_own(self, generator: torch.Generator):
         self.alpha.fill_(1.0)
         self.gamma.fill_(1.0)
         self.beta.zero_()
@@ -110,7 +110,7 @@ class M2C2f(nn.Module):
         self.cv2 = Conv((1 + n) * c_, c2, 1)
         self.gamma = nn.Parameter(torch.full((c2,), 0.01)) if use_attn and residual else None
 
-    def init_own(self):
+    def init_own(self, generator: torch.Generator):
         if self.gamma is not None:
             self.gamma.fill_(0.01)
 

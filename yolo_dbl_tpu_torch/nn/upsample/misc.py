@@ -1,10 +1,11 @@
-"""The fusion and enhancement modules the YAMLs reach (port of the
-config-reachable part of yolo_dbl_tpu/nn/upsample/misc.py).
+"""The fusion and enhancement modules the YAMLs and the upsample catalogue
+reach (port of part of yolo_dbl_tpu/nn/upsample/misc.py).
 
 SPDConv, EFE and C3k2_EFE, FGM, OmniKernel and Multibranch
 (yolo11-C3k2_EFE-IRSTE.yaml); FEM, SCAM, FFM_Concat2 and FFM_Concat3
-(FFCA-YOLO.yaml, FFCA-YOLO-L.yaml). Modules take and return NCHW, as the
-rest of the port. Module and attribute names are the flax scope names, so
+(FFCA-YOLO.yaml, FFCA-YOLO-L.yaml); EUCB, MEUM and ResBlock_CBAM (the
+upsample catalogue, utils/benchmarks.py). Modules take and return NCHW, as
+the rest of the port. Module and attribute names are the flax scope names, so
 JAX variables load key by key (utils/convert.py); `_BasicConv`'s BatchNorm
 is a flax BatchNorm called directly (nn/common.py `flax_batch_norm`).
 
@@ -15,6 +16,8 @@ fusion weights weight actual channels, where the original's `.view`
 scrambles the axis (misc.py:8-14). `nn.gelu` in flax is the tanh form.
 The FFTs are torch.fft's on complex64, whatever the input's type, as JAX's
 `.astype(complex64)`; the magnitude comes back in the input's type.
+ResBlock_CBAM's strided 3x3 conv pads as flax's "SAME" does: (0, 1) at
+stride 2 on an even size, not (1, 1).
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..common import Conv, Conv2d, flax_batch_norm
+from ...ops.resample import bilinear_upsample, nearest_upsample
+from ..attention.channel import CBAM
+from ..common import Conv, Conv2d, conv2d, flax_batch_norm
 
 # the vertical Sobel kernel; EFE adds its transpose (misc.py:101)
 SOBEL = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
@@ -125,7 +130,7 @@ class FGM(nn.Module):
         self.alpha = nn.Parameter(torch.zeros(dim))
         self.beta = nn.Parameter(torch.ones(dim))
 
-    def init_own(self):
+    def init_own(self, generator: torch.Generator):
         self.alpha.zero_()
         self.beta.fill_(1.0)
 
@@ -264,7 +269,7 @@ class _FFMConcat(nn.Module):
         self.channels = channels
         self.w = nn.Parameter(torch.ones(sum(channels)))
 
-    def init_own(self):
+    def init_own(self, generator: torch.Generator):
         self.w.fill_(1.0)
 
     def forward(self, xs):
@@ -286,3 +291,83 @@ class FFM_Concat3(_FFMConcat):
 
     def __init__(self, dimension=1, channel1=1, channel2=1, channel3=1):
         super().__init__(dimension, channel1, channel2, channel3)
+
+
+class EUCB(nn.Module):
+    """Efficient up-conv block (misc.py:31): nearest 2x, a depthwise conv,
+    BatchNorm and ReLU, then a 1x1 conv (the channel shuffle with groups = C
+    is the identity)."""
+
+    def __init__(self, in_channels, out_channels=0, kernel_size=3, stride=1):
+        super().__init__()
+        self.up_dwc = Conv2d(in_channels, in_channels, kernel_size, s=stride, p=kernel_size // 2,
+                             g=in_channels, bias=False)
+        self.bn = flax_batch_norm(in_channels)
+        self.pwc = Conv2d(in_channels, out_channels or in_channels, 1)
+
+    def forward(self, x):
+        y = nearest_upsample(x.permute(0, 2, 3, 1), 2).permute(0, 3, 1, 2)
+        return self.pwc(F.relu(self.bn(self.up_dwc(y))))
+
+
+class MEUM(nn.Module):
+    """Multi-scale edge-aware upsampling (misc.py:54): bilinear 2x
+    (align_corners=True), a sigmoid 1x1 transform, and the edge enhancer's
+    residual: t minus its 3x3 mean (zero padding, / 9), 1x1, sigmoid."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.meem_conv = Conv2d(channels, channels, 1, bias=False)
+        self.ee_conv = Conv2d(channels, channels, 1, bias=False)
+
+    def forward(self, x):
+        xu = bilinear_upsample(x.permute(0, 2, 3, 1), 2, align_corners=True).permute(0, 3, 1, 2)
+        t = torch.sigmoid(self.meem_conv(xu))
+        pooled = F.avg_pool2d(t, 3, 1, 1, count_include_pad=True)
+        return xu + torch.sigmoid(self.ee_conv(t - pooled))
+
+
+def same_pad(x, k: int, s: int):
+    """Zero padding of flax's "SAME" for a k x k conv at stride s: the total
+    max((ceil(n / s) - 1) s + k - n, 0) split with the smaller half first."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+class ResBlock_CBAM(nn.Module):
+    """Residual bottleneck with CBAM (misc.py:345): 1x1, 3x3 (stride s) and
+    1x1 bare convs with flax BatchNorms and LeakyReLU(0.1), the CBAM gate,
+    the input added (through a strided 1x1 projection where the width or
+    the size changes, or with `downsampling`), ReLU."""
+
+    def __init__(self, in_places, places=0, stride=1, downsampling=False, expansion=1):
+        super().__init__()
+        places = places or in_places
+        out_c = places * expansion
+        self.stride = stride
+        for name, (ci, co, k, s) in {"b0": (in_places, places, 1, 1),
+                                     "b1": (places, places, 3, stride),
+                                     "b2": (places, out_c, 1, 1)}.items():
+            setattr(self, f"{name}_conv", nn.Conv2d(ci, co, k, s, bias=False))
+            setattr(self, f"{name}_bn", flax_batch_norm(co))
+        self.cbam = CBAM(out_c)
+        self.project = downsampling or in_places != out_c or stride != 1
+        if self.project:
+            self.downsample_conv = nn.Conv2d(in_places, out_c, 1, stride, bias=False)
+            self.downsample_bn = flax_batch_norm(out_c)
+
+    def _cbl(self, name, x):
+        conv = getattr(self, f"{name}_conv")
+        if conv.kernel_size[0] > 1:
+            x = same_pad(x, conv.kernel_size[0], conv.stride[0])
+        return getattr(self, f"{name}_bn")(conv2d(conv, x))
+
+    def forward(self, x):
+        y = F.leaky_relu(self._cbl("b0", x), 0.1)
+        y = F.leaky_relu(self._cbl("b1", y), 0.1)
+        y = self.cbam(self._cbl("b2", y))
+        res = self._cbl("downsample", x) if self.project else x
+        return F.relu(y + res)

@@ -46,7 +46,7 @@ class MaxSigmoidAttnBlock(nn.Module):
         self.bias = nn.Parameter(torch.zeros(nh))
         self.proj_conv = Conv(c1, c2, 3, 1, act=False)
 
-    def init_own(self):
+    def init_own(self, generator: torch.Generator):
         self.bias.zero_()
 
     def forward(self, x, guide):
@@ -128,7 +128,7 @@ class ContrastiveHead(nn.Module):
         self.bias = nn.Parameter(torch.full((1,), -10.0))
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
-    def init_own(self):
+    def init_own(self, generator: torch.Generator):
         self.bias.fill_(-10.0)
         self.logit_scale.fill_(math.log(1 / 0.07))
 
@@ -147,7 +147,7 @@ class BNContrastiveHead(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(-1.0))
         self.norm = flax_batch_norm(embed_dims)
 
-    def init_own(self):
+    def init_own(self, generator: torch.Generator):
         self.bias.fill_(-10.0)
         self.logit_scale.fill_(-1.0)
 

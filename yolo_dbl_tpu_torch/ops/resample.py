@@ -49,18 +49,33 @@ def pixel_shuffle(x, r: int):
     return x.reshape(b, h * r, w * r, c)
 
 
+def bilinear_upsample(x, scale: int = 2, align_corners: bool = True):
+    """Bilinear NHWC upsample, torch's F.interpolate(mode='bilinear') in
+    either align_corners mode (resample.py:75, which forms it as two 1-D
+    interpolation matmuls)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale, mode="bilinear",
+                      align_corners=align_corners)
+    return y.permute(0, 2, 3, 1)
+
+
 def grid_sample_bilinear(x, coords, padding_mode: str = "border"):
     """Bilinear grid sample of NHWC `x`, align_corners=False (resample.py:105).
 
     coords: (B, Ho, Wo, 2) normalized xy grid in [-1, 1], or (B, Ho, Wo, 2, G)
     with one grid per contiguous channel group. Returns (B, Ho, Wo, C).
     """
-    b, h, w, c = x.shape
+    gy, gx = pixel_coords(coords, x.shape[1], x.shape[2])
+    return sample_bilinear_pixel(x, gy, gx, padding_mode,
+                                 groups=coords.shape[-1] if coords.dim() == 5 else 1)
+
+
+def pixel_coords(coords, h: int, w: int):
+    """(gy, gx) pixel coordinates of a normalized xy grid on an h x w map,
+    align_corners=False: (B, Ho, Wo) each, or (B, Ho, Wo, G) for a grouped
+    (B, Ho, Wo, 2, G) grid."""
     grouped = coords.dim() == 5
     cx, cy = (coords[..., 0, :], coords[..., 1, :]) if grouped else (coords[..., 0], coords[..., 1])
-    gx = (cx + 1.0) * (w / 2.0) - 0.5
-    gy = (cy + 1.0) * (h / 2.0) - 0.5
-    return sample_bilinear_pixel(x, gy, gx, padding_mode, groups=coords.shape[-1] if grouped else 1)
+    return (cy + 1.0) * (h / 2.0) - 0.5, (cx + 1.0) * (w / 2.0) - 0.5
 
 
 def sample_bilinear_pixel(x, gy, gx, padding_mode: str = "border", groups: int = 1):

@@ -10,16 +10,24 @@ Module and attribute names of the port are the flax scope names, so a leaf
   with the kernel flipped. Only the owning module tells this rule from the
   conv's (the shapes agree when in == out), so the callers that hold the
   module pass the names of its transposed convs (`transposed_convs`);
-- Dense kernel (I, O) → (O, I);
+- Dense kernel (I, O) → (O, I); a flax MultiHeadDotProductAttention's
+  DenseGeneral kernels (MHSA's `query`, `key`, `value` (C, heads, hd) and
+  `out` (heads, hd, C)) and their (heads, hd) biases → nn.Linear's (O, I)
+  and (O,), the heads flattened head-major. Only the owning module tells a
+  3-D Dense kernel from a 1-D conv's, so the callers that hold the module
+  pass the names of its nn.Linear layers (`dense_layers`);
 - a 1-D conv's kernel (k, in, out) → Conv1d's (out, in, k) (C3k2_EAMC's
   `reduce_conv`);
-- BatchNorm and LayerNorm params scale/bias → weight/bias, batch_stats
+- BatchNorm, LayerNorm and GroupNorm params scale/bias → weight/bias, batch_stats
   mean/var → running_mean/running_var;
 - `prototype_base`, the FullPAD `gate`, the A2C2f and M2C2f `gamma`, DyT's
   and FGM's `alpha` and `beta`, FFM's `w`, the contrastive heads'
-  scalar `logit_scale` and RT-DETR's packed attention projection
-  `in_proj_weight` (3C, C) and `in_proj_bias`, already in torch's layout,
-  are copied as they are;
+  scalar `logit_scale`, RT-DETR's packed attention projection
+  `in_proj_weight` (3C, C) and `in_proj_bias`, and the catalogue's bare
+  tables (BoTAttention's `rel_height`/`rel_width`, AxialAttention's
+  `relative`, FusedKQnA's `q_param`, `attn_scale` and `rpb_table`, Swin's
+  `relative_position_bias_table`, ECALayer_ns's (C, k) `conv`), already in
+  torch's layout, are copied as they are;
 - a flax `Embed`'s `embedding` (n, C) → nn.Embedding's `weight`, as it is
   (RT-DETR's `denoising_class_embed`);
 - YOLOv7 IDetect's implicit leaves `ia{i}` and `im{i}`, (1, 1, 1, C) in
@@ -57,7 +65,8 @@ import torch
 TORCH_ONLY_SUFFIX = "num_batches_tracked"
 # parameters whose name and layout are the same on both sides
 COPIED_LEAVES = ("prototype_base", "gate", "gamma", "alpha", "beta", "w", "logit_scale",
-                 "in_proj_weight", "in_proj_bias")
+                 "in_proj_weight", "in_proj_bias", "rel_height", "rel_width", "relative",
+                 "q_param", "attn_scale", "rpb_table", "relative_position_bias_table", "conv")
 # IDetect's implicit-knowledge leaves: (1, 1, 1, C) in JAX, (1, C, 1, 1) here
 IMPLICIT_LEAF = re.compile(r"i[am]\d+")
 
@@ -77,9 +86,22 @@ def transposed_convs(module: torch.nn.Module) -> FrozenSet[str]:
                      if isinstance(m, torch.nn.ConvTranspose2d))
 
 
-def _torch_leaf(collection: str, path, arr: np.ndarray, transposed: FrozenSet[str]):
+def dense_layers(module: torch.nn.Module) -> FrozenSet[str]:
+    """The names of `module`'s nn.Linear layers, whose 3-D kernels take the
+    DenseGeneral rule."""
+    return frozenset(name for name, m in module.named_modules() if isinstance(m, torch.nn.Linear))
+
+
+def _torch_leaf(collection: str, path, arr: np.ndarray, transposed: FrozenSet[str],
+                dense: FrozenSet[str] = frozenset()):
     *scopes, leaf = path
     if collection == "params":
+        if leaf == "kernel" and arr.ndim == 3 and ".".join(scopes) in dense:
+            flat = arr.reshape(-1, arr.shape[-1]) if scopes[-1] == "out" \
+                else arr.reshape(arr.shape[0], -1)
+            return scopes, "weight", flat.T
+        if leaf == "bias" and arr.ndim == 2 and ".".join(scopes) in dense:
+            return scopes, leaf, arr.reshape(-1)
         if leaf == "kernel" and arr.ndim == 4 and ".".join(scopes) in transposed:
             return scopes, "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if leaf == "kernel" and arr.ndim == 4:
@@ -100,15 +122,17 @@ def _torch_leaf(collection: str, path, arr: np.ndarray, transposed: FrozenSet[st
     raise KeyError(f"no rule for JAX leaf {collection}/{'/'.join(path)} {arr.shape}")
 
 
-def state_dict_from_jax(variables,
-                        transposed: FrozenSet[str] = frozenset()) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(variables, transposed: FrozenSet[str] = frozenset(),
+                        dense: FrozenSet[str] = frozenset()) -> Dict[str, torch.Tensor]:
     """Map every leaf of a JAX variables tree to its state_dict entry, in
     float32 (float64 leaves stay float64). `transposed`: the module names
-    whose kernel is a transposed conv's (`transposed_convs`)."""
+    whose kernel is a transposed conv's (`transposed_convs`); `dense`: those
+    whose 3-D kernel is a DenseGeneral's (`dense_layers`)."""
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         for path, value in _flatten(tree):
-            scopes, name, arr = _torch_leaf(collection, path, np.asarray(value), transposed)
+            scopes, name, arr = _torch_leaf(collection, path, np.asarray(value), transposed,
+                                            dense)
             key = ".".join([*scopes, name])
             if key in out:
                 raise KeyError(f"two JAX leaves map to {key}")
@@ -119,7 +143,7 @@ def state_dict_from_jax(variables,
 
 def load_jax_variables(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Load JAX variables into `module`; raises on any key unmapped either way."""
-    sd = state_dict_from_jax(variables, transposed_convs(module))
+    sd = state_dict_from_jax(variables, transposed_convs(module), dense_layers(module))
     own = module.state_dict()
     torch_only = {k for k in own if k.endswith(TORCH_ONLY_SUFFIX)}
     missing = sorted(set(own) - set(sd) - torch_only)
@@ -141,7 +165,7 @@ def params_from_jax(module: torch.nn.Module, tree) -> Dict[str, torch.Tensor]:
     """Map a params-shaped JAX tree leaf by leaf to {parameter name: tensor}
     in the port's layouts; raises unless it covers exactly the parameters of
     `module`."""
-    out = state_dict_from_jax({"params": tree}, transposed_convs(module))
+    out = state_dict_from_jax({"params": tree}, transposed_convs(module), dense_layers(module))
     own = dict(module.named_parameters())
     if set(out) != set(own):
         raise KeyError(f"params bridge mismatch: {sorted(set(own) - set(out))[:8]} without a JAX "
@@ -163,7 +187,7 @@ def jax_param_paths(module: torch.nn.Module) -> Dict[str, str]:
                                                      torch.nn.Linear, torch.nn.Conv1d)):
                 leaf = "kernel"
             elif name == "weight" and isinstance(mod, (torch.nn.modules.batchnorm._BatchNorm,
-                                                       torch.nn.LayerNorm)):
+                                                       torch.nn.LayerNorm, torch.nn.GroupNorm)):
                 leaf = "scale"
             elif name == "weight" and isinstance(mod, torch.nn.Embedding):
                 leaf = "embedding"
