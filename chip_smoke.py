@@ -370,6 +370,33 @@ The module catalogue (utils/benchmarks.py: 9 upsamplers, 26 attentions):
               forward and backward of those two: K2's forward and backward
               once each); counts set to 0 before each entry's calls and read
               after them.
+The pools' last rows (LDA-DBL-s: yolov13_DBL.yaml at s with its three
+DySample rows written as LDA_AQU, tests/torch_fixtures.py `lda_dbl`, nc=3, 9,611,997 parameters,
+seeded random weights; TF32 off in the parity phases):
+ 53. k2, k2_backward (float32) also at LDA-DBL-s's six K2 sites (`lda_sites`:
+              rows 13, 18, 22; the keys (B, h, w, C/4) and the input (B, h,
+              w, C) each at 9 taps a 2x query in 2 groups, border padding,
+              the seeded model's own coordinates at batch 8 and 16) and at
+              DLUPack's (`dlupack_sites`: the 2x64x64x25 kernel field at
+              128² align-corners points) against the plain versions at TOL,
+              with the taps' and the whole map's bounds, the output bytes,
+              the off-map share, the window misses and F.grid_sample
+              (border; align_corners=True for DLUPack);
+ 54. pools    - the pools' other modules (21 entries: CARAFEplusplus up and
+              down, CAA, WTConv2d, C2f_PIG n=1 and 4, C2f_WT, GhostModuleV2,
+              GhostBottleneckV2, ASFF at 3 levels and ASFFmobile,
+              PSAModule, CPCA, Outlooker, EdgeAwareAttentionV2 in both alpha
+              modes, LDA_AQU, DLUPack, LoftUp) card against CPU at batch 1
+              on 16 px (TF32 off, 1e-4 of the CPU's largest), then timed with
+              CUDA events at batch 2 on 64 px; K2's launches a call (LDA_AQU
+              2, DLUPack 1; then one forward and backward each);
+ 55. main_lda, profile_lda, train_lda, train_profile_lda, parity_lda,
+              train_parity_lda - LDA-DBL-s as main, profile, train and
+              parity in float32: K1 once and K2 6 times a request, K2's
+              forward and backward 6 times a step; train_parity_lda under
+              the CPU's tap cells (`pinned_cells`: the card's and the float64
+              reference's taps that round across a pixel boundary move into
+              the CPU's cell, each by at most LDA_PIN_PX).
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -442,7 +469,19 @@ RTDETR_M = 64
 # level in each of the 6 decoder layers
 RTDETR_LEVELS = {"p3": (80, 80), "p4": (40, 40), "p5": (20, 20)}
 RTDETR_HEADS, RTDETR_LAYERS = 8, 6
-SUFFIX = {DBL: "", V13: "_v13", DBL2: "_dbl2", V12: "_v12", V11: "_v11", V10: "_v10", V9: "_v9",
+# LDA-DBL-s: YOLO-DBL-s with its three DySample rows (13, 18, 22) written as
+# LDA_AQU, built from the port's YAML in memory (tests/torch_fixtures.py
+# `lda_dbl`): K2 samples the
+# keys and the input at 9 taps a hi-res query, 2 groups, border padding
+LDA = ("yolov13s_DBL_LDA.yaml", NC)
+LDA_ROWS = (13, 18, 22)
+# the farthest train_parity_lda may move a tap into another run's cell: twice
+# the farthest float32 put a K2 coordinate of LDA-DBL-s's train step from
+# float64 on the CPU (tools/exp_lda_conditioning.py, seeds (0, 2), (0, 3),
+# (1, 2), (1, 5): 1.07e-3 px at 6 threads, 3.66e-3 px at 1), since two float32
+# runs may each sit that far from float64, on either side of a boundary
+LDA_PIN_PX = 7.5e-3
+SUFFIX = {DBL: "", LDA: "_lda", V13: "_v13", DBL2: "_dbl2", V12: "_v12", V11: "_v11", V10: "_v10", V9: "_v9",
           V7: "_v7", SEG: "_seg", POSE: "_pose", CLS: "_cls", OBB: "_obb", WORLD: "_world",
           EMAC: "_emac", RTDETR: "_rtdetr"}
 # YOLOv13-s A2C2f sites at 640: (areas, N, heads) per image; each site runs
@@ -474,6 +513,9 @@ PER_REQUEST = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for c
     (SEG, {"letterbox_normalize": 1}), (POSE, {"letterbox_normalize": 1}),
     (CLS, {"letterbox_normalize": 1}), (OBB, {"letterbox_normalize": 1}),
     (WORLD, {"letterbox_normalize": 1}), (EMAC, {"letterbox_normalize": 1}))}
+# LDA-DBL-s: two K2 launches (keys, input) at each of the three LDA_AQU rows
+PER_REQUEST[LDA, torch.float32] = _launches({"letterbox_normalize": 1, "sample_bilinear": 6},
+                                            torch.float32)
 PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg, c in (
     (DBL, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
     (DBL2, {"sample_bilinear": 3, "sample_bilinear_backward": 3}),
@@ -494,6 +536,8 @@ PER_REQUEST[RTDETR, BF16] = {**NO_LAUNCH, "letterbox_normalize_bf16": 1,
                              "sample_bilinear": RTDETR_K2}
 PER_STEP[RTDETR, torch.float32] = _launches({"sample_bilinear": RTDETR_K2,
                                              "sample_bilinear_backward": RTDETR_K2}, torch.float32)
+PER_STEP[LDA, torch.float32] = _launches({"sample_bilinear": 6, "sample_bilinear_backward": 6},
+                                         torch.float32)
 
 
 def emit(obj):
@@ -874,13 +918,16 @@ def _route(rows, prefix=""):
     return routes.pop() if len(routes) == 1 else "mixed"
 
 
-def phase_k2(gen, dtype=torch.float32, deform=None, dattention=None):
+def phase_k2(gen, dtype=torch.float32, deform=None, dattention=None, lda=None, dlupack=None):
     """The sampler's forward kernel of `dtype` against its plain version at
     the three sites at serving batch 8, both padding modes, DySample and
     uniform coordinates; F.grid_sample in `dtype` as the yardstick. With
     `deform` (`rtdetr_sites`' batch 8), also at MSDeformAttn's three sites
     (`deform_k2_sites`; float32: RT-DETR samples in float32 in either type);
-    with `dattention` (`dattention_sites`), at DAttention's two (border)."""
+    with `dattention` (`dattention_sites`), at DAttention's two (border);
+    with `lda` (`lda_sites`' batch 8), at LDA-DBL-s's six (three rows, keys
+    and input; border); with `dlupack` (`dlupack_sites`), at DLUPack's
+    (align corners, border)."""
     from yolo_dbl_tpu_torch.kernels.sampling import sample_bilinear, sample_bilinear_plain
 
     es, sites, worst, src = dtype.itemsize, {}, 0.0, []
@@ -933,6 +980,16 @@ def phase_k2(gen, dtype=torch.float32, deform=None, dattention=None):
         extra["dattention_sites"] = {"sites": rows_d, "bound_by": _by(rows_d.values())}
         src += src_d
         worst = max(worst, max(r["max_abs_err"] for r in rows_d.values()))
+    if lda is not None:
+        rows_l, src_l = deform_k2_sites(lda, "border", "LDA_AQU")
+        extra["lda_dbl_s_sites"] = _lda_row(rows_l, "per_request")
+        src += src_l
+        worst = max(worst, max(r["max_abs_err"] for r in rows_l.values()))
+    if dlupack is not None:
+        rows_p, src_p = deform_k2_sites(dlupack, "border", "DLUPack", align_corners=True)
+        extra["dlupack_sites"] = {"sites": rows_p, "bound_by": _by(rows_p.values())}
+        src += src_p
+        worst = max(worst, max(r["max_abs_err"] for r in rows_p.values()))
     emit({"phase": _kphase("k2", dtype), "sites": sites, **extra,
           **({"tolerance": BF16_BAR} if dtype == BF16 else {})})
     total = {key: sum(sites[s][key] for s in DYSAMPLE_SITES)
@@ -957,14 +1014,16 @@ def _time_sources(src, keys=("ms", "plain_ms", "library_ms")):
     return {key: source_of(*col) for key, col in zip(keys, zip(*src))}
 
 
-def phase_k2_backward(gen, dtype=torch.float32, deform=None, dattention=None):
+def phase_k2_backward(gen, dtype=torch.float32, deform=None, dattention=None, lda=None,
+                      dlupack=None):
     """The sampler's backward kernel of `dtype` at the three sites at
     training batch 16, and its forward kernel at the same shapes (the train
     step runs both), against their plain versions; with `deform`
     (`rtdetr_sites`' batch 16), at MSDeformAttn's three sites too
     (`deform_k2_backward_sites`); with `dattention`, at DAttention's two
-    (border). Returns the backward's kernel row and the forward's worst
-    error here."""
+    (border); with `lda` (`lda_sites`' batch 16), at LDA-DBL-s's six; with
+    `dlupack`, at DLUPack's. Returns the backward's kernel row and the
+    forward's worst error here."""
     from yolo_dbl_tpu_torch.kernels.sampling import (backward_shared_bytes,
                                                      backward_window_misses, sample_bilinear,
                                                      sample_bilinear_backward,
@@ -1058,6 +1117,16 @@ def phase_k2_backward(gen, dtype=torch.float32, deform=None, dattention=None):
         src += [(*t, None) for t in src_d]
         worst_fwd = max(worst_fwd, max(r["errors"]["forward"] for r in rows_d.values()))
         worst["dx"] = max(worst["dx"], max(r["errors"]["dx"] for r in rows_d.values()))
+    for key, sites_, what, corners in (("lda_dbl_s_sites", lda, "LDA_AQU", False),
+                                       ("dlupack_sites", dlupack, "DLUPack", True)):
+        if sites_ is None:
+            continue
+        rows_x, src_x = deform_k2_backward_sites(sites_, gen, "border", what, corners)
+        extra[key] = (_lda_row(rows_x, "per_step") if key == "lda_dbl_s_sites"
+                      else {"sites": rows_x, "bound_by": _by(rows_x.values())})
+        src += [(*t, None) for t in src_x]
+        worst_fwd = max(worst_fwd, max(r["errors"]["forward"] for r in rows_x.values()))
+        worst["dx"] = max(worst["dx"], max(r["errors"]["dx"] for r in rows_x.values()))
     tolerance = BF16_BAR if dtype == BF16 else {"dx": 1e-4, "dg_rel": 1e-4, "forward": TOL}
     emit({"phase": _kphase("k2_backward", dtype), "batch": b, "tolerance": tolerance,
           "forward_max_abs_err": worst_fwd, "sites": sites, **extra})
@@ -1292,10 +1361,12 @@ def model_class(name):
 
 def seeded_model(cfg, dtype=torch.float32):
     """The model of `cfg` computing in `dtype` on the CPU, its weights drawn
-    from seed 0 (the model's own init)."""
+    from seed 0 (the model's own init); LDA-DBL-s from its dict."""
+    from tests.torch_fixtures import lda_dbl
+
     name, nc = cfg
-    return model_class(name)(name, nc=nc, device="cpu", generator=torch.Generator().manual_seed(0),
-                             dtype=dtype)
+    return model_class(name)(lda_dbl() if cfg == LDA else name, nc=nc, device="cpu",
+                             generator=torch.Generator().manual_seed(0), dtype=dtype)
 
 
 def on_card(model):
@@ -1502,10 +1573,12 @@ def by_part(fn, calls):
 def traced_once(fn):
     """(fn()'s device time by kernel and by part, its result): one call
     under torch.profiler, with no warm-up call, for work that cannot run
-    twice (a training run that resumes from its own checkpoint)."""
+    twice (a training run that resumes from its own checkpoint). Only the
+    card's activity is traced: the host's ops would slow a host-bound run
+    several-fold and with it the busy share read against its wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     return _parts(_device_events(prof), 1), out
@@ -1834,13 +1907,14 @@ def plain_kernels():
         resample.sample_bilinear, blocks.area_attention = saved
 
 
-def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
+def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu", cells=None):
     """({loss item: value}, {name: gradient on the CPU}) of the train-mode
     loss of a float64 copy of the CPU model on `device` (the plain sampler
     and attention take float64; on the card through `plain_kernels`):
     train_loss's steps, with the images normalized to float64.
     `grads=False`: the loss items alone (and None). The forward is the
-    trainer's (`forward_text`: a world model on the zero text)."""
+    trainer's (`forward_text`: a world model on the zero text). `cells`: a
+    `pinned_cells` record that K2's taps are held to (returned beside)."""
     from yolo_dbl_tpu_torch.engine.trainer import task_loss
     from yolo_dbl_tpu_torch.kernels.preprocess import device_normalize
 
@@ -1849,6 +1923,7 @@ def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
     batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
     names, params = zip(*model.named_parameters())
     with (plain_kernels() if model.device.type == "cuda" else contextlib.nullcontext()), \
+            (pinned_cells(cells) if cells is not None else contextlib.nullcontext([])) as moved, \
             torch.set_grad_enabled(grads):
         loss, items = task_loss(model, cfg, model.forward_text(
             device_normalize(batch["img"], torch.float64)), batch)
@@ -1856,8 +1931,9 @@ def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
                   **{k: float(v.detach()) for k, v in items._asdict().items()})
     if not grads:
         return values, None
-    return values, {n: g.cpu() for n, g in zip(names, torch.autograd.grad(
+    out = {n: g.cpu() for n, g in zip(names, torch.autograd.grad(
         loss, params, materialize_grads=True))}
+    return (values, out, moved) if cells is not None else (values, out)
 
 
 # leaves named in train_parity, whose gradient comes only through a kernel's
@@ -1872,7 +1948,9 @@ def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu"):
 # sampling offsets and value projection get their gradient through K2's
 # backward (dgy, dgx and dx), its attention weights and output projection
 # through K2's forward (held on the decoder's own step: RTDETR_LEAF_BAR)
-KERNEL_FED_LEAVES = {DBL: (".offset.conv.", 6), V13: (".attn.qkv.conv.", 8),
+# LDA-DBL-s's offset convs (through K2's dgy, dgx) and key projections (dx)
+KERNEL_FED_LEAVES = {DBL: (".offset.conv.", 6), LDA: ((".off_pw.conv.", ".proj_k.conv."), 9),
+                     V13: (".attn.qkv.conv.", 8),
                      RTDETR: (".decoder_layers_5.cross_attn.", 8),
                      V12: (".attn.qkv.conv.", 8), V10: (".attn.qkv.conv.", 1),
                      SEG: (".proto.", 11), POSE: (".cv4_0_2.", 2), OBB: (".cv4_0_2.", 2),
@@ -1909,6 +1987,9 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
                           task=_task(cpu_model))[0]
     results, detr = {}, cpu_model.head_name == "RTDETRDecoder"
     pins = {"queries": None, "matching": None}
+    # LDA_AQU's taps: the card and the float64 reference take the CPU's cells
+    lda = cfg == LDA
+    cells = {"cpu": None}
     for model in (cpu_model, gpu_model):
         for mod in model.modules():
             if isinstance(mod, torch.nn.Dropout):
@@ -1917,9 +1998,11 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
         names, params = zip(*model.named_parameters())
         kernels.reset_launches()
         with (pinned_queries(pins["queries"]) if detr else contextlib.nullcontext([])) as sq, \
-                (pinned_matching(pins["matching"]) if detr else contextlib.nullcontext([])) as sm:
+                (pinned_matching(pins["matching"]) if detr else contextlib.nullcontext([])) as sm, \
+                (pinned_cells(cells["cpu"]) if lda else contextlib.nullcontext([])) as sc:
             loss, items = train_loss(model, train_cfg,
                                      {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+        cells[dev.type] = sc
         if detr and dev.type == "cpu":
             pins = {"queries": sq[0][0], "matching": sm[0][0], "own": (sq[0], sm[0])}
         elif detr:
@@ -1937,8 +2020,9 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     loss_rel = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc}
     detect = f"m{len(gpu_model.spec.layers) - 1}."
     fed, n_fed = KERNEL_FED_LEAVES[cfg]
+    fed = fed if isinstance(fed, tuple) else (fed,)
     # the first level's box and class output convs (of both v10Detect branches)
-    checked = [n for n in gc if fed in n or n.startswith("m0.")
+    checked = [n for n in gc if any(f in n for f in fed) or n.startswith("m0.")
                or (n.startswith(detect) and any(f".{cv}_0_2." in "." + n[len(detect):]
                                                 for cv in ("cv2", "cv3")))]
     grad_rel = grads_rel(gg, gc, checked)
@@ -1949,7 +2033,13 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     # 1e-10 of the model's largest |g64| for leaves whose exact gradient is 0.
     with (pinned_queries(pins["queries"]) if detr else contextlib.nullcontext()), \
             (pinned_matching(pins["matching"]) if detr else contextlib.nullcontext()):
-        l64, g64 = _float64_grads(cpu_model, train_cfg, batch, device="cuda")
+        l64, g64, *moved64 = _float64_grads(cpu_model, train_cfg, batch, device="cuda",
+                                            cells=cells["cpu"] if lda else None)
+    if lda:  # the taps each run moved into the CPU's cells, and the largest move
+        extra_cells = {"pinned_cells": {
+            side: {"moved": [mv for _, mv, _ in rec],
+                   "largest_move_px": max(ld for _, _, ld in rec)}
+            for side, rec in (("card", cells["cuda"]), ("float64", moved64[0]))}}
     g_max = max(float(g.abs().max()) for g in g64.values())
     leaves = {}
     for n, ref in g64.items():
@@ -1968,6 +2058,9 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
     past = {side: sum(e[f"{side}_err"] > 1e-3 * e["leaf_max"] + 1e-10 * g_max
                       for e in leaves.values()) for side in ("card", "cpu")}
     extra, near = pins["partings"] if detr else ({}, True)
+    if lda:
+        extra = extra_cells
+        near = all(e["largest_move_px"] <= LDA_PIN_PX for e in extra["pinned_cells"].values())
     emit({"phase": _phase("train_parity", cfg), "batch": 2, "imgsz": 256, "losses_cpu": lc,
           "losses_card": lg, "losses_float64": l64, "loss_rel": loss_rel,
           "grad_rel_of_leaf_max": grad_rel, "model_max_abs_grad": g_max, "leaves": len(leaves),
@@ -1977,10 +2070,11 @@ def phase_train_parity(cfg, cpu_model, gpu_model):
           "worst_leaves_vs_float64": [dict(name=n, **e) for n, e in worst[:5]],
           "bn_stats_rel": stats_err, "launches": launches, **extra,
           "seconds": time.perf_counter() - t_start})
-    require(near, f"RT-DETR selection or matching parted away from a near-tie: {extra}")
+    require(near, f"RT-DETR selection or matching, or an LDA_AQU tap's cell, parted away from "
+            f"a near-tie: {extra}")
     require(max(loss_rel.values()) <= 1e-4, f"loss items card vs CPU: {loss_rel}")
     # RT-DETR's named leaves are held at 1e-3 on its decoder's own step
-    require(len([n for n in checked if fed in n]) == n_fed
+    require(len([n for n in checked if any(f in n for f in fed)]) == n_fed
             and (detr or max(grad_rel.values()) <= 1e-3),
             f"gradients card vs CPU (of each leaf's max |g|): {grad_rel}")
     require(set(leaves) == set(gg) and not failing,
@@ -3848,6 +3942,75 @@ def phase_sp(card, setup):
     return launches
 
 
+@contextlib.contextmanager
+def wrapped_sampler(wrap):
+    """K2's call site (ops/resample.py `sample_bilinear`) inside the block
+    calls wrap(inner, x, gy, gx, mode) instead, `inner` being the sampler
+    bound there when the block starts."""
+    from yolo_dbl_tpu_torch.ops import resample
+
+    inner = resample.sample_bilinear
+    resample.sample_bilinear = functools.partial(wrap, inner)
+    try:
+        yield
+    finally:
+        resample.sample_bilinear = inner
+
+
+@contextlib.contextmanager
+def recording_sampler(first=None):
+    """The list of K2's calls inside the block, each (x, gy, gx, mode) with
+    copies of its tensors: all of them, or the first `first`. Every call
+    still samples."""
+    calls = []
+
+    def record(inner, x, gy, gx, mode):
+        if first is None or len(calls) < first:
+            calls.append((*(t.detach().clone() for t in (x, gy, gx)), mode))
+        return inner(x, gy, gx, mode)
+
+    with wrapped_sampler(record):
+        yield calls
+
+
+@contextlib.contextmanager
+def pinned_cells(forced=None):
+    """K2's taps inside the block, each held in a recorded cell: every call
+    of the sampler (ops/resample.py `sample_bilinear`) records the cells
+    (the floors of its pixel coordinates) on the CPU, in call order; with
+    `forced` (such a record) a coordinate whose cell differs from the forced
+    one moves the least amount into it, its gradient path kept, and the
+    call records how many taps moved and the largest move. Bilinear
+    sampling's coordinate gradient jumps where a tap crosses a pixel
+    boundary. LDA_AQU's taps sit at up to ±26 px, and float32 places them
+    0.4-3.7e-3 px from float64 on the CPU (the offset network's float32
+    error times the ±11 px reach, not the rounding of one coordinate:
+    `tools/exp_lda_conditioning.py`): a tap that close to a boundary lands
+    on either side in two runs, and one such tap moves the offset
+    network's gradient by percents (`train_parity_lda`)."""
+    seen = []
+
+    def pin(t, cell):
+        lo = cell.to(t.device, t.dtype)
+        target = torch.minimum(torch.maximum(t.detach(), lo), torch.nextafter(lo + 1, lo))
+        # the value is `target` exactly (t - t is 0), the gradient t's
+        return target + (t - t.detach()), (target != t.detach()), (target - t.detach()).abs()
+
+    def sample(inner, x, gy, gx, mode):
+        cells = (torch.floor(gy.detach()).cpu(), torch.floor(gx.detach()).cpu())
+        moved, largest = 0, 0.0
+        if forced is not None:
+            fy, fx = forced[len(seen)][0]
+            gy, my, dy = pin(gy, fy)
+            gx, mx, dx = pin(gx, fx)
+            moved, largest = int((my | mx).sum()), float(torch.maximum(dy.max(), dx.max()))
+        seen.append((cells, moved, largest))
+        return inner(x, gy, gx, mode)
+
+    with wrapped_sampler(sample):
+        yield seen
+
+
 # ---------------------------------------------------------------- RT-DETR
 
 @contextlib.contextmanager
@@ -4166,7 +4329,8 @@ def phase_train_parity_decoder(cfg, cpu_model, gpu_model):
           "cpu_leaves_past_1e-3_of_leaf_max": past["cpu"],
           "worst_leaves_vs_float64": [dict(name=n, **e) for n, e in worst[:5]],
           "launches": launches, **extra, "seconds": time.perf_counter() - t_start})
-    require(near, f"RT-DETR selection or matching parted away from a near-tie: {extra}")
+    require(near, f"RT-DETR selection or matching, or an LDA_AQU tap's cell, parted away from "
+            f"a near-tie: {extra}")
     require(launches == PER_STEP[cfg, torch.float32], f"launches in one decoder step: {launches}")
     require(max(loss_rel.values()) <= 1e-4, f"decoder loss items card vs CPU: {loss_rel}")
     require(len(named) == n_fed and max(grad_rel.values()) <= 1e-3,
@@ -4210,33 +4374,22 @@ def phase_facade_rtdetr(card, gpu_model):
             and yolo.trainer is None, f"RT-DETR refusals: {refused}")
 
 
-def rtdetr_sites(model, rng, batches=(B, TRAIN_B)):
+def rtdetr_sites(model, rng):
     """{batch: {level: (x, gy, gx)}}: the K2 inputs of the first decoder
     layer's MSDeformAttn (the projected value (B, H, W, 256), coordinates
     (B, 1200, 8) in pixels, points off the map among them) in one eval
     forward of the seeded RT-DETR-l on the card, on random uint8 frames at
     640, at serving batch 8 and training batch 16."""
     from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
-    from yolo_dbl_tpu_torch.ops import resample
 
-    inner, out = resample.sample_bilinear, {}
-    for b in batches:
-        calls = []
-
-        def record(x, gy, gx, mode):
-            if len(calls) < len(RTDETR_LEVELS):
-                require(mode == "zeros", f"MSDeformAttn samples with {mode}")
-                calls.append((x.clone(), gy.clone(), gx.clone()))
-            return inner(x, gy, gx, mode)
-
+    out = {}
+    for b in (B, TRAIN_B):
         frames = torch.from_numpy(rng.integers(0, 256, (b, *SRC_HW, 3), dtype=np.uint8))
-        resample.sample_bilinear = record
-        try:
-            with torch.no_grad():
-                model(letterbox_normalize(frames.cuda(), (IMGSZ, IMGSZ)))
-        finally:
-            resample.sample_bilinear = inner
-        out[b] = dict(zip(RTDETR_LEVELS, calls))
+        with recording_sampler(first=len(RTDETR_LEVELS)) as calls, torch.no_grad():
+            model(letterbox_normalize(frames.cuda(), (IMGSZ, IMGSZ)))
+        modes = {mode for *_, mode in calls}
+        require(modes == {"zeros"}, f"MSDeformAttn samples with {modes}")
+        out[b] = dict(zip(RTDETR_LEVELS, (call[:3] for call in calls)))
     return out
 
 
@@ -4260,25 +4413,30 @@ def _point_taps(x, gy, gx):
     return float(1.0 - hit.float().mean()), touched * (c // g) * x.element_size()
 
 
-def _grid_layout(xs, gy, gx):
+def _grid_layout(xs, gy, gx, align_corners=False):
     """F.grid_sample's layout for point sites: (B*G, C/G, H, W) planes of
-    each NHWC x and a (B*G, 1, N, 2) normalized grid, one a group."""
+    each NHWC x and a (B*G, 1, N, 2) normalized grid, one a group (for
+    `align_corners`, the corner pixels' centres at -1 and 1)."""
     b, h, w, c = xs[0].shape
     g = gy.shape[-1]
     planes = [x.reshape(b, h, w, g, c // g).permute(0, 3, 4, 1, 2).reshape(b * g, c // g, h, w)
               .contiguous() for x in xs]
-    grid = torch.stack([(gx + 0.5) * 2 / w - 1, (gy + 0.5) * 2 / h - 1], -1)
+    if align_corners:
+        grid = torch.stack([gx * 2 / (w - 1) - 1, gy * 2 / (h - 1) - 1], -1)
+    else:
+        grid = torch.stack([(gx + 0.5) * 2 / w - 1, (gy + 0.5) * 2 / h - 1], -1)
     return planes, grid.permute(0, 2, 1, 3).reshape(b * g, 1, -1, 2).contiguous()
 
 
-def deform_k2_sites(sites, mode="zeros", what="MSDeformAttn"):
+def deform_k2_sites(sites, mode="zeros", what="MSDeformAttn", align_corners=False):
     """The forward kernel against its plain version at point sites with
     their own coordinates (MSDeformAttn's three at serving batch 8, zeros
-    padding; DAttention's, border): max error, the off-map share, times
-    (kernel, plain, F.grid_sample with the same padding) and the bound on
-    the bytes the in-map taps need (each touched pixel's group read once,
-    the output written, the coordinates read); the whole map's bound
-    beside it."""
+    padding; DAttention's, LDA_AQU's and DLUPack's, border): max error, the
+    off-map share, times (kernel, plain, F.grid_sample with the same padding,
+    and for DLUPack's align-corners grid with align_corners=True) and the
+    bound on the bytes the in-map taps need (each touched pixel's group read
+    once, the output written, the coordinates read); the whole map's bound
+    and the output's bytes beside it."""
     from yolo_dbl_tpu_torch.kernels.sampling import sample_bilinear, sample_bilinear_plain
 
     rows, src = {}, []
@@ -4290,11 +4448,11 @@ def deform_k2_sites(sites, mode="zeros", what="MSDeformAttn"):
         err = max_abs(got, want)
         require(err <= TOL, f"sampler kernel vs plain at {what} {level}: {err}")
         off, x_bytes = _point_taps(x, gy, gx)
-        planes, grid = _grid_layout(xs, gy, gx)
+        planes, grid = _grid_layout(xs, gy, gx, align_corners)
 
         def library(i):
             return F.grid_sample(planes[i % len(xs)], grid, mode="bilinear", padding_mode=mode,
-                                 align_corners=False)
+                                 align_corners=align_corners)
 
         lib = library(0).reshape(b, g, c // g, n).permute(0, 3, 1, 2).reshape(b, n, c)
         k = len(xs)
@@ -4306,16 +4464,19 @@ def deform_k2_sites(sites, mode="zeros", what="MSDeformAttn"):
         bound_ms, bound_by = bound(x_bytes + io, b * n * c * 11)
         rows[level] = dict(x=[b, h, w, c], n=n, groups=g, max_abs_err=err,
                            library_vs_kernel=max_abs(lib, got), off_map_share=off,
-                           tapped_x_bytes=x_bytes, ms=ms, plain_ms=plain_ms,
+                           tapped_x_bytes=x_bytes, out_bytes=b * n * c * 4, ms=ms,
+                           plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                            bound_ms_whole_map=bound(x.numel() * 4 + io, b * n * c * 11)[0])
     return rows, src
 
 
-def deform_k2_backward_sites(sites, gen, mode="zeros", what="MSDeformAttn"):
+def deform_k2_backward_sites(sites, gen, mode="zeros", what="MSDeformAttn",
+                             align_corners=False):
     """The backward kernel (and the forward) against the plain versions at
     point sites (MSDeformAttn's three at training batch 16, zeros padding;
-    DAttention's, border), with their own coordinates and a random output
+    DAttention's, LDA_AQU's and DLUPack's, border), with their own
+    coordinates and a random output
     gradient: errors, the share of taps that missed their tile's window,
     times (kernel, plain, F.grid_sample's backward with the same padding)
     and the bound: the in-map taps' bytes of x, g read, dx written whole,
@@ -4343,7 +4504,7 @@ def deform_k2_backward_sites(sites, gen, mode="zeros", what="MSDeformAttn"):
                 f"{errs}")
         taps, miss = backward_window_misses(x, gy, gx, gs[0], mode)
         off, x_bytes = _point_taps(x, gy, gx)
-        planes, grid = _grid_layout(xs, gy, gx)
+        planes, grid = _grid_layout(xs, gy, gx, align_corners)
         planes = [p.requires_grad_() for p in planes]
         grid.requires_grad_()
         g_planes = [t.reshape(b, n, g, c // g).permute(0, 2, 3, 1).reshape(b * g, c // g, 1, n)
@@ -4351,7 +4512,7 @@ def deform_k2_backward_sites(sites, gen, mode="zeros", what="MSDeformAttn"):
 
         def library(i):
             out = F.grid_sample(planes[i % k], grid, mode="bilinear", padding_mode=mode,
-                                align_corners=False)
+                                align_corners=align_corners)
             return torch.autograd.grad(out, (planes[i % k], grid), g_planes[i % k])
 
         ms, _, s1 = timings(lambda i: sample_bilinear_backward(xs[i % k], gy, gx, gs[i % k],
@@ -4364,7 +4525,7 @@ def deform_k2_backward_sites(sites, gen, mode="zeros", what="MSDeformAttn"):
         bound_ms, bound_by = bound(x_bytes + io, b * n * c * 24)
         rows[level] = dict(x=[b, h, w, c], n=n, groups=g, errors=errs, off_map_share=off,
                            window_missed_share=miss / taps, taps=taps, tapped_x_bytes=x_bytes,
-                           ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                           grad_bytes=b * n * c * 4, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by,
                            bound_ms_whole_map=bound(x.numel() * 4 + io, b * n * c * 24)[0])
     return rows, src
@@ -4379,6 +4540,67 @@ def _rtdetr_row(rows):
                                            for k in keys},
             "bound_by": _by(rows.values())}
 
+
+
+def _lda_row(rows, per):
+    """A kernel row's summary of LDA-DBL-s's six sites: each site's numbers
+    and their sums, a request's (forward) or a step's (backward) K2 work."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_whole_map")
+    return {"sites": rows, per: {k: sum(r[k] for r in rows.values()) for k in keys},
+            "bound_by": _by(rows.values())}
+
+
+def lda_sites(model, rng):
+    """{batch: {site: (x, gy, gx)}}: K2's six inputs in one eval forward of
+    the seeded LDA-DBL-s on the card, on random uint8 frames at 640, at
+    serving batch 8 and training batch 16: at rows 13, 18 and 22 the keys
+    (`_k`, (B, h, w, C/4)) and the input (`_v`, (B, h, w, C)), both at the
+    (B, 4hw·9, 2) pixel coordinates of the 2x map's 9 taps a query in 2
+    groups, taps off the map among them (border padding)."""
+    from yolo_dbl_tpu_torch.kernels.preprocess import letterbox_normalize
+
+    out = {}
+    names = [f"row{r}_{kv}" for r in LDA_ROWS for kv in ("k", "v")]
+    for b in (B, TRAIN_B):
+        frames = torch.from_numpy(rng.integers(0, 256, (b, *SRC_HW, 3), dtype=np.uint8))
+        with recording_sampler() as calls, torch.no_grad():
+            model(letterbox_normalize(frames.cuda(), (IMGSZ, IMGSZ)))
+        require(len(calls) == len(names), f"LDA-DBL-s sampled {len(calls)} times a forward")
+        modes = {mode for *_, mode in calls}
+        require(modes == {"border"}, f"LDA_AQU samples with {modes}")
+        out[b] = dict(zip(names, (call[:3] for call in calls)))
+    return out
+
+
+DLUPACK_SHAPE = (2, 64, 64, 64)  # NHWC input: the upsample catalogue's reference shape
+
+
+def dlupack_module(c=DLUPACK_SHAPE[-1]):
+    """DLUPack at `c` channels on the CPU, flax's defaults from seed 0 with
+    its zero-initialized `conv_offset` redrawn (normal, 0.05; seed 1), so
+    the kernel lookup samples between the lattice points."""
+    from yolo_dbl_tpu_torch.nn.tasks import init_flax_defaults
+    from yolo_dbl_tpu_torch.nn.upsample.loftup_dlu import DLUPack
+
+    module = DLUPack(c)
+    init_flax_defaults(module, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        module.conv_offset.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    return module.eval()
+
+
+def dlupack_sites():
+    """{site: (x, gy, gx)}: K2's input in DLUPack (`dlupack_module`) on the
+    reference input: the softmaxed (2, 64, 64, 25) kernel field at the
+    (2, 128·128, 1) align-corners pixel coordinates of the 2x lattice plus
+    its offsets."""
+    from yolo_dbl_tpu_torch.utils import benchmarks as bm
+
+    module = on_card(dlupack_module())
+    with recording_sampler() as calls, torch.no_grad():
+        module(bm.reference_input(DLUPACK_SHAPE, "cuda"))
+    require(len(calls) == 1, f"DLUPack sampled {len(calls)} times a call")
+    return {"reference": calls[0][:3]}
 
 
 # the module catalogue (utils/benchmarks.py): the shapes its entries are held
@@ -4528,6 +4750,150 @@ def phase_catalogue(card):
     return counts
 
 
+# the pools' other modules (nn/upsample/{batch3,misc,pig,loftup_dlu}.py,
+# nn/attention/{extra,bigarch,spatial}.py, GhostNetV2's blocks): each held card
+# against CPU at batch 1 on a 16 px map and timed at batch 2 on a 64 px map
+# (an ASFF's largest level; LoftUp's image, its low-res map a quarter the side)
+POOLS_CHECK, POOLS_TIMED = (1, 16), (2, 64)
+# K2's forward launches a call (every other entry: none)
+POOLS_K2 = {"LDA_AQU": 2, "DLUPack": 1}
+
+
+def _pool_entries():
+    """{entry: (build() on the CPU, shapes(b, s): its NHWC inputs, whether
+    the inputs go as one list)}."""
+    from yolo_dbl_tpu_torch.nn.attention import bigarch as AB
+    from yolo_dbl_tpu_torch.nn.attention import extra as AE
+    from yolo_dbl_tpu_torch.nn.attention import spatial as AS
+    from yolo_dbl_tpu_torch.nn.structures import blocks as S
+    from yolo_dbl_tpu_torch.nn.upsample import batch3 as U3
+    from yolo_dbl_tpu_torch.nn.upsample import loftup_dlu as UL
+    from yolo_dbl_tpu_torch.nn.upsample import misc as UM
+    from yolo_dbl_tpu_torch.nn.upsample import pig as UP
+
+    def one(c=64):
+        return lambda b, s: [(b, s, s, c)]
+
+    def asff(cls, level):
+        widths = [cls.DIMS[i] if i == level else 64 for i in range(3)]
+        shapes = lambda b, s: [(b, s // 4, s // 4, widths[0]), (b, s // 2, s // 2, widths[1]),
+                               (b, s, s, widths[2])]
+        return (lambda: cls(level, ch=widths), shapes, True)
+
+    return {
+        "LDA_AQU": (lambda: U3.LDA_AQU(64), one(), False),
+        "CARAFEplusplus_up": (lambda: U3.CARAFEplusplus(64), one(), False),
+        "CARAFEplusplus_down": (lambda: U3.CARAFEplusplus(64, 2, "down"), one(), False),
+        "CAA": (lambda: UM.CAA(64), one(), False),
+        "WTConv2d": (lambda: UP.WTConv2d(64), one(), False),
+        "C2f_PIG_n1": (lambda: UP.C2f_PIG(64, 64, 1, True), one(), False),
+        "C2f_PIG_n4": (lambda: UP.C2f_PIG(64, 64, 4), one(), False),
+        "C2f_WT": (lambda: UP.C2f_WT(64, 64, 1, True), one(), False),
+        "GhostModuleV2_attn": (lambda: S.GhostModuleV2(64, 64, mode="attn"), one(), False),
+        "GhostBottleneckV2": (lambda: S.GhostBottleneckV2(64, 64, 64), one(), False),
+        "ASFF_level0": asff(AE.ASFF, 0), "ASFF_level1": asff(AE.ASFF, 1),
+        "ASFF_level2": asff(AE.ASFF, 2), "ASFFmobile_level2": asff(AE.ASFFmobile, 2),
+        "PSAModule": (lambda: AE.PSAModule(64, 64), one(), False),
+        "CPCA": (lambda: AE.CPCA(64, 128), one(), False),
+        "Outlooker": (lambda: AB.Outlooker(64, 64, 3, 8), one(), False),
+        "EdgeAwareAttentionV2_scalar": (lambda: AS.EdgeAwareAttentionV2(64), one(), False),
+        "EdgeAwareAttentionV2_map": (lambda: AS.EdgeAwareAttentionV2(64, alpha_mode="map"),
+                                     one(), False),
+        "DLUPack": (dlupack_module, one(), False),
+        "LoftUp": (lambda: UL.LoftUp(64), lambda b, s: [(b, s // 4, s // 4, 64), (b, s, s, 3)],
+                   False),
+    }
+
+
+def _pool_inputs(shapes, device):
+    from yolo_dbl_tpu_torch.utils import benchmarks as bm
+
+    return [bm.reference_input(shape, device, seed=i) for i, shape in enumerate(shapes)]
+
+
+def _pool_call(module, xs, as_list):
+    return module(xs) if as_list else module(*xs)
+
+
+def phase_pools(card):
+    """Every other module of the pools' last rows card against CPU at
+    POOLS_CHECK (TF32 off, within 1e-4 of the CPU's largest), then timed
+    with CUDA events at POOLS_TIMED: ms a call, peak bytes, K2's launches a
+    call (counts set to 0 before the entry's calls and read after them);
+    LDA_AQU and DLUPack then take one forward and backward, which reads
+    K2's backward launches. Weights: flax's defaults from seed 0
+    (`utils/benchmarks.py` `prepare`; DLUPack's offsets redrawn). No error
+    is caught. Returns {entry: its launches a call, entry_train: a forward
+    and backward's} for the kernels line."""
+    from yolo_dbl_tpu_torch.kernels import launches, reset_launches
+    from yolo_dbl_tpu_torch.nn.tasks import init_flax_defaults
+
+    t_start = time.perf_counter()
+    rows, counts = {}, {}
+    for name, (build, shapes, as_list) in _pool_entries().items():
+        cpu = build()
+        if name != "DLUPack":  # its offsets are dlupack_module's
+            init_flax_defaults(cpu, torch.Generator().manual_seed(0))
+        cpu.eval()
+        gpu = on_card(cpu)
+        small = shapes(*POOLS_CHECK)
+        xs = _pool_inputs(small, "cpu")
+        with torch.no_grad(), tf32_off():
+            want = _pool_call(cpu, xs, as_list).permute(0, 2, 3, 1)
+            got = _pool_call(gpu, [x.cuda().contiguous(memory_format=torch.channels_last)
+                                   for x in xs], as_list).permute(0, 2, 3, 1).cpu()
+        err = max_abs(got, want) / float(want.abs().max())
+        require(got.shape == want.shape and bool(torch.isfinite(got).all())
+                and err <= CATALOGUE_BAR,
+                f"pools {name}: card vs CPU at {small}: {err} of the largest, shape "
+                f"{tuple(got.shape)}")
+        del cpu
+        timed = shapes(*POOLS_TIMED)
+        xs = _pool_inputs(timed, "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            for _ in range(CATALOGUE_WARMUP):
+                out = _pool_call(gpu, xs, as_list)
+            start.record()
+            for _ in range(CATALOGUE_CALLS):
+                out = _pool_call(gpu, xs, as_list)
+            end.record()
+        end.synchronize()
+        calls = CATALOGUE_WARMUP + CATALOGUE_CALLS
+        counts[name] = {k: v // calls for k, v in launches.items() if v}
+        require(all(v % calls == 0 for v in launches.values())
+                and counts[name].get("sample_bilinear", 0) == POOLS_K2.get(name, 0),
+                f"pools {name}: K2 launches {dict(launches)} over {calls} calls")
+        require(bool(torch.isfinite(out).all()), f"pools {name}: non-finite output")
+        rows[name] = dict(inputs=[list(t) for t in timed],
+                          out_shape=list(out.permute(0, 2, 3, 1).shape),
+                          ms=start.elapsed_time(end) / CATALOGUE_CALLS,
+                          peak_bytes=torch.cuda.max_memory_allocated() - base,
+                          card_vs_cpu_rel=err, check_inputs=[list(t) for t in small],
+                          launches_a_call=counts[name])
+        if name in POOLS_K2:  # one forward and backward through K2's backward
+            reset_launches()
+            _pool_call(gpu, [x.requires_grad_() for x in xs], as_list).square().sum().backward()
+            torch.cuda.synchronize()
+            counts[f"{name}_train"] = {k: v for k, v in launches.items() if v}
+            n = POOLS_K2[name]
+            require(counts[f"{name}_train"] == {"sample_bilinear": n,
+                                                "sample_bilinear_backward": n},
+                    f"pools {name}: a forward and backward launched {dict(launches)}")
+            rows[name]["launches_a_train_call"] = counts[f"{name}_train"]
+        del gpu, xs, out
+        torch.cuda.empty_cache()
+    emit({"phase": "pools", "card": card, "calls": CATALOGUE_CALLS, "warmup": CATALOGUE_WARMUP,
+          "check": {"batch": POOLS_CHECK[0], "side": POOLS_CHECK[1]},
+          "timed": {"batch": POOLS_TIMED[0], "side": POOLS_TIMED[1]}, "bar": CATALOGUE_BAR,
+          "entries": rows, "seconds": time.perf_counter() - t_start})
+    return counts
+
+
 def dattention_sites(device="cuda", shapes=None):
     """{site: (x, gy, gx)}: K2's inputs in the catalogue's DeBiAttention_YOLO
     (seed 0's weights, as the catalogue draws them) on its reference and
@@ -4589,38 +4955,55 @@ def main():
         seeded_rtdetr = seeded_model(RTDETR)
         deform = rtdetr_sites(on_card(seeded_rtdetr), np.random.default_rng(10))
         torch.cuda.empty_cache()
+    with took("lda_sites"):
+        # LDA-DBL-s's weights, drawn once for the K2 sites and its path
+        seeded_lda = seeded_model(LDA)
+        lsites = lda_sites(on_card(seeded_lda), np.random.default_rng(11))
+        torch.cuda.empty_cache()
     with took("dattention_sites"):
         dsites = dattention_sites()
+        psites = dlupack_sites()
     with took("kernels"):
         for dtype, k1_row in zip((torch.float32, BF16), phase_k1(gen)):
             f32 = dtype == torch.float32
-            k2_row = phase_k2(gen, dtype, deform[B] if f32 else None, dsites if f32 else None)
+            k2_row = phase_k2(gen, dtype, deform[B] if f32 else None, dsites if f32 else None,
+                              lsites[B] if f32 else None, psites if f32 else None)
             k2_backward_row, k2_train_err = phase_k2_backward(
-                gen, dtype, deform[TRAIN_B] if f32 else None, dsites if f32 else None)
+                gen, dtype, deform[TRAIN_B] if f32 else None, dsites if f32 else None,
+                lsites[TRAIN_B] if f32 else None, psites if f32 else None)
             k3_row = phase_k3(gen, dtype)
             k3_dkv_row, k3_dq_row, k3_train_err = phase_k3_backward(gen, dtype)
             for row, train_err in ((k2_row, k2_train_err), (k3_row, k3_train_err)):
                 row["max_abs_err_by_path"] = {"serve": row["max_abs_err"], "train": train_err}
                 row["max_abs_err"] = max(row["max_abs_err"], train_err)
             rows += [k1_row, k2_row, k2_backward_row, k3_row, k3_dkv_row, k3_dq_row]
-    del dsites
+    del dsites, lsites, psites
     torch.cuda.empty_cache()
     with took("catalogue"):
         catalogue = phase_catalogue(card)
+    with took("pools"):
+        pools = phase_pools(card)
     for row in rows:  # K2's launches a call of DAttention's module (forward; or a train call)
         if "dattention_sites" in row:
             row["dattention_sites"]["launches_a_call"] = catalogue[
                 "DeBiAttention_YOLO_train" if "backward" in row["name"]
                 else "DeBiAttention_YOLO"].get(row["name"], 0)
+        if "dlupack_sites" in row:
+            row["dlupack_sites"]["launches_a_call"] = pools[
+                "DLUPack_train" if "backward" in row["name"] else "DLUPack"].get(row["name"], 0)
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
-    paths = (DBL, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS, OBB, WORLD, EMAC, RTDETR)
+    paths = (DBL, LDA, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS, OBB, WORLD, EMAC,
+             RTDETR)
     for cfg in paths:
-        for dtype in (torch.float32,) if cfg in (V11, V9, V7, POSE, CLS) else (torch.float32, BF16):
+        for dtype in ((torch.float32,) if cfg in (LDA, V11, V9, V7, POSE, CLS)
+                      else (torch.float32, BF16)):
             with took(_phase("path", cfg, dtype)):
                 # drawn once for serving and training
-                seeded = (seeded_rtdetr if (cfg, dtype) == (RTDETR, torch.float32)
-                          else seeded_model(cfg, dtype))
+                seeded = {(RTDETR, torch.float32): seeded_rtdetr,
+                          (LDA, torch.float32): seeded_lda}.get((cfg, dtype))
+                if seeded is None:
+                    seeded = seeded_model(cfg, dtype)
                 cpu_model, gpu_model = build_models(cfg, dtype, seeded=seeded)
                 serve[cfg, dtype], frames, predictor, median_ms = phase_main(cfg, gpu_model, rng,
                                                                              card)
@@ -4631,7 +5014,7 @@ def main():
                     train[cfg, dtype] = phase_train(cfg, card, dtype, seeded)
                 del seeded
                 models[cfg, dtype] = (cpu_model, gpu_model, frames)
-    del seeded_rtdetr
+    del seeded_rtdetr, seeded_lda
     with took("parity"):
         for cfg in paths:
             if cfg == OBB:
@@ -4651,7 +5034,7 @@ def main():
     with took("train_parity"):
         for model in models[RTDETR, torch.float32][:2]:
             rtdetr_anchor_boxes(model)
-        for cfg in (DBL, V13, V12, V10, SEG, POSE, OBB, WORLD, EMAC, RTDETR):
+        for cfg in (DBL, LDA, V13, V12, V10, SEG, POSE, OBB, WORLD, EMAC, RTDETR):
             phase_train_parity(cfg, *models[cfg, torch.float32][:2])
         phase_train_parity_decoder(RTDETR, *models[RTDETR, torch.float32][:2])
     with took("train_parity_bf16"):
@@ -4710,6 +5093,9 @@ def main():
             "area_attention_backward_dq_bf16": train[V13, bf16]}
     for row in rows:
         name = row["name"]
+        if "lda_dbl_s_sites" in row:  # K2's launches in LDA-DBL-s's timed requests or steps
+            runs = train if "backward" in row["name"] else serve
+            row["lda_dbl_s_sites"]["launches_on_path"] = runs[LDA, f32][name]
         row["launches"] = home[name][name]
         require(row["launches"] > 0, f"{name} was not launched on its path")
         row["launches_by_path"] = {_phase(path, cfg, dt): counts[name]
@@ -4729,7 +5115,9 @@ def main():
                                        **{f"sp_{path}": runs.get(name, 0)
                                           for path, runs in sp.items()},
                                        **{f"catalogue_{entry}": runs.get(name, 0)
-                                          for entry, runs in catalogue.items()})
+                                          for entry, runs in catalogue.items()},
+                                       **{f"pools_{entry}": runs.get(name, 0)
+                                          for entry, runs in pools.items()})
     # how often torch.profiler's trace had to be taken again, or gave way
     # to CUDA-event time (each row's `time_sources` says which it holds)
     emit({"phase": "timing", **TRACES, "seconds": SECONDS})

@@ -658,3 +658,45 @@ def test_dattention_sites_are_the_modules_sampler_inputs():
     assert float(gy.min()) >= -0.5 and float(gy.max()) <= 15.5 and float(gx.max()) <= 19.5
     regular = (torch.arange(8.0) * 2 + 0.5).view(1, 8, 1, 1)
     assert float((gy.reshape(2, 8, 10, 2) - regular).abs().max()) > 0.05
+
+
+def test_recording_sampler_and_pinned_cells_record_pin_and_restore():
+    """`recording_sampler` yields detached copies of K2's calls (all, or the
+    first n) and leaves the output alone; `pinned_cells` records each
+    call's cells, and with a forced record moves a tap into its forced
+    cell by less than a pixel, its gradient kept, counting the moves; a
+    record of the same run moves nothing. After, the sampler is the
+    port's own again."""
+    from chip_smoke import pinned_cells, recording_sampler
+    from yolo_dbl_tpu_torch.nn.tasks import init_flax_defaults
+    from yolo_dbl_tpu_torch.nn.upsample.batch3 import LDA_AQU
+    from yolo_dbl_tpu_torch.ops import resample
+
+    own = resample.sample_bilinear
+    module = LDA_AQU(16)
+    init_flax_defaults(module, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 16, 6, 8),
+                                                                  dtype=np.float32))
+    y = module(x)
+    with recording_sampler() as calls:
+        assert torch.equal(module(x), y)
+    assert [c[0].shape[-1] for c in calls] == [4, 16] and {c[3] for c in calls} == {"border"}
+    assert calls[0][1].shape == (2, 12 * 16 * 9, 2) and not calls[0][1].requires_grad
+    assert torch.equal(calls[0][1], calls[1][1])  # keys and input at the same taps
+    with recording_sampler(first=1) as first:
+        module(x)
+    assert len(first) == 1 and torch.equal(first[0][2], calls[0][2])
+    with pinned_cells() as seen:
+        module(x)
+    with pinned_cells(seen) as same:
+        assert torch.equal(module(x), y)
+    assert [m for _, m, _ in same] == [0, 0]
+    (fy, fx), _, _ = seen[0]
+    shifted = [((fy + 1, fx), 0, 0.0), seen[1]]
+    with pinned_cells(shifted) as moved:
+        out = module(x)
+    assert moved[0][1] == fy.numel() and 0 < moved[0][2] <= 1 and moved[1][1] == 0
+    assert not torch.equal(out, y)
+    grad = torch.autograd.grad(out.square().sum(), module.off_pw.conv.weight)[0]
+    assert grad.abs().max() > 0
+    assert resample.sample_bilinear is own

@@ -1,5 +1,6 @@
 """Shared pieces of the port's tests: one torch thread for a test module,
-and JPEG frames for the predictor tests and chip_smoke.py's facade phases."""
+JPEG frames for the predictor tests and chip_smoke.py's facade phases, and
+LDA-DBL's model dict for tests/test_torch_zoo_lda.py and chip_smoke.py."""
 
 from __future__ import annotations
 
@@ -32,6 +33,17 @@ def write_jpeg_frames(directory, sizes, n, seed=0):
         paths.append(directory / f"frame{i:02d}.jpg")
         cv2.imwrite(str(paths[-1]), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
     return paths
+
+
+def lda_dbl(scale="s"):
+    """YOLO-DBL at `scale` with its three `DySample, []` rows written as
+    `LDA_AQU, []`: the model dict, from the port's copy of yolov13_DBL.yaml."""
+    from yolo_dbl_tpu_torch.nn.tasks import yaml_model_load
+
+    d = yaml_model_load(f"yolov13{scale}_DBL.yaml")
+    for part in ("backbone", "head"):
+        d[part] = [[f, n, "LDA_AQU" if m == "DySample" else m, args] for f, n, m, args in d[part]]
+    return d
 
 
 @pytest.fixture(autouse=True, scope="module")

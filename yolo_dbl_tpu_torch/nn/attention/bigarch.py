@@ -8,7 +8,8 @@ relative q/k/v embeddings and BatchNorm on the similarities),
 ShiftWindowAttention, FusedKQnA (learned queries; the k x k aggregation as
 grouped depthwise convs, as JAX writes it), DAttention (deformable
 attention: k and v sampled at offset reference points), DAT,
-DeBiAttentionBlock, DeBiAttention_YOLO and SwinTransformer. Modules take
+DeBiAttentionBlock, DeBiAttention_YOLO, SwinTransformer, and VOLO's
+OutlookAttention and Outlooker (the Outlooker_YOLO row). Modules take
 and return NCHW and compute in their input's type (nn/common.py); the
 token math runs on the NHWC view, in JAX's order.
 
@@ -34,6 +35,7 @@ from torch.nn import functional as F
 from ...ops.nms import _topk
 from ...ops.resample import grid_sample_bilinear
 from ..common import Conv2d, conv2d, flax_batch_norm, layer_norm, linear
+from ..upsample.carafe import _unfold_patches
 from ..structures.swin import SwinTransformerBlock, WindowAttention, shifted_window_attention
 
 
@@ -433,3 +435,54 @@ class FusedKQnA(nn.Module):
         den = _nhwc(den).reshape(b, ho, wo, nq, hs, 1)
         out = (num / den).sum(3).reshape(b, ho, wo, hs * hc)
         return self.proj_out(_nchw(out))
+
+
+class OutlookAttention(nn.Module):
+    """Outlook attention, stride 1 (bigarch.py:103): each pixel's k⁴ x heads
+    logits (a Dense) weight the k x k patch of its `v` projection, and the
+    weighted patches fold back, overlapping sums in float32. The weighted
+    patches (heads, k², hd) are read as (C, k²) in their memory order, as
+    JAX's reshape does: channels and taps interleave."""
+
+    def __init__(self, dim, num_heads, kernel_size=3):
+        super().__init__()
+        self.num_heads, self.k = num_heads, kernel_size
+        self.v = nn.Linear(dim, dim, bias=False)
+        self.attn = nn.Linear(dim, kernel_size ** 4 * num_heads)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        k, nh = self.k, self.num_heads
+        hd, p = c // nh, k // 2
+        t = _nhwc(x)
+        v_p = _unfold_patches(linear(self.v, t), k, 1).reshape(b, h, w, nh, hd, k * k)
+        attn = linear(self.attn, t).reshape(b, h, w, nh, k * k, k * k) * hd ** -0.5
+        out_p = torch.matmul(torch.softmax(attn, -1), v_p.transpose(-1, -2))  # (.., nh, k², hd)
+        out_p = out_p.reshape(b, h, w, c, k * k)
+        out = torch.zeros((b, h + 2 * p, w + 2 * p, c), device=x.device,
+                          dtype=torch.promote_types(x.dtype, torch.float32))
+        for i in range(k):
+            for j in range(k):
+                out[:, i:i + h, j:j + w] += out_p[..., i * k + j]
+        return _nchw(linear(self.proj, out[:, p:p + h, p:p + w].to(x.dtype)))
+
+
+class Outlooker(nn.Module):
+    """VOLO's Outlooker (bigarch.py:130; the Outlooker_YOLO row): LayerNorm,
+    outlook attention, residual; LayerNorm, a tanh-GELU MLP of `mlp_ratio`
+    x `dim`, residual. `c1` is the input width, which the residual needs
+    `dim` to equal (JAX reads it from the input)."""
+
+    def __init__(self, c1, dim, kernel_size=3, num_heads=8, mlp_ratio=3.0):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(c1, eps=1e-5)
+        self.attn = OutlookAttention(c1, num_heads, kernel_size)
+        self.norm2 = nn.LayerNorm(c1, eps=1e-5)
+        self.mlp_fc1 = nn.Linear(c1, int(dim * mlp_ratio))
+        self.mlp_fc2 = nn.Linear(int(dim * mlp_ratio), dim)
+
+    def forward(self, x):
+        t = _nhwc(x) + _nhwc(self.attn(_nchw(layer_norm(self.norm1, _nhwc(x)))))
+        z = F.gelu(linear(self.mlp_fc1, layer_norm(self.norm2, t)), approximate="tanh")
+        return _nchw(t + linear(self.mlp_fc2, z))

@@ -188,9 +188,10 @@ class NonLocalBlock2D(nn.Module):
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """flax's `nn.MultiHeadDotProductAttention` (self-attention, no mask):
-    `query`, `key`, `value` (C → heads x hd) and `out` (heads x hd → C)
-    projections, each with a bias; the query scaled by 1/sqrt(hd)."""
+    """flax's `nn.MultiHeadDotProductAttention` (no mask): `query`, `key`,
+    `value` (C → heads x hd) and `out` (heads x hd → C) projections, each
+    with a bias; the query scaled by 1/sqrt(hd). Self-attention on `x`, or
+    `x`'s queries over the tokens `kv` (LoftUp's cross-attention)."""
 
     def __init__(self, c: int, num_heads: int):
         super().__init__()
@@ -200,17 +201,18 @@ class MultiHeadDotProductAttention(nn.Module):
         self.value = nn.Linear(c, c)
         self.out = nn.Linear(c, c)
 
-    def forward(self, x):
+    def forward(self, x, kv=None):
         b, n, c = x.shape
+        kv = x if kv is None else kv
         nh = self.num_heads
         hd = c // nh
 
-        def heads(dense):
-            return linear(dense, x).reshape(b, n, nh, hd).transpose(1, 2)
+        def heads(dense, t):
+            return linear(dense, t).reshape(b, t.shape[1], nh, hd).transpose(1, 2)
 
-        q = heads(self.query) / math.sqrt(hd)
-        attn = torch.softmax(torch.matmul(q, heads(self.key).transpose(-1, -2)), -1)
-        out = torch.matmul(attn, heads(self.value)).transpose(1, 2).reshape(b, n, c)
+        q = heads(self.query, x) / math.sqrt(hd)
+        attn = torch.softmax(torch.matmul(q, heads(self.key, kv).transpose(-1, -2)), -1)
+        out = torch.matmul(attn, heads(self.value, kv)).transpose(1, 2).reshape(b, n, c)
         return linear(self.out, out)
 
 
@@ -330,3 +332,93 @@ class EdgeAwareAttention(nn.Module):
                           g.mean(1, keepdim=True), g.amax(1, keepdim=True)], 1)
         s = self.s_gain(torch.sigmoid(self.spatial(s_in)))
         return x * (1 + cgate) * (1 + s)
+
+
+# 3x3 edge operators: (kx, ky, divisor) (spatial.py:293)
+_EDGE_KERNELS = {
+    "sobel": (((1, 0, -1), (2, 0, -2), (1, 0, -1)), ((1, 2, 1), (0, 0, 0), (-1, -2, -1)), 4.0),
+    "scharr": (((3, 0, -3), (10, 0, -10), (3, 0, -3)), ((3, 10, 3), (0, 0, 0), (-3, -10, -3)),
+               16.0),
+    "prewitt": (((1, 0, -1), (1, 0, -1), (1, 0, -1)), ((1, 1, 1), (0, 0, 0), (-1, -1, -1)), 3.0),
+    "log": (((0, 1, 0), (1, -4, 1), (0, 1, 0)), ((0, 1, 0), (1, -4, 1), (0, 1, 0)), 1.0),
+    "kirsch": (((-3, -3, 5), (-3, 0, 5), (-3, -3, 5)), ((-3, -3, -3), (-3, 0, -3), (5, 5, 5)),
+               1.0),
+    "prewitt_alt": (((1, 1, 1), (0, 0, 0), (-1, -1, -1)), ((1, 0, -1), (1, 0, -1), (1, 0, -1)),
+                    1.0),
+    "sobel_alt": (((1, 2, 1), (0, 0, 0), (-1, -2, -1)), ((1, 0, -1), (2, 0, -2), (1, 0, -1)),
+                  1.0),
+}
+
+
+class EdgeAwareAttentionV2(nn.Module):
+    """Multi-operator edge-prior attention (spatial.py:333): a bank of N
+    learnable 3x3 edge kernels `kx`, `ky` (N, 3, 3), made zero-mean and
+    unit-L1 at every call, run as one depthwise conv in float32 (output
+    feature c·N + i); the Charbonnier magnitudes, mixed by a softmax gate
+    over the bank's global responses, drive a channel gate and a 4-channel
+    spatial gate with softplus gains alpha (per image, "scalar"; per pixel,
+    "map") and beta (per channel): x (1 + alpha s) (1 + beta c)."""
+
+    def __init__(self, in_channels, reduction=16, ksize=7,
+                 kernel_bank=("sobel", "scharr", "prewitt"), charbonnier_eps=1e-3,
+                 alpha_mode="scalar"):
+        super().__init__()
+        if alpha_mode not in ("scalar", "map"):
+            raise ValueError(f"alpha_mode must be 'scalar' or 'map', got {alpha_mode!r}")
+        c, n = in_channels, len(kernel_bank)
+        self.kernel_bank, self.eps = tuple(kernel_bank), charbonnier_eps
+        self.alpha_mode = alpha_mode
+        self.kx = nn.Parameter(self._bank(0))
+        self.ky = nn.Parameter(self._bank(1))
+        hidden = max(8, c // reduction)
+        self.gate_fc1 = nn.Linear(n, max(8, 2 * n))
+        self.gate_fc2 = nn.Linear(max(8, 2 * n), n)
+        self.mlp_fc1 = nn.Linear(c, hidden, bias=False)
+        self.mlp_fc2 = nn.Linear(hidden, c, bias=False)
+        self.spatial = Conv2d(4, 1, ksize, p=ksize // 2)
+        if alpha_mode == "scalar":
+            self.alpha_fc1 = nn.Linear(2, 16)
+            self.alpha_fc2 = nn.Linear(16, 1)
+        else:
+            self.alpha_conv = Conv2d(4, 1, 1)
+        self.beta_fc1 = nn.Linear(c, hidden, bias=False)
+        self.beta_fc2 = nn.Linear(hidden, c, bias=False)
+
+    def _bank(self, idx):
+        """(N, 3, 3) float32: each named operator's kernel over its divisor."""
+        return torch.stack([torch.tensor(_EDGE_KERNELS[name.lower()][idx], dtype=torch.float32)
+                            / _EDGE_KERNELS[name.lower()][2] for name in self.kernel_bank])
+
+    def init_own(self, generator: torch.Generator):
+        self.kx.copy_(self._bank(0))
+        self.ky.copy_(self._bank(1))
+
+    def _edges(self, xf, kern):
+        """(B, C, N, H, W) responses of the normalized bank to each channel."""
+        b, c, h, w = xf.shape
+        kern = kern - kern.mean((1, 2), keepdim=True)
+        kern = kern / torch.clamp(kern.abs().sum((1, 2), keepdim=True), min=1e-6)
+        n = kern.shape[0]
+        weight = kern[None].expand(c, n, 3, 3).reshape(c * n, 1, 3, 3)
+        return F.conv2d(xf, weight, padding=1, groups=c).reshape(b, c, n, h, w)
+
+    def forward(self, x):
+        xf = x.float()
+        gx, gy = self._edges(xf, self.kx.float()), self._edges(xf, self.ky.float())
+        g_bank = torch.sqrt(gx * gx + gy * gy + self.eps ** 2)  # (B, C, N, H, W)
+        gw = linear(self.gate_fc1, g_bank.mean((1, 3, 4)).to(x.dtype))
+        gate = torch.softmax(linear(self.gate_fc2, F.relu(gw)), -1)
+        g = (g_bank * gate.to(g_bank.dtype)[:, None, :, None, None]).sum(2).to(x.dtype)
+        c_vec = g.mean((2, 3))
+        cgate = torch.sigmoid(linear(self.mlp_fc2, F.relu(linear(self.mlp_fc1, c_vec))))
+        s_in = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True),
+                          g.mean(1, keepdim=True), g.amax(1, keepdim=True)], 1)
+        s = torch.sigmoid(self.spatial(s_in))
+        if self.alpha_mode == "scalar":
+            stats = torch.stack([g.mean((1, 2, 3)), g.amax((1, 2, 3))], 1)
+            a = linear(self.alpha_fc2, F.relu(linear(self.alpha_fc1, stats)))
+            alpha = F.softplus(a)[:, :, None, None]
+        else:
+            alpha = F.softplus(self.alpha_conv(s_in))
+        beta = F.softplus(linear(self.beta_fc2, F.relu(linear(self.beta_fc1, c_vec))))
+        return x * (1 + alpha * s) * (1 + beta[:, :, None, None] * cgate[:, :, None, None])

@@ -1,2 +1,2 @@
 """Structure blocks (port of part of yolo_dbl_tpu/nn/structures/): PConv,
-FasterBlock and TorchVision."""
+FasterBlock, GhostModuleV2, GhostBottleneckV2 and TorchVision."""

@@ -37,15 +37,18 @@ from .attention import SLA
 from .attention import bigarch as AB
 from .attention import channel as AC
 from .attention import spatial as AS
+from .attention import extra as AE
 from .attention.extra import AIFI, TorchMHA
 from .common import Conv, ConvTranspose2d, DSConv, DWConv, default_act, lecun_normal_
 from ..ops.nms import mask_classes, non_max_suppression
 from .heads import (OBB, Classify, Detect, IDetect, Pose, Segment, V10Detect, decode_detections,
                     decode_keypoints, decode_obb, decode_v7, flatten_levels, gather_anchors)
+from .structures import blocks as S
 from .structures.blocks import FasterBlock, TorchVision
 from .upsample import batch3 as U3
 from .upsample import carafe as U
 from .upsample import misc as UM
+from .upsample import pig as UP
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
 
@@ -112,7 +115,10 @@ _C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "C2f", "
               "C2fAttn", "RepC3",
               # the catalogue's (c1, c2) rows (tasks.py:104-108)
               "CoordAttention", "GAM", "MHSA_YOLO", "EfficientAttention_YOLO", "SwinTransformer",
-              "ResBlock_CBAM", "DeBiAttention_YOLO"}
+              "ResBlock_CBAM", "DeBiAttention_YOLO",
+              # the pools' last (c1, c2) rows (tasks.py:108-112)
+              "PSAModule", "CPCA_YOLO", "Outlooker_YOLO", "C2f_PIG", "C2f_WT", "GhostModuleV2",
+              "GhostBottleneckV2"}
 _REPEAT_INSERT = {"C2f", "C3", "C3k2", "DSC3k2", "DSC3k", "A2C2f", "C3Ghost", "C1", "C2", "C2PSA",
                   "C2fCIB", "RepCSP", "C3k2_EFE", "M2C2f", "C3k2_EAMC", "C2fAttn", "C3_Faster",
                   "RepC3"}
@@ -127,11 +133,13 @@ _C1_ONLY = {"DySample", "LSKblock", "SLA", "DLU", "CARAFE", "CARAFEPack", "SCAM"
             "FullyAttentionalBlock", "HiLo", "NonLocalBlock2D", "BiFormerNCHW", "DAT_YOLO", "ELA",
             "BoTAttention", "BoTAttention_YOLO", "CoTNetLayer", "TripletAttention", "EUCB", "MEUM",
             "ECALayer", "SimAM", "MLCA", "AxialBlock_dynamic", "AxialBlock_wopos", "ECALayer_ns",
-            "ShiftWindowAttention", "FusedKQnA"}
+            "ShiftWindowAttention", "FusedKQnA",
+            # the pools' last c1-only rows
+            "EdgeAwareAttentionV2", "CAA", "CARAFEplusplus", "LDA_AQU", "CPCA"}
 # rows whose args pass through unchanged and whose width is their input's
 # (the final `else` of tasks.py:141's branches)
 _ARGS_AS_GIVEN = {"CARAFE_XiaLiPKU", "CARAFE_simplified", "MHSA", "EfficientAttention",
-                  "AxialBlock_YOLO", "DeBiAttentionBlock"}
+                  "AxialBlock_YOLO", "DeBiAttentionBlock", "ASFF"}
 
 
 def _opt(a, i, default):
@@ -186,6 +194,25 @@ CATALOGUE_ROWS = {
     "MEUM": lambda a, c: UM.MEUM(c, *a[1:]),
     "ResBlock_CBAM": lambda a, c: UM.ResBlock_CBAM(c, a[1], *a[2:]),
 }
+# the pools' last rows (tasks.py:345-410,432-434): {name: build(resolved
+# args, the widths of the row's inputs)}; each is built from the width of its
+# input, which flax reads from the input
+POOL_ROWS = {
+    "EdgeAwareAttentionV2": lambda a, c: AS.EdgeAwareAttentionV2(c[0], *a[1:]),
+    "Outlooker_YOLO": lambda a, c: AB.Outlooker(c[0], a[1], *a[2:]),
+    "PSAModule": lambda a, c: AE.PSAModule(c[0], a[1], *a[2:]),
+    "CPCA": lambda a, c: AE.CPCA(c[0], *a[1:]),
+    "CPCA_YOLO": lambda a, c: AE.CPCA(c[0], a[1], *a[2:]),
+    "ASFF": lambda a, c: AE.ASFF(a[0] if isinstance(a[0], int) else 0, *a[1:], ch=c),
+    "CAA": lambda a, c: UM.CAA(c[0], *a[1:]),
+    "C2f_PIG": lambda a, c: UP.C2f_PIG(c[0], a[1], *a[2:]),
+    "C2f_WT": lambda a, c: UP.C2f_WT(c[0], a[1], *a[2:]),
+    "CARAFEplusplus": lambda a, c: U3.CARAFEplusplus(c[0], *a[1:]),
+    "LDA_AQU": lambda a, c: U3.LDA_AQU(c[0], *a[1:]),
+    "GhostModuleV2": lambda a, c: S.GhostModuleV2(c[0], a[1], *a[2:]),
+    "GhostBottleneckV2": lambda a, c: S.GhostBottleneckV2(c[0], a[1], a[2] if len(a) > 2 else a[1],
+                                                          *a[3:]),
+}
 # modules built as Module(*resolved args)
 _FROM_ARGS = {"Conv": Conv, "DWConv": DWConv, "DSConv": DSConv, "ConvTranspose2d": ConvTranspose2d,
               "DSBottleneck": B.DSBottleneck, "C2f": B.C2f, "C3": B.C3, "C3k": B.C3k,
@@ -226,7 +253,13 @@ POOL_MODULES = (UM.SPDConv, UM.EFE, UM.C3k2_EFE, UM.FGM, UM.OmniKernel, UM.Multi
                 AS.MHSA, AS.BoTAttention, AS.EdgeAwareAttention, AB.BiFormerNCHW, AB.DAT,
                 AB.DeBiAttentionBlock, AB.AxialBlock, AB.DeBiAttention_YOLO,
                 AB.ShiftWindowAttention, AB.FusedKQnA, AB.SwinTransformer, UM.EUCB, UM.MEUM,
-                UM.ResBlock_CBAM)
+                UM.ResBlock_CBAM,
+                # the pools' last rows (POOL_ROWS): Dense and LayerNorm layers, global
+                # poolings, per-pixel softmaxes over taps, wavelet cells, K2's sampling
+                AS.EdgeAwareAttentionV2, AB.OutlookAttention, AB.Outlooker, AE.PSAModule,
+                AE.CPCA, AE.ASFF, UM.CAA, UP.WTConv2d, UP.PConvPIG, UP.InceptionDWConv2d,
+                UP.C2f_PIG, UP.C2f_WT, U3.CARAFEplusplus, U3.LDA_AQU, S.GhostModuleV2,
+                S.GhostBottleneckV2)
 # RT-DETR's modules, which have no tensor- or spatial-parallel form either
 # (Dense and LayerNorm layers, attention over the whole map, the decoder's
 # top-k and deformable sampling; ROADMAP Queue 1 item 7)
@@ -396,8 +429,14 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
 def _build_module(spec: LayerSpec, c_in: List[int]):
     """The PyTorch module for one LayerSpec row (one repeat), or None.
     `c_in`: the widths of the row's inputs (HyperACE2's fuse conv takes
-    their sum, which flax reads from the inputs)."""
+    their sum, which flax reads from the inputs). A row whose first arg is
+    its input's width is built from `c_in`: after an ASFF row the row table
+    holds JAX's `chs` width, not the one flax reads from the input."""
     m, a = spec.name, spec.args
+    if (m in _C2_SCALED or m in _C1_ONLY) and a and a[0] != c_in[0]:
+        a = [c_in[0], *a[1:]]
+    if m in POOL_ROWS:
+        return POOL_ROWS[m](a, c_in)
     if m in _FROM_ARGS:
         return _FROM_ARGS[m](*a[:_ARGS_READ.get(m, len(a))])
     if m in CATALOGUE_ROWS:
@@ -447,6 +486,26 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
     raise _not_ported(m)
 
 
+def _out_width(layer: LayerSpec, c_in: List[int]) -> int:
+    """A row's true output width, which flax infers and the next row is
+    built from: ASFF's `expand_c`, a GhostBottleneckV2's `out_chs` and a
+    CPCA's c2 where their args give them (JAX's row table holds its input's
+    width), a concat's sum and a c1-only row's input width; else the row
+    table's."""
+    m, a = layer.name, layer.args
+    if m == "ASFF":
+        return AE.ASFF.EXPAND[a[0] if isinstance(a[0], int) else 0]
+    if m == "GhostBottleneckV2" and len(a) > 2:
+        return a[2]
+    if m == "CPCA" and len(a) > 1 and a[1]:
+        return a[1]
+    if m == "Concat":
+        return sum(c_in)
+    if m in _C1_ONLY:
+        return c_in[0]
+    return layer.c2
+
+
 def _layer_names(layer: LayerSpec) -> List[str]:
     """Flax scope names of a row's modules: m{i}, or m{i}_{j} for repeats."""
     return [f"m{layer.i}_{j}" for j in range(layer.n)] if layer.n > 1 else [f"m{layer.i}"]
@@ -459,11 +518,16 @@ def init_flax_defaults(root: nn.Module, generator: torch.Generator):
     """Draw every parameter of `root` from `generator` with flax's default
     initialisers: lecun_normal kernels, zero biases, unit BatchNorm,
     LayerNorm and GroupNorm, xavier_uniform prototypes, zero gates; zero
-    kernels where flax's `kernel_init` is zeros, marked `zero_init`; the
+    kernels where flax's `kernel_init` is zeros, marked `zero_init`, or a
+    normal of a stated deviation, marked `normal_std`; the
     pools' and the catalogue's own initial values (`init_own`)."""
     for mod in root.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)) and getattr(mod, "zero_init", False):
             mod.weight.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Conv2d) and getattr(mod, "normal_std", None):
+            mod.weight.normal_(0.0, mod.normal_std, generator=generator)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d, nn.Conv1d)):
@@ -567,7 +631,7 @@ class DetectionModel(nn.Module):
                     module = _build_module(layer, c_in)
                     if module is not None:
                         self.add_module(name, module)
-                widths.append(layer.c2)
+                widths.append(_out_width(layer, c_in))
             # the decoder takes the P3-P5 pyramid and decodes normalized boxes:
             # no probe (tasks.py:792)
             self.strides = ((8, 16, 32) if self.head_name == "RTDETRDecoder"

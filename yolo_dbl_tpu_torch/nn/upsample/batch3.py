@@ -1,6 +1,13 @@
-"""YOLO-EMAC's blocks (port of the config-reachable part of
-yolo_dbl_tpu/nn/upsample/batch3.py): DyT, WindowMHSA, MBlock, M2C2f and
-C3k2_EAMC.
+"""Upsample pool, batch 3 (port of yolo_dbl_tpu/nn/upsample/batch3.py):
+YOLO-EMAC's DyT, WindowMHSA, MBlock, M2C2f and C3k2_EAMC, and the
+upsamplers CARAFEplusplus and LDA_AQU.
+
+LDA_AQU samples its keys and the raw values at k_u² deformed taps a hi-res
+query through `sample_bilinear_pixel`, which is K2 (kernels/sampling.py) on
+a CUDA tensor: two grouped launches a call, one on the key map and one on
+the input, each with the `n_groups` contiguous channel groups at their own
+coordinates (B, Hq, Wq, k_u², G). JAX samples (B·G, H, W, C/G) copies
+(batch3.py:253-260); the numbers are the same.
 
 Modules take and return NCHW; the window attention works on the NHWC view,
 in the JAX module's order of reshapes, with `torch.matmul` and softmax, as
@@ -14,8 +21,19 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ...ops.resample import (avg_pool2, bilinear_upsample, nearest_upsample, pixel_shuffle,
+                             sample_bilinear_pixel)
 from ..blocks import Bottleneck, C3k
-from ..common import Conv, Conv2d, linear
+from ..common import Conv, Conv2d, layer_norm, linear
+from .carafe import _unfold_patches
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
 
 
 class DyT(nn.Module):
@@ -157,3 +175,101 @@ class C3k2_EAMC(nn.Module):
         conv = self.reduce_conv
         gate = F.conv1d(yv, conv.weight.to(yv.dtype), None, padding=conv.padding)[:, 0]
         return out * torch.sigmoid(gate)[:, :, None, None]
+
+
+class CARAFEplusplus(nn.Module):
+    """CARAFE++ (batch3.py:170): content-aware reassembly, "up" (k_u x k_u
+    kernels a hi-res pixel, softmaxed, over s-dilated patches of the
+    nearest-upsampled map) or "down" (kernels predicted on the 2x2-averaged,
+    or s-strided, compressed map over the strided patches)."""
+
+    def __init__(self, in_channels, scale_factor=2, up_down_type="up", k_encoder=3,
+                 k_reassembly=5):
+        super().__init__()
+        if up_down_type not in ("up", "down"):
+            raise ValueError(f"up_down_type must be 'up' or 'down', got {up_down_type!r}")
+        self.s, self.ku, self.up = scale_factor, k_reassembly, up_down_type == "up"
+        cm = max(in_channels // 4, 16)
+        self.comp = Conv2d(in_channels, cm, 1)
+        n = (scale_factor ** 2 if self.up else 1) * k_reassembly ** 2
+        self.enc = Conv2d(cm, n, k_encoder, p=k_encoder // 2)
+
+    def forward(self, x):
+        s, ku = self.s, self.ku
+        comp = self.comp(x)
+        if self.up:
+            wgt = torch.softmax(pixel_shuffle(_nhwc(self.enc(comp)), s), -1)  # (B, sH, sW, ku²)
+            patches = _unfold_patches(nearest_upsample(_nhwc(x), s), ku, dilation=s)
+        else:
+            comp_d = _nchw(avg_pool2(_nhwc(comp))) if s == 2 else comp[:, :, ::s, ::s]
+            wgt = torch.softmax(_nhwc(self.enc(comp_d)), -1)
+            patches = _unfold_patches(_nhwc(x), ku, dilation=1)[:, ::s, ::s]
+        return _nchw(torch.einsum("bhwck,bhwk->bhwc", patches, wgt))
+
+
+class LDA_AQU(nn.Module):
+    """Local deformable attention query upsampler (batch3.py:201). The
+    queries, a 1x1 projection bilinearly upsampled s x, predict per channel
+    group (one offset network, its weights shared by the groups) tanh-bounded
+    offsets of the k_u x k_u taps around each query's lo-res parent; the
+    keys (a 1x1 projection) and the raw input are sampled there (border
+    padding, pixel coordinates); each query's softmax over its taps (scale
+    hd^-0.5, hd = hidden / nh, plus the (k_u²,) bias `rpb`) reassembles the
+    sampled input."""
+
+    def __init__(self, in_channels, reduction_factor=4, nh=1, scale_factor=2.0, k_u=3,
+                 n_groups=2, range_factor=11.0):
+        super().__init__()
+        self.s, self.k_u, self.n_groups = int(scale_factor), k_u, n_groups
+        self.range_factor = range_factor
+        hidden = in_channels // reduction_factor
+        self.hd = hidden // nh
+        gc = hidden // n_groups
+        self.proj_q = Conv2d(in_channels, hidden, 1, bias=False)
+        self.proj_k = Conv2d(in_channels, hidden, 1, bias=False)
+        self.off_dw = Conv2d(gc, gc, 3, p=1, g=gc, bias=False)
+        self.off_ln = nn.LayerNorm(gc, eps=1e-5)
+        self.off_pw = Conv2d(gc, 2 * k_u * k_u, 3, p=1)
+        self.rpb = nn.Parameter(torch.zeros(k_u * k_u))
+
+    def init_own(self, generator: torch.Generator):
+        self.rpb.zero_()
+
+    def coords(self, q_hi, h: int, w: int):
+        """(gy, gx): (B, Hq, Wq, k_u², G) pixel coordinates on the h x w map
+        of every query's taps, from the NCHW hi-res queries (batch3.py:236-251)."""
+        b, hidden, hq, wq = q_hi.shape
+        g, k = self.n_groups, self.k_u
+        qg = q_hi.reshape(b * g, hidden // g, hq, wq)
+        off = F.gelu(layer_norm(self.off_ln, _nhwc(self.off_dw(qg))), approximate="tanh")
+        off = torch.tanh(_nhwc(self.off_pw(_nchw(off)))) * (self.range_factor / max(h, w))
+        off = off.reshape(b, g, hq, wq, k * k, 2)
+        dt, dev = off.dtype, off.device
+        base_y = (torch.arange(hq, dtype=dt, device=dev) + 0.5) / self.s - 0.5
+        base_x = (torch.arange(wq, dtype=dt, device=dev) + 0.5) / self.s - 0.5
+        d = torch.arange(k, dtype=dt, device=dev) - k // 2
+        gy = base_y[:, None, None] + d.repeat_interleave(k)[None, None, :]
+        gx = base_x[None, :, None] + d.repeat(k)[None, None, :]
+        sy = gy + off[..., 0] * h
+        sx = gx + off[..., 1] * w
+        return sy.permute(0, 2, 3, 4, 1), sx.permute(0, 2, 3, 4, 1)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        g, ku2 = self.n_groups, self.k_u ** 2
+        q_hi = _nchw(bilinear_upsample(_nhwc(self.proj_q(x)), self.s, align_corners=False))
+        hq, wq = q_hi.shape[2:]
+        sy, sx = self.coords(q_hi, h, w)
+        # (B, Hq, Wq, ku², hidden) and (B, Hq, Wq, ku², C)
+        k_s = sample_bilinear_pixel(_nhwc(self.proj_k(x)), sy, sx, groups=g)
+        v_s = sample_bilinear_pixel(_nhwc(x), sy, sx, groups=g)
+        n, hidden = b * hq * wq, q_hi.shape[1]
+        q = _nhwc(q_hi).reshape(n, g, 1, hidden // g) * self.hd ** -0.5
+        k_s = k_s.reshape(n, ku2, g, hidden // g)
+        v_s = v_s.reshape(n, ku2, g, c // g)
+        rpb = self.rpb.to(q.dtype)
+        out = []
+        for j in range(g):  # a group's taps are strided slices: no copy for the products
+            attn = torch.softmax(torch.matmul(q[:, j], k_s[:, :, j].transpose(1, 2)) + rpb, -1)
+            out.append(torch.matmul(attn, v_s[:, :, j]))  # (N, 1, C/G)
+        return _nchw(torch.cat(out, -1).reshape(b, hq, wq, c))

@@ -4,7 +4,7 @@ reach (port of part of yolo_dbl_tpu/nn/upsample/misc.py).
 SPDConv, EFE and C3k2_EFE, FGM, OmniKernel and Multibranch
 (yolo11-C3k2_EFE-IRSTE.yaml); FEM, SCAM, FFM_Concat2 and FFM_Concat3
 (FFCA-YOLO.yaml, FFCA-YOLO-L.yaml); EUCB, MEUM and ResBlock_CBAM (the
-upsample catalogue, utils/benchmarks.py). Modules take and return NCHW, as
+upsample catalogue, utils/benchmarks.py); CAA (its YAML row). Modules take and return NCHW, as
 the rest of the port. Module and attribute names are the flax scope names, so
 JAX variables load key by key (utils/convert.py); `_BasicConv`'s BatchNorm
 is a flax BatchNorm called directly (nn/common.py `flax_batch_norm`).
@@ -371,3 +371,21 @@ class ResBlock_CBAM(nn.Module):
         y = self.cbam(self._cbl("b2", y))
         res = self._cbl("downsample", x) if self.project else x
         return F.relu(y + res)
+
+
+class CAA(nn.Module):
+    """Context-anchor attention (misc.py:321): a 7x7 mean (zero padding,
+    always / 49), a 1x1 Conv, 1 x k and k x 1 depthwise strips, a 1x1 Conv,
+    its sigmoid gating the input."""
+
+    def __init__(self, ch, h_kernel_size=11, v_kernel_size=11):
+        super().__init__()
+        self.conv1 = Conv(ch, ch, 1)
+        self.h_conv = Conv2d(ch, ch, (1, h_kernel_size), p=(0, h_kernel_size // 2), g=ch)
+        self.v_conv = Conv2d(ch, ch, (v_kernel_size, 1), p=(v_kernel_size // 2, 0), g=ch)
+        self.conv2 = Conv(ch, ch, 1)
+
+    def forward(self, x):
+        y = F.avg_pool2d(x, 7, 1, 3, count_include_pad=True)
+        y = self.conv2(self.v_conv(self.h_conv(self.conv1(y))))
+        return torch.sigmoid(y) * x

@@ -12,6 +12,8 @@ through the hand kernel on a CUDA tensor.
 
 from __future__ import annotations
 
+import numpy as np
+import torch
 from torch.nn import functional as F
 
 from ..kernels.sampling import sample_bilinear
@@ -58,24 +60,91 @@ def bilinear_upsample(x, scale: int = 2, align_corners: bool = True):
     return y.permute(0, 2, 3, 1)
 
 
-def grid_sample_bilinear(x, coords, padding_mode: str = "border"):
-    """Bilinear grid sample of NHWC `x`, align_corners=False (resample.py:105).
+def grid_sample_bilinear(x, coords, padding_mode: str = "border", align_corners: bool = False):
+    """Bilinear grid sample of NHWC `x` (resample.py:105), either
+    align_corners mode.
 
     coords: (B, Ho, Wo, 2) normalized xy grid in [-1, 1], or (B, Ho, Wo, 2, G)
     with one grid per contiguous channel group. Returns (B, Ho, Wo, C).
     """
-    gy, gx = pixel_coords(coords, x.shape[1], x.shape[2])
+    gy, gx = pixel_coords(coords, x.shape[1], x.shape[2], align_corners)
     return sample_bilinear_pixel(x, gy, gx, padding_mode,
                                  groups=coords.shape[-1] if coords.dim() == 5 else 1)
 
 
-def pixel_coords(coords, h: int, w: int):
-    """(gy, gx) pixel coordinates of a normalized xy grid on an h x w map,
-    align_corners=False: (B, Ho, Wo) each, or (B, Ho, Wo, G) for a grouped
-    (B, Ho, Wo, 2, G) grid."""
+def pixel_coords(coords, h: int, w: int, align_corners: bool = False):
+    """(gy, gx) pixel coordinates of a normalized xy grid on an h x w map:
+    (B, Ho, Wo) each, or (B, Ho, Wo, G) for a grouped (B, Ho, Wo, 2, G)
+    grid. With align_corners, -1 and 1 are the corner pixels' centres
+    (resample.py:125-127)."""
     grouped = coords.dim() == 5
     cx, cy = (coords[..., 0, :], coords[..., 1, :]) if grouped else (coords[..., 0], coords[..., 1])
+    if align_corners:
+        return (cy + 1.0) * (h - 1) / 2.0, (cx + 1.0) * (w - 1) / 2.0
     return (cy + 1.0) * (h / 2.0) - 0.5, (cx + 1.0) * (w / 2.0) - 0.5
+
+
+def linspace(start: float, stop: float, num: int, dtype=torch.float32, device=None):
+    """`jnp.linspace(start, stop, num)` by JAX's formula (jax 0.9
+    array_creation.py `_linspace`): step = iota / (num - 1), start · (1 -
+    step) + stop · step, the last point `stop` itself. torch.linspace counts
+    back from `stop` over the second half, so its points part from JAX's by
+    an ulp."""
+    if num == 1:
+        return torch.full((1,), float(start), dtype=dtype, device=device)
+    div = num - 1
+    step = torch.arange(div, dtype=dtype, device=device) / div
+    out = start * (1 - step) + stop * step
+    return torch.cat([out, torch.full((1,), float(stop), dtype=dtype, device=device)])
+
+
+def _keys_cubic(x):
+    """Keys' cubic kernel, a = -0.5, of |distance| (jax/_src/image/scale.py
+    `_fill_keys_cubic_kernel`)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _cubic_weights(n_in: int, n_out: int, dtype=np.float32):
+    """(n_in, n_out) weights of `jax.image.resize(..., "bicubic")` along one
+    axis (scale.py `compute_weight_mat`, antialiased), formed in `dtype`
+    (JAX's: float32, or float64 under x64): the kernel widened by in/out
+    when shrinking, each column renormalized, columns whose sample falls
+    outside the input zeroed."""
+    inv_scale = dtype(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, dtype(1.0))
+    sample = (np.arange(n_out, dtype=dtype) + dtype(0.5)) * inv_scale - dtype(0.5)
+    dist = np.abs(sample[None, :] - np.arange(n_in, dtype=dtype)[:, None]) / kernel_scale
+    weights = _keys_cubic(dist.astype(dtype)).astype(dtype)
+    total = weights.sum(0, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], weights, 0).astype(dtype)
+
+
+def resize_bicubic(x, h: int, w: int):
+    """`jax.image.resize(x, (B, h, w, C), "bicubic")` of NHWC `x`: Keys'
+    cubic (a = -0.5) with JAX's edge renormalization and antialiasing, as
+    two weight-matrix products. F.interpolate's bicubic is another kernel
+    (a = -0.75, clamped at the edges)."""
+    dtype = np.float64 if x.dtype == torch.float64 else np.float32
+    mh = torch.from_numpy(_cubic_weights(x.shape[1], h, dtype)).to(x.device, x.dtype)
+    mw = torch.from_numpy(_cubic_weights(x.shape[2], w, dtype)).to(x.device, x.dtype)
+    return torch.einsum("bhwc,hH,wW->bHWc", x, mh, mw)
+
+
+def resize_nearest(x, h: int, w: int):
+    """`jax.image.resize(x, (B, h, w, C), "nearest")` of NHWC `x`: output
+    pixel i reads floor((i + 0.5) · in / out), formed in float32 as JAX
+    forms it (scale.py `_resize_nearest`)."""
+    def index(n_in, n_out):
+        pos = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(n_in) \
+            / np.float32(n_out)
+        return torch.from_numpy(np.floor(pos).astype(np.int64)).to(x.device)
+
+    return x.index_select(1, index(x.shape[1], h)).index_select(2, index(x.shape[2], w))
 
 
 def sample_bilinear_pixel(x, gy, gx, padding_mode: str = "border", groups: int = 1):

@@ -26,8 +26,12 @@ Module and attribute names of the port are the flax scope names, so a leaf
   `in_proj_weight` (3C, C) and `in_proj_bias`, and the catalogue's bare
   tables (BoTAttention's `rel_height`/`rel_width`, AxialAttention's
   `relative`, FusedKQnA's `q_param`, `attn_scale` and `rpb_table`, Swin's
-  `relative_position_bias_table`, ECALayer_ns's (C, k) `conv`), already in
-  torch's layout, are copied as they are;
+  `relative_position_bias_table`, ECALayer_ns's (C, k) `conv`) and the last
+  pool rows' bare leaves (LDA_AQU's `rpb`, EdgeAwareAttentionV2's (N, 3, 3)
+  `kx` and `ky`, WTConv2d's `base_scale` and `wavelet_scale`,
+  ImplicitFeaturizer's `biases` (2, d, n), LoftUp's learnable `lr_pe` and
+  the bare `weight` and `bias` of its channel LayerNorm), already in torch's
+  layout, are copied as they are;
 - a flax `Embed`'s `embedding` (n, C) → nn.Embedding's `weight`, as it is
   (RT-DETR's `denoising_class_embed`);
 - YOLOv7 IDetect's implicit leaves `ia{i}` and `im{i}`, (1, 1, 1, C) in
@@ -66,7 +70,8 @@ TORCH_ONLY_SUFFIX = "num_batches_tracked"
 # parameters whose name and layout are the same on both sides
 COPIED_LEAVES = ("prototype_base", "gate", "gamma", "alpha", "beta", "w", "logit_scale",
                  "in_proj_weight", "in_proj_bias", "rel_height", "rel_width", "relative",
-                 "q_param", "attn_scale", "rpb_table", "relative_position_bias_table", "conv")
+                 "q_param", "attn_scale", "rpb_table", "relative_position_bias_table", "conv",
+                 "rpb", "kx", "ky", "base_scale", "wavelet_scale", "biases", "lr_pe", "weight")
 # IDetect's implicit-knowledge leaves: (1, 1, 1, C) in JAX, (1, C, 1, 1) here
 IMPLICIT_LEAF = re.compile(r"i[am]\d+")
 
