@@ -397,6 +397,23 @@ seeded random weights; TF32 off in the parity phases):
               the CPU's tap cells (`pinned_cells`: the card's and the float64
               reference's taps that round across a pixel boundary move into
               the CPU's cell, each by at most LDA_PIN_PX).
+The `nn/structures` rows (tests/torch_fixtures.py `swin_giraffe`):
+ 56. main_swin, profile_swin, train_swin, train_profile_swin, parity_swin,
+              train_parity_swin - Swin-T-Giraffe (a Swin-T backbone at its
+              published widths, C 96, depths 2-2-6-2, window 7, into
+              DAMO-YOLO-S's GiraffeNeckV2, nc=3) as main, profile, train
+              and parity in float32: K1 once a request, no kernel in a step;
+              train_parity_swin names the 12 window attentions' qkv Dense
+              leaves (their gradient through the plain attention);
+ 57. structures - the other 15 structure rows' modules (Index, UIB, MQA,
+              MFA, RepViTBlock, GhostModuleV3, GhostBottleneckV3,
+              RepGhostBottleneck, RepLKBlock, GGhostBottleneck, GGhostStage,
+              EffBlock, MBConv, ScConv, APConv) at their sources' published
+              widths and MobileNetV3-large: card against CPU at batch 1 on a
+              quarter of the side (TF32 off, within 1e-4 of the CPU's
+              largest), then timed with CUDA events at batch 8 on the P3, P4
+              or P5 map of a 640 detector (MobileNetV3-large on 224 images):
+              ms a call, peak bytes; no kernel launches.
 Then a line counting the profiler traces the kernel times took again ("timing"),
 the kernel table line ({"kernels": [...]}, each row's `time_sources` saying
 whether a time is the profiler's device time or, where three traces lost
@@ -475,6 +492,9 @@ RTDETR_HEADS, RTDETR_LAYERS = 8, 6
 # keys and the input at 9 taps a hi-res query, 2 groups, border padding
 LDA = ("yolov13s_DBL_LDA.yaml", NC)
 LDA_ROWS = (13, 18, 22)
+# Swin-T-Giraffe: a Swin-T backbone into DAMO-YOLO-S's GiraffeNeckV2 at their
+# published widths (tests/torch_fixtures.py `swin_giraffe`), built from its dict
+SWIN = ("swin-t-giraffe.yaml", NC)
 # the farthest train_parity_lda may move a tap into another run's cell: twice
 # the farthest float32 put a K2 coordinate of LDA-DBL-s's train step from
 # float64 on the CPU (tools/exp_lda_conditioning.py, seeds (0, 2), (0, 3),
@@ -483,7 +503,7 @@ LDA_ROWS = (13, 18, 22)
 LDA_PIN_PX = 7.5e-3
 SUFFIX = {DBL: "", LDA: "_lda", V13: "_v13", DBL2: "_dbl2", V12: "_v12", V11: "_v11", V10: "_v10", V9: "_v9",
           V7: "_v7", SEG: "_seg", POSE: "_pose", CLS: "_cls", OBB: "_obb", WORLD: "_world",
-          EMAC: "_emac", RTDETR: "_rtdetr"}
+          EMAC: "_emac", RTDETR: "_rtdetr", SWIN: "_swin"}
 # YOLOv13-s A2C2f sites at 640: (areas, N, heads) per image; each site runs
 # 4 AAttn (2 repeats x 2 ABlocks), hd 32. Row 6: 40x40 tokens in 4 areas.
 # YOLOv12-s's rows 6 and 8 are the same two sites.
@@ -512,7 +532,8 @@ PER_REQUEST = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for c
     (V9, {"letterbox_normalize": 1}), (V7, {"letterbox_normalize": 1}),
     (SEG, {"letterbox_normalize": 1}), (POSE, {"letterbox_normalize": 1}),
     (CLS, {"letterbox_normalize": 1}), (OBB, {"letterbox_normalize": 1}),
-    (WORLD, {"letterbox_normalize": 1}), (EMAC, {"letterbox_normalize": 1}))}
+    (WORLD, {"letterbox_normalize": 1}), (EMAC, {"letterbox_normalize": 1}),
+    (SWIN, {"letterbox_normalize": 1}))}
 # LDA-DBL-s: two K2 launches (keys, input) at each of the three LDA_AQU rows
 PER_REQUEST[LDA, torch.float32] = _launches({"letterbox_normalize": 1, "sample_bilinear": 6},
                                             torch.float32)
@@ -524,7 +545,7 @@ PER_STEP = {(cfg, dt): _launches(c, dt) for dt in (torch.float32, BF16) for cfg,
     (V12, {"area_attention": 8, "area_attention_backward_dq": 8,
            "area_attention_backward_dkv": 8}),
     (V11, {}), (V10, {}), (V9, {}), (SEG, {}), (POSE, {}), (OBB, {}), (WORLD, {}),
-    (EMAC, {}))}
+    (EMAC, {}), (SWIN, {}))}
 # RT-DETR: K2 (zeros) once a level in each decoder layer, 18 a forward; a
 # bfloat16 model samples its upcast value with the float32 kernel at float32
 # coordinates, as JAX promotes that sample (models/rtdetr.py); it trains in
@@ -1361,11 +1382,13 @@ def model_class(name):
 
 def seeded_model(cfg, dtype=torch.float32):
     """The model of `cfg` computing in `dtype` on the CPU, its weights drawn
-    from seed 0 (the model's own init); LDA-DBL-s from its dict."""
-    from tests.torch_fixtures import lda_dbl
+    from seed 0 (the model's own init); LDA-DBL-s and Swin-T-Giraffe from
+    their dicts."""
+    from tests.torch_fixtures import lda_dbl, swin_giraffe
 
     name, nc = cfg
-    return model_class(name)(lda_dbl() if cfg == LDA else name, nc=nc, device="cpu",
+    built = {LDA: lda_dbl, SWIN: lambda: swin_giraffe(nc)}
+    return model_class(name)(built[cfg]() if cfg in built else name, nc=nc, device="cpu",
                              generator=torch.Generator().manual_seed(0), dtype=dtype)
 
 
@@ -1948,8 +1971,12 @@ def _float64_grads(cpu_model, cfg, batch, grads=True, device="cpu", cells=None):
 # sampling offsets and value projection get their gradient through K2's
 # backward (dgy, dgx and dx), its attention weights and output projection
 # through K2's forward (held on the decoder's own step: RTDETR_LEAF_BAR)
-# LDA-DBL-s's offset convs (through K2's dgy, dgx) and key projections (dx)
+# LDA-DBL-s's offset convs (through K2's dgy, dgx) and key projections (dx);
+# Swin-T-Giraffe has no hand kernel in a step: its 12 window attentions' qkv
+# Dense layers (weight and bias), whose gradient comes through the plain
+# attention's two products and softmax
 KERNEL_FED_LEAVES = {DBL: (".offset.conv.", 6), LDA: ((".off_pw.conv.", ".proj_k.conv."), 9),
+                     SWIN: (".attn.qkv.", 24),
                      V13: (".attn.qkv.conv.", 8),
                      RTDETR: (".decoder_layers_5.cross_attn.", 8),
                      V12: (".attn.qkv.conv.", 8), V10: (".attn.qkv.conv.", 1),
@@ -4894,6 +4921,119 @@ def phase_pools(card):
     return counts
 
 
+# the other structure rows' modules (nn/structures/{blocks,mobile}.py) and
+# MobileNetV3-large: each held card against CPU at batch 1 on a quarter of the
+# timed side (at least 8 px), and timed at batch 8 on the map of a 640
+# detector its source puts it on (P3 80x80, P4 40x40, P5 20x20) at its
+# published widths; MobileNetV3-large on 224 images
+STRUCTURES_CHECK_B, STRUCTURES_TIMED_B = 1, 8
+
+
+def _structure_entries():
+    """{entry: (build() on the CPU, its NHWC input shapes at batch b and a
+    side divided by `div`, whether the inputs go as one list, its source)}."""
+    from yolo_dbl_tpu_torch.nn import structures as S
+
+    def at(*maps):
+        return lambda b, div: [(b, max(s // div, 8), max(s // div, 8), c) for s, c in maps]
+
+    p3, p4, p5 = 80, 40, 20
+    return {
+        "Index": (lambda: S.ExtractLayer(1), at((p3, 256), (p4, 512), (p5, 1024)), True,
+                  "a level of a P3-P5 list"),
+        "UIB": (lambda: S.UIB(160, 160, 3, 3, False, 1, 4.0), at((p4, 160)), False,
+                "MobileNetV4-Conv-M stage 4"),
+        "MQA": (lambda: S.MQA(160, 4, 64, 64, 1, 1, 2), at((p4, 160)), False,
+                "MobileNetV4-Hybrid-M stage 4"),
+        "MFA": (lambda: S.MFA((160, 256), 256, 20, 2.0), at((p4, 160), (p5, 256)), True,
+                "MobileNetV5's fusion of the last two stages"),
+        "RepViTBlock": (lambda: S.RepViTBlock(256, 512, 256, 3, 1, True, True), at((p4, 256)),
+                        False, "RepViT-M1.1 stage 3"),
+        "GhostModuleV3": (lambda: S.GhostModuleV3(112, 672), at((p4, 112)), False,
+                          "GhostNetV3 stage 5's expansion"),
+        "GhostBottleneckV3": (lambda: S.GhostBottleneckV3(112, 160, 672, 5, 2, 0.25),
+                              at((p4, 112)), False, "GhostNetV3 112 -> 160, s 2"),
+        "RepGhostBottleneck": (lambda: S.RepGhostBottleneck(112, 336, 112, 3, 1, 0.25),
+                               at((p4, 112)), False, "RepGhostNet-1.0x stage 5"),
+        "RepLKBlock": (lambda: S.RepLKBlock(512, 512, 31, 5), at((p4, 512)), False,
+                       "RepLKNet-31B stage 3"),
+        "GGhostBottleneck": (lambda: S.GGhostBottleneck(408, 408, 1, 24), at((p4, 408)), False,
+                             "G-Ghost RegNetX-1.6GF stage 3"),
+        # RegNetX-1.6GF's group width 24 leaves the raw blocks' width 198 (JAX's
+        # truncations) indivisible by its 8 groups: the module's default 48
+        "GGhostStage": (lambda: S.GGhostStage(168, 408, 4, 2, 48, 0.5), at((p3, 168)), False,
+                        "G-Ghost RegNetX-1.6GF stage 3, 4 blocks, group width 48"),
+        "EffBlock": (lambda: S.EffBlock(160, 160, 9, 1, 6, 1), at((p4, 160)), False,
+                     "EfficientNetV2-S stage 5"),
+        "MBConv": (lambda: S.MBConv(64, 64, 1, 4.0, False), at((p3, 64)), False,
+                   "EfficientNetV2-S fused stage 3"),
+        "ScConv": (lambda: S.ScConv(256), at((p3, 256)), False, "ScConv at P3 of 256"),
+        "APConv": (lambda: S.APConvPinwheel(128, 256, 3, 2), at((p3, 128)), False,
+                   "a pinwheel downsample P3 -> P4"),
+        "MobileNetV3_large": (lambda: S.mobilenetv3_large(), at((224, 3)), False,
+                              "MobileNetV3-large at 224"),
+    }
+
+
+def phase_structures(card):
+    """Every structures entry card against CPU at batch 1 on a quarter of
+    the side (TF32 off, within 1e-4 of the CPU's largest), then timed with
+    CUDA events at batch 8 at its full shape: ms a call, peak bytes above
+    the inputs; no kernel launches (counts set to 0 before the entry's calls
+    and read after them). Weights: flax's defaults from seed 0
+    (`init_flax_defaults`). No error is caught."""
+    from yolo_dbl_tpu_torch.kernels import launches, reset_launches
+    from yolo_dbl_tpu_torch.nn.tasks import init_flax_defaults
+
+    t_start = time.perf_counter()
+    rows = {}
+    for name, (build, shapes, as_list, source) in _structure_entries().items():
+        cpu = build()
+        init_flax_defaults(cpu, torch.Generator().manual_seed(0))
+        cpu.eval()
+        gpu = on_card(cpu)
+        small = shapes(STRUCTURES_CHECK_B, 4)
+        xs = _pool_inputs(small, "cpu")
+        with torch.no_grad(), tf32_off():
+            want = _pool_call(cpu, xs, as_list)
+            got = _pool_call(gpu, [x.cuda().contiguous(memory_format=torch.channels_last)
+                                   for x in xs], as_list).cpu()
+        err = max_abs(got, want) / float(want.abs().max())
+        require(got.shape == want.shape and bool(torch.isfinite(got).all())
+                and err <= CATALOGUE_BAR,
+                f"structures {name}: card vs CPU at {small}: {err} of the largest, shape "
+                f"{tuple(got.shape)}")
+        del cpu
+        timed = shapes(STRUCTURES_TIMED_B, 1)
+        xs = _pool_inputs(timed, "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            for _ in range(CATALOGUE_WARMUP):
+                out = _pool_call(gpu, xs, as_list)
+            start.record()
+            for _ in range(CATALOGUE_CALLS):
+                out = _pool_call(gpu, xs, as_list)
+            end.record()
+        end.synchronize()
+        require(not any(launches.values()), f"structures {name}: launches {dict(launches)}")
+        require(bool(torch.isfinite(out).all()), f"structures {name}: non-finite output")
+        rows[name] = dict(source=source, inputs=[list(t) for t in timed],
+                          out_shape=list(out.shape), ms=start.elapsed_time(end) / CATALOGUE_CALLS,
+                          peak_bytes=torch.cuda.max_memory_allocated() - base,
+                          params=sum(p.numel() for p in gpu.parameters()),
+                          card_vs_cpu_rel=err, check_inputs=[list(t) for t in small])
+        del gpu, xs, out
+        torch.cuda.empty_cache()
+    emit({"phase": "structures", "card": card, "calls": CATALOGUE_CALLS,
+          "warmup": CATALOGUE_WARMUP, "check_batch": STRUCTURES_CHECK_B,
+          "timed_batch": STRUCTURES_TIMED_B, "bar": CATALOGUE_BAR, "entries": rows,
+          "seconds": time.perf_counter() - t_start})
+
+
 def dattention_sites(device="cuda", shapes=None):
     """{site: (x, gy, gx)}: K2's inputs in the catalogue's DeBiAttention_YOLO
     (seed 0's weights, as the catalogue draws them) on its reference and
@@ -4983,6 +5123,8 @@ def main():
         catalogue = phase_catalogue(card)
     with took("pools"):
         pools = phase_pools(card)
+    with took("structures"):
+        phase_structures(card)
     for row in rows:  # K2's launches a call of DAttention's module (forward; or a train call)
         if "dattention_sites" in row:
             row["dattention_sites"]["launches_a_call"] = catalogue[
@@ -4994,9 +5136,9 @@ def main():
     rng = np.random.default_rng(0)
     serve, train, models = {}, {}, {}
     paths = (DBL, LDA, V13, DBL2, V12, V11, V10, V9, V7, SEG, POSE, CLS, OBB, WORLD, EMAC,
-             RTDETR)
+             RTDETR, SWIN)
     for cfg in paths:
-        for dtype in ((torch.float32,) if cfg in (LDA, V11, V9, V7, POSE, CLS)
+        for dtype in ((torch.float32,) if cfg in (LDA, V11, V9, V7, POSE, CLS, SWIN)
                       else (torch.float32, BF16)):
             with took(_phase("path", cfg, dtype)):
                 # drawn once for serving and training
@@ -5034,7 +5176,7 @@ def main():
     with took("train_parity"):
         for model in models[RTDETR, torch.float32][:2]:
             rtdetr_anchor_boxes(model)
-        for cfg in (DBL, LDA, V13, V12, V10, SEG, POSE, OBB, WORLD, EMAC, RTDETR):
+        for cfg in (DBL, LDA, V13, V12, V10, SEG, POSE, OBB, WORLD, EMAC, RTDETR, SWIN):
             phase_train_parity(cfg, *models[cfg, torch.float32][:2])
         phase_train_parity_decoder(RTDETR, *models[RTDETR, torch.float32][:2])
     with took("train_parity_bf16"):

@@ -145,8 +145,8 @@ def test_yaml_copy_and_reader():
 
 
 def test_unported_module_raises():
-    d = {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "UIB", [32]]], "head": []}
-    with pytest.raises(NotImplementedError, match="UIB"):
+    d = {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "PConv", [32]]], "head": []}
+    with pytest.raises(NotImplementedError, match="PConv"):
         T.parse_model_spec(d)
 
 

@@ -64,14 +64,14 @@ POOL_LEAVES = {
 }
 
 
-def pool_variables(shapes, rng, scale=None):
-    """`random_variables` with the bare leaves drawn too; `scale`: {leaf
-    path suffix: factor} for kernels drawn larger."""
+def pool_variables(shapes, rng, scale=None, leaves=POOL_LEAVES):
+    """`random_variables` with the bare leaves of `leaves` drawn too;
+    `scale`: {leaf path suffix: factor} for kernels drawn larger."""
 
     def draw(path, leaf):
         name = str(path[-1].key)
-        if name in POOL_LEAVES:
-            return POOL_LEAVES[name](rng, leaf.shape).astype(np.float32)
+        if name in leaves:
+            return leaves[name](rng, leaf.shape).astype(np.float32)
         value = random_variables({name: leaf}, rng)[name]
         keys = "/".join(str(p.key) for p in path)
         for suffix, factor in (scale or {}).items():

@@ -43,6 +43,7 @@ from yolo_dbl_tpu_torch.utils.convert import (jax_param_paths, load_jax_variable
                                               params_from_jax, state_dict_from_jax)
 
 from tests.test_torch_modules import random_variables
+from tests.torch_fixtures import torch_threads
 
 TOL = 1e-5
 NC = 3
@@ -491,7 +492,8 @@ def test_train_step_updates_and_batch_stats_match_jax(train_run):
 
 def test_trainer_fit_epoch_averages_on_cpu():
     """fit: epoch-average metrics over steps_per_epoch steps, the early stop
-    of on_epoch_end, and no kernel launch on the CPU."""
+    of on_epoch_end, and no kernel launch on the CPU (on one thread: no bar
+    here reads a float32 sum order)."""
     from yolo_dbl_tpu_torch import kernels
 
     tm = DetectionModel("yolov13n_DBL.yaml", nc=NC, device="cpu")
@@ -500,8 +502,9 @@ def test_trainer_fit_epoch_averages_on_cpu():
     batches = _train_batches(3, seed=19)
     kernels.reset_launches()
     seen = []
-    history = trainer.fit(batches, epochs=3, steps_per_epoch=2,
-                          on_epoch_end=lambda t, e, avg: seen.append(avg) or e < 1)
+    with torch_threads(1):
+        history = trainer.fit(batches, epochs=3, steps_per_epoch=2,
+                              on_epoch_end=lambda t, e, avg: seen.append(avg) or e < 1)
     assert [h["epoch"] for h in history] == [0, 1] and seen == history
     assert set(history[0]) == {"loss", "box_loss", "cls_loss", "dfl_loss", "epoch", "seconds"}
     assert trainer.optimizer.count == 4 and all(np.isfinite(h["loss"]) for h in history)

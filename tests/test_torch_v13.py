@@ -58,6 +58,7 @@ from yolo_dbl_tpu_torch.utils.convert import (TORCH_ONLY_SUFFIX, jax_param_paths
 from tests import test_torch_train as TT
 from tests.test_torch_model import REPO
 from tests.test_torch_modules import _input, random_variables, run_pair, to_nchw, to_nhwc
+from tests.torch_fixtures import torch_threads
 
 TOL = 1e-5
 IMGSZ, NC = 64, 80
@@ -433,15 +434,17 @@ def test_v13_yaml_copy_and_scaled_rows():
 
 def test_v13_large_scale_gamma_init():
     """At l/x A2C2f has the gamma-scaled residual; the model initialises
-    gamma to 0.01 (flax's constant initialiser) after its meta-device build."""
-    tm = DetectionModel("yolov13l.yaml", nc=NC, device="cpu")
+    gamma to 0.01 (flax's constant initialiser) after its meta-device build
+    (on one thread: the draw reads no float32 bar)."""
+    with torch_threads(1):
+        tm = DetectionModel("yolov13l.yaml", nc=NC, device="cpu")
+        small = DetectionModel("yolov13n.yaml", nc=NC, device="cpu")
     gammas = {n: p for n, p in tm.named_parameters() if n.endswith("gamma")}
     assert sorted(gammas) == ["m6.gamma", "m8.gamma"]
     for n, p in gammas.items():
         assert p.shape == (tm.spec.layers[int(n[1])].c2,)
         torch.testing.assert_close(p.detach(), torch.full_like(p, 0.01))
-    assert not any("gamma" in n for n, _ in DetectionModel("yolov13n.yaml", nc=NC,
-                                                            device="cpu").named_parameters())
+    assert not any("gamma" in n for n, _ in small.named_parameters())
 
 
 # ---------------------------------------------------------------- training
@@ -498,16 +501,18 @@ def float64_run(train_run):
 
 def _port_float64_grads(train_run):
     """{name: gradient} of the step-1 loss of a float64 copy of the port's
-    initial model on the CPU (the plain kernels take float64)."""
+    initial model on the CPU (the plain kernels take float64), on one
+    thread: no float32 sum order enters a float64 bar."""
     model = copy.deepcopy(train_run["model0"]).double().train()
     batch = {k: torch.as_tensor(v) for k, v in train_run["batch0"].items()}
     batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
     cfg = train_run["trainer"].cfg
-    loss, _ = detection_loss(model(device_normalize(batch["img"], torch.float64)), batch,
-                             model.strides, model.nc, box_gain=cfg.box, cls_gain=cfg.cls,
-                             dfl_gain=cfg.dfl)
-    names, params = zip(*model.named_parameters())
-    return dict(zip(names, torch.autograd.grad(loss, params)))
+    with torch_threads(1):
+        loss, _ = detection_loss(model(device_normalize(batch["img"], torch.float64)), batch,
+                                 model.strides, model.nc, box_gain=cfg.box, cls_gain=cfg.cls,
+                                 dfl_gain=cfg.dfl)
+        names, params = zip(*model.named_parameters())
+        return dict(zip(names, torch.autograd.grad(loss, params)))
 
 
 # The leaves whose exact step-1 gradient is 0 at 64 px: the ABlocks'

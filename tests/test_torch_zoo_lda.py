@@ -119,8 +119,9 @@ def test_rows_after_a_width_changing_row_take_the_true_width():
 
 
 def test_only_structure_rows_and_pconv_stay_unported():
-    """Of the 100 names JAX's `_*_BUILDERS` tables take, only PConv (deliberately
-    not ported) and 20 `nn/structures` rows (ROADMAP 6.3c-ii) still raise."""
+    """Of the 100 names JAX's `_*_BUILDERS` tables take, only PConv
+    (deliberately not ported) still raises: the 20 `nn/structures` rows
+    (ROADMAP 6.3c-ii) are ported (tests/test_torch_zoo_structures.py)."""
     names = set().union(*(getattr(JT, k) for k in dir(JT)
                           if k.endswith("_BUILDERS") and isinstance(getattr(JT, k), dict)))
     assert len(names) == 100
@@ -133,9 +134,7 @@ def test_only_structure_rows_and_pconv_stay_unported():
             raising.add(m)
         except (TypeError, IndexError):  # a ported row that wants other args than [32]
             pass
-    assert raising == {"PConv"} | (set(JT._STRUCTURE_BUILDERS) - {
-        "PConv", "FasterBlock", "TorchVision", "GhostModuleV2", "GhostBottleneckV2"})
-    assert len(raising) == 21
+    assert raising == {"PConv"}
     assert set(T.POOL_ROWS) == set(ROWS) | {"ASFF"}
 
 

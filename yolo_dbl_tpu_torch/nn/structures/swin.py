@@ -1,13 +1,14 @@
-"""Swin's windowed attention (port of yolo_dbl_tpu/nn/structures/swin.py:23-135).
+"""Swin Transformer's stages (port of yolo_dbl_tpu/nn/structures/swin.py).
 
 `window_partition`, `window_reverse`, `_relative_position_index`,
 `_shift_mask`, WindowAttention (W-MSA with the relative position bias
-table) and SwinTransformerBlock (LN → (S)W-MSA → LN → MLP, both residual,
-tanh GELU as flax's `nn.gelu`). The window helpers work on NHWC tensors, as
-JAX's; SwinTransformerBlock takes and returns NCHW, as the rest of the
+table), SwinTransformerBlock (LN → (S)W-MSA → LN → MLP, both residual,
+tanh GELU as flax's `nn.gelu`), SwinStage (blocks alternating the shift),
+PatchEmbed (the patch conv and LayerNorm) and PatchMerging (2x2 concat,
+LayerNorm, bias-free reduction to 2C). The window helpers work on NHWC
+tensors, as JAX's; the modules take and return NCHW, as the rest of the
 port. The shift mask and the bias index are built from static shapes on
-the host, as JAX folds them into its program. SwinStage, PatchEmbed and
-PatchMerging are not ported yet (ROADMAP 6.3c).
+the host, as JAX folds them into its program.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..common import layer_norm, linear
+from ..common import conv2d, layer_norm, linear
 
 
 def window_partition(x, ws: int):
@@ -136,3 +137,59 @@ class SwinTransformerBlock(nn.Module):
         x = x + y
         z = F.gelu(linear(self.mlp_fc1, layer_norm(self.norm2, x)), approximate="tanh")
         return (x + linear(self.mlp_fc2, z)).permute(0, 3, 1, 2)
+
+
+class SwinStage(nn.Module):
+    """`depth` SwinTransformerBlocks `blk{i}`, the odd ones shifted by half a
+    window (swin.py:136); the width is kept (dim == c2)."""
+
+    def __init__(self, dim: int, c2: int, depth: int, num_heads: int, window_size: int):
+        super().__init__()
+        if dim != c2:
+            raise ValueError(f"SwinStage keeps channels: dim {dim} != c2 {c2}")
+        self.depth = depth
+        for i in range(depth):
+            setattr(self, f"blk{i}", SwinTransformerBlock(
+                dim, num_heads, window_size, shift_size=0 if i % 2 == 0 else window_size // 2))
+
+    def forward(self, x):
+        for i in range(self.depth):
+            x = getattr(self, f"blk{i}")(x)
+        return x
+
+
+class PatchEmbed(nn.Module):
+    """The input padded right and bottom to a multiple of the patch, a
+    biased patch x patch conv with that stride, LayerNorm over the
+    channels (swin.py:158)."""
+
+    def __init__(self, c1: int, embed_dim: int = 96, patch_size: int = 4):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(c1, embed_dim, patch_size, patch_size)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
+
+    def forward(self, x):
+        p = self.patch_size
+        h, w = x.shape[2:]
+        y = conv2d(self.proj, F.pad(x, (0, (p - w % p) % p, 0, (p - h % p) % p)))
+        return layer_norm(self.norm, y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class PatchMerging(nn.Module):
+    """An odd side padded at the bottom or right, the 2x2 neighbours x0 (0::2,
+    0::2), x1 (1::2, 0::2), x2 (0::2, 1::2), x3 (1::2, 1::2) concatenated in
+    that order on the channels, LayerNorm, a bias-free Dense to 2C (swin.py:176)."""
+
+    def __init__(self, dim: int, c2: int):
+        super().__init__()
+        if c2 != 2 * dim:
+            raise ValueError(f"PatchMerging doubles the width: c2 {c2} != 2 x {dim}")
+        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x):
+        h, w = x.shape[2:]
+        x = F.pad(x, (0, w % 2, 0, h % 2)).permute(0, 2, 3, 1)
+        y = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], -1)
+        return linear(self.reduction, layer_norm(self.norm, y)).permute(0, 3, 1, 2)

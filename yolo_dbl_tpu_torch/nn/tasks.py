@@ -5,10 +5,12 @@ detect families' rows (v3, v5, v6, v7, v8, v9, v10, 11, v12), the
 segment, pose, OBB and classify heads, the `-cls-resnet` trunks
 (ResNetLayer, TorchVision), the module pools' rows that FFCA-YOLO{,-L},
 YOLO-EMAC, yolo11-C3k2_EFE-IRSTE and YOLO-World (`WorldModel`) use,
-RT-DETR's (HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder) and the module
+RT-DETR's (HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder), the module
 catalogue's (utils/benchmarks.py: the attention and upsample rows of
-tasks.py:318-415 under JAX's names and aliases, `CATALOGUE_ROWS`) are
-ported; any other module name raises NotImplementedError. The model YAMLs
+tasks.py:318-415 under JAX's names and aliases, `CATALOGUE_ROWS`) and the
+`nn/structures` rows (tasks.py:419-455, `STRUCTURE_ROWS`) are ported; of the
+names JAX's builders take, PConv alone raises NotImplementedError (ROADMAP
+"Deliberately not ported"), as does any name JAX does not take. The model YAMLs
 are the port's own verbatim copies under cfg/, read by path with the port's
 small YAML reader (utils/yaml_subset.py), so the port needs no YAML package.
 """
@@ -43,7 +45,7 @@ from .common import Conv, ConvTranspose2d, DSConv, DWConv, default_act, lecun_no
 from ..ops.nms import mask_classes, non_max_suppression
 from .heads import (OBB, Classify, Detect, IDetect, Pose, Segment, V10Detect, decode_detections,
                     decode_keypoints, decode_obb, decode_v7, flatten_levels, gather_anchors)
-from .structures import blocks as S
+from . import structures as S
 from .structures.blocks import FasterBlock, TorchVision
 from .upsample import batch3 as U3
 from .upsample import carafe as U
@@ -118,10 +120,14 @@ _C2_SCALED = {"Conv", "DWConv", "DSConv", "Bottleneck", "DSBottleneck", "C2f", "
               "ResBlock_CBAM", "DeBiAttention_YOLO",
               # the pools' last (c1, c2) rows (tasks.py:108-112)
               "PSAModule", "CPCA_YOLO", "Outlooker_YOLO", "C2f_PIG", "C2f_WT", "GhostModuleV2",
-              "GhostBottleneckV2"}
+              "GhostBottleneckV2",
+              # the structures' (c1, c2) rows (tasks.py:110-114)
+              "UIB", "RepViTBlock", "GhostModuleV3", "GhostBottleneckV3", "PatchEmbed",
+              "SwinStage", "PatchMerging", "EffBlock", "MBConv", "APConv", "RepGhostBottleneck",
+              "RepLKBlock", "GGhostBottleneck", "GGhostStage"}
 _REPEAT_INSERT = {"C2f", "C3", "C3k2", "DSC3k2", "DSC3k", "A2C2f", "C3Ghost", "C1", "C2", "C2PSA",
                   "C2fCIB", "RepCSP", "C3k2_EFE", "M2C2f", "C3k2_EAMC", "C2fAttn", "C3_Faster",
-                  "RepC3"}
+                  "RepC3", "EffBlock"}
 _LEGACY_FALSE = {"C3k2", "DSC3k2", "A2C2f"}
 # parameter-free layers, run in DetectionModel.forward (tasks.py:275-278,
 # :743-759): YOLOv7's MP (k x k max pool, stride k) and SP (stride 1, pad
@@ -135,11 +141,13 @@ _C1_ONLY = {"DySample", "LSKblock", "SLA", "DLU", "CARAFE", "CARAFEPack", "SCAM"
             "ECALayer", "SimAM", "MLCA", "AxialBlock_dynamic", "AxialBlock_wopos", "ECALayer_ns",
             "ShiftWindowAttention", "FusedKQnA",
             # the pools' last c1-only rows
-            "EdgeAwareAttentionV2", "CAA", "CARAFEplusplus", "LDA_AQU", "CPCA"}
+            "EdgeAwareAttentionV2", "CAA", "CARAFEplusplus", "LDA_AQU", "CPCA",
+            # the structures' c1-only rows (tasks.py:134)
+            "ScConv", "MQA"}
 # rows whose args pass through unchanged and whose width is their input's
 # (the final `else` of tasks.py:141's branches)
 _ARGS_AS_GIVEN = {"CARAFE_XiaLiPKU", "CARAFE_simplified", "MHSA", "EfficientAttention",
-                  "AxialBlock_YOLO", "DeBiAttentionBlock", "ASFF"}
+                  "AxialBlock_YOLO", "DeBiAttentionBlock", "ASFF", "MFA"}
 
 
 def _opt(a, i, default):
@@ -213,6 +221,33 @@ POOL_ROWS = {
     "GhostBottleneckV2": lambda a, c: S.GhostBottleneckV2(c[0], a[1], a[2] if len(a) > 2 else a[1],
                                                           *a[3:]),
 }
+# the `nn/structures` rows (tasks.py:419-455), built like POOL_ROWS; a row
+# with a second width (RepViTBlock's oup, GhostBottleneckV3's and
+# RepGhostBottleneck's mid or out) takes it unscaled, as JAX's builders do
+STRUCTURE_ROWS = {
+    "ScConv": lambda a, c: S.ScConv(c[0], *a[1:]),
+    "EffBlock": lambda a, c: S.EffBlock(c[0], a[1], *a[2:]),
+    "MBConv": lambda a, c: S.MBConv(c[0], a[1], *a[2:]),
+    "RepViTBlock": lambda a, c: S.RepViTBlock(c[0], a[1], _opt(a, 2, a[1]), *a[3:]),
+    "UIB": lambda a, c: S.UIB(c[0], a[1], *a[2:]),
+    "GhostModuleV3": lambda a, c: S.GhostModuleV3(c[0], a[1], *a[2:]),
+    "GhostBottleneckV3": lambda a, c: S.GhostBottleneckV3(c[0], a[1], _opt(a, 2, a[1]), *a[3:]),
+    "PatchEmbed": lambda a, c: S.PatchEmbed(c[0], a[1], *a[2:]),
+    "PatchMerging": lambda a, c: S.PatchMerging(c[0], a[1]),
+    "SwinStage": lambda a, c: S.SwinStage(c[0], a[1], *a[2:]),
+    "ExtractLayer": lambda a, c: S.ExtractLayer(a[0]),
+    "Index": lambda a, c: S.ExtractLayer(_opt(a, 2, 0)),
+    "MQA": lambda a, c: S.MQA(c[0], *a[1:]),
+    "MFA": lambda a, c: S.MFA(c, _opt(a, 1, a[0]), *a[2:]),
+    "RepGhostBottleneck": lambda a, c: S.RepGhostBottleneck(c[0], a[1], _opt(a, 2, a[1]), *a[3:]),
+    "RepLKBlock": lambda a, c: S.RepLKBlock(c[0], a[1], *a[2:]),
+    "GGhostBottleneck": lambda a, c: S.GGhostBottleneck(c[0], a[1], *a[2:]),
+    "GGhostStage": lambda a, c: S.GGhostStage(c[0], a[1], *a[2:]),
+    "GiraffeNeckV2": lambda a, c: S.GiraffeNeckV2(
+        c, tuple(a[0]), tuple(a[1]) if len(a) > 1 and isinstance(a[1], (list, tuple))
+        else tuple(a[0]), *a[2:]),
+    "APConv": lambda a, c: S.APConvPinwheel(c[0], a[1], *a[2:]),
+}
 # modules built as Module(*resolved args)
 _FROM_ARGS = {"Conv": Conv, "DWConv": DWConv, "DSConv": DSConv, "ConvTranspose2d": ConvTranspose2d,
               "DSBottleneck": B.DSBottleneck, "C2f": B.C2f, "C3": B.C3, "C3k": B.C3k,
@@ -259,7 +294,17 @@ POOL_MODULES = (UM.SPDConv, UM.EFE, UM.C3k2_EFE, UM.FGM, UM.OmniKernel, UM.Multi
                 AS.EdgeAwareAttentionV2, AB.OutlookAttention, AB.Outlooker, AE.PSAModule,
                 AE.CPCA, AE.ASFF, UM.CAA, UP.WTConv2d, UP.PConvPIG, UP.InceptionDWConv2d,
                 UP.C2f_PIG, UP.C2f_WT, U3.CARAFEplusplus, U3.LDA_AQU, S.GhostModuleV2,
-                S.GhostBottleneckV2)
+                S.GhostBottleneckV2,
+                # the structures' (STRUCTURE_ROWS and MobileNetV3): window attention
+                # with its padding and rolls, Dense and LayerNorm layers, tuple outputs,
+                # global poolings, grouped and 31x31 depthwise convs, strided queries
+                S.SwinStage, S.SwinTransformerBlock, S.WindowAttention, S.PatchEmbed,
+                S.PatchMerging, S.GiraffeNeckV2, S.CSPStage, S.BasicBlock3x3Reverse,
+                S.RepConvG, S.ConvBNAct, S.ExtractLayer, S.ScConv, S.MBConv, S.EffBlock,
+                S.RepVGGDW, S.RepViTBlock, S.UIB, S.GhostModuleV3, S.GhostBottleneckV3,
+                S.APConvPinwheel, S.MQA, S.MFA, S.RepGhostModule, S.RepGhostBottleneck,
+                S.ReparamLargeKernelConv, S.RepLKBlock, S.GGhostBottleneck, S.GGhostStage,
+                S.MobileNetV3, S.InvertedResidual, S.MNV3SELayer)
 # RT-DETR's modules, which have no tensor- or spatial-parallel form either
 # (Dense and LayerNorm layers, attention over the whole map, the decoder's
 # top-k and deformable sampling; ROADMAP Queue 1 item 7)
@@ -341,6 +386,15 @@ def parse_model_spec(d: Dict, ch: int = 3) -> ModelSpec:
         elif m == "FullPAD_Tunnel":
             c2 = chs[f[0]]
             args = []
+        elif m == "GiraffeNeckV2":  # a list of widths (tasks.py:212-215)
+            c1 = [chs[x] for x in f]
+            c2 = args[0]
+            args = [c1, *args]
+        elif m == "ExtractLayer":  # one level of a list width (tasks.py:216-217)
+            c2 = chs[f][args[0]] if isinstance(chs[f], (list, tuple)) else chs[f]
+        elif m == "Index":  # c2 = args[0], unscaled (tasks.py:218-221)
+            c2 = args[0]
+            args = [chs[f], c2, *args[1:]]
         elif m == "Multibranch":
             c2 = chs[f]
             args = [c2]
@@ -437,6 +491,8 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
         a = [c_in[0], *a[1:]]
     if m in POOL_ROWS:
         return POOL_ROWS[m](a, c_in)
+    if m in STRUCTURE_ROWS:
+        return STRUCTURE_ROWS[m](a, c_in)
     if m in _FROM_ARGS:
         return _FROM_ARGS[m](*a[:_ARGS_READ.get(m, len(a))])
     if m in CATALOGUE_ROWS:
@@ -486,17 +542,23 @@ def _build_module(spec: LayerSpec, c_in: List[int]):
     raise _not_ported(m)
 
 
-def _out_width(layer: LayerSpec, c_in: List[int]) -> int:
+def _out_width(layer: LayerSpec, c_in: List[int]):
     """A row's true output width, which flax infers and the next row is
-    built from: ASFF's `expand_c`, a GhostBottleneckV2's `out_chs` and a
-    CPCA's c2 where their args give them (JAX's row table holds its input's
-    width), a concat's sum and a c1-only row's input width; else the row
-    table's."""
+    built from: ASFF's `expand_c`, the `out_chs` of a GhostBottleneckV2, a
+    RepViTBlock (its `oup`) or a RepGhostBottleneck, an MFA's and a CPCA's c2
+    where their args give them (JAX's row table holds another width), the
+    level an Index row picks from a list of widths, a concat's sum and a
+    c1-only row's input width; else the row table's (a GiraffeNeckV2's is
+    the list of its levels' widths)."""
     m, a = layer.name, layer.args
     if m == "ASFF":
         return AE.ASFF.EXPAND[a[0] if isinstance(a[0], int) else 0]
-    if m == "GhostBottleneckV2" and len(a) > 2:
+    if m in ("GhostBottleneckV2", "RepViTBlock", "RepGhostBottleneck") and len(a) > 2:
         return a[2]
+    if m == "MFA":
+        return _opt(a, 1, a[0])
+    if m == "Index" and isinstance(c_in[0], (list, tuple)):
+        return c_in[0][_opt(a, 2, 0)]
     if m == "CPCA" and len(a) > 1 and a[1]:
         return a[1]
     if m == "Concat":

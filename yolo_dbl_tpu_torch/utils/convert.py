@@ -30,8 +30,9 @@ Module and attribute names of the port are the flax scope names, so a leaf
   pool rows' bare leaves (LDA_AQU's `rpb`, EdgeAwareAttentionV2's (N, 3, 3)
   `kx` and `ky`, WTConv2d's `base_scale` and `wavelet_scale`,
   ImplicitFeaturizer's `biases` (2, d, n), LoftUp's learnable `lr_pe` and
-  the bare `weight` and `bias` of its channel LayerNorm), already in torch's
-  layout, are copied as they are;
+  the bare `weight` and `bias` of its channel LayerNorm), and the
+  structures' (ScConv's hand-written GroupNorm `gn_scale` and `gn_bias`,
+  MFA's `rms_scale`), already in torch's layout, are copied as they are;
 - a flax `Embed`'s `embedding` (n, C) → nn.Embedding's `weight`, as it is
   (RT-DETR's `denoising_class_embed`);
 - YOLOv7 IDetect's implicit leaves `ia{i}` and `im{i}`, (1, 1, 1, C) in
@@ -43,7 +44,10 @@ v13 family's other leaves take the same rules: a flax BatchNorm called
 directly (the CARAFE body's `comp_bn`, `enc_bn`), a bias-free `nn.Conv`
 (SLA's `out_proj`, a (1, 1, C, C) kernel) and an `nn.Dense` (SLA's
 `proj_l`) sit where the port's `BatchNorm`, `nn.Conv2d` and `nn.Linear` of
-the same names sit.
+the same names sit; so do the structures' (PatchMerging's bias-free
+`reduction` Dense, RepConvG's `dense_*`, `pw_*` and `id_bn` branches,
+G-Ghost's bias-free `merge_fc*`, RepViT's `_Conv2dBN` `c` and `bn`,
+MobileNetV3's `cls_fc*` and SE Dense layers).
 
 The compute type does not enter here: a bfloat16 model
 (`DetectionModel(..., dtype=torch.bfloat16)`) keeps float32 parameters and
@@ -71,7 +75,8 @@ TORCH_ONLY_SUFFIX = "num_batches_tracked"
 COPIED_LEAVES = ("prototype_base", "gate", "gamma", "alpha", "beta", "w", "logit_scale",
                  "in_proj_weight", "in_proj_bias", "rel_height", "rel_width", "relative",
                  "q_param", "attn_scale", "rpb_table", "relative_position_bias_table", "conv",
-                 "rpb", "kx", "ky", "base_scale", "wavelet_scale", "biases", "lr_pe", "weight")
+                 "rpb", "kx", "ky", "base_scale", "wavelet_scale", "biases", "lr_pe", "weight",
+                 "gn_scale", "gn_bias", "rms_scale")
 # IDetect's implicit-knowledge leaves: (1, 1, 1, C) in JAX, (1, C, 1, 1) here
 IMPLICIT_LEAF = re.compile(r"i[am]\d+")
 
